@@ -4,8 +4,9 @@
 Drives ``repro_torch`` (never the JAX package) in phases; any failed check
 raises and the script exits non-zero:
 
-1. build the water-filling kernel from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` for ``sm_90a``;
+1. build the water-filling and envy-gap kernels from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
+   compiler process per source, all started together;
 2. hold the kernel against its plain torch version on the card, on seeded
    staircase instances (n_pad 8..8192, k 3 and 4, T 1 and 8) at
    atol = rtol = 1e-12, and time both at the service's shape (n_pad 1024,
@@ -29,7 +30,29 @@ raises and the script exits non-zero:
    tenant throughput, not to the same decisions: identical tenants get shares that differ
    by ~1e-10 between the two solvers, which flips largest-remainder rounding
    ties (the JAX tier's replay departs from numpy at this size in the same
-   way).
+   way);
+6. hold the envy-gap kernel against its plain torch version on the card at
+   G in {8, 64, 512, 4096}, k in {3, 4}, B in {1, 3} (atol = rtol = 1e-12),
+   and time it at (G 8, k 3), the service's shape, and (G 4096, k 3):
+   device time by CUDA-graph replay, wrapper call time, the plain version
+   and the nearest library form (``torch.addmm``);
+7. the cooperative solve tier on the card, on 256-tenant catalog instances
+   and a 32-tenant instance of distinct rows, against the same solve on the
+   CPU (same ``pd_iters`` and ``crossover``, objective within 1e-9
+   relative, X within 1e-8 * max(m)) and the LP (certificate gap and envy
+   within 1e-6), with one kernel launch per PD iteration; the batch API on
+   three instances against the CPU; and a 64-tenant distinct instance,
+   which the tier does not certify within a cut budget on either device
+   (the JAX tier neither), spending exactly that budget;
+8. the service with the cooperative policy: 256 tenants on 256x3 devices,
+   ``oef-coop`` on the ``torch`` backend on ``cuda``, the JAX package's
+   largest coop-jax benchmark cell. Every solve from ``torch``, no LP
+   fallback, no degraded solve, no ``solver_floor``, kernel launches equal
+   to the PD iterations the solves report (at least one segment), and a
+   second replay identical bit for bit;
+9. 64 tenants on 64x3 devices, ``oef-coop``, replayed with ``torch`` on the
+   card, ``torch`` on the CPU and ``numpy`` (the LP): card and CPU make the
+   same decisions (as in phase 5), the LP replay is within ``NUMPY_REL``.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
@@ -44,6 +67,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -56,6 +80,7 @@ FP64_FLOPS = 34e12
 
 TOL = 1e-12      # kernel vs plain version (as the JAX kernel test)
 PARITY = 1e-9    # solve on the card vs the same solve on the CPU
+COOP_TOL = 1e-6  # coop tier vs the LP: certificate gap and envy
 #: numpy replay vs the card replay at 128 tenants (phase 5): relative
 #: difference allowed in solves, finished jobs, events and the tenants'
 #: total throughput. (Mean JCT is not held: it averages over the jobs that
@@ -138,7 +163,8 @@ def call_ms(torch, fn, reps: int = 200) -> float:
 
 
 def service_replay(n_tenants: int, scale: int, backend: str, device: str,
-                   until: float, record=None, tracer=None):
+                   until: float, record=None, tracer=None,
+                   policy: str = "oef-noncoop"):
     """One replay as ``benchmarks/service_throughput.py`` builds it."""
     from repro_torch import obs
     from repro_torch.core import backends
@@ -152,7 +178,7 @@ def service_replay(n_tenants: int, scale: int, backend: str, device: str,
         n_tenants, job_types=default_job_types("paper"), cluster=cluster,
         duration_s=1800.0, mean_interarrival_s=1200.0, mean_work_s=1200.0,
         seed=0)
-    sched = OnlineScheduler(cluster, "oef-noncoop", min_resolve_interval_s=30.0,
+    sched = OnlineScheduler(cluster, policy, min_resolve_interval_s=30.0,
                             solver_backend=backend, device=device)
 
     def hook(program, backend_name, W, m):
@@ -222,6 +248,285 @@ def percentile(vals, q, np) -> float:
     return float(np.percentile(np.asarray(vals), q)) if vals else 0.0
 
 
+def bound(n_bytes: float, n_ops: float):
+    """Least time on the card (ms) for the bytes and FP64 operations, and
+    which of the two bounds it."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP64_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def catalog_instance(rng, n: int, np, g: int = 5, k: int = 3):
+    """n tenants drawn from a g-profile catalog (tests/test_jax_coop.py)."""
+    cat = np.cumprod(1.0 + rng.uniform(0.05, 1.0, size=(g, k)), axis=1)
+    cat /= cat[:, :1]
+    W = cat[rng.integers(0, g, size=n)]
+    m = rng.uniform(1.0, 4.0, size=k) * n / 4
+    return W, m
+
+
+def distinct_instance(rng, n: int, np, k: int = 3):
+    """n tenants with distinct rows (tests/test_jax_coop.py)."""
+    W = np.cumprod(1.0 + rng.uniform(0.05, 1.0, size=(n, k)), axis=1)
+    W /= W[:, :1]
+    m = rng.uniform(1.0, 4.0, size=k) * n / 4
+    return W, m
+
+
+def envy_max(W, X, np) -> float:
+    own = np.einsum("lk,lk->l", W, X)
+    E = W @ X.T - own[:, None]
+    np.fill_diagonal(E, 0.0)
+    return float(E.max())
+
+
+def envy_phase(torch, np, ev, detail) -> dict:
+    """Phase 6: the envy-gap kernel against its plain version, and its times."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    max_err, cases = 0.0, 0
+    for G in (8, 64, 512, 4096):
+        for k in (3, 4):
+            for B in (1, 3):
+                W, X = (torch.as_tensor(rng.uniform(lo, hi, size=(B, G, k)),
+                                        dtype=torch.float64, device=dev)
+                        for lo, hi in ((0.5, 4.0), (0.0, 2.0)))
+                got = ev.envy_gaps(W[0], X[0])[None] if B == 1 else ev.envy_gaps(W, X)
+                ref = ev.envy_gaps_plain(W, X)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, ref, atol=TOL, rtol=TOL)
+                max_err = max(max_err, float((got - ref).abs().max()))
+                cases += 1
+                del got, ref
+    log(f"[6] envy kernel == plain on {cases} cases (atol=rtol={TOL:g}), "
+        f"max |diff| {max_err:.3e}")
+    times = {}
+    for G in (8, 4096):
+        k = 3
+        W, X = (torch.as_tensor(rng.uniform(lo, hi, size=(G, k)),
+                                dtype=torch.float64, device=dev)
+                for lo, hi in ((0.5, 4.0), (0.0, 2.0)))
+        W3, X3 = W[None], X[None]
+
+        def library():
+            return torch.addmm(-(W * X).sum(1, keepdim=True), W, X.T)
+
+        torch.testing.assert_close(library(), ev.envy_gaps(W, X), atol=TOL, rtol=TOL)
+        reps = 50 if G <= 512 else 10
+        t = {"kernel_ms": graph_ms(torch, lambda: ev._launch(W3, X3), reps=reps),
+             "call_ms": call_ms(torch, lambda: ev.envy_gaps(W, X),
+                                reps=200 if G <= 512 else 20),
+             "plain_ms": graph_ms(torch, lambda: ev.envy_gaps_plain(W3, X3),
+                                  reps=reps),
+             "library_ms": graph_ms(torch, library, reps=reps)}
+        t["bound_ms"], t["bound_by"] = bound(8 * (2 * G * k + G * G), 2 * G * G * k)
+        times[G] = t
+        log(f"    G={G} k={k}: kernel {t['kernel_ms'] * 1e3:.2f} us (graph "
+            f"replay; {t['call_ms'] * 1e3:.2f} us per wrapper call), plain "
+            f"{t['plain_ms'] * 1e3:.2f} us, addmm {t['library_ms'] * 1e3:.2f} us, "
+            f"bound {t['bound_ms'] * 1e6:.1f} ns ({t['bound_by']})")
+    detail["envy_kernel"] = {"cases": cases, "max_abs_err": max_err,
+                             "times": {str(G): t for G, t in times.items()}}
+    return {"max_abs_err": max_err, **times[8]}
+
+
+def coop_tier_phase(np, ev, detail) -> None:
+    """Phase 7: the cooperative tier on the card against the CPU and the LP."""
+    from repro_torch.core import oef, torch_coop
+    from repro_torch.core.backends import BackendError
+
+    insts = [(f"catalog256/{s}", *catalog_instance(np.random.default_rng(10 + s),
+                                                   256, np))
+             for s in range(2)]
+    insts.append(("distinct32", *distinct_instance(np.random.default_rng(1), 32, np)))
+    out = {}
+    for label, W, m in insts:
+        before = ev.envy_gaps.launches
+        t0 = time.perf_counter()
+        got = torch_coop.solve_coop_pd(W, m, device="cuda")
+        card_s = time.perf_counter() - t0
+        launches = ev.envy_gaps.launches - before
+        cpu = torch_coop.solve_coop_pd(W, m, device="cpu")
+        lp = oef.solve_coop(W, m)
+        o, o_cpu, o_lp = ((W * a.X).sum() for a in (got, cpu, lp))
+        lb, ub = got.meta["objective_bounds"]
+        d_x = float(np.abs(got.X - cpu.X).max())
+        check((got.meta["pd_iters"], got.meta["crossover"])
+              == (cpu.meta["pd_iters"], cpu.meta["crossover"]),
+              f"{label}: card {got.meta['pd_iters']} {got.meta['crossover']} vs "
+              f"CPU {cpu.meta['pd_iters']} {cpu.meta['crossover']}")
+        check(abs(o - o_cpu) <= PARITY * max(abs(o_cpu), 1.0),
+              f"{label}: objective {o} vs CPU {o_cpu}")
+        check(d_x <= 1e-8 * float(m.max()), f"{label}: |dX| vs CPU {d_x:.3e}")
+        check(ub - lb <= COOP_TOL * max(abs(lb), 1.0), f"{label}: gap {ub - lb:.3e}")
+        check(abs(o - o_lp) <= COOP_TOL * max(abs(o_lp), 1.0),
+              f"{label}: objective {o} vs LP {o_lp}")
+        check(envy_max(W, got.X, np) <= COOP_TOL, f"{label}: envy")
+        check(launches == got.meta["pd_iters"] > 0,
+              f"{label}: {launches} launches for {got.meta['pd_iters']} PD iterations")
+        out[label] = {"pd_iters": got.meta["pd_iters"],
+                      "crossover": got.meta["crossover"], "launches": launches,
+                      "card_s": card_s, "gap": ub - lb, "d_obj_lp": o - o_lp,
+                      "dX_cpu": d_x}
+        log(f"[7] {label}: {got.meta['pd_iters']} PD iterations "
+            f"({got.meta['crossover']}), {launches} launches, {card_s * 1e3:.1f} ms "
+            f"on the card; |dX| vs CPU {d_x:.3e}, gap {ub - lb:.3e}, "
+            f"objective - LP {o - o_lp:.3e}")
+    # the batch API (tests/test_jax_coop.py's batch instance, three row
+    # orders): one kernel launch per PD step for the whole batch
+    W, m = catalog_instance(np.random.default_rng(5), 8, np)
+    Ws = np.stack([W, W[::-1], W[np.random.default_rng(5).permutation(8)]])
+    before = ev.envy_gaps.launches
+    Xs = torch_coop.solve_coop_batch(Ws, m, device="cuda")
+    spent = ev.envy_gaps.launches - before
+    Xs_cpu = torch_coop.solve_coop_batch(Ws, m, device="cpu")
+    d_batch = float(np.abs(Xs - Xs_cpu).max())
+    check(d_batch <= 1e-8 * float(m.max()), f"batch: |dX| vs CPU {d_batch:.3e}")
+    check(spent > 0 and spent % torch_coop.SEG_ITERS == 0,
+          f"batch: {spent} launches for 3 instances")
+    check(max(envy_max(Ws[b], Xs[b], np) for b in range(3)) <= COOP_TOL,
+          "batch: envy")
+    out["batch3x8"] = {"launches": spent, "dX_cpu": d_batch}
+    log(f"    batch of 3 x 8 tenants: {spent} launches for the whole batch, "
+        f"|dX| vs CPU {d_batch:.3e}")
+    # 64 distinct rows: neither this tier nor the JAX tier certifies it within
+    # its budget (the registry hands such instances to the LP); with a cut
+    # budget both devices must spend exactly that budget and decline
+    W, m = distinct_instance(np.random.default_rng(0), 64, np)
+    budget = 2 * torch_coop.SEG_ITERS
+    for device in ("cuda", "cpu"):
+        before = ev.envy_gaps.launches
+        try:
+            torch_coop.solve_coop_pd(W, m, max_iters=budget, device=device)
+        except BackendError:
+            pass
+        else:
+            raise SmokeFailure(f"distinct64 certified on {device} within {budget}")
+        if device == "cuda":
+            spent = ev.envy_gaps.launches - before
+            check(spent == budget, f"distinct64 on the card: {spent} launches")
+    log(f"    distinct64: declined on the card after exactly {budget} launches, "
+        f"as on the CPU")
+    out["distinct64_budget"] = budget
+    detail["coop_tier"] = out
+
+
+def coop_breakdown(tracer, wall: float) -> dict:
+    """Where the traced coop replay's wall time went, by span."""
+    stats = tracer.flame_stats()
+
+    def total(pred):
+        return sum(st["total_s"] for path, st in stats.items() if pred(path))
+
+    return {
+        "wall_s": wall,
+        "events_s": total(lambda p: ";" not in p and p.startswith("event/")),
+        "resolve_s": total(lambda p: p.endswith(";resolve")),
+        "solve_s": total(lambda p: p.endswith(";resolve;solve")),
+        "execute_s": total(lambda p: p.endswith(";execute")),
+        "certify_s": total(lambda p: p.endswith(";certify")),
+        "rescue_s": total(lambda p: p.endswith(";rescue")),
+        "placement_s": total(lambda p: p.endswith(";resolve;placement")),
+        "execute_n": sum(st["count"] for p, st in stats.items()
+                         if p.endswith(";execute")),
+    }
+
+
+def coop_service_phase(torch, np, ev, wf, detail) -> int:
+    """Phase 8: 256 tenants, oef-coop on the card; returns the launches."""
+    from repro_torch import obs
+    from repro_torch.core import torch_coop
+    from repro_torch.service.traces import default_job_types
+
+    torch_coop.prewarm(len(default_job_types("paper")), 3, device="cuda")
+    wf.waterfill_masses.launches = 0
+    ev.envy_gaps.launches = 0
+    sched, report, wall = service_replay(256, 32, "torch", "cuda", 7200.0,
+                                         policy="oef-coop")
+    launches = ev.envy_gaps.launches
+    solved = [s for s in sched.metrics.solves if not s.reused]
+    pd_iters = sum(s.pd_iters for s in solved)
+    log(f"[8] 256 tenants / 768 devices, oef-coop, until 7200 s: "
+        f"{report.n_solves} solves ({len(solved)} solved, "
+        f"{sum(1 for s in solved if s.pd_iters == 0)} with no PD iteration), "
+        f"{report.n_events} events, {report.jobs_finished} jobs finished, wall "
+        f"{wall:.1f} s, {launches} envy launches for {pd_iters} PD iterations")
+    check(set(report.solver_backends) == {"torch"},
+          f"solver_backends {report.solver_backends}")
+    check(report.fallback_count == 0, f"fallback_count {report.fallback_count}")
+    check(report.degraded_solves == 0, f"degraded_solves {report.degraded_solves}")
+    check("solver_floor" not in report.anomalies, f"anomalies {report.anomalies}")
+    check(launches == pd_iters >= 250, f"{launches} launches, {pd_iters} PD iterations")
+    check(wf.waterfill_masses.launches == 0, "the coop replay ran the water-filling")
+    check(all(np.isfinite(list(report.steady_state_estimate.values()))),
+          "non-finite throughput estimate")
+    lat = [s.latency_s * 1e3 for s in solved]
+    tracer = obs.Tracer()
+    _, report2, wall2 = service_replay(256, 32, "torch", "cuda", 7200.0,
+                                       tracer=tracer, policy="oef-coop")
+    check(decision_fields(report) == decision_fields(report2),
+          "second coop replay differs from the first")
+    split = coop_breakdown(tracer, wall2)
+    log(f"    resolve_latency_ms mean {report.resolve_latency_ms_mean:.3f} p95 "
+        f"{report.resolve_latency_ms_p95:.3f} (all solves); solved mean "
+        f"{float(np.mean(lat)):.3f} p95 {percentile(lat, 95, np):.3f}; second "
+        f"replay identical (wall {wall2:.1f} s, traced): solve "
+        f"{split['solve_s']:.2f} s (execute {split['execute_s']:.2f} s in "
+        f"{split['execute_n']} segments, certify {split['certify_s']:.2f} s, "
+        f"rescue {split['rescue_s']:.2f} s), placement {split['placement_s']:.2f} s")
+    stats = tracer.flame_stats()
+    top = sorted(stats.items(), key=lambda kv: -kv[1]["total_s"])[:14]
+    detail["service_coop_256"] = {
+        "n_solves": report.n_solves, "solved": len(solved),
+        "no_pd_solves": sum(1 for s in solved if s.pd_iters == 0),
+        "n_events": report.n_events, "jobs_finished": report.jobs_finished,
+        "wall_s": wall, "launches": launches, "pd_iters": pd_iters,
+        "resolve_latency_ms_mean": report.resolve_latency_ms_mean,
+        "resolve_latency_ms_p95": report.resolve_latency_ms_p95,
+        "solved_latency_ms_mean": float(np.mean(lat)),
+        "solved_latency_ms_p95": percentile(lat, 95, np),
+        "solver_share_of_wall": sum(s.latency_s for s in sched.metrics.solves) / wall,
+        "traced": split, "flame_top": {p: st for p, st in top}}
+    return launches
+
+
+def coop_devices_phase(detail) -> None:
+    """Phase 9: 64 tenants, oef-coop: card, CPU and the LP."""
+    reports = {}
+    for label, backend, device in (("cuda", "torch", "cuda"), ("cpu", "torch", "cpu"),
+                                   ("numpy", "numpy", "cuda")):
+        _, rep, w = service_replay(64, 8, backend, device, 7200.0, policy="oef-coop")
+        reports[label] = rep
+        log(f"[9] 64 tenants / 192 devices, oef-coop, {label:5s}: {rep.n_solves} "
+            f"solves, {rep.jobs_finished} jobs, {rep.n_events} events, wall "
+            f"{w:.1f} s, backends {rep.solver_backends}")
+    a, b = reports["cpu"], reports["cuda"]
+    check(set(b.solver_backends) == {"torch"} and b.fallback_count == 0,
+          f"card replay backends {b.solver_backends}")
+    check((a.n_solves, a.jobs_finished, a.n_events)
+          == (b.n_solves, b.jobs_finished, b.n_events),
+          "card and CPU coop replays made different decisions")
+    check(abs(a.mean_jct_s - b.mean_jct_s) <= 1e-6 * max(a.mean_jct_s, 1.0),
+          "coop mean JCT differs")
+    d_tp = max(abs(a.tenant_throughput[t] - b.tenant_throughput[t])
+               for t in a.tenant_throughput)
+    check(d_tp <= 1e-6, f"coop tenant throughput differs by {d_tp:.3e}")
+    c = reports["numpy"]
+    for what, x, y in (("solves", c.n_solves, b.n_solves),
+                       ("jobs finished", c.jobs_finished, b.jobs_finished),
+                       ("events", c.n_events, b.n_events),
+                       ("total throughput", sum(c.tenant_throughput.values()),
+                        sum(b.tenant_throughput.values()))):
+        check(abs(x - y) <= NUMPY_REL * max(abs(y), 1.0),
+              f"LP coop replay's {what} {x} vs the card's {y}: more than "
+              f"{NUMPY_REL:.0%} apart")
+    log(f"    card == CPU coop replay (throughput diff {d_tp:.3e}), LP replay "
+        f"within {NUMPY_REL:.0%}")
+    detail["service_coop_64"] = {
+        k: {"n_solves": r.n_solves, "jobs_finished": r.jobs_finished,
+            "n_events": r.n_events} for k, r in reports.items()}
+
+
 def main() -> int:
     import torch
 
@@ -238,6 +543,7 @@ def main() -> int:
 
     from repro_torch.core import oef, torch_solve
     from repro_torch.kernels import _build
+    from repro_torch.kernels import envy as ev
     from repro_torch.kernels import waterfill as wf
 
     ITERS = torch_solve.ITERS  # launches per cold solve; one more when warm
@@ -253,13 +559,17 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = _build.build("waterfill")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        lib_paths = list(pool.map(_build.build, ("waterfill", "envy")))
     wf.load()
+    ev.load()
     build_s = time.perf_counter() - t0
-    log(f"[1] built {os.path.relpath(lib_path, ROOT)} in {build_s:.2f} s")
-    for line in _build.BUILD_LOG.get(lib_path, "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
+    log(f"[1] built {', '.join(os.path.relpath(p, ROOT) for p in lib_paths)} "
+        f"in {build_s:.2f} s")
+    for lib_path in lib_paths:
+        for line in _build.BUILD_LOG.get(lib_path, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
     detail["build_s"] = build_s
 
     # -- 2. kernel vs plain version ---------------------------------------------
@@ -296,13 +606,11 @@ def main() -> int:
     kernel_call_ms = call_ms(torch, lambda: wf.waterfill_masses(*ops))
     n_bytes = (n_pad * k + n_pad + k + 2 * T) * 8
     n_ops = T * n_pad * k * 8
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP64_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
     log(f"    n_pad={n_pad} k={k} T={T}: kernel {kernel_ms * 1e3:.2f} us "
         f"(graph replay; {kernel_call_ms * 1e3:.2f} us per wrapper call), "
         f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e6:.2f} ns "
-        f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+        f"({bound_by})")
     detail["kernel"] = {"cases": cases, "max_abs_err": max_err,
                         "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -332,9 +640,11 @@ def main() -> int:
     torch_solve.prewarm(1024, 3, device="cuda")
     record = []
     wf.waterfill_masses.launches = 0
+    ev.envy_gaps.launches = 0
     sched, report, wall = service_replay(1024, 128, "torch", "cuda", 1200.0,
                                          record=record)
     launches = wf.waterfill_masses.launches
+    check(ev.envy_gaps.launches == 0, "the non-coop replay ran the envy kernel")
     solved = [s for s in sched.metrics.solves if not s.reused]
     warm = sum(1 for s in solved if s.warm_started)
     expected = ITERS * len(solved) + warm
@@ -418,6 +728,12 @@ def main() -> int:
         k: {"n_solves": r.n_solves, "jobs_finished": r.jobs_finished,
             "n_events": r.n_events} for k, r in reports.items()}
     detail["service_128"]["max_diff"] = worst5
+
+    # -- 6-9. the cooperative tier and its envy-gap kernel ----------------------
+    envy_t = envy_phase(torch, np, ev, detail)
+    coop_tier_phase(np, ev, detail)
+    envy_launches = coop_service_phase(torch, np, ev, wf, detail)
+    coop_devices_phase(detail)
     detail["total_s"] = time.perf_counter() - t_all
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -435,8 +751,20 @@ def main() -> int:
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "envy_gaps",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/envy.cu",
+        "replaces": "src/repro/kernels/envy.py:38",
+        "launches": envy_launches,
+        "max_abs_err": envy_t["max_abs_err"],
+        "ms": envy_t["kernel_ms"],
+        "plain_ms": envy_t["plain_ms"],
+        "bound_ms": envy_t["bound_ms"],
+        "bound_by": envy_t["bound_by"],
+        "library_ms": envy_t["library_ms"],
     }]}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """repro_torch — the OEF system on PyTorch and CUDA, beside the JAX package.
 
 Same layout and module names as ``repro``: ``core`` (OEF solvers, the
-backend registry, the GPU water-filling tier ``core.torch_solve``),
+backend registry, the GPU tiers ``core.torch_solve`` (water-filling) and
+``core.torch_coop`` (cooperative primal–dual)),
 ``kernels`` (hand-written CUDA kernels with their plain torch versions),
 ``service`` (the online event-driven scheduler and its CLI) and ``obs``
 (tracing and metrics). The package imports torch, numpy and scipy, never

@@ -4,6 +4,8 @@ Public API:
   - types: ClusterSpec, Tenant, JobTypeProfile, Allocation, TPU_FLEET
   - oef: solve_noncoop / solve_coop / solve_noncoop_fast / evaluate_tenants
   - torch_solve: the non-cooperative water-filling tier on the GPU
+  - torch_coop: the cooperative primal–dual tier on the GPU (registered as
+    the ``"torch"`` backend of ``oef-coop`` on import)
   - baselines: solve_maxmin / solve_gavel / solve_gandiva_fair
   - properties: fairness property checkers
   - placement: RoundingPlacer
@@ -70,3 +72,4 @@ from .simulator import (  # noqa: F401
     SimTenant,
     make_synthetic_tenants,
 )
+from .torch_coop import solve_coop_batch, solve_coop_pd  # noqa: F401,E402

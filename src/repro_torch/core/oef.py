@@ -18,10 +18,12 @@ Implements:
 Backend selection is the registry's job (:mod:`repro_torch.core.backends`):
 this module registers the LP solvers as the ``"lp"`` backends, the numpy
 water-filling as ``"numpy"`` (the ``oef-noncoop`` default, LP fallback) and
-the GPU water-filling tier as ``"torch"``. The cooperative program has no
-torch tier yet: it runs on the LP. All solvers return an :class:`Allocation` over
-*rows* (virtual users); use :func:`evaluate_tenants` for the tenant-level API
-with folding.
+the GPU water-filling tier as ``"torch"``. The cooperative program's GPU tier,
+the primal–dual solver of :mod:`repro_torch.core.torch_coop`, registers
+itself as the ``"torch"`` backend of ``oef-coop`` (LP fallback) when
+``repro_torch.core`` is imported. All solvers return an :class:`Allocation`
+over *rows* (virtual users); use :func:`evaluate_tenants` for the
+tenant-level API with folding.
 """
 from __future__ import annotations
 
@@ -366,14 +368,16 @@ def solve_incremental(
     - unchanged instance  -> returns ``prev`` flagged ``reused`` (zero cost);
     - ``oef-noncoop`` with a previous tau -> warm-starts the water-filling
       bisection via ``tau_hint``;
+    - ``oef-coop`` on the torch tier -> warm-starts the primal–dual state from
+      the previous allocation's ``meta["pd_state"]``;
     - otherwise -> cold solve of the named policy.
 
     ``backend`` names a registry backend chain (None = the program's default:
     numpy water-filling for ``oef-noncoop``, the LP for ``oef-coop``). For
     ``oef-coop``, ``"numpy"`` is accepted as an alias of the LP default so a
-    service configured with one backend can run every policy; ``"torch"``
-    raises (see :func:`coop_backend`). ``device`` reaches the backends that
-    take one (the ``"torch"`` water-filling tier).
+    service configured with one backend can run every policy (see
+    :func:`coop_backend`). ``device`` reaches the backends that take one
+    (the ``"torch"`` tiers).
 
     ``failsafe`` and ``max_retries`` are forwarded to
     :func:`repro_torch.core.backends.dispatch` — the online scheduler sets both so
@@ -395,10 +399,11 @@ def solve_incremental(
             return alloc
         return solve_noncoop(W, m, method=method)
     if policy in ("oef-coop", "cooperative"):
+        prev_state = prev.meta.get("pd_state") if prev is not None else None
         return backends.dispatch(
             "oef-coop", W, m, backend=coop_backend(backend), method=method,
-            failsafe=failsafe, max_retries=max_retries,
-            time_budget_s=time_budget_s)
+            prev_state=prev_state, failsafe=failsafe, max_retries=max_retries,
+            time_budget_s=time_budget_s, device=device)
     if policy == "efficiency-only":
         return backends.dispatch("efficiency-only", W, m, method=method,
                                  failsafe=failsafe, max_retries=max_retries,
@@ -407,18 +412,9 @@ def solve_incremental(
 
 
 def coop_backend(backend: Optional[str]) -> Optional[str]:
-    """The ``oef-coop`` backend chain that a service backend name selects.
-
-    ``"numpy"`` aliases the LP default. ``"torch"`` raises: the cooperative
-    primal–dual tier and its envy-gap kernel have no torch counterpart yet,
-    and a request for it must not quietly run somewhere else.
-    """
-    if backend == "torch":
-        raise ValueError(
-            "policy 'oef-coop' has no torch backend yet: the cooperative "
-            "primal-dual tier (jax_coop -> torch_coop, with the envy-gap "
-            "kernel) is the next slice of the port; use backend 'numpy' or "
-            "'lp' for oef-coop")
+    """The ``oef-coop`` backend chain that a service backend name selects:
+    ``"numpy"`` aliases the LP default, any other name is taken as it is
+    (``"torch"`` is the primal–dual tier)."""
     return None if backend == "numpy" else backend
 
 
@@ -599,7 +595,7 @@ def evaluate_tenants(
         alloc = backends.dispatch(
             "oef-coop", W_virt, m, backend=coop_backend(backend), method=method,
             failsafe=failsafe, max_retries=max_retries,
-            time_budget_s=time_budget_s)
+            time_budget_s=time_budget_s, device=device)
     else:
         raise ValueError(f"unknown mode: {mode}")
     n_t = len(tenants)

@@ -7,7 +7,8 @@ the JAX package's trace or allocation can hand the same inputs to both:
   - :func:`events_from_rows` — trace rows as tuples in ``TRACE_HEADER``'s
     schema ``(time, kind, tenant, job_id, payload)``;
   - :func:`allocation_from_arrays` — an :class:`Allocation` from its arrays,
-    keeping ``meta["tau"]``, the water-filling warm-start hint.
+    keeping the warm-start state: ``meta["tau"]``, the water-filling hint,
+    and ``meta["pd_state"]``, the primal–dual tier's certified saddle.
 """
 from __future__ import annotations
 
@@ -41,11 +42,15 @@ def events_from_rows(rows: Iterable[Tuple[object, ...]]) -> List[Event]:
 
 def allocation_from_arrays(X, W, m, rows: Sequence[str],
                            meta: Dict[str, object]) -> Allocation:
-    """Build the port's :class:`Allocation`; ``meta`` (including ``tau``) is
-    copied, with ``tau`` as a Python float so it seeds the warm start."""
+    """Build the port's :class:`Allocation`; ``meta`` is copied, with ``tau``
+    as a Python float and each array of ``pd_state`` as a fresh float64
+    numpy array, so either seeds the port's warm start."""
     meta = dict(meta)
     if meta.get("tau") is not None:
         meta["tau"] = float(meta["tau"])
+    if meta.get("pd_state") is not None:
+        meta["pd_state"] = {k: np.array(v, dtype=np.float64)
+                            for k, v in meta["pd_state"].items()}
     return Allocation(X=np.array(X, dtype=np.float64), rows=tuple(rows),
                       W=np.array(W, dtype=np.float64),
                       m=np.array(m, dtype=np.float64), meta=meta)

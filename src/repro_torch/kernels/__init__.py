@@ -2,10 +2,13 @@
 
   - waterfill — the water-filling feasibility mass of the non-cooperative
     OEF solve (``csrc/waterfill.cu``); replaces the JAX package's Pallas
-    kernel ``kernels/waterfill.py``.
+    kernel ``kernels/waterfill.py``;
+  - envy — the pairwise envy-gap matrix of the cooperative primal–dual
+    solve (``csrc/envy.cu``); replaces the Pallas kernel ``kernels/envy.py``.
 
 A kernel that fails to build, load or launch raises :class:`KernelError`.
 """
 from ._build import KernelError
+from .envy import envy_gaps, envy_gaps_plain
 
-__all__ = ["KernelError"]
+__all__ = ["KernelError", "envy_gaps", "envy_gaps_plain"]

@@ -3,10 +3,12 @@
 Replay a CSV trace (or generate a synthetic one) through the event-driven
 OEF scheduler and emit JSON metrics. By default the policy is
 ``oef-noncoop`` and its re-solves run on the ``torch`` backend on
-``--device cuda``:
+``--device cuda``; ``--policy oef-coop`` runs the cooperative re-solves on
+the torch primal–dual tier the same way:
 
     PYTHONPATH=src python -m repro_torch.service --tenants 4 --duration 7200
     PYTHONPATH=src python -m repro_torch.service --device cpu --tenants 4
+    PYTHONPATH=src python -m repro_torch.service --policy oef-coop --tenants 64
     PYTHONPATH=src python -m repro_torch.service --replay trace.csv --policy gavel
     PYTHONPATH=src python -m repro_torch.service --emit-trace trace.csv --tenants 8
     PYTHONPATH=src python -m repro_torch.service --trace t.json --metrics m.jsonl
@@ -53,10 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="re-solve throttle: min seconds between solves")
     ap.add_argument("--backend", choices=backends.backend_names(), default="torch",
                     help="registry backend for OEF re-solves (default torch: "
-                         "the water-filling tier on --device; numpy: the "
-                         "numpy water-filling; lp: the scipy LP). oef-coop has "
-                         "no torch tier yet: pass numpy or lp with it. "
-                         "Baseline policies ignore this")
+                         "the water-filling tier for oef-noncoop and the "
+                         "primal-dual tier for oef-coop, on --device; numpy: "
+                         "the numpy water-filling, or the LP for oef-coop; "
+                         "lp: the scipy LP). Baseline policies ignore this")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the solve tier: cuda (default; "
                          "raises when torch sees no GPU) or cpu")

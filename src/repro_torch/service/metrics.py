@@ -40,9 +40,14 @@ class SolveRecord:
     degraded: bool = False
     #: tenants quarantined (invalid profiles) at the time of this solve.
     quarantined: int = 0
-    #: a water-filling tier probed the previous tau before bisecting (False
-    #: for reused solves, which run no solver).
+    #: a water-filling tier probed the previous tau before bisecting, or the
+    #: primal–dual tier resumed every group from the previous certified state
+    #: (False for reused solves, which run no solver).
     warm_started: bool = False
+    #: primal–dual iterations the cooperative tier ran for this solve (0 for
+    #: reused solves and every other tier); on the card, one envy-gap kernel
+    #: launch each.
+    pd_iters: int = 0
 
 
 @dataclasses.dataclass

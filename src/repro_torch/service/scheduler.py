@@ -11,8 +11,9 @@ health — and reacts to events from an :class:`~repro_torch.service.events.Even
   - re-solves go through the incremental hooks
     (``core.oef.solve_incremental`` / ``core.baselines.solve_incremental``):
     an unchanged instance reuses the previous :class:`Allocation` outright,
-    and non-cooperative OEF warm-starts its water-filling bisection from the
-    previous tau;
+    non-cooperative OEF warm-starts its water-filling bisection from the
+    previous tau, and cooperative OEF its primal–dual state from the previous
+    certified saddle;
   - fractional shares are rounded and packed by the same
     :class:`~repro_torch.core.placement.RoundingPlacer` the round simulator uses
     (deviation accumulation preserved across solves), with failed hosts
@@ -38,7 +39,7 @@ import numpy as np
 
 from ..core import backends, baselines, oef, properties
 from ..core.torch_solve import resolve_device
-from ..kernels import KernelError, waterfill
+from ..kernels import KernelError, envy, waterfill
 from ..obs import clock as _obs_clock
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
@@ -148,11 +149,11 @@ class OnlineScheduler:
         ``device`` is where the ``"torch"`` backend solves (default
         ``"cuda"``). It is checked here: a CUDA device that torch cannot see
         raises now, and when the ``"torch"`` backend will solve on the card
-        its kernel is built and loaded now, so a missing ``nvcc`` or a failed
-        build raises ``KernelError`` at construction. A kernel failure
+        its kernel (water-filling for ``oef-noncoop``, envy-gap for
+        ``oef-coop``) is built and loaded now, so a missing ``nvcc`` or a
+        failed build raises ``KernelError`` at construction. A kernel failure
         during a run raises too: the guardrails never hand the card's work
-        to the LP. ``oef-coop`` with the ``"torch"`` backend raises: the
-        cooperative tier has no torch counterpart yet.
+        to the LP.
         """
         if policy not in SERVICE_POLICIES:
             raise ValueError(f"unknown policy {policy!r}; choose from {SERVICE_POLICIES}")
@@ -160,12 +161,13 @@ class OnlineScheduler:
             raise ValueError(
                 f"unknown solver backend {solver_backend!r}; registered: "
                 f"{backends.backend_names()}")
-        if policy == "oef-coop":
-            oef.coop_backend(solver_backend)
         self.device = resolve_device(device)
-        if (self.device.type == "cuda" and policy == "oef-noncoop"
-                and backends.resolve_backend(policy, solver_backend).backend == "torch"):
-            waterfill.load()
+        kernels = {"oef-noncoop": (waterfill, solver_backend),
+                   "oef-coop": (envy, oef.coop_backend(solver_backend))}
+        if self.device.type == "cuda" and policy in kernels:
+            kernel, chain = kernels[policy]
+            if backends.resolve_backend(policy, chain).backend == "torch":
+                kernel.load()
         self.cluster = cluster
         self.policy = policy
         self.devices_per_host = devices_per_host
@@ -721,7 +723,8 @@ class OnlineScheduler:
                 backend=backend_name,
                 fallback_reason=fallback_reason,
                 degraded=degraded, quarantined=len(self.quarantined),
-                warm_started=not reused and bool(meta.get("warm_started", False))))
+                warm_started=not reused and bool(meta.get("warm_started", False)),
+                pd_iters=0 if reused else int(meta.get("pd_iters", 0))))
             audit = None
             if self.audit_every > 0 and self._n_solves % self.audit_every == 0:
                 audit = properties.property_report(W, ideal, m_eff)

@@ -46,6 +46,8 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert out["bad"] == []
     assert "repro_torch.core.torch_solve" in out["modules"]
     assert "repro_torch.kernels.waterfill" in out["modules"]
+    assert "repro_torch.core.torch_coop" in out["modules"]
+    assert "repro_torch.kernels.envy" in out["modules"]
     assert "repro_torch.service.__main__" in out["modules"]
 
 

@@ -21,11 +21,12 @@ from repro.core import oef as joef
 from repro.core.types import ClusterSpec as JClusterSpec
 from repro.service import OnlineScheduler as JScheduler
 from repro.service import synthetic_trace
-from repro.service.traces import default_job_types
+from repro.service.traces import default_cluster, default_job_types
 from repro_torch import interop
-from repro_torch.core import oef, torch_solve
+from repro_torch.core import oef, torch_coop, torch_solve
 from repro_torch.core.types import ClusterSpec
 from repro_torch.kernels import KernelError
+from repro_torch.kernels import envy as tenvy
 from repro_torch.service import OnlineScheduler
 from repro_torch.service.__main__ import main as cli_main
 
@@ -47,9 +48,9 @@ def rows(events):
             for ev in events]
 
 
-def replay_jax(events, per_type, backend, until):
+def replay_jax(events, per_type, backend, until, policy="oef-noncoop"):
     sched = JScheduler(JClusterSpec(types=TYPES, m=(per_type,) * 3),
-                       "oef-noncoop", min_resolve_interval_s=30.0,
+                       policy, min_resolve_interval_s=30.0,
                        solver_backend=backend)
     # jax 0.9 removed the jax.experimental.enable_x64 that the JAX
     # scheduler's own float64 scope calls; with x64 on it is skipped.
@@ -57,9 +58,9 @@ def replay_jax(events, per_type, backend, until):
         return sched.run(events, until=until)
 
 
-def replay_torch(events, per_type, backend, until, **kw):
+def replay_torch(events, per_type, backend, until, policy="oef-noncoop", **kw):
     sched = OnlineScheduler(ClusterSpec(types=TYPES, m=(per_type,) * 3),
-                            "oef-noncoop", min_resolve_interval_s=30.0,
+                            policy, min_resolve_interval_s=30.0,
                             solver_backend=backend, device="cpu", **kw)
     return sched, sched.run(interop.events_from_rows(rows(events)), until=until)
 
@@ -159,11 +160,13 @@ def test_interop_carries_events_and_the_warm_start():
 
 
 def test_scheduler_rejects_unknown_backend_and_coop_on_torch():
+    """An unknown backend is refused; coop on torch, refused before the
+    cooperative tier was ported, now builds a scheduler."""
     cluster = ClusterSpec(types=("a",), m=(4,))
     with pytest.raises(ValueError, match="backend"):
         OnlineScheduler(cluster, "oef-noncoop", solver_backend="jax", device="cpu")
-    with pytest.raises(ValueError, match="next slice"):
-        OnlineScheduler(cluster, "oef-coop", solver_backend="torch", device="cpu")
+    sched = OnlineScheduler(cluster, "oef-coop", solver_backend="torch", device="cpu")
+    assert sched.solver_backend == "torch" and sched.device.type == "cpu"
 
 
 def test_scheduler_on_cuda_without_a_gpu_raises():
@@ -195,11 +198,20 @@ def test_cli_device_cuda_raises_without_a_gpu():
 
 
 @pytest.mark.parametrize("argv,message", (
-    (["--policy", "oef-coop", "--backend", "torch"], "next slice"),
+    (["--policy", "oef-coop", "--backend", "torch"], None),
     (["--chaos"], "not have yet"),
     (["--journal", "j"], "not have yet"),
 ))
 def test_cli_refuses_what_the_port_lacks(argv, message, capsys):
+    """``--chaos`` and ``--journal`` are refused; coop on torch, refused
+    until the cooperative tier was ported, now replays."""
+    if message is None:
+        assert cli_main(["--device", "cpu", "--tenants", "2", "--duration",
+                         "1200", *argv]) == 0
+        report = json.loads(capsys.readouterr().out)
+        assert report["policy"] == "oef-coop"
+        assert report["solver_backends"] == {"torch": report["n_solves"]}
+        return
     with pytest.raises(SystemExit) as exc:
         cli_main(["--device", "cpu", "--tenants", "2", *argv])
     assert exc.value.code == 2
@@ -236,3 +248,97 @@ def test_scheduler_on_a_gpu_without_nvcc_fails_at_construction(monkeypatch, tmp_
         OnlineScheduler(cluster, "oef-noncoop", solver_backend="torch")
     # the numpy backend needs no kernel, so it builds nothing
     OnlineScheduler(cluster, "oef-noncoop", solver_backend="numpy")
+
+
+# ---------------------------------------------------------------------------
+# the cooperative tier in the service
+# ---------------------------------------------------------------------------
+def coop_trace(n_tenants, per_type):
+    """The JAX package's coop-jax benchmark ladder trace
+    (``benchmarks/service_throughput.py``)."""
+    return jax_trace(n_tenants, per_type, seed=0, mean_interarrival_s=1200.0,
+                     mean_work_s=1200.0)
+
+
+def test_coop_replay_at_64_tenants_matches_jax_tier(monkeypatch):
+    """64 tenants on 64x3 devices, ``oef-coop``: the port's primal–dual tier
+    on the CPU makes the JAX tier's decisions, and runs exactly one envy
+    evaluation (one kernel launch on the card) per PD iteration it reports."""
+    calls = []
+    real = tenvy.envy_gaps_plain
+
+    def counting(W, X):
+        calls.append(W.shape)
+        return real(W, X)
+
+    events = coop_trace(64, 64)
+    ref = replay_jax(events, 64, "jax", 7200.0, policy="oef-coop")
+    monkeypatch.setattr(tenvy, "envy_gaps_plain", counting)
+    sched, got = replay_torch(events, 64, "torch", 7200.0, policy="oef-coop")
+    assert_same_decisions(ref, got)
+    assert got.solver_backends == {"torch": got.n_solves}
+    assert got.fallback_count == 0 and got.degraded_solves == 0
+    pd_iters = [r.pd_iters for r in sched.metrics.solves]
+    assert sum(pd_iters) == len(calls) >= torch_coop.SEG_ITERS
+    assert all(p == 0 for r, p in zip(sched.metrics.solves, pd_iters) if r.reused)
+    assert any(r.warm_started for r in sched.metrics.solves)
+
+
+def test_coop_replay_audits_are_envy_free():
+    jcluster = default_cluster("paper")
+    events = synthetic_trace(
+        3, job_types=default_job_types("paper"), cluster=jcluster,
+        duration_s=1800.0, mean_interarrival_s=300.0, mean_work_s=900.0, seed=0)
+    sched = OnlineScheduler(ClusterSpec(types=jcluster.types, m=jcluster.m),
+                            "oef-coop", solver_backend="torch", audit_every=1,
+                            device="cpu")
+    report = sched.run(interop.events_from_rows(rows(events)), until=3600.0)
+    assert report.n_solves > 0
+    assert report.solver_backends == {"torch": report.n_solves}
+    assert len(report.fairness_audits) == report.n_solves
+    for audit in report.fairness_audits:
+        assert audit["envy_free"]
+
+
+def test_cli_replays_coop_on_the_torch_backend():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.service", "--policy", "oef-coop",
+         "--backend", "torch", "--device", "cpu", "--tenants", "6",
+         "--duration", "1800"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout)
+    assert report["policy"] == "oef-coop"
+    assert report["n_solves"] > 0 and report["jobs_finished"] > 0
+    assert report["solver_backends"] == {"torch": report["n_solves"]}
+    assert "backends: torch=" in proc.stderr
+
+
+def test_envy_kernel_failure_stops_the_coop_run_under_guardrails(monkeypatch):
+    def broken(*_a):
+        raise KernelError("envy_gaps kernel launch failed: test")
+
+    monkeypatch.setattr(torch_coop, "envy_gaps", broken)
+    with pytest.raises(KernelError, match="launch failed"):
+        replay_torch(coop_trace(8, 8), 8, "torch", 3600.0, policy="oef-coop")
+
+
+def test_coop_scheduler_on_a_gpu_without_nvcc_fails_at_construction(monkeypatch,
+                                                                      tmp_path):
+    import shutil
+    import torch.utils.cpp_extension as cpp_ext
+
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    monkeypatch.setattr(shutil, "which", lambda _name: None)
+    monkeypatch.setattr(tenvy, "_LIB", None)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    cluster = ClusterSpec(types=TYPES, m=(8, 8, 8))
+    with pytest.raises(KernelError, match="nvcc not found"):
+        OnlineScheduler(cluster, "oef-coop", solver_backend="torch")
+    # the LP (and its numpy alias) needs no kernel, so it builds nothing
+    OnlineScheduler(cluster, "oef-coop", solver_backend="numpy")

@@ -148,7 +148,7 @@ def test_torch_entry_point_rejects_unordered():
 
 def test_registry_names_the_torch_tier():
     assert backends.backends_for("oef-noncoop") == ["lp", "numpy", "torch"]
-    assert backends.backends_for("oef-coop") == ["lp"]
+    assert backends.backends_for("oef-coop") == ["lp", "torch"]
     spec = backends.resolve_backend("oef-noncoop", "torch")
     assert spec.instance_class == "piecewise-monge" and spec.fallback == "lp"
     assert "device" in spec.accepts
@@ -204,9 +204,12 @@ def test_solve_incremental_warm_start_and_reuse():
 
 
 def test_coop_on_torch_raises_naming_the_next_slice():
+    """The cooperative tier is ported: coop on torch now solves on the
+    primal–dual tier, and the ``numpy`` alias still gives the LP."""
     W, m = monge_instance(np.random.default_rng(3), n=4, k=3)
-    with pytest.raises(ValueError, match="next slice"):
-        oef.solve_incremental(W, m, policy="oef-coop", backend="torch")
+    got = oef.solve_incremental(W, m, policy="oef-coop", backend="torch",
+                                device="cpu")
+    assert got.meta["backend"] == "torch" and got.meta["policy"] == "oef-coop"
     assert oef.solve_incremental(W, m, policy="oef-coop",
                                  backend="numpy").meta["backend"] == "lp"
 
