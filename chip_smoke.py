@@ -4,7 +4,7 @@
 Drives ``repro_torch`` (never the JAX package) in phases; any failed check
 raises and the script exits non-zero:
 
-1. build the water-filling and envy-gap kernels from
+1. build the water-filling, envy-gap and RG-LRU scan kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
    compiler process per source, all started together;
 2. hold the kernel against its plain torch version on the card, on seeded
@@ -52,7 +52,28 @@ raises and the script exits non-zero:
    second replay identical bit for bit;
 9. 64 tenants on 64x3 devices, ``oef-coop``, replayed with ``torch`` on the
    card, ``torch`` on the CPU and ``numpy`` (the LP): card and CPU make the
-   same decisions (as in phase 5), the LP replay is within ``NUMPY_REL``.
+   same decisions (as in phase 5), the LP replay is within ``NUMPY_REL``;
+10. hold the RG-LRU scan kernel against its plain torch version on the
+    card (atol 1e-6, rtol 1e-5): the model's prefill shape (8, 2048, 2560)
+    in float32, the JAX kernel test's range, a ragged D, S = 1 and
+    S = 4097, bf16 inputs and a nonzero ``h0``; and time it at the model's
+    shape: device time by CUDA-graph replay, wrapper call, plain version,
+    the byte bound and the nearest library form (the private
+    ``torch._higher_order_ops.associative_scan``, where the card's torch
+    has it);
+11. serve recurrentgemma-2b at full width (``get_config``, weights from a
+    seeded ``torch.Generator``, bf16 compute, TF32 off): prefill 8 prompts
+    of 2048 tokens, then 32 greedy decode steps, through
+    ``repro_torch.launch.serve.generate``. Exactly 18 kernel launches per
+    prefill (one per RG-LRU layer) and none in decode, finite logits, and
+    a second run repeats the tokens and logits bit for bit; prefill and
+    decode rates, the kernel's share of prefill, peak memory and the top
+    device operations of one prefill (``torch.profiler``);
+12. the card against the CPU at full width and cut depth (``n_layers=5``:
+    one unit and the two-layer tail), B = 1, S = 256, the same weights
+    built on the CPU and copied to the card: in float32 the prefill logits
+    within 1e-4 of max |logits| and 8 greedy decode tokens identical; in
+    bf16 within 5e-2.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
@@ -72,11 +93,12 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
-#: FP64 rate outside the tensor cores, which is what the kernel's FP64
+#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
+#: FP64 and FP32 rates outside the tensor cores, which is what the kernels'
 #: arithmetic runs on.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+FP32_FLOPS = 67e12
 
 TOL = 1e-12      # kernel vs plain version (as the JAX kernel test)
 PARITY = 1e-9    # solve on the card vs the same solve on the CPU
@@ -86,6 +108,12 @@ COOP_TOL = 1e-6  # coop tier vs the LP: certificate gap and envy
 #: total throughput. (Mean JCT is not held: it averages over the jobs that
 #: finish inside the horizon, and two jobs more or less move it by ~6%.)
 NUMPY_REL = 0.05
+#: RG-LRU kernel vs its plain version (phase 10)
+RG_ATOL, RG_RTOL = 1e-6, 1e-5
+#: card vs CPU prefill logits, max |diff| / max |logits| (phase 12): float32,
+#: and bf16 (the bound tests/test_models.py holds prefill to)
+CARD_CPU_F32, CARD_CPU_BF16 = 1e-4, 5e-2
+ARCH = "recurrentgemma-2b"
 
 
 class SmokeFailure(RuntimeError):
@@ -248,11 +276,11 @@ def percentile(vals, q, np) -> float:
     return float(np.percentile(np.asarray(vals), q)) if vals else 0.0
 
 
-def bound(n_bytes: float, n_ops: float):
-    """Least time on the card (ms) for the bytes and FP64 operations, and
-    which of the two bounds it."""
+def bound(n_bytes: float, n_ops: float, flops: float = FP64_FLOPS):
+    """Least time on the card (ms) for the bytes and the operations at the
+    ``flops`` rate (FP64 by default), and which of the two bounds it."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP64_FLOPS * 1e3
+    ops_ms = n_ops / flops * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -527,6 +555,209 @@ def coop_devices_phase(detail) -> None:
             "n_events": r.n_events} for k, r in reports.items()}
 
 
+def rglru_phase(torch, rg, detail, dev="cuda") -> dict:
+    """Phase 10: the RG-LRU scan kernel against its plain version, and its
+    times at the model's prefill shape."""
+    g = torch.Generator(device=dev).manual_seed(10)
+
+    def operands(B, S, D, dtype, h0_zero):
+        a = torch.sigmoid(torch.randn((B, S, D), generator=g, device=dev)).to(dtype)
+        b = torch.randn((B, S, D), generator=g, device=dev).to(dtype)
+        h0 = (torch.zeros((B, D), device=dev) if h0_zero
+              else torch.randn((B, D), generator=g, device=dev))
+        return a, b, h0
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((8, 2048, 2560), f32, True),          # the model's prefill
+             ((1, 64, 32), f32, False), ((2, 128, 64), f32, False),
+             ((3, 192, 128), f32, False), ((3, 256, 256), f32, False),
+             ((2, 64, 96), f32, False), ((1, 128, 2568), f32, False),  # ragged D
+             ((2, 1, 2560), f32, False), ((1, 4097, 256), f32, False),
+             ((8, 2048, 2560), bf16, True), ((2, 64, 96), bf16, False),
+             ((1, 4097, 256), bf16, False)]
+    max_err = 0.0
+    for shape, dtype, h0_zero in cases:
+        a, b, h0 = operands(*shape, dtype, h0_zero)
+        got = rg.rglru_scan(a, b, h0)
+        ref = rg.rglru_scan_plain(a, b, h0)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and tuple(got.shape) == shape,
+              f"rglru_scan {shape} {dtype}: got {got.dtype} {tuple(got.shape)}")
+        torch.testing.assert_close(got, ref, atol=RG_ATOL, rtol=RG_RTOL)
+        max_err = max(max_err, float((got.float() - ref.float()).abs().max()))
+        del a, b, h0, got, ref
+    log(f"[10] rglru_scan kernel == plain on {len(cases)} cases (atol {RG_ATOL:g}, "
+        f"rtol {RG_RTOL:g}), max |diff| {max_err:.3e}")
+    B, S, D = 8, 2048, 2560
+    a, b, h0 = operands(B, S, D, f32, True)
+    t = {"kernel_ms": graph_ms(torch, lambda: rg._launch(a, b, h0), reps=20),
+         "call_ms": call_ms(torch, lambda: rg.rglru_scan(a, b, h0), reps=50),
+         "plain_ms": graph_ms(torch, lambda: rg.rglru_scan_plain(a, b, h0),
+                              reps=1, rounds=2),
+         "library_ms": None}
+    # the nearest library form: a private API, timed only as a yardstick
+    import importlib.util
+    if importlib.util.find_spec("torch._higher_order_ops.associative_scan"):
+        from torch._higher_order_ops.associative_scan import associative_scan
+
+        def combine(x, y):
+            return x[0] * y[0], y[0] * x[1] + y[1]
+
+        def library():
+            return associative_scan(combine, (a, b), dim=1, combine_mode="generic")[1]
+
+        torch.testing.assert_close(library(), rg._launch(a, b, h0), atol=1e-5, rtol=1e-4)
+        t["library_ms"] = call_ms(torch, library, reps=3)
+    t["bound_ms"], t["bound_by"] = bound(3 * B * S * D * 4, 2 * B * S * D, FP32_FLOPS)
+    lib = "n/a" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
+    log(f"    (8, 2048, 2560) fp32: kernel {t['kernel_ms'] * 1e3:.2f} us (graph "
+        f"replay; {t['call_ms'] * 1e3:.2f} us per wrapper call), plain "
+        f"{t['plain_ms'] * 1e3:.2f} us, associative_scan {lib}, bound "
+        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    detail["rglru_kernel"] = {"cases": len(cases), "max_abs_err": max_err, **t}
+    return {"max_abs_err": max_err, **t}
+
+
+def device_kernels(torch, fn) -> list:
+    """The device kernels of one ``fn()`` call, from ``torch.profiler``:
+    ``{"op", "device_ms", "count"}`` per kernel name, most device time first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [{"op": e.key, "device_ms": e.self_device_time_total / 1e3, "count": e.count}
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(rows, key=lambda r: -r["device_ms"])
+
+
+def serve_phase(torch, rg, wf, ev, detail, rg_t, dev="cuda", cfg=None) -> int:
+    """Phase 11: recurrentgemma-2b at full width, prefill + greedy decode;
+    returns the kernel launches of the main run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, prefill
+
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matrix products must run in full float32 (TF32 is on)")
+    full = cfg is None
+    cfg = get_config(ARCH) if full else cfg
+    B, S, steps = 8, 2048, 32
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(0)
+        model = init_params(cfg, g)
+        n_rglru = model.kinds.count("rglru")
+        prompts = torch.randint(2, cfg.vocab, (B, S), generator=g, device=dev)
+        generate(model, prompts, steps)  # warm-up
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        rg.rglru_scan.launches = 0
+        wf.waterfill_masses.launches = 0
+        ev.envy_gaps.launches = 0
+        toks, rec = generate(model, prompts, steps)
+        launches = rg.rglru_scan.launches
+        check(wf.waterfill_masses.launches == 0 and ev.envy_gaps.launches == 0,
+              "the serve path ran a solver kernel")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(n_rglru == 18 or not full, f"{n_rglru} RG-LRU layers at full width")
+        check(rec["prefill_launches"] == n_rglru,
+              f"{rec['prefill_launches']} kernel launches in one prefill of "
+              f"{n_rglru} RG-LRU layers")
+        check(rec["decode_launches"] == 0 and launches == n_rglru,
+              f"{rec['decode_launches']} kernel launches in decode")
+        logits = rec["logits"]
+        check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        check(tuple(toks.shape) == (B, steps + 1)
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()), "tokens out of range")
+        toks2, rec2 = generate(model, prompts, steps)
+        check(torch.equal(toks, toks2) and torch.equal(logits, rec2["logits"]),
+              "a second run with the same weights and prompts differs")
+        kernels = device_kernels(
+            torch, lambda: prefill(model, {"tokens": prompts}, S + steps + 8))
+    prefill_s = min(rec["prefill_s"], rec2["prefill_s"])
+    decode_s = min(rec["decode_s"], rec2["decode_s"])
+    busy_ms = sum(k["device_ms"] for k in kernels)
+    rglru_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_kernel" in k["op"])
+    out = {"batch": B, "prompt_len": S, "decode_steps": steps, "warmup_s": warm_s,
+           "prefill_s": [rec["prefill_s"], rec2["prefill_s"]],
+           "decode_s": [rec["decode_s"], rec2["decode_s"]],
+           "prefill_tok_s": B * S / prefill_s, "decode_tok_s": B * steps / decode_s,
+           "prefill_launches": rec["prefill_launches"],
+           "decode_launches": rec["decode_launches"],
+           "kernel_share_of_prefill": n_rglru * rg_t["kernel_ms"] / 1e3 / prefill_s,
+           "profiled_prefill": {"device_busy_ms": busy_ms, "rglru_scan_ms": rglru_ms,
+                                "idle_share": 1.0 - busy_ms / 1e3 / prefill_s,
+                                "top_kernels": kernels[:15]},
+           "peak_memory_gb": peak_gb, "first_tokens": toks[:, :8].tolist()}
+    detail["serve_full_width"] = out
+    log(f"[11] {cfg.name} at full width, {B} x {S} prompt + {steps} greedy steps "
+        f"(warm-up {warm_s:.2f} s): prefill {prefill_s:.3f} s "
+        f"({out['prefill_tok_s']:.0f} tok/s), decode {decode_s:.3f} s "
+        f"({out['decode_tok_s']:.1f} tok/s); {rec['prefill_launches']} kernel "
+        f"launches per prefill, {rec['decode_launches']} in decode; kernel "
+        f"{out['kernel_share_of_prefill']:.2%} of prefill; peak {peak_gb:.2f} GB; "
+        f"second run identical")
+    log(f"    one profiled prefill: kernels busy {busy_ms:.1f} ms (device idle "
+        f"{out['profiled_prefill']['idle_share']:.1%} of the untraced prefill), "
+        f"rglru_scan {rglru_ms:.2f} ms; top: " + "; ".join(
+            f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:4]))
+    return launches
+
+
+def devices_phase(torch, rg, detail, dev="cuda", cfg_of=None) -> None:
+    """Phase 12: the card against the CPU at full width, cut depth."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+
+    cfg_of = cfg_of or (lambda dtype: get_config(ARCH, n_layers=5, dtype=dtype))
+    B, S, steps = 1, 256, 8
+    out = {}
+    for dtype, tol in (("float32", CARD_CPU_F32), ("bfloat16", CARD_CPU_BF16)):
+        cfg = cfg_of(dtype)
+        with torch.inference_mode():
+            g = torch.Generator(device="cpu").manual_seed(12)
+            cpu_model = init_params(cfg, g)
+            card_model = copy.deepcopy(cpu_model).to(dev)
+            prompts = torch.randint(2, cfg.vocab, (B, S), generator=g)
+            before = rg.rglru_scan.launches
+            toks_card, rec = generate(card_model, prompts.to(dev), steps)
+            card_launches = rg.rglru_scan.launches - before
+            toks_cpu, rec_cpu = generate(cpu_model, prompts, steps)
+        errs = []
+        for key in ("logits", "last_logits"):
+            a, b = rec[key].float().cpu(), rec_cpu[key].float()
+            check(bool(torch.isfinite(a).all()), f"{dtype}: card {key} not finite")
+            errs.append(float((a - b).abs().max() / b.abs().max()))
+        err, err_dec = errs
+        same = torch.equal(toks_card.cpu(), toks_cpu)
+        n_rglru = card_model.kinds.count("rglru")
+        check(card_launches == n_rglru, f"{dtype}: {card_launches} launches, "
+              f"want {n_rglru}")
+        check(err <= tol, f"{dtype}: card vs CPU prefill logits {err:.3e} > {tol:g}")
+        check(err_dec <= tol, f"{dtype}: card vs CPU logits of the last decode step "
+              f"{err_dec:.3e} > {tol:g}")
+        if dtype == "float32":
+            check(same, f"float32: card tokens {toks_card.tolist()} vs CPU "
+                  f"{toks_cpu.tolist()}")
+        out[dtype] = {"rel_err": err, "rel_err_last_decode": err_dec,
+                      "tokens_equal": same, "launches": card_launches,
+                      "card_tokens": toks_card.tolist(), "cpu_tokens": toks_cpu.tolist()}
+        log(f"[12] {cfg.name} n_layers=5 (unit + tail) {dtype}, {B} x {S} + "
+            f"{steps} steps: card vs CPU logits, prefill {err:.3e}, last decode "
+            f"step {err_dec:.3e} (<= {tol:g}); greedy tokens "
+            f"{'identical' if same else 'differ'}, "
+            f"{card_launches} kernel launches")
+        del cpu_model, card_model
+    detail["card_vs_cpu"] = out
+
+
 def main() -> int:
     import torch
 
@@ -544,6 +775,7 @@ def main() -> int:
     from repro_torch.core import oef, torch_solve
     from repro_torch.kernels import _build
     from repro_torch.kernels import envy as ev
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import waterfill as wf
 
     ITERS = torch_solve.ITERS  # launches per cold solve; one more when warm
@@ -559,10 +791,11 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        lib_paths = list(pool.map(_build.build, ("waterfill", "envy")))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        lib_paths = list(pool.map(_build.build, ("waterfill", "envy", "rglru_scan")))
     wf.load()
     ev.load()
+    rg.load()
     build_s = time.perf_counter() - t0
     log(f"[1] built {', '.join(os.path.relpath(p, ROOT) for p in lib_paths)} "
         f"in {build_s:.2f} s")
@@ -734,6 +967,11 @@ def main() -> int:
     coop_tier_phase(np, ev, detail)
     envy_launches = coop_service_phase(torch, np, ev, wf, detail)
     coop_devices_phase(detail)
+
+    # -- 10-12. serving recurrentgemma-2b and its RG-LRU scan kernel ------------
+    rg_t = rglru_phase(torch, rg, detail)
+    rg_launches = serve_phase(torch, rg, wf, ev, detail, rg_t)
+    devices_phase(torch, rg, detail)
     detail["total_s"] = time.perf_counter() - t_all
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -765,6 +1003,18 @@ def main() -> int:
         "bound_ms": envy_t["bound_ms"],
         "bound_by": envy_t["bound_by"],
         "library_ms": envy_t["library_ms"],
+    }, {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:22",
+        "launches": rg_launches,
+        "max_abs_err": rg_t["max_abs_err"],
+        "ms": rg_t["kernel_ms"],
+        "plain_ms": rg_t["plain_ms"],
+        "bound_ms": rg_t["bound_ms"],
+        "bound_by": rg_t["bound_by"],
+        "library_ms": rg_t["library_ms"],
     }]}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

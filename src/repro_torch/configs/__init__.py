@@ -1,0 +1,50 @@
+"""Architecture configs the port runs (exact) + reduced smoke variants.
+
+A copy of ``repro.configs`` for the architectures whose serving path the
+port has: ``get_config(name)`` returns the full config, ``get_smoke(name)``
+the reduced same-family variant for CPU tests. ``ALL_ARCHS`` lists them.
+Any other architecture of the JAX package raises ``KeyError``: its layers
+are not ported yet (ROADMAP.md, Queue A).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.config import ArchConfig
+
+ALL_ARCHS: List[str] = [
+    "recurrentgemma_2b",
+]
+
+# canonical dashed ids -> module names
+ALIASES: Dict[str, str] = {
+    "recurrentgemma-2b": "recurrentgemma_2b",
+}
+
+
+def _module(name: str):
+    mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    if mod_name not in ALL_ARCHS:
+        raise KeyError(
+            f"architecture {name!r} is not ported to repro_torch yet (ported: "
+            f"{', '.join(sorted(ALIASES))}); see ROADMAP.md, Queue A")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(name: str, **overrides) -> ArchConfig:
+    cfg = _module(name).CONFIG
+    if overrides:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def get_smoke(name: str, **overrides) -> ArchConfig:
+    cfg = _module(name).SMOKE
+    if overrides:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg

@@ -1,0 +1,106 @@
+"""Serving launcher: prefill a batch of prompts, decode N tokens greedily.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+        --batch 8 --prompt-len 2048 --decode-steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+        --smoke --device cpu
+
+The port of ``repro.launch.serve``: the same flags and defaults, plus
+``--device`` (default ``cuda``; it raises when torch sees no GPU). Weights
+and prompts come from a ``torch.Generator`` seeded with ``--seed``. A first
+run of the same prefill and decode builds the RG-LRU kernel and warms up,
+and is reported apart; then the timed prefill and decode run. On the card
+every RG-LRU layer's prefill scan is the CUDA kernel and a decode step runs
+no kernel; the launch counts are printed.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..kernels.ops import rglru_scan
+from ..models.model import Model
+from ..obs.clock import wall
+from ..runtime import make_prefill_step, make_serve_step
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(model: Model, prompts: torch.Tensor,
+             steps: int) -> Tuple[torch.Tensor, Dict[str, object]]:
+    """Prefill ``prompts`` (B, S) with a cache of S + steps + 8 positions,
+    as the JAX launcher sizes it, then ``steps`` greedy decode steps.
+
+    Returns the tokens (B, steps + 1) (the prefill's argmax, then one per
+    step) and a record: wall seconds of the prefill and of the decode loop
+    (each ends in a device sync), the RG-LRU kernel launches in each, the
+    prefill's last-position logits and the last decode step's logits.
+    """
+    prefill_step = make_prefill_step(model, prompts.shape[1] + steps + 8)
+    serve_step = make_serve_step(model)
+    vocab = model.cfg.vocab
+    dev = prompts.device
+    _sync(dev)
+    l0, t0 = rglru_scan.launches, wall()
+    cache, logits = prefill_step({"tokens": prompts})
+    tok = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None]
+    _sync(dev)
+    l1, t1 = rglru_scan.launches, wall()
+    outs = [tok]
+    last_logits = logits
+    for _ in range(steps):
+        cache, tok, last_logits = serve_step(cache, tok)
+        outs.append(tok)
+    _sync(dev)
+    l2, t2 = rglru_scan.launches, wall()
+    return torch.cat(outs, dim=1), {
+        "prefill_s": t1 - t0, "decode_s": t2 - t1,
+        "prefill_launches": l1 - l0, "decode_launches": l2 - l1,
+        "logits": logits, "last_logits": last_logits}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", type=str, required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--decode-steps", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", type=str, default="cuda")
+    args = ap.parse_args(argv)
+
+    from ..configs import get_config, get_smoke
+    from ..core.torch_solve import resolve_device
+    from ..models import init_params
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    B, S, steps = args.batch, args.prompt_len, args.decode_steps
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    with torch.inference_mode():
+        model = init_params(cfg, gen)
+        prompts = torch.randint(2, cfg.vocab, (B, S), generator=gen, device=dev)
+        t0 = wall()
+        generate(model, prompts, steps)
+        warm_s = wall() - t0
+        toks, rec = generate(model, prompts, steps)
+    print(f"{cfg.name} on {dev}: warm-up (a first prefill and decode, kernel "
+          f"build included) {warm_s:.2f}s")
+    print(f"prefill {B}x{S}: {rec['prefill_s']:.3f}s "
+          f"({B * S / rec['prefill_s']:.1f} tok/s)")
+    print(f"decode {steps} steps: {rec['decode_s']:.3f}s "
+          f"({B * steps / rec['decode_s']:.1f} tok/s)")
+    print(f"rglru_scan kernel launches: prefill {rec['prefill_launches']}, "
+          f"decode {rec['decode_launches']}")
+    for b in range(min(B, 4)):
+        print(f"  seq{b}: {toks[b][:16].tolist()}{'...' if steps > 15 else ''}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,11 @@
+"""The model stack's serving path (recurrentgemma-2b): config, layers,
+model assembly with prefill and greedy decode."""
+from .config import ArchConfig, SHAPE_CELLS, ShapeCell, shape_cell  # noqa: F401
+from .model import (  # noqa: F401
+    Model,
+    decode_step,
+    init_cache,
+    init_params,
+    layer_kinds,
+    prefill,
+)

@@ -49,6 +49,26 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert "repro_torch.core.torch_coop" in out["modules"]
     assert "repro_torch.kernels.envy" in out["modules"]
     assert "repro_torch.service.__main__" in out["modules"]
+    assert "repro_torch.kernels.rglru_scan" in out["modules"]
+    assert "repro_torch.models.model" in out["modules"]
+    assert "repro_torch.configs" in out["modules"]
+    assert "repro_torch.launch.serve" in out["modules"]
+
+
+def test_service_interop_loads_no_model_stack():
+    """``interop``'s service helpers come without the serving model: its
+    model converters import ``models`` only when called."""
+    code = """
+import json, sys
+import repro_torch.interop
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.startswith(("repro_torch.models", "repro_torch.configs")))))
+"""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def imported_roots(path):
