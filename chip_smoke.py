@@ -4,9 +4,10 @@
 Drives ``repro_torch`` (never the JAX package) in phases; any failed check
 raises and the script exits non-zero:
 
-1. build the water-filling, envy-gap and RG-LRU scan kernels from
-   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``, one
-   compiler process per source, all started together;
+1. build the water-filling, envy-gap, RG-LRU scan, flash attention and
+   cross-entropy kernels from ``src/repro_torch/kernels/csrc`` with
+   ``nvcc`` for ``sm_90a``, one compiler process per source, all started
+   together;
 2. hold the kernel against its plain torch version on the card, on seeded
    staircase instances (n_pad 8..8192, k 3 and 4, T 1 and 8) at
    atol = rtol = 1e-12, and time both at the service's shape (n_pad 1024,
@@ -68,12 +69,28 @@ raises and the script exits non-zero:
     prefill (one per RG-LRU layer) and none in decode, finite logits, and
     a second run repeats the tokens and logits bit for bit; prefill and
     decode rates, the kernel's share of prefill, peak memory and the top
-    device operations of one prefill (``torch.profiler``);
+    device operations of one prefill (``torch.profiler``); no launch of
+    any other kernel (the model calls neither flash attention nor the
+    cross-entropy);
 12. the card against the CPU at full width and cut depth (``n_layers=5``:
     one unit and the two-layer tail), B = 1, S = 256, the same weights
     built on the CPU and copied to the card: in float32 the prefill logits
     within 1e-4 of max |logits| and 8 greedy decode tokens identical; in
-    bf16 within 5e-2.
+    bf16 within 5e-2;
+13. hold the flash attention kernel against its plain version through
+    ``ops.flash_attention`` / ``flash_attention_gqa`` (1e-5 in float32,
+    2e-2 in bf16), one launch per op call: the JAX kernel tests' shapes in
+    both dtypes, causal and not, windows 64-256, GQA, Sq != Sk, rows that
+    see no key, D = 256, ragged tiles and D 48 / 80; then two full-width shapes (recurrentgemma-2b's
+    and gemma3-4b's local attention) held to the plain version and to
+    ``scaled_dot_product_attention`` and timed: device time by CUDA-graph
+    replay, op call, plain version, SDPA and the bound;
+14. the same for the cross-entropy kernel through ``ops.softmax_xent``
+    (atol 1e-4, rtol 1e-5): the JAX kernel tests' shapes, a prime V,
+    N = 1, V = 1, unaligned float32 rows, int64 targets, targets -1 and V (the loss is the logsumexp);
+    then one training-loss chunk of 4096 tokens over gemma3-4b's 262,144
+    and recurrentgemma-2b's 256,000 vocab, timed against the plain version,
+    ``F.cross_entropy`` and the byte bound.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
@@ -99,6 +116,9 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
 FP32_FLOPS = 67e12
+#: the published H100 SXM dense bf16 rate of the tensor cores (NVIDIA data
+#: sheet): the least time for attention's products on bf16 inputs.
+BF16_TC_FLOPS = 989e12
 
 TOL = 1e-12      # kernel vs plain version (as the JAX kernel test)
 PARITY = 1e-9    # solve on the card vs the same solve on the CPU
@@ -113,6 +133,11 @@ RG_ATOL, RG_RTOL = 1e-6, 1e-5
 #: card vs CPU prefill logits, max |diff| / max |logits| (phase 12): float32,
 #: and bf16 (the bound tests/test_models.py holds prefill to)
 CARD_CPU_F32, CARD_CPU_BF16 = 1e-4, 5e-2
+#: flash attention kernel vs its plain version (phase 13), by dtype: the
+#: tolerances the JAX package's flash tests hold the Pallas kernel to
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: cross-entropy kernel vs its plain version (phase 14), as the JAX test
+XENT_ATOL, XENT_RTOL = 1e-4, 1e-5
 ARCH = "recurrentgemma-2b"
 
 
@@ -632,9 +657,10 @@ def device_kernels(torch, fn) -> list:
     return sorted(rows, key=lambda r: -r["device_ms"])
 
 
-def serve_phase(torch, rg, wf, ev, detail, rg_t, dev="cuda", cfg=None) -> int:
+def serve_phase(torch, rg, idle, detail, rg_t, dev="cuda", cfg=None) -> int:
     """Phase 11: recurrentgemma-2b at full width, prefill + greedy decode;
-    returns the kernel launches of the main run."""
+    returns the kernel launches of the main run. ``idle`` names the wrappers
+    of the other kernels, none of which the serve path may launch."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import init_params, prefill
@@ -655,12 +681,13 @@ def serve_phase(torch, rg, wf, ev, detail, rg_t, dev="cuda", cfg=None) -> int:
         warm_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         rg.rglru_scan.launches = 0
-        wf.waterfill_masses.launches = 0
-        ev.envy_gaps.launches = 0
+        for wrapper in idle.values():
+            wrapper.launches = 0
         toks, rec = generate(model, prompts, steps)
         launches = rg.rglru_scan.launches
-        check(wf.waterfill_masses.launches == 0 and ev.envy_gaps.launches == 0,
-              "the serve path ran a solver kernel")
+        idle_launches = {name: w.launches for name, w in idle.items()}
+        check(not any(idle_launches.values()),
+              f"the serve path launched other kernels: {idle_launches}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         check(n_rglru == 18 or not full, f"{n_rglru} RG-LRU layers at full width")
         check(rec["prefill_launches"] == n_rglru,
@@ -692,7 +719,8 @@ def serve_phase(torch, rg, wf, ev, detail, rg_t, dev="cuda", cfg=None) -> int:
            "profiled_prefill": {"device_busy_ms": busy_ms, "rglru_scan_ms": rglru_ms,
                                 "idle_share": 1.0 - busy_ms / 1e3 / prefill_s,
                                 "top_kernels": kernels[:15]},
-           "peak_memory_gb": peak_gb, "first_tokens": toks[:, :8].tolist()}
+           "peak_memory_gb": peak_gb, "first_tokens": toks[:, :8].tolist(),
+           "other_kernel_launches": idle_launches}
     detail["serve_full_width"] = out
     log(f"[11] {cfg.name} at full width, {B} x {S} prompt + {steps} greedy steps "
         f"(warm-up {warm_s:.2f} s): prefill {prefill_s:.3f} s "
@@ -700,7 +728,7 @@ def serve_phase(torch, rg, wf, ev, detail, rg_t, dev="cuda", cfg=None) -> int:
         f"({out['decode_tok_s']:.1f} tok/s); {rec['prefill_launches']} kernel "
         f"launches per prefill, {rec['decode_launches']} in decode; kernel "
         f"{out['kernel_share_of_prefill']:.2%} of prefill; peak {peak_gb:.2f} GB; "
-        f"second run identical")
+        f"second run identical; 0 launches of {', '.join(idle)}")
     log(f"    one profiled prefill: kernels busy {busy_ms:.1f} ms (device idle "
         f"{out['profiled_prefill']['idle_share']:.1%} of the untraced prefill), "
         f"rglru_scan {rglru_ms:.2f} ms; top: " + "; ".join(
@@ -758,6 +786,241 @@ def devices_phase(torch, rg, detail, dev="cuda", cfg_of=None) -> None:
     detail["card_vs_cpu"] = out
 
 
+def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """The (query, key) pairs the attention mask lets through, per head."""
+    n = 0
+    for q in range(Sq):
+        lo = 0 if window is None else max(0, q - window + 1)
+        hi = min(Sk, q + 1) if causal else Sk
+        n += max(0, hi - lo)
+    return n
+
+
+#: full-width attention shapes of phase 13: (label, B, Hq, Hkv, S, D,
+#: causal, window). recurrentgemma-2b's sliding layer at the serve cell's
+#: prefill (configs/recurrentgemma_2b.py: 10 query heads, 1 KV head of 256,
+#: window 2048), and gemma3-4b's local layer (the JAX package's
+#: configs/gemma3_4b.py: 8 query heads, 4 KV heads of 256, window 1024).
+FLASH_FULL = (("flash_rgemma2b_b8_s2048", 8, 10, 1, 2048, 256, True, 2048),
+              ("flash_gemma3_4b_b4_s4096_w1024", 4, 8, 4, 4096, 256, True, 1024))
+
+
+def flash_phase(torch, fa, detail, dev="cuda") -> dict:
+    """Phase 13: the flash attention kernel against its plain version through
+    ``ops.flash_attention`` / ``flash_attention_gqa``, one launch per call,
+    and its times at two full-width shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_mask
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def operands(B, Hq, Hkv, Sq, Sk, D, dtype):
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+
+    def op_call(q, k, v, **kw):
+        before = fa.flash_attention.launches
+        op = ops.flash_attention if q.shape[1] == k.shape[1] else ops.flash_attention_gqa
+        out = op(q, k, v, **kw)
+        check(fa.flash_attention.launches == before + 1,
+              f"{fa.flash_attention.launches - before} launches for one op call")
+        return out
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []  # (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window)
+    for B, H, S, D in ((1, 1, 128, 64), (2, 4, 256, 64), (1, 2, 512, 128),
+                       (2, 2, 384, 32)):
+        cases += [(B, H, H, S, S, D, dt, c, None) for dt in (f32, bf16)
+                  for c in (True, False)]
+    cases += [(1, 2, 2, 512, 512, 64, f32, True, w) for w in (64, 128, 256)]
+    cases += [(2, 8, 2, 256, 256, 64, f32, True, None),   # GQA
+              (1, 2, 2, 256, 384, 64, f32, True, None),   # Sq != Sk
+              (1, 2, 2, 128, 512, 64, f32, False, 128),   # Sq != Sk, window only
+              (1, 2, 2, 256, 128, 64, f32, True, 64),     # rows q >= 191 see no key
+              (1, 2, 2, 256, 256, 256, f32, True, None),  # D = 256
+              (1, 4, 2, 256, 256, 256, bf16, False, 128),
+              # ragged query and key tiles, D below the kernel's tile width
+              (1, 2, 2, 80, 144, 48, f32, True, None),
+              (2, 3, 1, 208, 112, 80, bf16, False, 48),
+              (1, 2, 2, 48, 48, 256, f32, True, 16)]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for B, Hq, Hkv, Sq, Sk, D, dtype, causal, window in cases:
+        q, k, v = operands(B, Hq, Hkv, Sq, Sk, D, dtype)
+        # blocks of 16 only widen the lengths the op accepts
+        got = op_call(q, k, v, causal=causal, window=window, block_q=16, block_k=16)
+        ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        what = f"flash {(B, Hq, Hkv, Sq, Sk, D)} {dtype} causal={causal} window={window}"
+        check(got.dtype == dtype and tuple(got.shape) == (B, Hq, Sq, D),
+              f"{what}: got {got.dtype} {tuple(got.shape)}")
+        key = str(dtype).split(".")[1]
+        tol = FLASH_TOL[key]
+        torch.testing.assert_close(got, ref, atol=tol, rtol=tol,
+                                   msg=lambda m: f"{what}: {m}")
+        worst[key] = max(worst[key], float((got.float() - ref.float()).abs().max()))
+        del q, k, v, got, ref
+    log(f"[13] flash_attention kernel == plain on {len(cases)} cases, 1 launch per op "
+        f"call; max |diff| fp32 {worst['float32']:.3e} (tol {FLASH_TOL['float32']:g}), "
+        f"bf16 {worst['bfloat16']:.3e} (tol {FLASH_TOL['bfloat16']:g})")
+
+    full = {}
+    ins = {label: operands(B, Hq, Hkv, S, S, D, bf16)
+           for label, B, Hq, Hkv, S, D, _c, _w in FLASH_FULL}
+    # the main path: one op call at each full-width shape
+    fa.flash_attention.launches = 0
+    outs = {label: op_call(*ins[label], causal=c, window=w)
+            for label, *_shape, c, w in FLASH_FULL}
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    check(launches == len(FLASH_FULL), f"{launches} launches for {len(FLASH_FULL)} calls")
+    for label, B, Hq, Hkv, S, D, causal, window in FLASH_FULL:
+        q, k, v = ins[label]
+        got = outs[label]
+        ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got, ref, atol=FLASH_TOL["bfloat16"],
+                                   rtol=FLASH_TOL["bfloat16"])
+        err = float((got.float() - ref.float()).abs().max())
+        del ref
+        # SDPA's own causal form where the window hides nothing, else a mask
+        mask = (None if window is None or window >= S
+                else attention_mask(S, S, causal, window, dev))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+
+        torch.testing.assert_close(library(), got, atol=FLASH_TOL["bfloat16"],
+                                   rtol=FLASH_TOL["bfloat16"])
+        t = {"max_abs_err": err,
+             "kernel_ms": graph_ms(torch, lambda: fa._launch(q, k, v, causal, window),
+                                   reps=3, rounds=2),
+             "call_ms": call_ms(torch, lambda: ops.flash_attention_gqa(
+                 q, k, v, causal=causal, window=window), reps=5),
+             "plain_ms": graph_ms(torch, lambda: fa.flash_attention_plain(
+                 q, k, v, causal=causal, window=window), reps=1, rounds=2),
+             "library_ms": graph_ms(torch, library, reps=3, rounds=2)}
+        pairs = visible_pairs(S, S, causal, window) * B * Hq
+        n_bytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+        t["gflop"] = 4 * D * pairs / 1e9
+        t["bound_ms"], t["bound_by"] = bound(n_bytes, 4 * D * pairs, BF16_TC_FLOPS)
+        full[label] = t
+        log(f"    {label}: kernel {t['kernel_ms']:.3f} ms (graph replay; "
+            f"{t['call_ms']:.3f} ms per op call), plain {t['plain_ms']:.3f} ms, "
+            f"SDPA {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}, {t['gflop']:.1f} GFLOP, {n_bytes / 1e6:.0f} MB); "
+            f"max |diff| vs plain {err:.3e}")
+        del got, mask
+    del ins, outs
+    worst_all = max(*worst.values(), *(t["max_abs_err"] for t in full.values()))
+    detail["flash_kernel"] = {"cases": len(cases), "max_abs_err": worst,
+                              "launches": launches, "full_width": full}
+    return {"max_abs_err": worst_all, "launches": launches, **full[FLASH_FULL[0][0]]}
+
+
+#: full-width cross-entropy shapes of phase 14: (label, N, V). One chunk of
+#: the training loss (``logits_chunk`` 512 at batch 8) for gemma3-4b's
+#: 262,144 vocab and recurrentgemma-2b's 256,000.
+XENT_FULL = (("xent_gemma3_4b_n4096_v262144", 4096, 262144),
+             ("xent_rgemma2b_n4096_v256000", 4096, 256000))
+
+
+def xent_phase(torch, xe, detail, dev="cuda") -> dict:
+    """Phase 14: the cross-entropy kernel against its plain version through
+    ``ops.softmax_xent``, one launch per call, and its times at two
+    full-width shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def operands(N, V, dtype, tdtype=torch.int32, edge=False):
+        logits = (3 * torch.randn((N, V), generator=g, device=dev)).to(dtype)
+        targets = torch.randint(0, V, (N,), generator=g, device=dev, dtype=tdtype)
+        if edge:  # targets outside [0, V): the loss is the logsumexp
+            targets[0::2] = -1
+            targets[1::4] = V
+        return logits, targets
+
+    def op_call(logits, targets):
+        before = xe.softmax_xent.launches
+        out = ops.softmax_xent(logits, targets)
+        check(xe.softmax_xent.launches == before + 1,
+              f"{xe.softmax_xent.launches - before} launches for one op call")
+        return out
+
+    f32, bf16, i64 = torch.float32, torch.bfloat16, torch.int64
+    cases = [((256, 4096), f32, {}), ((128, 51968), bf16, {}), ((64, 1000), f32, {}),
+             ((32, 262144), bf16, {}), ((64, 50257), bf16, {}), ((1, 4096), f32, {}),
+             ((1, 1), f32, {}), ((8, 4099), f32, {}),
+             ((96, 51968), bf16, {"tdtype": i64}),
+             ((64, 1000), f32, {"edge": True}), ((16, 50257), bf16, {"edge": True})]
+    worst = 0.0
+    for (N, V), dtype, kw in cases:
+        logits, targets = operands(N, V, dtype, **kw)
+        got = op_call(logits, targets)
+        ref = xe.softmax_xent_plain(logits, targets)
+        torch.cuda.synchronize()
+        what = f"xent {(N, V)} {dtype} {kw}"
+        check(got.dtype == f32 and tuple(got.shape) == (N,), f"{what}: {got.dtype}")
+        torch.testing.assert_close(got, ref, atol=XENT_ATOL, rtol=XENT_RTOL,
+                                   msg=lambda m: f"{what}: {m}")
+        if kw.get("edge"):
+            lse = torch.logsumexp(logits.float(), -1)
+            outside = (targets < 0) | (targets >= V)
+            torch.testing.assert_close(got[outside], lse[outside], atol=XENT_ATOL,
+                                       rtol=XENT_RTOL)
+        worst = max(worst, float((got - ref).abs().max()))
+        del logits, targets, got, ref
+    log(f"[14] softmax_xent kernel == plain on {len(cases)} cases (atol {XENT_ATOL:g}, "
+        f"rtol {XENT_RTOL:g}), 1 launch per op call, max |diff| {worst:.3e}")
+
+    full = {}
+    ins = {label: operands(N, V, bf16, tdtype=i64) for label, N, V in XENT_FULL}
+    # the main path: one op call at each full-width shape
+    xe.softmax_xent.launches = 0
+    outs = {label: op_call(*ins[label]) for label, _N, _V in XENT_FULL}
+    torch.cuda.synchronize()
+    launches = xe.softmax_xent.launches
+    check(launches == len(XENT_FULL), f"{launches} launches for {len(XENT_FULL)} calls")
+    for label, N, V in XENT_FULL:
+        logits, targets = ins[label]
+        got = outs[label]
+        ref = xe.softmax_xent_plain(logits, targets)
+        torch.testing.assert_close(got, ref, atol=XENT_ATOL, rtol=XENT_RTOL)
+        err = float((got - ref).abs().max())
+        del ref
+
+        def library():
+            return F.cross_entropy(logits.float(), targets, reduction="none")
+
+        torch.testing.assert_close(library(), got, atol=XENT_ATOL, rtol=XENT_RTOL)
+        t = {"max_abs_err": err,
+             "kernel_ms": graph_ms(torch, lambda: xe._launch(logits, targets),
+                                   reps=10, rounds=3),
+             "call_ms": call_ms(torch, lambda: ops.softmax_xent(logits, targets),
+                                reps=20),
+             "plain_ms": graph_ms(torch, lambda: xe.softmax_xent_plain(logits, targets),
+                                  reps=1, rounds=2),
+             "library_ms": graph_ms(torch, library, reps=1, rounds=2)}
+        n_bytes = N * V * 2 + N * 8 + N * 4
+        t["bound_ms"], t["bound_by"] = bound(n_bytes, 4 * N * V, FP32_FLOPS)
+        full[label] = t
+        log(f"    {label}: kernel {t['kernel_ms']:.3f} ms (graph replay; "
+            f"{t['call_ms']:.3f} ms per op call), plain {t['plain_ms']:.3f} ms, "
+            f"F.cross_entropy {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}, {n_bytes / 1e9:.2f} GB); max |diff| vs plain {err:.3e}")
+        del got
+    del ins, outs
+    worst_all = max(worst, *(t["max_abs_err"] for t in full.values()))
+    detail["xent_kernel"] = {"cases": len(cases), "max_abs_err": worst,
+                             "launches": launches, "full_width": full}
+    return {"max_abs_err": worst_all, "launches": launches, **full[XENT_FULL[0][0]]}
+
+
 def main() -> int:
     import torch
 
@@ -775,8 +1038,10 @@ def main() -> int:
     from repro_torch.core import oef, torch_solve
     from repro_torch.kernels import _build
     from repro_torch.kernels import envy as ev
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import waterfill as wf
+    from repro_torch.kernels import xent as xe
 
     ITERS = torch_solve.ITERS  # launches per cold solve; one more when warm
 
@@ -791,11 +1056,12 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        lib_paths = list(pool.map(_build.build, ("waterfill", "envy", "rglru_scan")))
-    wf.load()
-    ev.load()
-    rg.load()
+    kernel_mods = (wf, ev, rg, fa, xe)
+    with ThreadPoolExecutor(max_workers=len(kernel_mods)) as pool:
+        lib_paths = list(pool.map(_build.build, ("waterfill", "envy", "rglru_scan",
+                                                 "flash_attention", "xent")))
+    for mod in kernel_mods:
+        mod.load()
     build_s = time.perf_counter() - t0
     log(f"[1] built {', '.join(os.path.relpath(p, ROOT) for p in lib_paths)} "
         f"in {build_s:.2f} s")
@@ -970,8 +1236,18 @@ def main() -> int:
 
     # -- 10-12. serving recurrentgemma-2b and its RG-LRU scan kernel ------------
     rg_t = rglru_phase(torch, rg, detail)
-    rg_launches = serve_phase(torch, rg, wf, ev, detail, rg_t)
+    rg_launches = serve_phase(torch, rg, {
+        "waterfill_masses": wf.waterfill_masses, "envy_gaps": ev.envy_gaps,
+        "flash_attention": fa.flash_attention, "softmax_xent": xe.softmax_xent},
+        detail, rg_t)
     devices_phase(torch, rg, detail)
+
+    # -- 13-14. the attention and cross-entropy ops -------------------------------
+    t0 = time.perf_counter()
+    fa_t = flash_phase(torch, fa, detail)
+    xe_t = xent_phase(torch, xe, detail)
+    detail["ops_phases_s"] = time.perf_counter() - t0
+    log(f"    phases 13-14 took {detail['ops_phases_s']:.1f} s")
     detail["total_s"] = time.perf_counter() - t_all
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1015,6 +1291,30 @@ def main() -> int:
         "bound_ms": rg_t["bound_ms"],
         "bound_by": rg_t["bound_by"],
         "library_ms": rg_t["library_ms"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": fa_t["launches"],
+        "max_abs_err": fa_t["max_abs_err"],
+        "ms": fa_t["kernel_ms"],
+        "plain_ms": fa_t["plain_ms"],
+        "bound_ms": fa_t["bound_ms"],
+        "bound_by": fa_t["bound_by"],
+        "library_ms": fa_t["library_ms"],
+    }, {
+        "name": "softmax_xent",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xent.cu",
+        "replaces": "src/repro/kernels/xent.py:28",
+        "launches": xe_t["launches"],
+        "max_abs_err": xe_t["max_abs_err"],
+        "ms": xe_t["kernel_ms"],
+        "plain_ms": xe_t["plain_ms"],
+        "bound_ms": xe_t["bound_ms"],
+        "bound_by": xe_t["bound_by"],
+        "library_ms": xe_t["library_ms"],
     }]}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,26 @@
 """Hand-written CUDA kernels of the port, each beside its plain torch version.
 
+Every Pallas kernel of the JAX package has its counterpart here:
+
   - waterfill — the water-filling feasibility mass of the non-cooperative
-    OEF solve (``csrc/waterfill.cu``); replaces the JAX package's Pallas
-    kernel ``kernels/waterfill.py``;
+    OEF solve (``csrc/waterfill.cu``); replaces the Pallas kernel
+    ``kernels/waterfill.py``;
   - envy — the pairwise envy-gap matrix of the cooperative primal–dual
     solve (``csrc/envy.cu``); replaces the Pallas kernel ``kernels/envy.py``;
   - rglru_scan — the RG-LRU linear recurrence of the model's prefill
     (``csrc/rglru_scan.cu``); replaces the Pallas kernel
-    ``kernels/rglru_scan.py``. Its public wrapper is ``ops.rglru_scan``.
+    ``kernels/rglru_scan.py``;
+  - flash_attention — forward online-softmax attention, causal and/or
+    sliding window, GQA without copied KV heads
+    (``csrc/flash_attention.cu``); replaces the Pallas kernel
+    ``kernels/flash_attention.py``;
+  - xent — the fused per-token softmax cross-entropy (``csrc/xent.cu``);
+    replaces the Pallas kernel ``kernels/xent.py``.
 
-A kernel that fails to build, load or launch raises :class:`KernelError`.
+The last three are the public ops of ``ops`` (``rglru_scan``,
+``flash_attention``, ``flash_attention_gqa``, ``softmax_xent``), and
+``ref`` holds the plain oracles they are held to. A kernel that fails to
+build, load or launch raises :class:`KernelError`.
 """
 from ._build import KernelError
 from .envy import envy_gaps, envy_gaps_plain

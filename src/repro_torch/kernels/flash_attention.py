@@ -1,0 +1,172 @@
+"""Flash attention forward: the CUDA kernel and its plain version.
+
+Softmax attention over (B, H, S, D) queries, keys and values, float32 or
+bfloat16, with float32 scores and accumulation and the output in q's dtype:
+
+    out = softmax(q k^T / sqrt(D), masked to -1e30) v
+
+where key ``k`` is hidden from query ``q`` when ``causal`` and ``q < k``, or
+when a ``window`` is given and ``q - k >= window`` (positions counted from 0
+for both, also when Sq != Sk). A query that sees no key at all gets the mean
+of V over all keys, as the oracle ``ref.attention_ref`` gives it.
+
+:func:`flash_attention` (equal heads) and :func:`flash_attention_gqa`
+(``Hq`` a multiple of ``Hkv``) take the JAX package's signatures
+(``repro/kernels/ops.py``) less ``interpret``. On CUDA tensors they launch
+the hand-written kernel of ``csrc/flash_attention.cu`` (built with ``nvcc``
+on first use, see :mod:`repro_torch.kernels._build`), which reads KV head
+``h // (Hq // Hkv)`` for query head ``h`` without copying it; on CPU
+tensors they run :func:`flash_attention_plain`, the oracle's arithmetic.
+There is no other route: a CUDA tensor never falls back to the plain
+version, and a failed build or launch raises ``KernelError``.
+``flash_attention.launches`` counts the kernel's launches from both.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from .ref import attention_ref
+from ._build import KernelError
+
+#: operand dtypes the kernel takes, and their codes in csrc/flash_attention.cu.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: largest head dimension the kernel takes.
+MAX_D = 256
+#: query rows per block of the kernel (``kBQ``); the grid's second dimension
+#: holds ceil(Sq / 64) <= 65535 tiles.
+BLOCK_Q = 64
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
+    """Plain torch version: ``ref.attention_ref`` on KV heads repeated to
+    q's head count. Returns (B, Hq, Sq, D) in q's dtype."""
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    return attention_ref(q, k, v, causal=causal, window=window)
+
+
+_LIB = None
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel's library, setting its C
+    signatures once; raises :class:`~repro_torch.kernels.KernelError` when
+    ``nvcc`` is missing or the build fails."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("flash_attention")
+        lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_attention.restype = ctypes.c_int
+        lib.flash_error_string.argtypes = [ctypes.c_int]
+        lib.flash_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
+    """Launch the CUDA kernel on checked operands; returns (B, Hq, Sq, D)
+    in q's dtype."""
+    lib = load()
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    # a window at or past Sq hides nothing, one at or below -Sk hides all
+    w = 0 if window is None else max(min(int(window), Sq), -Sk)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  out.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+                                  int(bool(causal)), int(window is not None), w,
+                                  1.0 / math.sqrt(D), DTYPES[q.dtype], stream)
+    if err != 0:
+        raise KernelError(
+            f"flash_attention kernel launch failed: "
+            f"{lib.flash_error_string(err).decode()} (cuda error {err})")
+    flash_attention.launches += 1
+    return out
+
+
+def _check_blocks(Sq: int, Sk: int, block_q: int, block_k: int) -> None:
+    """Refuse what the JAX op refuses: sequence lengths its tiles do not
+    divide (``repro/kernels/flash_attention.py``). The kernel's own tiles
+    are its own and mask a ragged edge."""
+    if block_q < 1 or block_k < 1 or Sq % block_q or Sk % block_k:
+        raise ValueError(
+            f"sequence lengths (Sq={Sq}, Sk={Sk}) must be divisible by the "
+            f"tile shapes (block_q={block_q}, block_k={block_k}); pad the "
+            f"inputs or pass smaller blocks")
+
+
+def _check(q, k, v) -> None:
+    """Refuse operands of the wrong rank, shape, dtype or placement."""
+    if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"q must be (B, Hq, Sq, D) and k, v one (B, Hkv, Sk, D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"k and v {tuple(k.shape)} do not match q {tuple(q.shape)} "
+                         f"in batch or head dimension")
+    if min(q.shape) < 1 or min(k.shape) < 1:
+        raise ValueError(f"flash_attention needs non-empty operands, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must all be float32 or all bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def _route(q, k, v, causal: bool, window) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    dev = q.device
+    if dev.type == "cuda":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous for the kernel")
+        B, Hq, Sq, D = q.shape
+        if D > MAX_D:
+            raise ValueError(f"the flash_attention kernel takes D <= {MAX_D}, got {D}")
+        if B * Hq > 2**31 - 1 or -(-Sq // BLOCK_Q) > 65535 or k.shape[2] > 2**31 - 1:
+            raise ValueError(f"the flash_attention kernel takes B * Hq < 2**31 and "
+                             f"Sq <= {65535 * BLOCK_Q}, got {tuple(q.shape)}")
+        return _launch(q, k, v, causal, window)
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """(B, H, S, D) flash attention. GQA: repeat KV heads in the caller or
+    use :func:`flash_attention_gqa`. ``block_q`` / ``block_k`` only refuse
+    the sequence lengths the JAX op refuses."""
+    _check(q, k, v)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"q has {q.shape[1]} heads and k {k.shape[1]}; use "
+                         f"flash_attention_gqa for grouped KV heads")
+    _check_blocks(q.shape[2], k.shape[2], block_q, block_k)
+    return _route(q, k, v, causal, window)
+
+
+def flash_attention_gqa(q, k, v, *, causal: bool = True, window=None,
+                        block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """q: (B, Hq, S, D); k/v: (B, Hkv, S, D) with Hq % Hkv == 0. Query head
+    h attends with KV head h // (Hq // Hkv)."""
+    _check(q, k, v)
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"q's {q.shape[1]} heads are not a multiple of k's "
+                         f"{k.shape[1]}")
+    _check_blocks(q.shape[2], k.shape[2], block_q, block_k)
+    return _route(q, k, v, causal, window)
+
+
+#: launches of the CUDA kernel in this process, from either wrapper
+#: (plain-version calls excluded).
+flash_attention.launches = 0

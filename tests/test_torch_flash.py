@@ -1,0 +1,198 @@
+"""Port's flash attention ops vs the JAX package's oracle, on the CPU.
+
+On CPU tensors ``repro_torch.kernels.ops.flash_attention`` and
+``flash_attention_gqa`` run their plain torch version; they must agree with
+``repro.kernels.ref.attention_ref`` on the same numpy inputs within 1e-5 in
+float32 and 2e-2 in bf16, the tolerances of the JAX package's flash tests
+(``tests/test_kernels.py``), on every case of those tests. The Pallas kernel
+itself does not run under the installed jax (its body calls ``pl.load``),
+so the oracle is the reference, as it is for the JAX tests. Rows that see
+no key follow the oracle: the mean of V over all keys. The CUDA kernel is
+held against the plain version on the card by ``chip_smoke.py`` (phase 13).
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import KernelError, _build, ops
+from repro_torch.kernels import flash_attention as fa
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+TOL = {False: 1e-5, True: 2e-2}  # by bf16
+
+
+def operands(q_shape, kv_shape, seed, bf16=False):
+    """q, k, v drawn from N(0, 1), as jnp arrays and as torch tensors."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in (q_shape, kv_shape, kv_shape)]
+    js = [jnp.asarray(a) for a in arrays]
+    ts = [torch.from_numpy(a) for a in arrays]
+    if bf16:
+        js = [a.astype(jnp.bfloat16) for a in js]
+        ts = [t.bfloat16() for t in ts]
+    return js, ts
+
+
+def close(got, want, bf16=False):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=TOL[bf16], rtol=TOL[bf16])
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 128, 64), (2, 4, 256, 64), (1, 2, 512, 128),
+                                   (2, 2, 384, 32)])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_matches_attention_ref(shape, bf16, causal):
+    (jq, jk, jv), (q, k, v) = operands(shape, shape, seed=0, bf16=bf16)
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=128, block_k=128)
+    assert got.dtype == q.dtype and tuple(got.shape) == shape
+    close(got, jref.attention_ref(jq, jk, jv, causal=causal), bf16)
+
+
+@pytest.mark.parametrize("window", [64, 128, 256])
+def test_sliding_window(window):
+    shape = (1, 2, 512, 64)
+    (jq, jk, jv), (q, k, v) = operands(shape, shape, seed=1)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    close(got, jref.attention_ref(jq, jk, jv, causal=True, window=window))
+
+
+def test_gqa_matches_attention_ref_on_repeated_kv_heads():
+    B, Hq, Hkv, S, D = 2, 8, 2, 256, 64
+    (jq, jk, jv), (q, k, v) = operands((B, Hq, S, D), (B, Hkv, S, D), seed=2)
+    got = ops.flash_attention_gqa(q, k, v, causal=True)
+    kr, vr = (jnp.repeat(x, Hq // Hkv, axis=1) for x in (jk, jv))
+    close(got, jref.attention_ref(jq, kr, vr, causal=True))
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [(256, 384, True, None),
+                                                 (128, 512, False, 128),
+                                                 (384, 128, True, None)])
+def test_query_and_key_lengths_may_differ(Sq, Sk, causal, window):
+    (jq, jk, jv), (q, k, v) = operands((1, 2, Sq, 64), (1, 2, Sk, 64), seed=3)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert tuple(got.shape) == (1, 2, Sq, 64)
+    close(got, jref.attention_ref(jq, jk, jv, causal=causal, window=window))
+
+
+def test_rows_that_see_no_key_take_the_mean_of_v():
+    """Causal with window 64, Sq = 256, Sk = 128: query q sees keys
+    (q - 64, q], none when q >= 191. Those rows get the mean of V over all
+    keys, as the oracle's softmax over equal -1e30 scores gives it."""
+    (jq, jk, jv), (q, k, v) = operands((1, 2, 256, 64), (1, 2, 128, 64), seed=4)
+    got = ops.flash_attention(q, k, v, causal=True, window=64)
+    close(got, jref.attention_ref(jq, jk, jv, causal=True, window=64))
+    mean = v.mean(dim=2, keepdim=True).expand(-1, -1, 256 - 191, -1)
+    torch.testing.assert_close(got[:, :, 191:], mean, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ("Sq", "Sk", "gqa_heads", "heads"))
+def test_refuses_what_the_jax_op_refuses(case):
+    q_shape, kv_shape, op, kw = (1, 2, 128, 32), (1, 2, 128, 32), ops.flash_attention, {}
+    if case == "Sq":
+        q_shape = (1, 2, 192, 32)
+    elif case == "Sk":
+        kv_shape, kw = (1, 2, 128, 32), {"block_k": 96}
+    elif case == "gqa_heads":
+        q_shape, kv_shape, op = (1, 6, 128, 32), (1, 4, 128, 32), ops.flash_attention_gqa
+    else:
+        kv_shape = (1, 1, 128, 32)
+    _, (q, k, v) = operands(q_shape, kv_shape, seed=5)
+    with pytest.raises(ValueError):
+        op(q, k, v, **kw)
+
+
+def test_smaller_blocks_accept_what_the_default_refuses():
+    """block_q / block_k only refuse lengths; the kernel picks its tiles."""
+    (jq, jk, jv), (q, k, v) = operands((1, 2, 96, 32), (1, 2, 96, 32), seed=6)
+    got = ops.flash_attention(q, k, v, block_q=32, block_k=32)
+    close(got, jref.attention_ref(jq, jk, jv, causal=True))
+
+
+def test_ops_wrappers_are_the_kernel_wrappers():
+    assert ops.flash_attention is fa.flash_attention
+    assert ops.flash_attention_gqa is fa.flash_attention_gqa
+
+
+def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
+    _, (q, k, v) = operands((1, 4, 128, 32), (1, 2, 128, 32), seed=7)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention_gqa(q, k, v, window=32)
+    torch.testing.assert_close(got, fa.flash_attention_plain(q, k, v, window=32),
+                               atol=0, rtol=0)
+    assert fa.flash_attention.launches == before
+
+
+def test_other_devices_raise():
+    q = torch.empty((1, 2, 128, 32), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("bad", ("rank", "kv_shape", "head_dim", "dtype", "mixed",
+                                 "devices"))
+def test_wrapper_rejects_malformed_operands(bad):
+    _, (q, k, v) = operands((1, 2, 128, 32), (1, 2, 128, 32), seed=8)
+    if bad == "rank":
+        q = q[0]
+    elif bad == "kv_shape":
+        v = v[:, :1]
+    elif bad == "head_dim":
+        k, v = k[..., :16], v[..., :16]
+    elif bad == "dtype":
+        q, k, v = q.double(), k.double(), v.double()
+    elif bad == "mixed":
+        v = v.bfloat16()
+    else:
+        k = k.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        fa.flash_attention(q, k, v)
+
+
+def test_load_without_nvcc_raises_kernel_error(monkeypatch, tmp_path):
+    import shutil
+    import torch.utils.cpp_extension as cpp_ext
+
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    monkeypatch.setattr(shutil, "which", lambda _name: None)
+    monkeypatch.setattr(fa, "_LIB", None)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    with pytest.raises(KernelError, match="nvcc not found"):
+        fa.load()
+
+
+def test_chip_smoke_phase_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 13 on the CPU, at cut full-width shapes: the
+    plain version stands in for the kernel and counts as its launch, the
+    timers are stubbed. Its checks (one launch per op call, kernel ==
+    plain on every case, SDPA against the kernel) must all pass."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke as cs
+
+    plain = fa.flash_attention_plain
+
+    def counted(q, k, v, **kw):
+        fa.flash_attention.launches += 1
+        return plain(q, k, v, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_plain", counted)
+    monkeypatch.setattr(fa, "_launch", lambda q, k, v, c, w: plain(q, k, v, causal=c,
+                                                                  window=w))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "graph_ms", lambda torch, fn, reps=1, rounds=1: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "call_ms", lambda torch, fn, reps=1: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "FLASH_FULL", (("a", 1, 4, 1, 128, 256, True, 128),
+                                           ("b", 1, 4, 2, 256, 64, True, 64)))
+    detail = {}
+    out = cs.flash_phase(torch, fa, detail, dev="cpu")
+    assert out["launches"] == 2 and out["bound_by"] == "bytes"
+    assert detail["flash_kernel"]["cases"] == 28
+    # 4 D per visible pair: (1 + ... + 128) pairs x 4 heads x 4 x 256
+    assert out["gflop"] == 4 * 256 * 4 * (128 * 129 // 2) / 1e9

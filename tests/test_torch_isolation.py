@@ -53,6 +53,9 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert "repro_torch.models.model" in out["modules"]
     assert "repro_torch.configs" in out["modules"]
     assert "repro_torch.launch.serve" in out["modules"]
+    assert "repro_torch.kernels.flash_attention" in out["modules"]
+    assert "repro_torch.kernels.xent" in out["modules"]
+    assert "repro_torch.kernels.ref" in out["modules"]
 
 
 def test_service_interop_loads_no_model_stack():
