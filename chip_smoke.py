@@ -77,14 +77,24 @@ raises and the script exits non-zero:
     built on the CPU and copied to the card: in float32 the prefill logits
     within 1e-4 of max |logits| and 8 greedy decode tokens identical; in
     bf16 within 5e-2;
-13. hold the flash attention kernel against its plain version through
+13. hold the flash attention kernels against their plain version through
     ``ops.flash_attention`` / ``flash_attention_gqa`` (1e-5 in float32,
-    2e-2 in bf16), one launch per op call: the JAX kernel tests' shapes in
-    both dtypes, causal and not, windows 64-256, GQA, Sq != Sk, rows that
-    see no key, D = 256, ragged tiles and D 48 / 80; then two full-width shapes (recurrentgemma-2b's
-    and gemma3-4b's local attention) held to the plain version and to
-    ``scaled_dot_product_attention`` and timed: device time by CUDA-graph
-    replay, op call, plain version, SDPA and the bound;
+    2e-2 in bf16), one launch per op call on the path the routing rule
+    names (bf16 with D % 8 == 0 and 16-byte aligned operands on the
+    tensor-core kernel, the rest on the CUDA-core kernel), counted per path:
+    the JAX kernel tests' shapes in both dtypes, causal and not, windows
+    64-256, GQA, Sq != Sk, rows that see no key, D = 256, ragged tiles and
+    D 48 / 80, and the tensor-core kernel's edges (tiles on the diagonal at
+    S = 2048, a window edge inside a tile, GQA 10/1, ragged Sk, D = 32, a
+    misaligned bf16 view and D = 36, which take the CUDA-core kernel); an
+    input that requires grad raises in flash attention, the cross-entropy
+    and the RG-LRU scan; the tensor-core kernel's SASS holds HGMMA and
+    UTMALDG (ptxas's registers and spills printed); then two full-width
+    shapes (recurrentgemma-2b's and gemma3-4b's local attention) held to
+    the plain version and to ``scaled_dot_product_attention``, a second
+    launch identical bit for bit, and timed: device time by CUDA-graph
+    replay, op call, TFLOP/s, share of the bound, plain version, SDPA; and
+    the float32 path at recurrentgemma-2b's shape;
 14. the same for the cross-entropy kernel through ``ops.softmax_xent``
     (atol 1e-4, rtol 1e-5): the JAX kernel tests' shapes, a prime V,
     N = 1, V = 1, unaligned float32 rows, int64 targets, targets -1 and V (the loss is the logsumexp);
@@ -101,6 +111,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -805,10 +816,65 @@ FLASH_FULL = (("flash_rgemma2b_b8_s2048", 8, 10, 1, 2048, 256, True, 2048),
               ("flash_gemma3_4b_b4_s4096_w1024", 4, 8, 4, 4096, 256, True, 1024))
 
 
+def kernel_report(name: str) -> dict:
+    """Per kernel function of the built library ``csrc/<name>.cu``: ptxas's
+    registers and spill line (when this process built it) and the count of
+    each SASS opcode in ``SASS_OPS``, from ``cuobjdump -sass``."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    path = _build.build(name)
+    report, fn = {}, None
+    for line in _build.BUILD_LOG.get(path, "").splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {}
+        elif fn and "registers" in line:
+            report[fn]["registers"] = line.split(":", 1)[-1].strip()
+        elif fn and "spill" in line:
+            report[fn]["spills"] = line.split(":", 1)[-1].strip()
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+        elif fn:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    report[fn][op] = report[fn].get(op, 0) + 1
+    return report
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_tc_kernel<256>`` / ``flash_kernel<bf16, 64>`` for a mangled
+    flash kernel name; other names as they are."""
+    import re
+
+    m = re.search(r"(flash_(?:tc_)?kernel)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m.group(2) or "", "")
+    return f"{m.group(1)}<{dtype}{m.group(3)}>"
+
+
+#: SASS opcodes counted in the flash library: the tensor-core kernel must
+#: hold the warpgroup products (HGMMA) and TMA tile loads (UTMALDG).
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
 def flash_phase(torch, fa, detail, dev="cuda") -> dict:
-    """Phase 13: the flash attention kernel against its plain version through
-    ``ops.flash_attention`` / ``flash_attention_gqa``, one launch per call,
-    and its times at two full-width shapes."""
+    """Phase 13: the flash attention kernels against their plain version
+    through ``ops.flash_attention`` / ``flash_attention_gqa``, one launch per
+    call on the path ``_path_for`` names (bf16 with D % 8 == 0 and aligned
+    operands on the tensor-core kernel, the rest on the CUDA-core one), the
+    grad guard of the three workload wrappers, the tensor-core kernel's
+    SASS, and the times at two full-width shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
@@ -816,20 +882,27 @@ def flash_phase(torch, fa, detail, dev="cuda") -> dict:
 
     g = torch.Generator(device=dev).manual_seed(13)
 
-    def operands(B, Hq, Hkv, Sq, Sk, D, dtype):
-        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
-                     for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    def operands(B, Hq, Hkv, Sq, Sk, D, dtype, misaligned=False):
+        shapes = ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D))
+        if not misaligned:
+            return tuple(torch.randn(s, generator=g, device=dev).to(dtype) for s in shapes)
+        # contiguous views one element into their buffers: 2-byte aligned
+        return tuple(torch.randn(math.prod(s) + 1, generator=g, device=dev).to(dtype)[1:]
+                     .view(s) for s in shapes)
 
-    def op_call(q, k, v, **kw):
-        before = fa.flash_attention.launches
+    def op_call(q, k, v, tc, **kw):
+        before, before_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
         op = ops.flash_attention if q.shape[1] == k.shape[1] else ops.flash_attention_gqa
         out = op(q, k, v, **kw)
         check(fa.flash_attention.launches == before + 1,
               f"{fa.flash_attention.launches - before} launches for one op call")
+        took = fa.flash_attention.launches_tc - before_tc
+        check(took == int(tc), f"{tuple(q.shape)} {q.dtype}: {took} tensor-core launches, "
+              f"want {int(tc)}")
         return out
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = []  # (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window)
+    cases = []  # (B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, misaligned)
     for B, H, S, D in ((1, 1, 128, 64), (2, 4, 256, 64), (1, 2, 512, 128),
                        (2, 2, 384, 32)):
         cases += [(B, H, H, S, S, D, dt, c, None) for dt in (f32, bf16)
@@ -845,14 +918,30 @@ def flash_phase(torch, fa, detail, dev="cuda") -> dict:
               (1, 2, 2, 80, 144, 48, f32, True, None),
               (2, 3, 1, 208, 112, 80, bf16, False, 48),
               (1, 2, 2, 48, 48, 256, f32, True, 16)]
+    cases = [c + (False,) for c in cases]
+    # the tensor-core kernel's edges, and bf16 it does not take
+    cases += [(1, 2, 2, 2048, 2048, 256, bf16, True, None, False),  # tiles on the diagonal
+              (1, 2, 2, 512, 512, 128, bf16, True, 100, False),     # window edge in a tile
+              (2, 10, 1, 256, 256, 256, bf16, True, None, False),   # GQA 10 / 1
+              (1, 2, 2, 192, 200, 64, bf16, False, None, False),    # Sk % 64 != 0
+              (1, 2, 2, 300, 700, 128, bf16, True, None, False),    # Sq != Sk, both ragged
+              (1, 2, 2, 256, 256, 32, bf16, True, 96, False),       # D = 32
+              (1, 2, 2, 256, 128, 64, bf16, True, 64, False),       # rows that see no key
+              (1, 2, 2, 256, 256, 64, bf16, True, None, True),      # misaligned view
+              (1, 2, 2, 128, 128, 36, bf16, True, None, False)]     # D % 8 != 0
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for B, Hq, Hkv, Sq, Sk, D, dtype, causal, window in cases:
-        q, k, v = operands(B, Hq, Hkv, Sq, Sk, D, dtype)
-        # blocks of 16 only widen the lengths the op accepts
-        got = op_call(q, k, v, causal=causal, window=window, block_q=16, block_k=16)
+    n_tc = 0
+    for B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, misaligned in cases:
+        q, k, v = operands(B, Hq, Hkv, Sq, Sk, D, dtype, misaligned)
+        tc = dtype == bf16 and D % 8 == 0 and not misaligned
+        n_tc += tc
+        # the op's blocks only refuse lengths they do not divide
+        got = op_call(q, k, v, tc, causal=causal, window=window,
+                      block_q=math.gcd(Sq, 16), block_k=math.gcd(Sk, 16))
         ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        what = f"flash {(B, Hq, Hkv, Sq, Sk, D)} {dtype} causal={causal} window={window}"
+        what = (f"flash {(B, Hq, Hkv, Sq, Sk, D)} {dtype} causal={causal} window={window}"
+                f"{' misaligned' if misaligned else ''}")
         check(got.dtype == dtype and tuple(got.shape) == (B, Hq, Sq, D),
               f"{what}: got {got.dtype} {tuple(got.shape)}")
         key = str(dtype).split(".")[1]
@@ -861,23 +950,67 @@ def flash_phase(torch, fa, detail, dev="cuda") -> dict:
                                    msg=lambda m: f"{what}: {m}")
         worst[key] = max(worst[key], float((got.float() - ref.float()).abs().max()))
         del q, k, v, got, ref
-    log(f"[13] flash_attention kernel == plain on {len(cases)} cases, 1 launch per op "
-        f"call; max |diff| fp32 {worst['float32']:.3e} (tol {FLASH_TOL['float32']:g}), "
-        f"bf16 {worst['bfloat16']:.3e} (tol {FLASH_TOL['bfloat16']:g})")
+    log(f"[13] flash_attention kernels == plain on {len(cases)} cases ({n_tc} on the "
+        f"tensor-core kernel, {len(cases) - n_tc} on the CUDA-core one), 1 launch per "
+        f"op call on the expected path; max |diff| fp32 {worst['float32']:.3e} (tol "
+        f"{FLASH_TOL['float32']:g}), bf16 {worst['bfloat16']:.3e} (tol "
+        f"{FLASH_TOL['bfloat16']:g})")
+
+    # no kernel has a backward: an input that requires grad must raise
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import xent as xe
+
+    q, k, v = operands(1, 2, 2, 128, 128, 64, bf16)
+    logits = torch.randn((4, 64), generator=g, device=dev)
+    a = torch.rand((1, 8, 16), generator=g, device=dev)
+    calls = (("flash_attention", fa.flash_attention,
+              lambda: ops.flash_attention(q.clone().requires_grad_(), k, v)),
+             ("softmax_xent", xe.softmax_xent, lambda: ops.softmax_xent(
+                 logits.clone().requires_grad_(),
+                 torch.zeros(4, dtype=torch.int64, device=dev))),
+             ("rglru_scan", rg.rglru_scan, lambda: ops.rglru_scan(
+                 a.clone().requires_grad_(), a, torch.zeros((1, 16), device=dev))))
+    for name, wrapper, call in calls:
+        before = wrapper.launches
+        try:
+            call()
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        check("no backward" in raised and wrapper.launches == before,
+              f"{name} on an input that requires grad: {raised or 'no error'}")
+    log(f"    {', '.join(c[0] for c in calls)}: an input that requires grad raises, "
+        f"no launch")
+
+    report = kernel_report("flash_attention")
+    tc_fns = {f: r for f, r in report.items() if "flash_tc_kernel" in f}
+    check(len(tc_fns) >= 1 and all(r.get("HGMMA", 0) and r.get("UTMALDG", 0)
+                                   for r in tc_fns.values()),
+          f"the tensor-core kernel's SASS lacks HGMMA or UTMALDG: {tc_fns}")
+    for f, r in sorted(report.items()):
+        if "flash" in f:
+            log(f"    {kernel_name(f)}: {r.get('registers', 'ptxas report not kept')}; "
+                f"{r.get('spills', '')}; " + ", ".join(f"{op} {r.get(op, 0)}"
+                                                        for op in SASS_OPS))
+    detail["flash_kernel_build"] = report
 
     full = {}
     ins = {label: operands(B, Hq, Hkv, S, S, D, bf16)
            for label, B, Hq, Hkv, S, D, _c, _w in FLASH_FULL}
     # the main path: one op call at each full-width shape
     fa.flash_attention.launches = 0
-    outs = {label: op_call(*ins[label], causal=c, window=w)
+    fa.flash_attention.launches_tc = 0
+    outs = {label: op_call(*ins[label], True, causal=c, window=w)
             for label, *_shape, c, w in FLASH_FULL}
     torch.cuda.synchronize()
-    launches = fa.flash_attention.launches
-    check(launches == len(FLASH_FULL), f"{launches} launches for {len(FLASH_FULL)} calls")
+    launches, launches_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
+    check(launches == launches_tc == len(FLASH_FULL),
+          f"{launches} launches ({launches_tc} tensor-core) for {len(FLASH_FULL)} calls")
     for label, B, Hq, Hkv, S, D, causal, window in FLASH_FULL:
         q, k, v = ins[label]
         got = outs[label]
+        check(torch.equal(got, fa._launch(q, k, v, causal, window)),
+              f"{label}: a second launch differs from the first")
         ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(got, ref, atol=FLASH_TOL["bfloat16"],
                                    rtol=FLASH_TOL["bfloat16"])
@@ -896,28 +1029,51 @@ def flash_phase(torch, fa, detail, dev="cuda") -> dict:
                                    rtol=FLASH_TOL["bfloat16"])
         t = {"max_abs_err": err,
              "kernel_ms": graph_ms(torch, lambda: fa._launch(q, k, v, causal, window),
-                                   reps=3, rounds=2),
+                                   reps=10, rounds=3),
              "call_ms": call_ms(torch, lambda: ops.flash_attention_gqa(
-                 q, k, v, causal=causal, window=window), reps=5),
+                 q, k, v, causal=causal, window=window), reps=20),
              "plain_ms": graph_ms(torch, lambda: fa.flash_attention_plain(
                  q, k, v, causal=causal, window=window), reps=1, rounds=2),
-             "library_ms": graph_ms(torch, library, reps=3, rounds=2)}
+             "library_ms": graph_ms(torch, library, reps=10, rounds=3)}
         pairs = visible_pairs(S, S, causal, window) * B * Hq
         n_bytes = 2 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
         t["gflop"] = 4 * D * pairs / 1e9
+        t["tflops"] = t["gflop"] / t["kernel_ms"]
         t["bound_ms"], t["bound_by"] = bound(n_bytes, 4 * D * pairs, BF16_TC_FLOPS)
+        t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
         full[label] = t
-        log(f"    {label}: kernel {t['kernel_ms']:.3f} ms (graph replay; "
-            f"{t['call_ms']:.3f} ms per op call), plain {t['plain_ms']:.3f} ms, "
-            f"SDPA {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+        log(f"    {label}: tensor-core kernel {t['kernel_ms']:.4f} ms (graph replay; "
+            f"{t['call_ms']:.4f} ms per op call), {t['tflops']:.1f} TFLOP/s, "
+            f"{t['bound_share']:.1%} of the bound; plain {t['plain_ms']:.3f} ms, "
+            f"SDPA {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}, {t['gflop']:.1f} GFLOP, {n_bytes / 1e6:.0f} MB); "
-            f"max |diff| vs plain {err:.3e}")
+            f"max |diff| vs plain {err:.3e}; a second launch identical")
         del got, mask
     del ins, outs
+
+    # the float32 path (the CUDA-core kernel) at the first full-width shape
+    label, B, Hq, Hkv, S, D, causal, window = FLASH_FULL[0]
+    q, k, v = operands(B, Hq, Hkv, S, S, D, f32)
+    before_tc = fa.flash_attention.launches_tc
+    got = fa._launch(q, k, v, causal, window)
+    check(fa.flash_attention.launches_tc == before_tc, "float32 took the tensor-core path")
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, ref, atol=FLASH_TOL["float32"], rtol=FLASH_TOL["float32"])
+    fp32 = {"max_abs_err": float((got - ref).abs().max()),
+            "kernel_ms": graph_ms(torch, lambda: fa._launch(q, k, v, causal, window),
+                                  reps=3, rounds=2)}
+    fp32["tflops"] = full[label]["gflop"] / fp32["kernel_ms"]
+    log(f"    {label} float32: CUDA-core kernel {fp32['kernel_ms']:.3f} ms "
+        f"({fp32['tflops']:.1f} TFLOP/s), max |diff| vs plain {fp32['max_abs_err']:.3e}")
+    del q, k, v, got, ref
+
     worst_all = max(*worst.values(), *(t["max_abs_err"] for t in full.values()))
-    detail["flash_kernel"] = {"cases": len(cases), "max_abs_err": worst,
-                              "launches": launches, "full_width": full}
-    return {"max_abs_err": worst_all, "launches": launches, **full[FLASH_FULL[0][0]]}
+    detail["flash_kernel"] = {"cases": len(cases), "tensor_core_cases": n_tc,
+                              "max_abs_err": worst, "launches": launches,
+                              "launches_tc": launches_tc, "full_width": full,
+                              "float32_" + label: fp32}
+    return {"max_abs_err": worst_all, "launches": launches, "launches_tc": launches_tc,
+            "fp32_ms": fp32["kernel_ms"], **full[FLASH_FULL[0][0]]}
 
 
 #: full-width cross-entropy shapes of phase 14: (label, N, V). One chunk of
@@ -1297,12 +1453,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:25",
         "launches": fa_t["launches"],
+        "launches_tc": fa_t["launches_tc"],
         "max_abs_err": fa_t["max_abs_err"],
         "ms": fa_t["kernel_ms"],
         "plain_ms": fa_t["plain_ms"],
         "bound_ms": fa_t["bound_ms"],
         "bound_by": fa_t["bound_by"],
         "library_ms": fa_t["library_ms"],
+        "fp32_ms": fa_t["fp32_ms"],
     }, {
         "name": "softmax_xent",
         "route": "cuda",

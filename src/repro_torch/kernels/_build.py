@@ -3,19 +3,27 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use with ``nvcc`` for ``sm_90a`` (Hopper) into ``kernels/build/``, a
 directory that ``.gitignore`` lists, then loaded with :mod:`ctypes`. The
-library's file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing here runs at
-import time: the CPU-only test suite imports every module of the package.
+library's file name carries a hash of the source, of every ``csrc`` header
+it includes and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded. Nothing here runs at import time: the
+CPU-only test suite imports every module of the package.
+
+:func:`refuse_grad` is the wrappers' shared guard: the kernels have no
+backward, so a CUDA launch on an input that requires grad raises instead of
+returning a tensor that autograd cannot follow.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
-from typing import Dict
+from typing import Dict, List, Optional
+
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
@@ -26,6 +34,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: a quoted include: ``#include "hopper.cuh"``, resolved beside the includer.
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
 class KernelError(RuntimeError):
@@ -56,6 +66,46 @@ def nvcc_path() -> str:
         "CUDA kernels are built from source on first use")
 
 
+def refuse_grad(op: str, **inputs) -> None:
+    """Raise ``RuntimeError`` when grad is enabled and any of ``inputs``
+    requires grad: the CUDA kernel of ``op`` has no backward yet, and its
+    output would silently carry no ``grad_fn``."""
+    if not torch.is_grad_enabled():
+        return
+    needs = [name for name, t in inputs.items() if t.requires_grad]
+    if needs:
+        raise RuntimeError(
+            f"{op}: {', '.join(needs)} requires grad, but the CUDA kernel has no "
+            f"backward yet; call it under torch.no_grad() or on detached inputs")
+
+
+def sources(name: str, src_dir: Optional[str] = None) -> List[str]:
+    """``<src_dir>/<name>.cu`` (default ``SRC_DIR``) and every header it
+    includes with quotes, transitively, each once, in the order first met."""
+    todo, seen = [os.path.join(src_dir or SRC_DIR, name + ".cu")], []
+    while todo:
+        path = os.path.normpath(todo.pop(0))
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        todo += [os.path.join(os.path.dirname(path), inc) for inc in _INCLUDE.findall(text)]
+    return seen
+
+
+def digest(name: str, src_dir: Optional[str] = None) -> str:
+    """Hash of the source, the headers it includes and the compiler flags:
+    the key of the built library."""
+    src_dir = src_dir or SRC_DIR
+    h = hashlib.sha256()
+    for path in sources(name, src_dir):
+        with open(path, "rb") as f:
+            h.update(os.path.relpath(path, src_dir).encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
 
@@ -64,9 +114,7 @@ def build(name: str) -> str:
     load a half-written library.
     """
     src = os.path.join(SRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    lib = os.path.join(BUILD_DIR, f"lib{name}-{digest(name)[:16]}.so")
     if os.path.exists(lib):
         return lib
     nvcc = nvcc_path()

@@ -13,13 +13,26 @@ of V over all keys, as the oracle ``ref.attention_ref`` gives it.
 :func:`flash_attention` (equal heads) and :func:`flash_attention_gqa`
 (``Hq`` a multiple of ``Hkv``) take the JAX package's signatures
 (``repro/kernels/ops.py``) less ``interpret``. On CUDA tensors they launch
-the hand-written kernel of ``csrc/flash_attention.cu`` (built with ``nvcc``
+a hand-written kernel of ``csrc/flash_attention.cu`` (built with ``nvcc``
 on first use, see :mod:`repro_torch.kernels._build`), which reads KV head
 ``h // (Hq // Hkv)`` for query head ``h`` without copying it; on CPU
 tensors they run :func:`flash_attention_plain`, the oracle's arithmetic.
+
+Two kernels, chosen by :func:`_path_for` from the dtype, D and the
+operands' alignment alone (never on failure):
+
+  - ``"tensor_core"``: bf16 with D % 8 == 0 and 16-byte aligned operands
+    (what TMA needs) go to the Hopper kernel, wgmma products fed by TMA;
+  - ``"cuda_core"``: everything else (float32; bf16 with another D or a
+    misaligned view) goes to the float32-FMA kernel, which keeps float32
+    within 1e-5 of the oracle.
+
 There is no other route: a CUDA tensor never falls back to the plain
-version, and a failed build or launch raises ``KernelError``.
-``flash_attention.launches`` counts the kernel's launches from both.
+version or to the other kernel, a failed build or launch raises
+``KernelError``, and an input that requires grad raises ``RuntimeError``
+(the kernels have no backward). ``flash_attention.launches`` counts the
+launches of both kernels, ``flash_attention.launches_tc`` those of the
+tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -36,9 +49,22 @@ from ._build import KernelError
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head dimension the kernel takes.
 MAX_D = 256
-#: query rows per block of the kernel (``kBQ``); the grid's second dimension
-#: holds ceil(Sq / 64) <= 65535 tiles.
+#: query rows per block of the CUDA-core kernel (``kBQ``; the tensor-core
+#: kernel's are 128); the grid's second dimension holds ceil(Sq / 64) <= 65535
+#: tiles.
 BLOCK_Q = 64
+#: the two kernels, as :func:`_path_for` names them.
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+
+
+def _path_for(dtype, D: int, ptrs) -> str:
+    """The kernel for operands of ``dtype`` and head dimension ``D`` at the
+    addresses ``ptrs``: :data:`TENSOR_CORE` for bf16 with D % 8 == 0 and
+    every address 16-byte aligned (TMA's rows and bases), else
+    :data:`CUDA_CORE`."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return TENSOR_CORE
+    return CUDA_CORE
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
@@ -64,6 +90,9 @@ def load() -> ctypes.CDLL:
         lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
+        lib.flash_attention_tc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                                           + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_tc.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -71,25 +100,31 @@ def load() -> ctypes.CDLL:
 
 
 def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
-    """Launch the CUDA kernel on checked operands; returns (B, Hq, Sq, D)
-    in q's dtype."""
+    """Launch the kernel :func:`_path_for` picks on checked operands;
+    returns (B, Hq, Sq, D) in q's dtype."""
+    _build.refuse_grad("flash_attention", q=q, k=k, v=v)
     lib = load()
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     # a window at or past Sq hides nothing, one at or below -Sk hides all
     w = 0 if window is None else max(min(int(window), Sq), -Sk)
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    tc = _path_for(q.dtype, D, ptrs) == TENSOR_CORE
+    args = (*ptrs, B, Hq, Hkv, Sq, Sk, D, int(bool(causal)), int(window is not None), w,
+            1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  out.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
-                                  int(bool(causal)), int(window is not None), w,
-                                  1.0 / math.sqrt(D), DTYPES[q.dtype], stream)
+        if tc:
+            err = lib.flash_attention_tc(*args, stream)
+        else:
+            err = lib.flash_attention(*args, DTYPES[q.dtype], stream)
     if err != 0:
         raise KernelError(
-            f"flash_attention kernel launch failed: "
-            f"{lib.flash_error_string(err).decode()} (cuda error {err})")
+            f"flash_attention {TENSOR_CORE if tc else CUDA_CORE} kernel launch "
+            f"failed: {lib.flash_error_string(err).decode()} (error {err})")
     flash_attention.launches += 1
+    flash_attention.launches_tc += int(tc)
     return out
 
 
@@ -167,6 +202,7 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, window=None,
     return _route(q, k, v, causal, window)
 
 
-#: launches of the CUDA kernel in this process, from either wrapper
-#: (plain-version calls excluded).
+#: launches of either CUDA kernel in this process, from either wrapper
+#: (plain-version calls excluded), and of the tensor-core kernel alone.
 flash_attention.launches = 0
+flash_attention.launches_tc = 0

@@ -12,8 +12,9 @@ state in float32 and each ``h_t`` stored in the inputs' dtype.
 ``csrc/rglru_scan.cu`` (built with ``nvcc`` on first use, see
 :mod:`repro_torch.kernels._build`); on a CPU tensor it runs
 :func:`rglru_scan_plain`, the same arithmetic in plain torch ops. There is
-no other route: a CUDA tensor never falls back to the plain version, and a
-failed build or launch raises ``KernelError``.
+no other route: a CUDA tensor never falls back to the plain version, a
+failed build or launch raises ``KernelError``, and an input that requires
+grad raises ``RuntimeError`` on the card (the kernel has no backward yet).
 
 Both round each step's multiply and add on their own, in the same order, so
 kernel and plain version agree to the last bit. (The JAX package's oracle,
@@ -68,6 +69,7 @@ def load() -> ctypes.CDLL:
 def _launch(a, b, h0) -> torch.Tensor:
     """Launch the CUDA kernel on checked operands (``h0`` float32); returns
     (B, S, D) in ``a``'s dtype."""
+    _build.refuse_grad("rglru_scan", a=a, b=b, h0=h0)
     lib = load()
     B, S, D = a.shape
     out = torch.empty_like(a)

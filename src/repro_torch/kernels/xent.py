@@ -15,8 +15,9 @@ int32 or int64 targets. On a CUDA tensor it launches the hand-written
 kernel of ``csrc/xent.cu`` (built with ``nvcc`` on first use, see
 :mod:`repro_torch.kernels._build`), which reads each logit once; on a CPU
 tensor it runs :func:`softmax_xent_plain`. There is no other route: a CUDA
-tensor never falls back to the plain version, and a failed build or launch
-raises ``KernelError``. The two sum in different orders, so they agree to
+tensor never falls back to the plain version, a failed build or launch
+raises ``KernelError``, and logits that require grad raise ``RuntimeError``
+on the card (the kernel has no backward yet). The two sum in different orders, so they agree to
 float32 rounding (the JAX kernel test's atol 1e-4 / rtol 1e-5).
 """
 from __future__ import annotations
@@ -66,6 +67,7 @@ def load() -> ctypes.CDLL:
 
 def _launch(logits, targets) -> torch.Tensor:
     """Launch the CUDA kernel on checked operands; returns (N,) float32."""
+    _build.refuse_grad("softmax_xent", logits=logits)
     lib = load()
     N, V = logits.shape
     loss = torch.empty((N,), dtype=torch.float32, device=logits.device)

@@ -21,6 +21,8 @@ import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro_torch.kernels import KernelError, _build, ops
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import xent as xe
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 TOL = {False: 1e-5, True: 2e-2}  # by bf16
@@ -170,29 +172,90 @@ def test_load_without_nvcc_raises_kernel_error(monkeypatch, tmp_path):
 
 def test_chip_smoke_phase_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.py``'s phase 13 on the CPU, at cut full-width shapes: the
-    plain version stands in for the kernel and counts as its launch, the
-    timers are stubbed. Its checks (one launch per op call, kernel ==
-    plain on every case, SDPA against the kernel) must all pass."""
+    plain version stands in for the kernel and counts as its launch (on the
+    path ``_path_for`` names), the timers and the SASS report are stubbed,
+    and the three wrappers' plain versions carry the kernels' grad guard.
+    Its checks (one launch per op call on the expected path, kernel ==
+    plain on every case, an input that requires grad raises, a second
+    launch identical, SDPA against the kernel) must all pass."""
     monkeypatch.syspath_prepend(ROOT)
     import chip_smoke as cs
 
     plain = fa.flash_attention_plain
 
     def counted(q, k, v, **kw):
+        # the kernel wrapper's guard, launch count and path count
+        _build.refuse_grad("flash_attention", q=q, k=k, v=v)
         fa.flash_attention.launches += 1
+        path = fa._path_for(q.dtype, q.shape[-1], (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+        fa.flash_attention.launches_tc += path == fa.TENSOR_CORE
         return plain(q, k, v, **kw)
+
+    def guarded(name, fn, *inputs):
+        def call(*args):
+            _build.refuse_grad(name, **dict(zip(inputs, args)))
+            return fn(*args)
+        return call
 
     monkeypatch.setattr(fa, "flash_attention_plain", counted)
     monkeypatch.setattr(fa, "_launch", lambda q, k, v, c, w: plain(q, k, v, causal=c,
                                                                   window=w))
+    monkeypatch.setattr(xe, "softmax_xent_plain", guarded(
+        "softmax_xent", xe.softmax_xent_plain, "logits", "targets"))
+    monkeypatch.setattr(rg, "rglru_scan_plain", guarded(
+        "rglru_scan", rg.rglru_scan_plain, "a", "b", "h0"))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(cs, "graph_ms", lambda torch, fn, reps=1, rounds=1: (fn(), 1.0)[1])
     monkeypatch.setattr(cs, "call_ms", lambda torch, fn, reps=1: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "kernel_report", lambda name: {
+        "flash_tc_kernel<256>": {"HGMMA": 48, "UTMALDG": 12}, "flash_kernel<float, 256>": {}})
     monkeypatch.setattr(cs, "FLASH_FULL", (("a", 1, 4, 1, 128, 256, True, 128),
                                            ("b", 1, 4, 2, 256, 64, True, 64)))
     detail = {}
     out = cs.flash_phase(torch, fa, detail, dev="cpu")
-    assert out["launches"] == 2 and out["bound_by"] == "bytes"
-    assert detail["flash_kernel"]["cases"] == 28
+    assert out["launches"] == 2 and out["launches_tc"] == 2 and out["bound_by"] == "bytes"
+    assert detail["flash_kernel"]["cases"] == 37
+    assert detail["flash_kernel"]["tensor_core_cases"] == 17
     # 4 D per visible pair: (1 + ... + 128) pairs x 4 heads x 4 x 256
     assert out["gflop"] == 4 * 256 * 4 * (128 * 129 // 2) / 1e9
+
+
+@pytest.mark.parametrize("D", [8, 32, 48, 80, 256, 33, 250])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_path_for_routes_by_dtype_head_dim_and_alignment(D, dtype, aligned):
+    """bf16 with D % 8 == 0 and every address 16-byte aligned takes the
+    tensor-core kernel (TMA's row strides and bases); all else the CUDA-core
+    kernel."""
+    ptrs = (0x7F0000000000, 0x7F0000100000, 0x7F0000200000 + (0 if aligned else 2))
+    want = (fa.TENSOR_CORE if dtype == torch.bfloat16 and D % 8 == 0 and aligned
+            else fa.CUDA_CORE)
+    assert fa._path_for(dtype, D, ptrs) == want
+
+
+def _unreachable_load():
+    raise AssertionError("the guard must raise before the kernel is loaded")
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "softmax_xent", "rglru_scan"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(op, monkeypatch):
+    """The CUDA branch of each wrapper raises before it loads the kernel
+    when grad is enabled and an input requires grad: the kernels have no
+    backward, and their output would carry no grad_fn."""
+    if op == "flash_attention":
+        mod = fa
+        _, (q, k, v) = operands((1, 2, 128, 32), (1, 2, 128, 32), seed=9)
+        args = (q.requires_grad_(), k, v, True, None)
+    elif op == "softmax_xent":
+        mod = xe
+        args = (torch.randn(4, 16).requires_grad_(), torch.zeros(4, dtype=torch.int64))
+    else:
+        mod = rg
+        args = (torch.rand(1, 8, 16), torch.rand(1, 8, 16).requires_grad_(),
+                torch.zeros(1, 16))
+    monkeypatch.setattr(mod, "load", _unreachable_load)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mod._launch(*args)
+    # without grad the guard lets the call through to the kernel's load
+    with torch.no_grad(), pytest.raises(AssertionError, match="before the kernel"):
+        mod._launch(*args)
