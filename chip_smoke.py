@@ -7,21 +7,30 @@ raises and the script exits non-zero:
 1. build the water-filling, envy-gap, RG-LRU scan, flash attention and
    cross-entropy kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a``, one compiler process per source, all started
-   together;
+   together (``waterfill.cu`` also holds the fused solve, ``envy.cu`` the
+   fused PD segment); ptxas must report no spill in either fused kernel;
 2. hold the kernel against its plain torch version on the card, on seeded
    staircase instances (n_pad 8..8192, k 3 and 4, T 1 and 8) at
    atol = rtol = 1e-12, and time both at the service's shape (n_pad 1024,
    k 3, T 8);
-3. the solve tier at n = 1024, k = 3, cold and warm-started, against the
-   same solve on the CPU (the plain version: tau and X within 1e-9) and the
-   port's numpy greedy (see ``agree``), counting launches per solve;
+3. the fused solve (one launch a solve: bracket, hint probe, multisection
+   and allocation) against the unfused solve on the card (the same
+   composition probing through the kernel of phase 2: tau bit for bit, X
+   within 1e-12 * max(m)) and the plain solve on the CPU (1e-9), n_pad
+   8..8192, k 3, 4 and 40, B 1 and 3, cold and warm; through the entry
+   points at n = 1024, k = 3, cold and warm-started, against the CPU and
+   the port's numpy greedy (see ``agree``), and a batch of three, one
+   launch each; a solve of 16 lanes, more than the fused kernel carries,
+   on the unfused route (one masses launch per probe); and its times: the kernel, one solve's execute span, the unfused
+   solve as called and in a CUDA graph, the bound;
 4. the online service at full size: 1024 tenants on 1024+1024+1024 devices,
    ``oef-noncoop`` on the ``torch`` backend on ``cuda``. Every solve must
    come from ``torch`` with no LP fallback, no degraded solve and no
-   ``solver_floor``, the kernel must have been launched exactly 14 times
-   per cold and 15 per warm-started solve, every solved instance must agree
-   with the CPU solve and the numpy greedy, and a second replay must repeat
-   the first report bit for bit (less its wall-clock latency fields);
+   ``solver_floor``, the fused solve must have been launched exactly once
+   per solved instance and no other kernel at all, every solved instance
+   must agree with the CPU solve and the numpy greedy, and a second replay
+   must repeat the first report bit for bit (less its wall-clock latency
+   fields);
 5. 128 tenants on 128x3 devices, replayed with the ``numpy`` backend, the
    ``torch`` backend on the card and the ``torch`` backend on the CPU (the
    plain version). The card and CPU replays must match as the JAX tier's
@@ -36,20 +45,27 @@ raises and the script exits non-zero:
    G in {8, 64, 512, 4096}, k in {3, 4}, B in {1, 3} (atol = rtol = 1e-12),
    and time it at (G 8, k 3), the service's shape, and (G 4096, k 3):
    device time by CUDA-graph replay, wrapper call time, the plain version
-   and the nearest library form (``torch.addmm``);
+   and the nearest library form (``torch.addmm``); then the fused PD
+   segment against the stepwise segment on the card (atol 1e-12) at G in
+   {8, 32, PD_FUSED_MAX_G}, k in {3, 4}, B in {1, 3}, from a cold and a
+   warm state, a second launch identical bit for bit, and its times at
+   G 8 and PD_FUSED_MAX_G: the kernel, the wrapper call, the stepwise
+   segment as called and in a CUDA graph, the bound;
 7. the cooperative solve tier on the card, on 256-tenant catalog instances
    and a 32-tenant instance of distinct rows, against the same solve on the
    CPU (same ``pd_iters`` and ``crossover``, objective within 1e-9
    relative, X within 1e-8 * max(m)) and the LP (certificate gap and envy
-   within 1e-6), with one kernel launch per PD iteration; the batch API on
-   three instances against the CPU; and a 64-tenant distinct instance,
-   which the tier does not certify within a cut budget on either device
-   (the JAX tier neither), spending exactly that budget;
+   within 1e-6), with the launches of each route: one fused launch per
+   segment up to PD_FUSED_MAX_G groups, one envy launch per PD iteration
+   above; the batch API on three instances against the CPU; and 64- and
+   128-tenant distinct instances, which the tier does not certify within a
+   cut budget on either device (the JAX tier neither), spending exactly
+   that budget, on the fused route and on the stepwise one;
 8. the service with the cooperative policy: 256 tenants on 256x3 devices,
    ``oef-coop`` on the ``torch`` backend on ``cuda``, the JAX package's
    largest coop-jax benchmark cell. Every solve from ``torch``, no LP
-   fallback, no degraded solve, no ``solver_floor``, kernel launches equal
-   to the PD iterations the solves report (at least one segment), and a
+   fallback, no degraded solve, no ``solver_floor``, one fused launch per
+   PD segment the solves report (at least one) and no other kernel, and a
    second replay identical bit for bit;
 9. 64 tenants on 64x3 devices, ``oef-coop``, replayed with ``torch`` on the
    card, ``torch`` on the CPU and ``numpy`` (the LP): card and CPU make the
@@ -127,6 +143,9 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
 FP32_FLOPS = 67e12
+#: the published H100 SXM FP64 rate of the tensor cores (NVIDIA data
+#: sheet): the least time for a float64 matrix product's operations.
+FP64_TC_FLOPS = 67e12
 #: the published H100 SXM dense bf16 rate of the tensor cores (NVIDIA data
 #: sheet): the least time for attention's products on bf16 inputs.
 BF16_TC_FLOPS = 989e12
@@ -312,11 +331,14 @@ def percentile(vals, q, np) -> float:
     return float(np.percentile(np.asarray(vals), q)) if vals else 0.0
 
 
-def bound(n_bytes: float, n_ops: float, flops: float = FP64_FLOPS):
-    """Least time on the card (ms) for the bytes and the operations at the
-    ``flops`` rate (FP64 by default), and which of the two bounds it."""
+def bound(n_bytes: float, n_ops: float, flops: float = FP64_FLOPS,
+          tc_ops: float = 0.0):
+    """Least time on the card (ms) for the bytes and the operations: ``n_ops``
+    at the ``flops`` rate (FP64 by default) and ``tc_ops`` float64 matrix
+    product operations at the FP64 tensor-core rate; and which of the two
+    bounds it."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / flops * 1e3
+    ops_ms = (n_ops / flops + tc_ops / FP64_TC_FLOPS) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -342,6 +364,245 @@ def envy_max(W, X, np) -> float:
     E = W @ X.T - own[:, None]
     np.fill_diagonal(E, 0.0)
     return float(E.max())
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Median host time of one ``fn()`` call that ends in a copy to the host
+    (so on the card's work), after three warm-up calls."""
+    for _ in range(3):
+        fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return 1e3 * sorted(ts)[len(ts) // 2]
+
+
+def solve_operands(torch, np, rng, n_pad: int, k: int, B: int, dev):
+    """B seeded staircase instances padded to ``n_pad``, as the padded
+    ``(Wf, m, mask)`` of the solve on ``dev``."""
+    from repro_torch.core import torch_solve
+
+    insts = [torch_solve._prepare(*staircase(rng, n_pad - n_pad // 4, k, np))
+             for _ in range(B)]
+    check(all(i[1].shape[0] == n_pad for i in insts), f"bucket of n_pad {n_pad}")
+    return [torch.as_tensor(np.stack([i[a] for i in insts]), dtype=torch.float64,
+                            device=dev) for a in (1, 2, 3)]
+
+
+def solve_phase(torch, np, wf, detail) -> dict:
+    """Phase 3: the fused solve against the unfused path on the card and the
+    plain solve on the CPU, its launches through the entry points, and its
+    times at n = 1024, k = 3."""
+    from repro_torch.core import oef, torch_solve
+
+    lanes, iters = torch_solve.LANES, torch_solve.ITERS
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    cases, max_dx, max_cpu = 0, 0.0, 0.0
+    for n_pad in (8, 128, 1024, 8192):
+        for k in (3, 4, 40):  # 40: more types than the kernel's first version took
+            for B in (1, 3):
+                Wf, m, mask = solve_operands(torch, np, rng, n_pad, k, B, dev)
+                cold, _ = wf.waterfill_solve_plain(
+                    Wf, m, mask, torch.zeros(B, dtype=torch.float64, device=dev),
+                    lanes=lanes, iters=iters, use_hint=False)
+                for warm in (False, True):
+                    hint = (cold * (1 - 1e-3) if warm
+                            else torch.full((B,), -1.0, dtype=torch.float64, device=dev))
+                    kw = {"lanes": lanes, "iters": iters, "use_hint": warm}
+                    tau, X = wf.waterfill_solve(Wf, m, mask, hint, **kw)
+                    tau2, X2 = wf.waterfill_solve(Wf, m, mask, hint, **kw)
+                    ref_tau, ref_X = wf.waterfill_solve_plain(Wf, m, mask, hint, **kw)
+                    cpu_tau, cpu_X = wf.waterfill_solve_plain(
+                        *(t.cpu() for t in (Wf, m, mask, hint)), **kw)
+                    torch.cuda.synchronize()
+                    label = f"n_pad={n_pad} k={k} B={B} {'warm' if warm else 'cold'}"
+                    check(torch.equal(tau, ref_tau),
+                          f"{label}: fused tau differs from the unfused card path by "
+                          f"{float((tau - ref_tau).abs().max()):.3e}")
+                    check(torch.equal(tau, tau2) and torch.equal(X, X2),
+                          f"{label}: a second launch differs")
+                    d_x = float((X - ref_X).abs().max())
+                    check(d_x <= TOL * float(m.max()),
+                          f"{label}: |dX| vs the unfused card path {d_x:.3e}")
+                    d_cpu = max(float((tau.cpu() - cpu_tau).abs().max()),
+                                float((X.cpu() - cpu_X).abs().max()))
+                    check(d_cpu <= PARITY, f"{label}: vs the CPU solve {d_cpu:.3e}")
+                    max_dx, max_cpu = max(max_dx, d_x), max(max_cpu, d_cpu)
+                    cases += 1
+    log(f"[3] fused solve on {cases} cases (n_pad 8..8192, k 3/4/40, B 1/3, cold and "
+        f"warm): tau bit-identical to the unfused card path, |dX| <= {max_dx:.3e} "
+        f"(<= {TOL:g} max(m)); vs the CPU solve {max_cpu:.3e} (<= {PARITY:g}); a "
+        f"second launch identical")
+
+    # launches per solve through the entry points, against the CPU and numpy
+    W = paper_instance(np.random.default_rng(2), 1024, np)
+    m = np.full(3, 1024.0)
+    tau_ref = oef.solve_noncoop_waterfill(W, m).meta["tau"]
+    per_solve = {}
+    masses_before = wf.waterfill_masses.launches
+    for label, hint in (("cold", None), ("warm", tau_ref * (1 - 1e-3))):
+        before = wf.waterfill_solve.launches
+        got = oef.solve_noncoop_waterfill_torch(W, m, tau_hint=hint, device="cuda")
+        per_solve[label] = wf.waterfill_solve.launches - before
+        worst = agree(W, m, got.meta["tau"], got.X, np)
+        check(got.meta["warm_started"] is (hint is not None), f"{label}: warm flag")
+        log(f"    {label} solve n=1024 k=3: |dtau| "
+            f"{abs(got.meta['tau'] - tau_ref):.3e}, largest difference vs CPU "
+            f"and numpy {worst:.3e}, {per_solve[label]} launch")
+    brng = np.random.default_rng(5)
+    insts = [staircase(brng, 1000, 3, np) for _ in range(3)]
+    Ws, ms = np.stack([i[0] for i in insts]), np.stack([i[1] for i in insts])
+    before = wf.waterfill_solve.launches
+    taus, Xs = torch_solve.solve_noncoop_fast_batch(Ws, ms, device="cuda")
+    per_solve["batch3"] = wf.waterfill_solve.launches - before
+    taus_c, Xs_c = torch_solve.solve_noncoop_fast_batch(Ws, ms, device="cpu")
+    d_batch = max(float(np.abs(taus - taus_c).max()), float(np.abs(Xs - Xs_c).max()))
+    check(d_batch <= PARITY, f"batch of 3: vs the CPU {d_batch:.3e}")
+    check(per_solve == {"cold": 1, "warm": 1, "batch3": 1},
+          f"launches per solve {per_solve}, want one each")
+    check(wf.waterfill_masses.launches == masses_before,
+          "a solve launched the standalone masses kernel")
+    log(f"    batch of 3 x 1000 users: {per_solve['batch3']} launch, vs the CPU "
+        f"{d_batch:.3e}; no launch of waterfill_masses")
+    # more lanes than the fused kernel carries: the unfused route on the card,
+    # one masses launch per probe and no fused launch
+    before = (wf.waterfill_solve.launches, wf.waterfill_masses.launches)
+    wide_tau, wide_X = torch_solve.solve_noncoop_fast_torch(W, m, lanes=2 * lanes,
+                                                            device="cuda")
+    per_route = (wf.waterfill_solve.launches - before[0],
+                 wf.waterfill_masses.launches - before[1])
+    check(per_route == (0, iters), f"a {2 * lanes}-lane solve: (fused, masses) "
+          f"launches {per_route}, want (0, {iters})")
+    d_wide = agree(W, m, wide_tau, wide_X, np)
+    per_solve[f"lanes{2 * lanes}"] = {"fused": per_route[0], "masses": per_route[1]}
+    log(f"    a {2 * lanes}-lane solve n=1024: the unfused route, {per_route[1]} masses "
+        f"launches and no fused launch; vs CPU and numpy {d_wide:.3e}")
+
+    # times at the service's shape: the fused kernel, one solve's execute
+    # span, and the same solve the unfused way, as called and in a CUDA graph
+    _, Wf_np, m_np, mask_np = torch_solve._prepare(W, m)
+    hint_np = np.array([-1.0])
+    Wf, m_d, mask, hint = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+                           for a in (Wf_np[None], m_np[None], mask_np[None], hint_np))
+    kw = {"lanes": lanes, "iters": iters, "use_hint": False}
+
+    def execute(solve):
+        def run():
+            ops = torch_solve._to_device(dev, Wf_np[None], m_np[None], mask_np[None],
+                                         hint_np)
+            return torch_solve._to_host(*solve(*ops, **kw))
+        return run
+
+    n_pad, k = Wf_np.shape
+    t = {"kernel_ms": graph_ms(torch, lambda: wf._launch_solve(Wf, m_d, mask, hint,
+                                                               lanes, iters, False),
+                               reps=20),
+         "call_ms": call_ms(torch, lambda: wf.waterfill_solve(Wf, m_d, mask, hint, **kw),
+                            reps=100),
+         "execute_ms": host_ms(execute(torch_solve._solve_padded)),
+         "unfused_execute_ms": host_ms(execute(wf.waterfill_solve_plain), reps=20),
+         "plain_ms": call_ms(torch, lambda: wf.waterfill_solve_plain(
+             Wf, m_d, mask, hint, **kw), reps=20),
+         "library_ms": graph_ms(torch, lambda: wf.waterfill_solve_plain(
+             Wf, m_d, mask, hint, **kw), reps=5)}
+    n_bytes = 8 * (2 * n_pad * k + n_pad + k + 2)
+    n_ops = 8 * n_pad * k * (lanes * iters + 1)
+    t["bound_ms"], t["bound_by"] = bound(n_bytes, n_ops)
+    log(f"    n=1024 (n_pad {n_pad}) k={k}: fused kernel {t['kernel_ms'] * 1e3:.2f} us "
+        f"(graph replay; {t['call_ms'] * 1e3:.2f} us per wrapper call); one solve's "
+        f"execute span {t['execute_ms']:.3f} ms; the unfused solve "
+        f"{t['plain_ms'] * 1e3:.1f} us per call, {t['unfused_execute_ms']:.3f} ms "
+        f"execute span, {t['library_ms'] * 1e3:.1f} us in a CUDA graph; bound "
+        f"{t['bound_ms'] * 1e6:.1f} ns ({t['bound_by']})")
+    detail["fused_solve"] = {"cases": cases, "max_dX_unfused": max_dx,
+                             "max_diff_cpu": max_cpu, "launches_per_solve": per_solve,
+                             "bytes": n_bytes, "fp64_ops": n_ops, **t}
+    return {"max_abs_err": max_dx, **t}
+
+
+def segment_operands(torch, np, rng, G: int, k: int, B: int, dev):
+    """B seeded coop instances whose distinct rows pad to the group bucket
+    G (a 5-profile catalog at G = 8, G - G/4 distinct rows above), as the
+    padded PD operands and a zero state on ``dev``."""
+    from repro_torch.core import torch_coop
+
+    ops = []
+    for _ in range(B):
+        W, m = (catalog_instance(rng, 40, np, k=k) if G == 8
+                else distinct_instance(rng, G - G // 4, np, k=k))
+        Wd, _, cnt = torch_coop._reduce(W)
+        Gi, Wp, cntp, _, pairm, tau, sig_env, sig_cap = torch_coop._padded_operands(
+            Wd, cnt, k)
+        check(Gi == G, f"bucket {Gi}, want {G}")
+        ops.append((Wp, cntp, m, pairm, tau, sig_env, sig_cap))
+    stacked = [np.stack([o[i] for o in ops]) for i in range(6)]
+    return torch_coop._device_operands(
+        dev, (*stacked, np.array([o[6] for o in ops])), np.zeros((B, G, k)),
+        np.zeros((B, k)), np.zeros((B, G, G)))
+
+
+def segment_phase(torch, np, ev, detail) -> dict:
+    """Phase 6, second half: the fused PD segment against the stepwise
+    segment on the card, and its times at G 8 and PD_FUSED_MAX_G."""
+    from repro_torch.core.torch_coop import SEG_ITERS as seg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    cases, max_err = 0, 0.0
+    for G in (8, 32, ev.PD_FUSED_MAX_G):
+        for k in (3, 4):
+            for B in (1, 3):
+                ops = segment_operands(torch, np, rng, G, k, B, dev)
+                consts, state = ops[:7], ops[7:]
+                for warm in (False, True):
+                    if warm:  # the state after one stepwise segment
+                        state = [a.contiguous() for a in
+                                 ev.pd_segment_plain(*consts, *state, seg=seg)]
+                    got = ev.pd_segment(*consts, *state, seg=seg)
+                    again = ev.pd_segment(*consts, *state, seg=seg)
+                    ref = ev.pd_segment_plain(*consts, *state, seg=seg)
+                    torch.cuda.synchronize()
+                    label = f"G={G} k={k} B={B} {'warm' if warm else 'cold'}"
+                    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+                    check(err <= TOL, f"{label}: fused vs stepwise segment {err:.3e}")
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"{label}: a second launch differs")
+                    max_err = max(max_err, err)
+                    cases += 1
+    log(f"    fused PD segment == stepwise segment on {cases} cases (G 8/32/"
+        f"{ev.PD_FUSED_MAX_G}, k 3/4, B 1/3, cold and warm; atol {TOL:g}), max "
+        f"|diff| {max_err:.3e}; a second launch identical")
+    times = {}
+    for G in (8, ev.PD_FUSED_MAX_G):
+        k = 3
+        ops = segment_operands(torch, np, rng, G, k, 1, dev)
+        t = {"kernel_ms": graph_ms(torch, lambda: ev._launch_segment(ops, seg), reps=10),
+             "call_ms": call_ms(torch, lambda: ev.pd_segment(*ops, seg=seg), reps=20),
+             "plain_ms": call_ms(torch, lambda: ev.pd_segment_plain(*ops, seg=seg),
+                                 reps=3),
+             "library_ms": graph_ms(torch, lambda: ev.pd_segment_plain(*ops, seg=seg),
+                                    reps=1, rounds=3)}
+        # per step: the products L^T Wp and Wp xb^T (4 G^2 k, tensor-core
+        # rate); L's row sums, the gaps' subtraction and mask, L's update and
+        # running sum (8 G^2); AtY's other terms, xn, xb, the own terms, p's
+        # column sums, x's running sum (15 G k); p's update and sum (5 k).
+        # Once: cvec, and the averages.
+        t["bound_ms"], t["bound_by"] = bound(
+            8 * (4 * G * k + 3 * G * G + 2 * G + 3 * k + 1),
+            seg * (8 * G * G + 15 * G * k + 5 * k) + G * G + 2 * G * k + k,
+            tc_ops=seg * 4 * G * G * k)
+        times[G] = t
+        log(f"    G={G} k={k}, {seg} steps: fused kernel {t['kernel_ms'] * 1e3:.1f} us "
+            f"(graph replay; {t['call_ms'] * 1e3:.1f} us per wrapper call); the "
+            f"stepwise segment {t['plain_ms']:.2f} ms per call, "
+            f"{t['library_ms']:.3f} ms in a CUDA graph; bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+    detail["pd_segment_kernel"] = {"cases": cases, "max_abs_err": max_err,
+                                   "times": {str(G): t for G, t in times.items()}}
+    return {"max_abs_err": max_err, **times[8]}
 
 
 def envy_phase(torch, np, ev, detail) -> dict:
@@ -394,10 +655,26 @@ def envy_phase(torch, np, ev, detail) -> dict:
     return {"max_abs_err": max_err, **times[8]}
 
 
+def route_launches(ev, G: int, pd_iters: int, seg: int):
+    """The (fused, envy) launches ``pd_iters`` PD iterations at group
+    bucket G make on the card: one fused launch per segment up to
+    PD_FUSED_MAX_G, one envy launch per step above."""
+    if ev.fused_segment("cuda", G):
+        return pd_iters // seg, 0
+    return 0, pd_iters
+
+
 def coop_tier_phase(np, ev, detail) -> None:
-    """Phase 7: the cooperative tier on the card against the CPU and the LP."""
+    """Phase 7: the cooperative tier on the card against the CPU and the LP,
+    on both routes of a PD segment."""
     from repro_torch.core import oef, torch_coop
     from repro_torch.core.backends import BackendError
+    from repro_torch.core.torch_solve import bucket
+
+    seg = torch_coop.SEG_ITERS
+
+    def counts():
+        return ev.pd_segment.launches, ev.envy_gaps.launches
 
     insts = [(f"catalog256/{s}", *catalog_instance(np.random.default_rng(10 + s),
                                                    256, np))
@@ -405,11 +682,13 @@ def coop_tier_phase(np, ev, detail) -> None:
     insts.append(("distinct32", *distinct_instance(np.random.default_rng(1), 32, np)))
     out = {}
     for label, W, m in insts:
-        before = ev.envy_gaps.launches
+        before = counts()
         t0 = time.perf_counter()
         got = torch_coop.solve_coop_pd(W, m, device="cuda")
         card_s = time.perf_counter() - t0
-        launches = ev.envy_gaps.launches - before
+        launches = tuple(a - b for a, b in zip(counts(), before))
+        G = bucket(len(np.unique(W, axis=0)))
+        want = route_launches(ev, G, got.meta["pd_iters"], seg)
         cpu = torch_coop.solve_coop_pd(W, m, device="cpu")
         lp = oef.solve_coop(W, m)
         o, o_cpu, o_lp = ((W * a.X).sum() for a in (got, cpu, lp))
@@ -426,52 +705,59 @@ def coop_tier_phase(np, ev, detail) -> None:
         check(abs(o - o_lp) <= COOP_TOL * max(abs(o_lp), 1.0),
               f"{label}: objective {o} vs LP {o_lp}")
         check(envy_max(W, got.X, np) <= COOP_TOL, f"{label}: envy")
-        check(launches == got.meta["pd_iters"] > 0,
-              f"{label}: {launches} launches for {got.meta['pd_iters']} PD iterations")
+        check(got.meta["pd_iters"] > 0 and launches == want,
+              f"{label}: (fused, envy) launches {launches} for "
+              f"{got.meta['pd_iters']} PD iterations at G {G}, want {want}")
         out[label] = {"pd_iters": got.meta["pd_iters"],
-                      "crossover": got.meta["crossover"], "launches": launches,
+                      "crossover": got.meta["crossover"], "G": G,
+                      "launches_fused": launches[0], "launches_envy": launches[1],
                       "card_s": card_s, "gap": ub - lb, "d_obj_lp": o - o_lp,
                       "dX_cpu": d_x}
         log(f"[7] {label}: {got.meta['pd_iters']} PD iterations "
-            f"({got.meta['crossover']}), {launches} launches, {card_s * 1e3:.1f} ms "
-            f"on the card; |dX| vs CPU {d_x:.3e}, gap {ub - lb:.3e}, "
-            f"objective - LP {o - o_lp:.3e}")
+            f"({got.meta['crossover']}) at G {G}, {launches[0]} fused launches and "
+            f"{launches[1]} envy launches, {card_s * 1e3:.1f} ms on the card; |dX| vs "
+            f"CPU {d_x:.3e}, gap {ub - lb:.3e}, objective - LP {o - o_lp:.3e}")
     # the batch API (tests/test_jax_coop.py's batch instance, three row
-    # orders): one kernel launch per PD step for the whole batch
+    # orders): one fused launch per segment for the whole batch
     W, m = catalog_instance(np.random.default_rng(5), 8, np)
     Ws = np.stack([W, W[::-1], W[np.random.default_rng(5).permutation(8)]])
-    before = ev.envy_gaps.launches
+    before = counts()
     Xs = torch_coop.solve_coop_batch(Ws, m, device="cuda")
-    spent = ev.envy_gaps.launches - before
+    spent = tuple(a - b for a, b in zip(counts(), before))
     Xs_cpu = torch_coop.solve_coop_batch(Ws, m, device="cpu")
     d_batch = float(np.abs(Xs - Xs_cpu).max())
     check(d_batch <= 1e-8 * float(m.max()), f"batch: |dX| vs CPU {d_batch:.3e}")
-    check(spent > 0 and spent % torch_coop.SEG_ITERS == 0,
-          f"batch: {spent} launches for 3 instances")
+    check(spent[0] > 0 and spent[1] == 0,
+          f"batch: (fused, envy) launches {spent} for 3 instances")
     check(max(envy_max(Ws[b], Xs[b], np) for b in range(3)) <= COOP_TOL,
           "batch: envy")
-    out["batch3x8"] = {"launches": spent, "dX_cpu": d_batch}
-    log(f"    batch of 3 x 8 tenants: {spent} launches for the whole batch, "
-        f"|dX| vs CPU {d_batch:.3e}")
-    # 64 distinct rows: neither this tier nor the JAX tier certifies it within
-    # its budget (the registry hands such instances to the LP); with a cut
-    # budget both devices must spend exactly that budget and decline
-    W, m = distinct_instance(np.random.default_rng(0), 64, np)
-    budget = 2 * torch_coop.SEG_ITERS
-    for device in ("cuda", "cpu"):
-        before = ev.envy_gaps.launches
-        try:
-            torch_coop.solve_coop_pd(W, m, max_iters=budget, device=device)
-        except BackendError:
-            pass
-        else:
-            raise SmokeFailure(f"distinct64 certified on {device} within {budget}")
-        if device == "cuda":
-            spent = ev.envy_gaps.launches - before
-            check(spent == budget, f"distinct64 on the card: {spent} launches")
-    log(f"    distinct64: declined on the card after exactly {budget} launches, "
-        f"as on the CPU")
-    out["distinct64_budget"] = budget
+    out["batch3x8"] = {"launches_fused": spent[0], "dX_cpu": d_batch}
+    log(f"    batch of 3 x 8 tenants: {spent[0]} fused launches for the whole "
+        f"batch, no envy launch, |dX| vs CPU {d_batch:.3e}")
+    # distinct rows that the tier does not certify within a cut budget (nor
+    # the JAX tier; the registry hands such instances to the LP): both
+    # devices must spend exactly that budget and decline. 64 rows take the
+    # fused route; 128 rows, above PD_FUSED_MAX_G, the stepwise one.
+    for n, budget in ((64, 2 * seg), (128, seg)):
+        W, m = distinct_instance(np.random.default_rng(0), n, np)
+        for device in ("cuda", "cpu"):
+            before = counts()
+            try:
+                torch_coop.solve_coop_pd(W, m, max_iters=budget, device=device)
+            except BackendError:
+                pass
+            else:
+                raise SmokeFailure(f"distinct{n} certified on {device} within {budget}")
+            if device == "cuda":
+                spent = tuple(a - b for a, b in zip(counts(), before))
+                want = route_launches(ev, bucket(n), budget, seg)
+                check(spent == want, f"distinct{n} on the card: (fused, envy) "
+                      f"launches {spent}, want {want}")
+        log(f"    distinct{n} (G {bucket(n)}): declined on the card after exactly "
+            f"{budget} PD iterations, {spent[0]} fused and {spent[1]} envy launches, "
+            f"as on the CPU")
+        out[f"distinct{n}"] = {"budget": budget, "launches_fused": spent[0],
+                               "launches_envy": spent[1]}
     detail["coop_tier"] = out
 
 
@@ -496,32 +782,39 @@ def coop_breakdown(tracer, wall: float) -> dict:
     }
 
 
-def coop_service_phase(torch, np, ev, wf, detail) -> int:
-    """Phase 8: 256 tenants, oef-coop on the card; returns the launches."""
+def coop_service_phase(torch, np, ev, wf, detail):
+    """Phase 8: 256 tenants, oef-coop on the card; returns the launches of
+    pd_segment and of envy_gaps (which must be 0)."""
     from repro_torch import obs
     from repro_torch.core import torch_coop
     from repro_torch.service.traces import default_job_types
 
+    seg = torch_coop.SEG_ITERS
     torch_coop.prewarm(len(default_job_types("paper")), 3, device="cuda")
-    wf.waterfill_masses.launches = 0
-    ev.envy_gaps.launches = 0
+    others = (wf.waterfill_masses, wf.waterfill_solve, ev.envy_gaps)
+    for w in (ev.pd_segment, *others):
+        w.launches = 0
     sched, report, wall = service_replay(256, 32, "torch", "cuda", 7200.0,
                                          policy="oef-coop")
-    launches = ev.envy_gaps.launches
+    launches = ev.pd_segment.launches
+    other_launches = [w.launches for w in others]
     solved = [s for s in sched.metrics.solves if not s.reused]
     pd_iters = sum(s.pd_iters for s in solved)
     log(f"[8] 256 tenants / 768 devices, oef-coop, until 7200 s: "
         f"{report.n_solves} solves ({len(solved)} solved, "
         f"{sum(1 for s in solved if s.pd_iters == 0)} with no PD iteration), "
         f"{report.n_events} events, {report.jobs_finished} jobs finished, wall "
-        f"{wall:.1f} s, {launches} envy launches for {pd_iters} PD iterations")
+        f"{wall:.1f} s, {launches} fused PD-segment launches for {pd_iters} PD "
+        f"iterations")
     check(set(report.solver_backends) == {"torch"},
           f"solver_backends {report.solver_backends}")
     check(report.fallback_count == 0, f"fallback_count {report.fallback_count}")
     check(report.degraded_solves == 0, f"degraded_solves {report.degraded_solves}")
     check("solver_floor" not in report.anomalies, f"anomalies {report.anomalies}")
-    check(launches == pd_iters >= 250, f"{launches} launches, {pd_iters} PD iterations")
-    check(wf.waterfill_masses.launches == 0, "the coop replay ran the water-filling")
+    check(launches * seg == pd_iters >= seg,
+          f"{launches} fused launches, {pd_iters} PD iterations")
+    check(not any(other_launches), f"the coop replay launched waterfill_masses, "
+          f"waterfill_solve, envy_gaps {other_launches} times")
     check(all(np.isfinite(list(report.steady_state_estimate.values()))),
           "non-finite throughput estimate")
     lat = [s.latency_s * 1e3 for s in solved]
@@ -535,9 +828,11 @@ def coop_service_phase(torch, np, ev, wf, detail) -> int:
         f"{report.resolve_latency_ms_p95:.3f} (all solves); solved mean "
         f"{float(np.mean(lat)):.3f} p95 {percentile(lat, 95, np):.3f}; second "
         f"replay identical (wall {wall2:.1f} s, traced): solve "
-        f"{split['solve_s']:.2f} s (execute {split['execute_s']:.2f} s in "
-        f"{split['execute_n']} segments, certify {split['certify_s']:.2f} s, "
-        f"rescue {split['rescue_s']:.2f} s), placement {split['placement_s']:.2f} s")
+        f"{split['solve_s']:.2f} s (execute {split['execute_s']:.3f} s in "
+        f"{split['execute_n']} segments, {split['execute_s'] / wall2:.2%} of wall, "
+        f"certify {split['certify_s']:.2f} s, rescue {split['rescue_s']:.2f} s), "
+        f"placement {split['placement_s']:.2f} s (stepwise segments, before the "
+        f"fused kernel: wall 13.8 s, ~118 ms a segment, 10% of wall)")
     stats = tracer.flame_stats()
     top = sorted(stats.items(), key=lambda kv: -kv[1]["total_s"])[:14]
     detail["service_coop_256"] = {
@@ -551,7 +846,7 @@ def coop_service_phase(torch, np, ev, wf, detail) -> int:
         "solved_latency_ms_p95": percentile(lat, 95, np),
         "solver_share_of_wall": sum(s.latency_s for s in sched.metrics.solves) / wall,
         "traced": split, "flame_top": {p: st for p, st in top}}
-    return launches
+    return launches, other_launches[2]
 
 
 def coop_devices_phase(detail) -> None:
@@ -852,10 +1147,16 @@ def kernel_report(name: str) -> dict:
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_tc_kernel<256>`` / ``flash_kernel<bf16, 64>`` for a mangled
-    flash kernel name; other names as they are."""
+    """``flash_tc_kernel<256>`` / ``flash_kernel<bf16, 64>`` /
+    ``waterfill_solve_kernel<true>`` / ``pd_segment_kernel`` for a mangled
+    kernel name; other names as they are."""
     import re
 
+    m = re.search(r"waterfill_solve_kernelILb([01])E", mangled)
+    if m:
+        return f"waterfill_solve_kernel<{'true' if m.group(1) == '1' else 'false'}>"
+    if "pd_segment_kernel" in mangled:
+        return "pd_segment_kernel"
     m = re.search(r"(flash_(?:tc_)?kernel)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
     if not m:
         return mangled
@@ -1199,8 +1500,6 @@ def main() -> int:
     from repro_torch.kernels import waterfill as wf
     from repro_torch.kernels import xent as xe
 
-    ITERS = torch_solve.ITERS  # launches per cold solve; one more when warm
-
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1226,6 +1525,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
     detail["build_s"] = build_s
+    # the fused solver kernels must not spill: their state is meant to stay
+    # in registers and shared memory
+    fused_ptxas = {}
+    for lib, kernel in (("waterfill", "waterfill_solve_kernel"), ("envy", "pd_segment_kernel")):
+        for fn, rep in kernel_report(lib).items():
+            if kernel in fn and "registers" in rep:
+                fused_ptxas[kernel_name(fn)] = rep
+                check("0 bytes spill stores, 0 bytes spill loads" in rep.get("spills", ""),
+                      f"{fn} spills: {rep}")
+    check(len(fused_ptxas) == 3 or not any(_build.BUILD_LOG.values()),
+          f"ptxas reported {sorted(fused_ptxas)}, want the two waterfill_solve_kernel "
+          f"instances and pd_segment_kernel")
+    for fn, rep in fused_ptxas.items():
+        log(f"    {fn}: {rep['registers']}; {rep['spills']}")
+    detail["fused_ptxas"] = fused_ptxas
 
     # -- 2. kernel vs plain version ---------------------------------------------
     rng = np.random.default_rng(0)
@@ -1271,43 +1585,32 @@ def main() -> int:
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bytes": n_bytes, "fp64_ops": n_ops}
 
-    # -- 3. solve tier vs numpy greedy ----------------------------------------
-    W = paper_instance(np.random.default_rng(2), 1024, np)
-    m = np.full(3, 1024.0)
-    tau_ref = oef.solve_noncoop_waterfill(W, m).meta["tau"]
-    per_solve = {}
-    for label, hint in (("cold", None), ("warm", tau_ref * (1 - 1e-3))):
-        before = wf.waterfill_masses.launches
-        got = oef.solve_noncoop_waterfill_torch(W, m, tau_hint=hint, device="cuda")
-        per_solve[label] = wf.waterfill_masses.launches - before
-        worst = agree(W, m, got.meta["tau"], got.X, np)
-        check(got.meta["warm_started"] is (hint is not None), f"{label}: warm flag")
-        log(f"[3] {label} solve n=1024 k=3: |dtau| "
-            f"{abs(got.meta['tau'] - tau_ref):.3e}, largest difference vs CPU "
-            f"and numpy {worst:.3e}, {per_solve[label]} launches")
-    check(per_solve == {"cold": ITERS, "warm": ITERS + 1},
-          f"launches per solve {per_solve}, want cold {ITERS} / warm {ITERS + 1}")
-    detail["launches_per_solve"] = per_solve
+    # -- 3. the fused solve ---------------------------------------------------
+    solve_t = solve_phase(torch, np, wf, detail)
 
     # -- 4. the service at full size ----------------------------------------
     from repro_torch import obs
 
     torch_solve.prewarm(1024, 3, device="cuda")
     record = []
-    wf.waterfill_masses.launches = 0
-    ev.envy_gaps.launches = 0
+    others = (wf.waterfill_masses, ev.envy_gaps, ev.pd_segment)
+    for w in (wf.waterfill_solve, *others):
+        w.launches = 0
     sched, report, wall = service_replay(1024, 128, "torch", "cuda", 1200.0,
                                          record=record)
-    launches = wf.waterfill_masses.launches
-    check(ev.envy_gaps.launches == 0, "the non-coop replay ran the envy kernel")
+    launches = wf.waterfill_solve.launches
+    other_launches = [w.launches for w in others]
+    masses_launches = other_launches[0]
+    check(not any(other_launches), f"the non-coop replay launched waterfill_masses, "
+          f"envy_gaps, pd_segment {other_launches} times")
     solved = [s for s in sched.metrics.solves if not s.reused]
     warm = sum(1 for s in solved if s.warm_started)
-    expected = ITERS * len(solved) + warm
+    expected = len(solved)
     anomalies = report.anomalies
     log(f"[4] 1024 tenants / 3072 devices, until 1200 s: {report.n_solves} solves "
         f"({len(solved)} solved, {warm} warm), {report.n_events} events, "
         f"{report.jobs_finished} jobs finished, wall {wall:.1f} s, "
-        f"{launches} kernel launches (want {expected})")
+        f"{launches} fused-solve launches (want {expected}, one a solve)")
     check(set(report.solver_backends) == {"torch"},
           f"solver_backends {report.solver_backends}")
     check(report.fallback_count == 0, f"fallback_count {report.fallback_count}")
@@ -1332,7 +1635,11 @@ def main() -> int:
           "second full-size replay differs from the first")
     stats = tracer.flame_stats()
     top = sorted(stats.items(), key=lambda kv: -kv[1]["total_s"])[:12]
-    log(f"    second replay identical (wall {wall2:.1f} s, traced)")
+    solve_s = sum(st["total_s"] for path, st in stats.items()
+                  if path.endswith(";resolve;solve"))
+    log(f"    second replay identical (wall {wall2:.1f} s, traced; resolve;solve "
+        f"{solve_s:.3f} s, {solve_s / wall2:.2%} of wall); the unfused solve "
+        f"before the fused kernel: resolve_latency_ms mean 5.2-8.1, p95 8.7-13.8")
     detail["service_1024"] = {
         "n_solves": report.n_solves, "solved": len(solved), "warm": warm,
         "n_events": report.n_events, "jobs_finished": report.jobs_finished,
@@ -1342,6 +1649,7 @@ def main() -> int:
         "solved_latency_ms_mean": float(np.mean(lat)),
         "solved_latency_ms_p95": percentile(lat, 95, np),
         "solver_share_of_wall": solve_share, "max_diff": worst,
+        "traced_solve_share_of_wall": solve_s / wall2,
         "flame_top": {p: s for p, s in top}}
 
     # -- 5. 128 tenants: numpy, torch on the card, torch on the CPU ---------------
@@ -1386,14 +1694,16 @@ def main() -> int:
 
     # -- 6-9. the cooperative tier and its envy-gap kernel ----------------------
     envy_t = envy_phase(torch, np, ev, detail)
+    segment_t = segment_phase(torch, np, ev, detail)
     coop_tier_phase(np, ev, detail)
-    envy_launches = coop_service_phase(torch, np, ev, wf, detail)
+    segment_launches, envy_launches = coop_service_phase(torch, np, ev, wf, detail)
     coop_devices_phase(detail)
 
     # -- 10-12. serving recurrentgemma-2b and its RG-LRU scan kernel ------------
     rg_t = rglru_phase(torch, rg, detail)
     rg_launches = serve_phase(torch, rg, {
-        "waterfill_masses": wf.waterfill_masses, "envy_gaps": ev.envy_gaps,
+        "waterfill_masses": wf.waterfill_masses, "waterfill_solve": wf.waterfill_solve,
+        "envy_gaps": ev.envy_gaps, "pd_segment": ev.pd_segment,
         "flash_attention": fa.flash_attention, "softmax_xent": xe.softmax_xent},
         detail, rg_t)
     devices_phase(torch, rg, detail)
@@ -1411,11 +1721,24 @@ def main() -> int:
         json.dump(detail, f, indent=1, sort_keys=True)
     log(f"total {detail['total_s']:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": "waterfill_masses",
+        "name": "waterfill_solve",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/waterfill.cu",
         "replaces": "src/repro/kernels/waterfill.py:49",
         "launches": launches,
+        "max_abs_err": solve_t["max_abs_err"],
+        "ms": solve_t["kernel_ms"],
+        "plain_ms": solve_t["plain_ms"],
+        "bound_ms": solve_t["bound_ms"],
+        "bound_by": solve_t["bound_by"],
+        "library_ms": solve_t["library_ms"],
+    }, {
+        "name": "waterfill_masses",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/waterfill.cu",
+        "replaces": "src/repro/kernels/waterfill.py:49",
+        "launches": masses_launches,
+        "launches_in": "phase 4, where waterfill_solve runs in its place",
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
@@ -1424,11 +1747,24 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
     }, {
+        "name": "pd_segment",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/envy.cu",
+        "replaces": "src/repro/kernels/envy.py:38",
+        "launches": segment_launches,
+        "max_abs_err": segment_t["max_abs_err"],
+        "ms": segment_t["kernel_ms"],
+        "plain_ms": segment_t["plain_ms"],
+        "bound_ms": segment_t["bound_ms"],
+        "bound_by": segment_t["bound_by"],
+        "library_ms": segment_t["library_ms"],
+    }, {
         "name": "envy_gaps",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/envy.cu",
         "replaces": "src/repro/kernels/envy.py:38",
         "launches": envy_launches,
+        "launches_in": "phase 8, where pd_segment runs in its place",
         "max_abs_err": envy_t["max_abs_err"],
         "ms": envy_t["kernel_ms"],
         "plain_ms": envy_t["plain_ms"],

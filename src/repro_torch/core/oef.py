@@ -241,8 +241,8 @@ def solve_noncoop_waterfill_torch(
 
     Same staircase class and same answers (<=1e-9) as
     :func:`solve_noncoop_waterfill`, but the bisection runs as a fixed-trip
-    multisection on ``device`` (default ``"cuda"``) whose feasibility probes
-    are the hand-written water-filling kernel
+    multisection on ``device`` (default ``"cuda"``), on the card one launch
+    of the hand-written fused water-filling kernel
     (:mod:`repro_torch.core.torch_solve`). Off-class instances raise
     :class:`~repro_torch.core.backends.BackendError` (registry falls back to
     the LP). ``meta["warm_started"]`` is True exactly when the solve probed

@@ -13,11 +13,15 @@ with a first-order method whose iterations run on a torch device:
     constraints shrink from n(n-1) to g(g-1);
   - **preconditioned PDHG** (Chambolle–Pock with Pock–Chambolle diagonal
     scaling) on the reduced LP, with the pairwise envy-gap matrix computed
-    once per step by :func:`repro_torch.kernels.envy.envy_gaps`: the
-    hand-written CUDA kernel on the card, its plain torch version on the
-    CPU. Each segment runs a fixed trip count of ``SEG_ITERS`` steps on the
-    device with no host sync (exactly ``seg`` kernel launches) and *restarts
-    to the running average* (the PDLP acceleration);
+    once per step. Each segment runs a fixed trip count of ``SEG_ITERS``
+    steps on the device with no host sync and *restarts to the running
+    average* (the PDLP acceleration). The route of a segment goes by device
+    and group bucket (:func:`repro_torch.kernels.envy.fused_segment`): on
+    the card a segment with ``G <= PD_FUSED_MAX_G`` (64) is **one** launch
+    of the hand-written fused kernel (:func:`repro_torch.kernels.envy.
+    pd_segment`); a larger G runs the steps as torch ops with one launch of
+    the envy-gap kernel (:func:`repro_torch.kernels.envy.envy_gaps`) per
+    step; on the CPU the steps run as torch ops on the gaps' plain version;
   - **certified active-set crossover** between segments, on the host: the
     averaged iterate is copied back once, the primal support and dual tight
     set are read off it, both sides are polished by least squares, small
@@ -49,7 +53,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.envy import envy_gaps
+from ..kernels.envy import envy_gaps, fused_segment, pd_segment, pd_segment_plain
 from ..obs import trace as obs_trace
 from . import backends
 from .lp import solve_lp
@@ -82,34 +86,16 @@ _W_FLOOR = 1e-300
 
 def _pd_segment(Wp, cnt, m, pairm, tau, sig_env, sig_cap, x, p, L, *,
                 seg: int = SEG_ITERS):
-    """``seg`` preconditioned PDHG iterations + restart to the running average.
-
-    Batched operands on one device, padded to the group bucket: ``Wp``
-    (B, G, k) distinct speedup rows (padding rows have ``cnt = 0`` and
-    ``tau = 0`` so their state is pinned at zero), ``cnt`` (B, G), ``m``
-    (B, k), ``pairm`` (B, G, G) the envy pair mask (real x real, zero
-    diagonal), ``tau`` (B, G, k), ``sig_env`` (B, G), ``sig_cap`` (B, 1),
-    and the state ``x`` (B, G, k), ``p`` (B, k), ``L`` (B, G, G). Returns
-    the averaged ``(x, p, L)``. Only tensor ops: nothing waits for the host.
-    """
-    cnt3 = cnt[:, :, None]
-    cvec = cnt3 * Wp
-    sig3 = sig_env[:, :, None]
-    xs, ps, Ls = torch.zeros_like(x), torch.zeros_like(p), torch.zeros_like(L)
-    for _ in range(seg):
-        AtY = (cnt3 * p[:, None, :] + L.transpose(1, 2) @ Wp
-               - L.sum(dim=2)[:, :, None] * Wp)
-        xn = torch.clamp_min(x + tau * (cvec - AtY), 0.0)
-        xb = 2.0 * xn - x
-        E = envy_gaps(Wp, xb) * pairm
-        p = torch.clamp_min(p + sig_cap * ((cnt3 * xb).sum(dim=1) - m), 0.0)
-        L = torch.clamp_min(L + sig3 * E, 0.0) * pairm
-        x = xn
-        xs += x
-        ps += p
-        Ls += L
-    inv = 1.0 / seg
-    return xs * inv, ps * inv, Ls * inv
+    """``seg`` preconditioned PDHG iterations + restart to the running average
+    (operands and result as :func:`~repro_torch.kernels.envy.pd_segment_plain`
+    takes and returns them), routed by :func:`~repro_torch.kernels.envy.
+    fused_segment`: one launch of the fused kernel for a CUDA segment with
+    ``G <= PD_FUSED_MAX_G``, else the stepwise loop, whose gaps come from
+    this module's ``envy_gaps``."""
+    ops = (Wp, cnt, m, pairm, tau, sig_env, sig_cap, x, p, L)
+    if fused_segment(Wp.device, Wp.shape[1]):
+        return pd_segment(*ops, seg=seg)
+    return pd_segment_plain(*ops, seg=seg, envy_fn=envy_gaps)
 
 
 def _to_host(x: torch.Tensor, p: torch.Tensor,
@@ -436,7 +422,8 @@ def solve_coop_pd(
     ``meta["pd_state"]``; the online service passes it on every re-solve, so
     steady-state instances certify within a segment or two, often with no
     PD iteration at all. ``device`` (default ``"cuda"``) is where the PD
-    segments run; each segment is ``seg`` envy-kernel launches on the card.
+    segments run; on the card each segment is one fused launch up to
+    ``PD_FUSED_MAX_G`` groups and ``seg`` envy-kernel launches above.
     """
     dev = resolve_device(device)
     W = np.asarray(W, dtype=np.float64)
@@ -533,8 +520,9 @@ def solve_coop_batch(
     """Batched cooperative solve of (B, n, k) stacked instances.
 
     Scenario sweeps (capacity what-ifs, profiling-noise ensembles) share
-    every segment across the batch: on the card each PD step is one envy
-    kernel launch for all B instances. Rows are taken as-is (no dedup —
+    every segment across the batch: on the card a segment is one fused
+    launch for all B instances (one envy launch per step above
+    ``PD_FUSED_MAX_G``). Rows are taken as-is (no dedup —
     sweeps perturb rows, so grouping would differ per instance).
     Certification is per instance between segments; instances that certify
     early stop paying the polish. Returns ``Xs (B, n, k)``; raises
@@ -588,10 +576,12 @@ def solve_coop_batch(
 
 
 def prewarm(n_max: int, k: int, *, seg: int = SEG_ITERS, device=None) -> List[int]:
-    """Build the kernel and run one segment of each group bucket up to
-    ``bucket(n_max)``.
+    """Build the kernels and run one segment of each group bucket up to
+    ``bucket(n_max)``, each on its route (the fused kernel up to
+    ``PD_FUSED_MAX_G``, which also asks for its shared memory before any
+    CUDA-graph capture).
 
-    The first launch builds the CUDA kernel with ``nvcc``; running every
+    The first launch builds the CUDA library with ``nvcc``; running every
     bucket once also warms torch's allocator, so neither lands inside a
     measured re-solve. Returns the bucket sizes.
     """

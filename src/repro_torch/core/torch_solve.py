@@ -5,19 +5,27 @@ exact but sequential: a Python loop over users per bisection probe. This
 module runs the same exact water-filling on a torch device:
 
   - the per-tau feasibility check is the k-pass reduction of
-    :func:`repro_torch.kernels.waterfill.waterfill_masses`: the hand-written
-    CUDA kernel on the card, its plain torch version on the CPU;
+    :func:`repro_torch.kernels.waterfill.waterfill_masses`;
   - the bisection is a fixed-iteration multisection: every step probes
-    ``LANES`` equally spaced candidate taus at once (one kernel launch) and
-    keeps the bracket between the last feasible and first infeasible lane,
-    shrinking it by ``LANES+1`` per step. The trip count is fixed and the
-    bracket stays on the device, so the loop never waits for the host: a
-    cold solve is exactly ``ITERS`` launches, a warm-started one (a usable
-    ``tau_hint``) exactly ``ITERS + 1``;
-  - the allocation at the converged tau is one more greedy pass in plain
-    torch ops (:func:`~repro_torch.kernels.waterfill.waterfill_allocate`);
+    ``LANES`` equally spaced candidate taus at once and keeps the bracket
+    between the last feasible and first infeasible lane, shrinking it by
+    ``LANES+1`` per step. The trip count is fixed and the bracket stays on
+    the device, so the loop never waits for the host: a cold solve is
+    exactly ``ITERS`` probes, a warm-started one (a usable ``tau_hint``)
+    exactly ``ITERS + 1``;
+  - the allocation at the converged tau is one more greedy pass;
   - scenario batches go through :func:`solve_noncoop_fast_batch`, the same
     core with a leading batch dimension.
+
+On the card the whole solve, bracket, probes and allocation, is one launch
+of the hand-written fused kernel
+(:func:`~repro_torch.kernels.waterfill.waterfill_solve`), cold or warm, at
+the default ``LANES`` and up to ``MAX_LANES`` (8); more lanes run the
+unfused composition on the card, one launch of the masses kernel per probe
+(:func:`~repro_torch.kernels.waterfill.fused_solve` names the route). On
+the CPU it is the plain composition
+(:func:`~repro_torch.kernels.waterfill.waterfill_solve_plain`), one call of
+the masses' plain version per probe.
 
 Instances are padded to power-of-two user-count buckets (min ``MIN_PAD``),
 the same buckets as the JAX tier; :func:`prewarm` builds the kernel and runs
@@ -44,7 +52,8 @@ import numpy as np
 import torch
 
 from ..kernels import KernelError
-from ..kernels.waterfill import waterfill_allocate, waterfill_masses
+from ..kernels.waterfill import (fused_solve, waterfill_masses, waterfill_solve,
+                                 waterfill_solve_plain)
 from ..obs import trace as obs_trace
 from .oef import classify_staircase
 
@@ -107,46 +116,19 @@ def hint_usable(tau_hint: Optional[float], W: Array, m: Array) -> bool:
     return tau_hint is not None and 0.0 < float(tau_hint) < hi_cap
 
 
-def _feasible(taus, Wf, m, mask, n_active):
-    mass = waterfill_masses(taus, Wf, m, mask)
-    # The mass decays linearly in (tau - tau*) above the optimum; the
-    # tolerance only needs to absorb the ~1e-13-relative cumsum noise, and
-    # shifts the recovered tau by tol/n — far inside the 1e-9 parity budget.
-    return mass <= 1e-12 * (1.0 + n_active[:, None] * taus)
-
-
 def _solve_padded(Wf, m, mask, tau_hint, *, lanes: int, iters: int,
                   use_hint: bool):
-    """Multisection + allocation recovery on padded, batched instances.
-
-    Wf (B, n_pad, k) sorted fastest user first with padding rows masked
-    out, m (B, k), mask (B, n_pad), tau_hint (B,); returns tau (B,) and X
-    (B, n_pad, k) in the same (padded, reversed) row order. Runs entirely
-    on the operands' device with no host sync.
-    """
-    n_active = mask.sum(dim=-1)
-    # Tight bracket: n*tau <= sum_j m_j max_u w_uj (every device at most at
-    # its best active user's speed).
-    hi_cap = ((Wf * mask[:, :, None]).amax(dim=1) * m).sum(dim=-1) / n_active + 1.0
-    lo = torch.zeros_like(hi_cap)
-    hi = hi_cap
-    if use_hint:
-        # One probe decides which side of the hint the bracket keeps — the
-        # fixed-trip multisection below stays correct for any hint quality.
-        h = torch.minimum(torch.clamp_min(tau_hint, 0.0), hi_cap)
-        ok = _feasible(h[:, None], Wf, m, mask, n_active)[:, 0]
-        lo = torch.where(ok, h, lo)
-        hi = torch.where(ok, hi, h)
-    frac = torch.arange(1, lanes + 1, dtype=torch.float64,
-                        device=Wf.device) / (lanes + 1.0)
-    for _ in range(iters):
-        taus = lo[:, None] + (hi - lo)[:, None] * frac
-        feas = _feasible(taus, Wf, m, mask, n_active)
-        i = feas.sum(dim=-1)  # feasibility is monotone: lanes form a true-prefix
-        at_lo = taus.gather(1, (i - 1).clamp_min(0)[:, None])[:, 0]
-        at_hi = taus.gather(1, i.clamp_max(lanes - 1)[:, None])[:, 0]
-        lo, hi = torch.where(i > 0, at_lo, lo), torch.where(i < lanes, at_hi, hi)
-    return lo, waterfill_allocate(lo, Wf, m, mask)
+    """Multisection + allocation recovery on padded, batched instances (see
+    :func:`~repro_torch.kernels.waterfill.waterfill_solve_plain`), routed by
+    :func:`~repro_torch.kernels.waterfill.fused_solve`: one launch of the
+    fused kernel for a CUDA solve of at most ``MAX_LANES`` lanes, else the
+    unfused composition, which probes through this module's
+    ``waterfill_masses``."""
+    if fused_solve(Wf.device, lanes):
+        return waterfill_solve(Wf, m, mask, tau_hint, lanes=lanes, iters=iters,
+                               use_hint=use_hint)
+    return waterfill_solve_plain(Wf, m, mask, tau_hint, lanes=lanes, iters=iters,
+                                 use_hint=use_hint, masses_fn=waterfill_masses)
 
 
 def _pad_sorted(Ws: Array, k: int) -> Tuple[Array, Array]:
@@ -249,7 +231,7 @@ def solve_noncoop_fast_batch(
     ``ms`` is (B, k) or a single (k,) capacity broadcast to the batch.
     Every instance must be consistently ordered (ValueError otherwise).
     Returns ``(taus (B,), Xs (B, n, k))`` in each instance's original row
-    order; the whole batch shares each of the ``iters`` kernel launches.
+    order; on the card the whole batch is one launch of the fused kernel.
     """
     dev = resolve_device(device)
     Ws = np.asarray(Ws, dtype=np.float64)
@@ -281,7 +263,7 @@ def prewarm(n_max: int, k: int, *, lanes: int = LANES, iters: int = ITERS,
             device=None) -> List[int]:
     """Build the kernel and run each padded bucket up to ``bucket(n_max)``.
 
-    The first launch builds the CUDA kernel with ``nvcc``; running every
+    The first launch builds the CUDA library with ``nvcc``; running every
     bucket once, cold and warm-started, also warms torch's allocator, so
     neither lands inside a measured re-solve. Returns the bucket sizes.
     """

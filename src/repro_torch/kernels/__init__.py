@@ -4,9 +4,14 @@ Every Pallas kernel of the JAX package has its counterpart here:
 
   - waterfill — the water-filling feasibility mass of the non-cooperative
     OEF solve (``csrc/waterfill.cu``); replaces the Pallas kernel
-    ``kernels/waterfill.py``;
+    ``kernels/waterfill.py``. The same source holds the fused solve
+    (``waterfill_solve``): the whole multisection solve in one launch, which
+    the solve tier runs on the card;
   - envy — the pairwise envy-gap matrix of the cooperative primal–dual
-    solve (``csrc/envy.cu``); replaces the Pallas kernel ``kernels/envy.py``;
+    solve (``csrc/envy.cu``); replaces the Pallas kernel ``kernels/envy.py``.
+    The same source holds the fused PD segment (``pd_segment``): a whole
+    segment of the primal–dual solve in one launch, which the coop tier runs
+    on the card up to ``PD_FUSED_MAX_G`` groups;
   - rglru_scan — the RG-LRU linear recurrence of the model's prefill
     (``csrc/rglru_scan.cu``); replaces the Pallas kernel
     ``kernels/rglru_scan.py``;

@@ -81,3 +81,20 @@ def test_refuse_grad_passes_without_grad_or_without_grad_inputs():
         _build.refuse_grad("op", x=x)
     with torch.inference_mode():
         _build.refuse_grad("op", x=torch.ones(2))
+
+
+@pytest.mark.parametrize("name,kernel", [("envy", "pd_segment_kernel"),
+                                         ("envy", "envy_gaps_kernel"),
+                                         ("waterfill", "waterfill_solve_kernel"),
+                                         ("waterfill", "waterfill_masses_kernel")])
+def test_the_library_key_covers_each_kernel_of_a_source(tmp_path, name, kernel):
+    """The fused solver kernels share a source (and so a library) with the
+    standalone kernels: an edit to either kernel's body changes the key."""
+    with open(os.path.join(_build.SRC_DIR, name + ".cu")) as f:
+        src = f.read()
+    write(tmp_path / f"{name}.cu", src)
+    before = _build.digest(name, str(tmp_path))
+    body = src.index("{", src.index(f"{kernel}("))
+    write(tmp_path / f"{name}.cu", src[:body + 1] + "\n  // edited" + src[body + 1:])
+    assert _build.digest(name, str(tmp_path)) != before
+    assert [os.path.basename(p) for p in _build.sources(name)] == [f"{name}.cu"]
