@@ -4,8 +4,8 @@
 Drives ``repro_torch`` (never the JAX package) in phases; any failed check
 raises and the script exits non-zero:
 
-1. build the water-filling, envy-gap, RG-LRU scan, flash attention and
-   cross-entropy kernels from ``src/repro_torch/kernels/csrc`` with
+1. build the water-filling, envy-gap, RG-LRU scan (forward and backward),
+   flash attention and cross-entropy kernels from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a``, one compiler process per source, all started
    together (``waterfill.cu`` also holds the fused solve, ``envy.cu`` the
    fused PD segment); ptxas must report no spill in either fused kernel;
@@ -103,8 +103,9 @@ raises and the script exits non-zero:
     D 48 / 80, and the tensor-core kernel's edges (tiles on the diagonal at
     S = 2048, a window edge inside a tile, GQA 10/1, ragged Sk, D = 32, a
     misaligned bf16 view and D = 36, which take the CUDA-core kernel); an
-    input that requires grad raises in flash attention, the cross-entropy
-    and the RG-LRU scan; the tensor-core kernel's SASS holds HGMMA and
+    input that requires grad raises in flash attention and the
+    cross-entropy, and grad flows through the RG-LRU scan's forward and
+    backward kernels; the tensor-core kernel's SASS holds HGMMA and
     UTMALDG (ptxas's registers and spills printed); then two full-width
     shapes (recurrentgemma-2b's and gemma3-4b's local attention) held to
     the plain version and to ``scaled_dot_product_attention``, a second
@@ -116,7 +117,29 @@ raises and the script exits non-zero:
     N = 1, V = 1, unaligned float32 rows, int64 targets, targets -1 and V (the loss is the logsumexp);
     then one training-loss chunk of 4096 tokens over gemma3-4b's 262,144
     and recurrentgemma-2b's 256,000 vocab, timed against the plain version,
-    ``F.cross_entropy`` and the byte bound.
+    ``F.cross_entropy`` and the byte bound;
+15. hold the RG-LRU backward kernel (the reverse scan of the training
+    path) against its plain version on the card (atol 1e-6, rtol 1e-5, and
+    whether bit for bit): the training shape (2, 2048, 2560), the JAX
+    kernel test's range, a ragged D, S = 1, S = 4097 and nonzero ``h0``;
+    grad through ``ops.rglru_scan`` (both kernels) against autograd of the
+    plain forward (atol 1e-5, rtol 1e-4); and its times at the training
+    shape: CUDA-graph device time, wrapper call, plain version, the byte
+    bound and the private ``associative_scan`` run in reverse;
+16. train recurrentgemma-2b at full width (``get_config``: bf16 compute,
+    float32 masters, ``remat="full"``, ``logits_chunk=512``, AdamW) through
+    ``repro_torch.runtime.Trainer``, the trainer of ``launch.train``: a
+    global batch of 2 x 2048 seeded tokens, 3 steps, TF32 off. Exactly 34
+    forward (18 layers and the 16 recomputed in the units) and 18 backward
+    RG-LRU launches a step and no launch of any other kernel, finite
+    losses, a second run's first loss identical bit for bit; step times,
+    tokens/s, peak memory and the top device operations of one profiled
+    step;
+17. one training step on the card against the CPU at full width and cut
+    depth (``n_layers=5``, B 1, S 256, float32, the same weights): the loss
+    within 1e-5 relative, every gradient leaf within 1e-4 of its max |g|,
+    and one AdamW update on the card's gradients within 1e-6 of each
+    leaf's max |p| on the card and on the CPU.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
@@ -168,6 +191,15 @@ CARD_CPU_F32, CARD_CPU_BF16 = 1e-4, 5e-2
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: cross-entropy kernel vs its plain version (phase 14), as the JAX test
 XENT_ATOL, XENT_RTOL = 1e-4, 1e-5
+#: the training cell of phase 16: global batch x sequence x RG-LRU width
+TRAIN_SHAPE = (2, 2048, 2560)
+#: card vs CPU, one float32 training step at cut depth (phase 17): the loss,
+#: relative; each gradient leaf, as a share of its max |g| (float32 products
+#: and reductions summed in other orders on the two devices, through five
+#: layers); one AdamW update on the same gradients, as a share of each
+#: leaf's max |p| (a few float32 ulps: the two devices sum the global norm
+#: in other orders)
+TRAIN_LOSS_REL, TRAIN_GRAD_SHARE, OPT_CARD_CPU = 1e-5, 1e-4, 1e-6
 ARCH = "recurrentgemma-2b"
 
 
@@ -1257,20 +1289,18 @@ def flash_phase(torch, fa, detail, dev="cuda") -> dict:
         f"{FLASH_TOL['float32']:g}), bf16 {worst['bfloat16']:.3e} (tol "
         f"{FLASH_TOL['bfloat16']:g})")
 
-    # no kernel has a backward: an input that requires grad must raise
+    # flash attention and the cross-entropy have no backward: an input that
+    # requires grad must raise
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import xent as xe
 
     q, k, v = operands(1, 2, 2, 128, 128, 64, bf16)
     logits = torch.randn((4, 64), generator=g, device=dev)
-    a = torch.rand((1, 8, 16), generator=g, device=dev)
     calls = (("flash_attention", fa.flash_attention,
               lambda: ops.flash_attention(q.clone().requires_grad_(), k, v)),
              ("softmax_xent", xe.softmax_xent, lambda: ops.softmax_xent(
                  logits.clone().requires_grad_(),
-                 torch.zeros(4, dtype=torch.int64, device=dev))),
-             ("rglru_scan", rg.rglru_scan, lambda: ops.rglru_scan(
-                 a.clone().requires_grad_(), a, torch.zeros((1, 16), device=dev))))
+                 torch.zeros(4, dtype=torch.int64, device=dev))))
     for name, wrapper, call in calls:
         before = wrapper.launches
         try:
@@ -1280,8 +1310,21 @@ def flash_phase(torch, fa, detail, dev="cuda") -> dict:
             raised = str(e)
         check("no backward" in raised and wrapper.launches == before,
               f"{name} on an input that requires grad: {raised or 'no error'}")
+    # the RG-LRU scan has one: grad flows through its two kernels
+    a = torch.rand((1, 8, 16), generator=g, device=dev)
+    a_grad = a.clone().requires_grad_()
+    before = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+    ops.rglru_scan(a_grad, a, torch.zeros((1, 16), device=dev)).sum().backward()
+    after = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+    h = rg.rglru_scan_plain(a, a, torch.zeros((1, 16), device=dev))
+    want = rg.rglru_scan_backward_plain(a, h, torch.zeros((1, 16), device=dev),
+                                        torch.ones_like(a))[0]
+    check(after == (before[0] + 1, before[1] + 1) and a_grad.grad is not None
+          and torch.equal(a_grad.grad, want),
+          f"rglru_scan with grad: launches {before} -> {after}, grad {a_grad.grad}")
     log(f"    {', '.join(c[0] for c in calls)}: an input that requires grad raises, "
-        f"no launch")
+        f"no launch; rglru_scan: grad flows through its forward and backward "
+        f"kernels (1 launch each)")
 
     report = kernel_report("flash_attention")
     tc_fns = {f: r for f, r in report.items() if "flash_tc_kernel" in f}
@@ -1476,6 +1519,255 @@ def xent_phase(torch, xe, detail, dev="cuda") -> dict:
     detail["xent_kernel"] = {"cases": len(cases), "max_abs_err": worst,
                              "launches": launches, "full_width": full}
     return {"max_abs_err": worst_all, "launches": launches, **full[XENT_FULL[0][0]]}
+
+
+def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
+    """Phase 15: the RG-LRU backward kernel against its plain version, grad
+    through the autograd Function against autograd of the plain forward,
+    and its times at the training shape (2, 2048, 2560)."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(15)
+
+    def operands(B, S, D, h0_zero):
+        a = torch.sigmoid(torch.randn((B, S, D), generator=g, device=dev))
+        b = torch.randn((B, S, D), generator=g, device=dev)
+        h0 = (torch.zeros((B, D), device=dev) if h0_zero
+              else torch.randn((B, D), generator=g, device=dev))
+        dh = torch.randn((B, S, D), generator=g, device=dev)
+        with torch.no_grad():
+            h = rg.rglru_scan(a, b, h0)
+        return a, b, h0, h, dh
+
+    B, S, D = TRAIN_SHAPE
+    cases = [((B, S, D), True),                     # the training shape
+             ((1, 64, 32), False), ((2, 128, 64), False), ((3, 192, 128), False),
+             ((3, 256, 256), False), ((1, 128, 2568), False),   # ragged D
+             ((2, 1, 2560), False), ((1, 4097, 256), False), ((2, 17, 96), False)]
+    max_err, bitwise = 0.0, True
+    for shape, h0_zero in cases:
+        a, _, h0, h, dh = operands(*shape, h0_zero)
+        got = rg.rglru_scan_backward(a, h, h0, dh)
+        want = rg.rglru_scan_backward_plain(a, h, h0, dh)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            check(x.dtype == torch.float32 and x.shape == y.shape,
+                  f"rglru_scan_backward {shape}: {x.dtype} {tuple(x.shape)}")
+            torch.testing.assert_close(x, y, atol=RG_ATOL, rtol=RG_RTOL)
+            max_err = max(max_err, float((x - y).abs().max()))
+            bitwise = bitwise and torch.equal(x, y)
+        del a, h0, h, dh, got, want
+    # grad through the Function (both kernels) against autograd of the plain
+    # forward, at small shapes, float32
+    grad_err = 0.0
+    for shape in ((2, 64, 96), (1, 300, 40), (3, 1, 8)):
+        a, b, h0, _, dh = operands(*shape, False)
+        xs = [t.clone().requires_grad_() for t in (a, b, h0)]
+        ys = [t.clone().requires_grad_() for t in (a, b, h0)]
+        before = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+        ops.rglru_scan(*xs).backward(dh)
+        check((rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+              == (before[0] + 1, before[1] + 1), "grad did not go through both kernels")
+        rg.rglru_scan_plain(*ys).backward(dh)
+        for x, y in zip(xs, ys):
+            torch.testing.assert_close(x.grad, y.grad, atol=1e-5, rtol=1e-4)
+            grad_err = max(grad_err, float((x.grad - y.grad).abs().max()))
+    log(f"[15] rglru_scan_backward kernel == plain on {len(cases)} cases (atol "
+        f"{RG_ATOL:g}, rtol {RG_RTOL:g}), max |diff| {max_err:.3e}, "
+        f"{'bit for bit' if bitwise else 'not bit for bit'}; grad through both "
+        f"kernels vs autograd of the plain forward {grad_err:.3e} (atol 1e-5)")
+    a, b, h0, h, dh = operands(B, S, D, True)
+    t = {"kernel_ms": graph_ms(torch, lambda: rg._launch_backward(a, h, h0, dh), reps=20),
+         "call_ms": call_ms(torch, lambda: rg.rglru_scan_backward(a, h, h0, dh), reps=50),
+         "plain_ms": graph_ms(torch, lambda: rg.rglru_scan_backward_plain(a, h, h0, dh),
+                              reps=1, rounds=2),
+         "forward_ms": graph_ms(torch, lambda: rg._launch(a, b, h0), reps=20),
+         "library_ms": None}
+    import importlib.util
+    if importlib.util.find_spec("torch._higher_order_ops.associative_scan"):
+        from torch._higher_order_ops.associative_scan import associative_scan
+
+        def combine(x, y):
+            return x[0] * y[0], y[0] * x[1] + y[1]
+
+        def library():
+            # g_t = dh_t + a_{t+1} g_{t+1}: the forward recurrence, reversed
+            a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+            gg = associative_scan(combine, (a_next.flip(1), dh.flip(1)), dim=1,
+                                  combine_mode="generic")[1].flip(1)
+            h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+            return gg * h_prev, gg, a[:, 0] * gg[:, 0]
+
+        for x, y in zip(library(), rg._launch_backward(a, h, h0, dh)):
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
+        t["library_ms"] = call_ms(torch, library, reps=3)
+    n = B * S * D
+    t["bound_ms"], t["bound_by"] = bound(5 * n * 4 + 2 * B * D * 4, 3 * n + B * D,
+                                         FP32_FLOPS)
+    t["forward_bound_ms"], _ = bound(3 * n * 4, 2 * n, FP32_FLOPS)
+    lib = "n/a" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
+    log(f"    {TRAIN_SHAPE} fp32: backward kernel {t['kernel_ms'] * 1e3:.2f} us (graph "
+        f"replay; {t['call_ms'] * 1e3:.2f} us per wrapper call), plain "
+        f"{t['plain_ms'] * 1e3:.2f} us, associative_scan reversed {lib}, bound "
+        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); the forward kernel at this "
+        f"shape {t['forward_ms'] * 1e3:.2f} us (bound {t['forward_bound_ms'] * 1e3:.2f} us)")
+    detail["rglru_backward_kernel"] = {"cases": len(cases), "max_abs_err": max_err,
+                                       "bitwise": bitwise, "grad_err": grad_err, **t}
+    return {"max_abs_err": max_err, **t}
+
+
+def train_phase(torch, rg, idle, detail, dev="cuda", cfg=None) -> dict:
+    """Phase 16: train recurrentgemma-2b at full width through
+    ``repro_torch.runtime.Trainer`` (the trainer of ``launch.train``),
+    global batch 2 x 2048, 3 steps; returns the RG-LRU kernel launches of
+    those steps. ``idle`` names the wrappers of the other kernels, none of
+    which the train path may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matrix products must run in full float32 (TF32 is on)")
+    full = cfg is None
+    cfg = get_config(ARCH) if full else cfg
+    B, S = TRAIN_SHAPE[:2]
+    steps = 3
+    n_unit_rglru = cfg.n_units * cfg.pattern.count("rglru")
+    n_rglru = n_unit_rglru + cfg.tail_kinds.count("rglru")
+    want_fwd = n_rglru + (n_unit_rglru if cfg.remat == "full" else 0)
+    check(not full or (want_fwd, n_rglru) == (34, 18),
+          f"{want_fwd} forward and {n_rglru} backward launches a step at full width")
+    tcfg = TrainerConfig(seq_len=S, global_batch=B, total_steps=steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rg.rglru_scan.launches = 0
+    rg.rglru_scan_backward.launches = 0
+    for wrapper in idle.values():
+        wrapper.launches = 0
+    per_step, losses, walls = [], [], []
+    for _ in range(steps):
+        before = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = trainer.run(1)
+        walls.append(time.perf_counter() - t1)
+        losses += out["losses"]
+        per_step.append((rg.rglru_scan.launches - before[0],
+                         rg.rglru_scan_backward.launches - before[1]))
+    launches = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+    idle_launches = {name: w.launches for name, w in idle.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not any(idle_launches.values()),
+          f"the train path launched other kernels: {idle_launches}")
+    check(all(p == (want_fwd, n_rglru) for p in per_step),
+          f"RG-LRU launches per step (forward, backward) {per_step}, want "
+          f"({want_fwd}, {n_rglru})")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(trainer.state.step == steps, f"step {trainer.state.step}")
+    del trainer
+    torch.cuda.empty_cache()
+    again = Trainer(cfg, tcfg, device=dev)
+    first = again.run(1)["losses"][0]
+    check(first == losses[0], f"a second run's first loss {first!r} differs from "
+          f"{losses[0]!r}")
+    kernels = device_kernels(torch, lambda: again.run(1))
+    del again
+    torch.cuda.empty_cache()
+    step_s = sum(walls[1:]) / len(walls[1:])
+    busy_ms = sum(k["device_ms"] for k in kernels)
+    fwd_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_kernel" in k["op"])
+    bwd_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_backward_kernel" in k["op"])
+    params = cfg.param_count()
+    out = {"batch": B, "seq_len": S, "steps": steps, "init_s": init_s,
+           "step_s": walls, "losses": losses, "steady_step_s": step_s,
+           "tokens_per_s": B * S / step_s, "launches": list(launches),
+           "launches_per_step": per_step, "peak_memory_gb": peak_gb,
+           "params": params, "model_tflop_per_step_6nt": 6 * params * B * S / 1e12,
+           "second_run_first_loss": first,
+           "profiled_step": {"device_busy_ms": busy_ms, "rglru_forward_ms": fwd_ms,
+                             "rglru_backward_ms": bwd_ms, "top_kernels": kernels[:15]},
+           "other_kernel_launches": idle_launches}
+    detail["train_full_width"] = out
+    log(f"[16] {cfg.name} training at full width, {B} x {S} tokens a step, AdamW "
+        f"(init {init_s:.2f} s): steps {', '.join(f'{w:.3f}' for w in walls)} s, "
+        f"{out['tokens_per_s']:.0f} tokens/s (steps 2-{steps}); losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; RG-LRU launches a step "
+        f"{per_step[0][0]} forward + {per_step[0][1]} backward; peak {peak_gb:.2f} GB; "
+        f"a second run's first loss identical; 0 launches of {', '.join(idle)}")
+    log(f"    one profiled step: kernels busy {busy_ms:.1f} ms; RG-LRU forward "
+        f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; top: " + "; ".join(
+            f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:5]))
+    return out
+
+
+def train_devices_phase(torch, rg, detail, dev="cuda", cfg=None) -> None:
+    """Phase 17: one training step's loss and gradients on the card against
+    the CPU at full width, cut depth (``n_layers=5``: one unit and the
+    two-layer tail), float32, the same weights; then one AdamW update on
+    the card's gradients, on the card and on the CPU."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import init_params, loss_fn, param_leaves
+    from repro_torch.optim import make_optimizer
+
+    cfg = cfg or get_config(ARCH, n_layers=5, dtype="float32")
+    B, S = 1, 256
+    cpu_model = init_params(cfg, torch.Generator(device="cpu").manual_seed(17),
+                            trainable=True)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, S, B, seed=17).items()}
+    before = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+    card_loss = loss_fn(card_model, {k: v.to(dev) for k, v in batch.items()})
+    card_loss.backward()
+    launches = (rg.rglru_scan.launches - before[0], rg.rglru_scan_backward.launches - before[1])
+    cpu_loss = loss_fn(cpu_model, batch)
+    cpu_loss.backward()
+    card_loss, cpu_loss = card_loss.detach(), cpu_loss.detach()
+    loss_err = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    check(math.isfinite(float(card_loss)) and loss_err <= TRAIN_LOSS_REL,
+          f"card loss {float(card_loss)!r} vs CPU {float(cpu_loss)!r}: {loss_err:.3e}")
+    card_leaves, cpu_leaves = param_leaves(card_model), param_leaves(cpu_model)
+    grad_err, worst = 0.0, ""
+    for path, ps in cpu_leaves.items():
+        for p, q in zip(ps, card_leaves[path]):
+            e = float((q.grad.cpu() - p.grad).abs().max() / p.grad.abs().max())
+            if e > grad_err:
+                grad_err, worst = e, path
+    check(grad_err <= TRAIN_GRAD_SHARE, f"card vs CPU gradient of {worst}: "
+          f"{grad_err:.3e} of its max |g| > {TRAIN_GRAD_SHARE:g}")
+    n_rglru = card_model.kinds.count("rglru")
+    n_unit = cfg.n_units * cfg.pattern.count("rglru")
+    check(launches == (n_rglru + (n_unit if cfg.remat == "full" else 0), n_rglru),
+          f"RG-LRU launches (forward, backward) {launches}")
+    # one AdamW update on the card's gradients, on the card and on the CPU
+    opt = make_optimizer("adamw", peak_lr=3e-4, warmup=0, total=100)
+    grads = {k: [p.grad for p in ps] for k, ps in card_leaves.items()}
+    cpu_grads = {k: [g.cpu() for g in gs] for k, gs in grads.items()}
+    opt.update(grads, opt.init(card_leaves), card_leaves, 0)
+    opt.update(cpu_grads, opt.init(cpu_leaves), cpu_leaves, 0)
+    opt_err = 0.0
+    for path, ps in cpu_leaves.items():
+        for p, q in zip(ps, card_leaves[path]):
+            opt_err = max(opt_err, float((q.detach().cpu() - p.detach()).abs().max()
+                                         / p.detach().abs().max()))
+    check(opt_err <= OPT_CARD_CPU, f"AdamW on the card vs the CPU, same gradients: "
+          f"{opt_err:.3e} of max |p| > {OPT_CARD_CPU:g}")
+    detail["train_card_vs_cpu"] = {
+        "loss_card": float(card_loss), "loss_cpu": float(cpu_loss), "loss_rel_err": loss_err,
+        "grad_err": grad_err, "worst_grad_leaf": worst, "launches": list(launches),
+        "adamw_err": opt_err}
+    log(f"[17] {cfg.name} n_layers=5 (unit + tail) float32, {B} x {S}, one step: card "
+        f"vs CPU loss {loss_err:.3e} (<= {TRAIN_LOSS_REL:g}), gradients {grad_err:.3e} "
+        f"of each leaf's max |g| (<= {TRAIN_GRAD_SHARE:g}; worst {worst}); AdamW on the "
+        f"card's gradients, card vs CPU {opt_err:.3e} of max |p| (<= {OPT_CARD_CPU:g}); "
+        f"RG-LRU launches {launches[0]} forward + {launches[1]} backward")
+    del cpu_model, card_model
 
 
 def main() -> int:
@@ -1701,11 +1993,11 @@ def main() -> int:
 
     # -- 10-12. serving recurrentgemma-2b and its RG-LRU scan kernel ------------
     rg_t = rglru_phase(torch, rg, detail)
-    rg_launches = serve_phase(torch, rg, {
-        "waterfill_masses": wf.waterfill_masses, "waterfill_solve": wf.waterfill_solve,
-        "envy_gaps": ev.envy_gaps, "pd_segment": ev.pd_segment,
-        "flash_attention": fa.flash_attention, "softmax_xent": xe.softmax_xent},
-        detail, rg_t)
+    # the kernels the model's paths must not launch
+    idle = {"waterfill_masses": wf.waterfill_masses, "waterfill_solve": wf.waterfill_solve,
+            "envy_gaps": ev.envy_gaps, "pd_segment": ev.pd_segment,
+            "flash_attention": fa.flash_attention, "softmax_xent": xe.softmax_xent}
+    rg_launches = serve_phase(torch, rg, idle, detail, rg_t)
     devices_phase(torch, rg, detail)
 
     # -- 13-14. the attention and cross-entropy ops -------------------------------
@@ -1714,6 +2006,14 @@ def main() -> int:
     xe_t = xent_phase(torch, xe, detail)
     detail["ops_phases_s"] = time.perf_counter() - t0
     log(f"    phases 13-14 took {detail['ops_phases_s']:.1f} s")
+
+    # -- 15-17. training recurrentgemma-2b and the RG-LRU backward kernel -------
+    t0 = time.perf_counter()
+    rgb_t = rglru_backward_phase(torch, rg, detail)
+    train = train_phase(torch, rg, idle, detail)
+    train_devices_phase(torch, rg, detail)
+    detail["train_phases_s"] = time.perf_counter() - t0
+    log(f"    phases 15-17 took {detail['train_phases_s']:.1f} s")
     detail["total_s"] = time.perf_counter() - t_all
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1783,6 +2083,21 @@ def main() -> int:
         "bound_ms": rg_t["bound_ms"],
         "bound_by": rg_t["bound_by"],
         "library_ms": rg_t["library_ms"],
+        "launches_train": train["launches"][0],
+    }, {
+        "name": "rglru_scan_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:22",
+        "replaces_note": "the backward of that scan, which the JAX model takes by "
+                         "differentiating rglru_scan_ref (src/repro/models/layers.py:770)",
+        "launches": train["launches"][1],
+        "max_abs_err": rgb_t["max_abs_err"],
+        "ms": rgb_t["kernel_ms"],
+        "plain_ms": rgb_t["plain_ms"],
+        "bound_ms": rgb_t["bound_ms"],
+        "bound_by": rgb_t["bound_by"],
+        "library_ms": rgb_t["library_ms"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -1,7 +1,7 @@
 """Architecture configs the port runs (exact) + reduced smoke variants.
 
-A copy of ``repro.configs`` for the architectures whose serving path the
-port has: ``get_config(name)`` returns the full config, ``get_smoke(name)``
+A copy of ``repro.configs`` for the architectures the port serves and
+trains: ``get_config(name)`` returns the full config, ``get_smoke(name)``
 the reduced same-family variant for CPU tests. ``ALL_ARCHS`` lists them.
 Any other architecture of the JAX package raises ``KeyError``: its layers
 are not ported yet (ROADMAP.md, Queue A).

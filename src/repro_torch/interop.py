@@ -9,16 +9,23 @@ the JAX package's trace or allocation can hand the same inputs to both:
   - :func:`allocation_from_arrays` — an :class:`Allocation` from its arrays,
     keeping the warm-start state: ``meta["tau"]``, the water-filling hint,
     and ``meta["pd_state"]``, the primal–dual tier's certified saddle;
-  - :func:`model_from_jax` — the serving model from the JAX package's params
-    pytree as numpy arrays (``jax.tree.map(np.asarray, params)``), and its
-    inverse for caches, :func:`cache_to_jax`, so tests compare caches leaf
-    by leaf. These two import torch and the model stack when called, so the
+  - :func:`model_from_jax` — the model from the JAX package's params
+    pytree as numpy arrays (``jax.tree.map(np.asarray, params)``), for
+    serving or, with ``trainable=True``, with float32 masters for training;
+  - :func:`leaves_to_jax` — its inverse for any per-parameter tree (params,
+    grads, optimizer states) held as leaves (``models.param_leaves``): the
+    JAX layout as numpy, unit leaves stacked on a leading ``n_units`` axis,
+    ``tail`` a list, the JAX names; :func:`load_leaves` copies such arrays
+    back into the port's tensors; and :func:`cache_to_jax` for decode
+    caches. Tests compare gradients, optimizer states and caches leaf by
+    leaf through these, and the checkpoint writes and reads its arrays
+    through them. They import torch and the model stack when called, so the
     service's data helpers above load neither.
 """
 from __future__ import annotations
 
 import json
-from typing import TYPE_CHECKING, Any, Dict, Iterable, List, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -76,50 +83,100 @@ def _paths(tree, prefix: str = "") -> List[str]:
     return [prefix[:-1]]
 
 
-def model_from_jax(cfg: ArchConfig, params: Dict[str, Any], device=None) -> Model:
+def _stacked(path: str) -> bool:
+    """A leaf under ``units`` stacks the pattern units on its first axis."""
+    return "units" in path.split("/")
+
+
+def load_leaves(leaves: Dict[str, List["torch.Tensor"]],
+                lookup: Callable[[str], np.ndarray]) -> None:
+    """Copy arrays in the JAX layout into the port's tensors, in place.
+
+    ``leaves`` maps JAX leaf paths to tensors (``models.param_leaves``);
+    ``lookup(path)`` gives that leaf's array, unit leaves stacked on their
+    first axis. Each array is cast to its tensor's dtype (as the JAX code
+    casts at use). Raises if a shape differs.
+    """
+    import torch
+
+    with torch.no_grad():
+        for path, ts in leaves.items():
+            arr = np.asarray(lookup(path))
+            parts = list(arr) if _stacked(path) else [arr]
+            if len(parts) != len(ts):
+                raise ValueError(f"JAX leaf {path} holds {len(parts)} units, the "
+                                 f"port {len(ts)}")
+            for t, a in zip(ts, parts):
+                if tuple(a.shape) != tuple(t.shape):
+                    raise ValueError(f"JAX leaf {path} has shape {a.shape} per unit, "
+                                     f"the tensor {tuple(t.shape)}")
+                # floats (bfloat16 too) via float32; integers as they are
+                t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)
+                                         if a.dtype.kind not in "iub" else np.array(a)))
+
+
+def leaves_to_jax(leaves: Dict[str, Sequence[Any]],
+                  convert: Callable[[Any], np.ndarray] = None) -> Dict[str, Any]:
+    """Leaves (a JAX leaf path to its tensors) as the JAX pytree of numpy
+    arrays: a path through ``units`` stacks its tensors on a new first
+    axis, any other takes its one tensor, and a numeric path component
+    indexes a list (``tail/0/...``). ``convert`` turns one tensor into
+    numpy (default: float32 for bfloat16, as numpy has no bfloat16)."""
+    convert = convert or _to_numpy
+    root: Dict[str, Any] = {}
+    for path, ts in leaves.items():
+        arrs = [convert(t) for t in ts]
+        if _stacked(path):
+            value = np.stack(arrs)
+        elif len(arrs) == 1:
+            value = arrs[0]
+        else:
+            raise ValueError(f"leaf {path} is not under units but holds {len(arrs)} tensors")
+        node, keys = root, path.split("/")
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = value
+    return _lists(root)
+
+
+def _lists(node):
+    """Dicts whose keys are all numeric become lists (JAX's ``tail``)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def model_from_jax(cfg: ArchConfig, params: Dict[str, Any], device=None,
+                   trainable: bool = False) -> Model:
     """The port's ``Model`` on ``device`` holding the JAX package's weights.
 
     ``params`` is ``repro.models.init_params``'s pytree as numpy arrays.
     Each pattern position's params carry a leading ``n_units`` axis, which
     is unstacked into one ``Block`` per unit; ``tail``, ``embed`` and
     ``final_norm`` are copied. Names and layouts match, so every weight is a
-    copy (cast to the port's storage dtype, as the JAX code casts at use).
+    copy: into the serving model's storage dtype (as the JAX code casts at
+    use), or with ``trainable=True`` into float32 masters that require grad.
     Raises if a leaf is missing, left over or of another shape. ``device``
     defaults to ``cuda`` and raises without a GPU (``resolve_device``); pass
     ``device="cpu"`` to build on the CPU.
     """
-    import torch
-
     from .core.torch_solve import resolve_device
-    from .models.model import Model
+    from .models.model import Model, param_leaves
 
-    model = Model(cfg, device=resolve_device(device))
-    P = len(cfg.pattern)
-    copied = set()
+    model = Model(cfg, device=resolve_device(device), trainable=trainable)
+    leaves = param_leaves(model)
 
-    def put(p: torch.Tensor, path: str, unit=None) -> None:
+    def lookup(path: str):
         leaf = params
         for key in path.split("/"):
             leaf = leaf[int(key) if isinstance(leaf, (list, tuple)) else key]
-        arr = np.asarray(leaf) if unit is None else np.asarray(leaf)[unit]
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"JAX leaf {path} has shape {arr.shape}, the "
-                             f"parameter {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
-        copied.add(path)
+        return leaf
 
-    with torch.no_grad():
-        put(model.embed, "embed")
-        put(model.final_norm.scale, "final_norm/scale")
-        for i, layer in enumerate(model.layers):
-            unit, p = divmod(i, P)
-            if unit < cfg.n_units:
-                prefix = f"units/p{p}/"
-            else:
-                prefix, unit = f"tail/{i - cfg.n_units * P}/", None
-            for name, prm in layer.named_parameters():
-                put(prm, prefix + name.replace(".", "/"), unit)
-    left = sorted(set(_paths(params)) - copied)
+    load_leaves(leaves, lookup)
+    left = sorted(set(_paths(params)) - set(leaves))
     if left:
         raise ValueError(f"JAX params the port's {cfg.name} does not take: {left}")
     return model

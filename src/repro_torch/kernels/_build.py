@@ -8,9 +8,11 @@ it includes and of the flags, so an edited source or header is rebuilt and a
 stale library is never loaded. Nothing here runs at import time: the
 CPU-only test suite imports every module of the package.
 
-:func:`refuse_grad` is the wrappers' shared guard: the kernels have no
-backward, so a CUDA launch on an input that requires grad raises instead of
-returning a tensor that autograd cannot follow.
+:func:`refuse_grad` guards the wrappers of the kernels that have no
+backward (flash attention, the cross-entropy): a CUDA launch on an input
+that requires grad raises instead of returning a tensor that autograd
+cannot follow. The RG-LRU scan has a backward kernel and goes through an
+autograd Function instead (``kernels/rglru_scan.py``).
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ def nvcc_path() -> str:
 
 def refuse_grad(op: str, **inputs) -> None:
     """Raise ``RuntimeError`` when grad is enabled and any of ``inputs``
-    requires grad: the CUDA kernel of ``op`` has no backward yet, and its
+    requires grad: the CUDA kernel of ``op`` has no backward, and its
     output would silently carry no ``grad_fn``."""
     if not torch.is_grad_enabled():
         return

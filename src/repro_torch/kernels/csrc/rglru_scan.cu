@@ -34,6 +34,23 @@
 // FMA, which rounds once and differs from the plain PyTorch version (a
 // separate multiply and add). Written this way the two agree to the last
 // bit. There are no atomics, so runs repeat bit for bit.
+//
+// The backward (training). The JAX package differentiates its associative
+// scan; the Pallas kernel has no backward. For the loss L with incoming
+// dh_t = dL/dh_t, the recurrence's adjoint runs time in reverse:
+//
+//     g_t  = dh_t + a_{t+1} * g_{t+1}    (g_S = 0)
+//     da_t = g_t * h_{t-1}               (h_{-1} = h0)
+//     db_t = g_t,    dh0 = a_0 * g_0,
+//
+// float32 only (the model's a and b are float32; the state is float32 and a
+// stored bf16 h would not be it). rglru_scan_backward_kernel keeps the
+// forward's layout, one thread per (b, d) walking t from S-1 down to 0,
+// neighbouring d per warp, kUnroll steps of loads in flight, and rounds every
+// multiply and add on its own as the plain version does. It reads a, h and
+// dh once and writes da and db once: 5 x 41.9 MB at the training shape
+// (2, 2048, 2560), 63 us at 3.35 TB/s, against 3 operations an element; it
+// is bound by bytes, and the grid there is only 40 blocks on 132 SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +109,52 @@ rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+// grid = (ceil(D / kBlock), B); block = kBlock. float32 only.
+__global__ void __launch_bounds__(kBlock)
+rglru_scan_backward_kernel(const float* __restrict__ a,
+                           const float* __restrict__ h,
+                           const float* __restrict__ h0,
+                           const float* __restrict__ dh,
+                           float* __restrict__ da, float* __restrict__ db,
+                           float* __restrict__ dh0, int S, int D) {
+  const int d = blockIdx.x * kBlock + threadIdx.x;
+  if (d >= D) return;
+  const size_t row = (size_t)blockIdx.y;
+  const size_t stride = (size_t)D;
+  const size_t base = row * (size_t)S * stride + (size_t)d;
+  float g = 0.f;       // g_{t+1}
+  float a_next = 0.f;  // a_{t+1}
+  int t = S - 1;
+  // steps t, t-1, ..., t-kUnroll+1, all >= 1, so h_{t-1} lies in h
+  for (; t - kUnroll + 1 >= 1; t -= kUnroll) {
+    float av[kUnroll], hv[kUnroll], dv[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const size_t off = base + (size_t)(t - i) * stride;
+      av[i] = a[off];
+      dv[i] = dh[off];
+      hv[i] = h[off - stride];
+    }
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const size_t off = base + (size_t)(t - i) * stride;
+      g = __fadd_rn(dv[i], __fmul_rn(a_next, g));
+      da[off] = __fmul_rn(g, hv[i]);
+      db[off] = g;
+      a_next = av[i];
+    }
+  }
+  for (; t >= 0; --t) {
+    const size_t off = base + (size_t)t * stride;
+    const float h_prev = t > 0 ? h[off - stride] : h0[row * stride + (size_t)d];
+    g = __fadd_rn(dh[off], __fmul_rn(a_next, g));
+    da[off] = __fmul_rn(g, h_prev);
+    db[off] = g;
+    a_next = a[off];
+  }
+  dh0[row * stride + (size_t)d] = __fmul_rn(a_next, g);
+}
+
 }  // namespace
 
 extern "C" {
@@ -113,6 +176,18 @@ int rglru_scan(const void* a, const void* b, const float* h0, void* out, int B,
         (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, h0,
         (__nv_bfloat16*)out, S, D);
   }
+  return (int)cudaGetLastError();
+}
+
+// The backward, float32 only: a, h, dh, da, db (B, S, D) and h0, dh0 (B, D),
+// contiguous. Launches on `stream` and returns cudaGetLastError() as an int.
+int rglru_scan_backward(const float* a, const float* h, const float* h0,
+                        const float* dh, float* da, float* db, float* dh0,
+                        int B, int S, int D, void* stream) {
+  if (B < 1 || S < 1 || D < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((D + kBlock - 1) / kBlock), (unsigned)B);
+  rglru_scan_backward_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      a, h, h0, dh, da, db, dh0, S, D);
   return (int)cudaGetLastError();
 }
 

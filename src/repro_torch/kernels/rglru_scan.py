@@ -1,6 +1,6 @@
-"""RG-LRU linear-recurrence scan: the CUDA kernel and its plain version.
+"""RG-LRU linear-recurrence scan: the CUDA kernels and their plain versions.
 
-Every RG-LRU layer of a RecurrentGemma prefill runs the recurrence
+Every RG-LRU layer of a RecurrentGemma forward runs the recurrence
 
     h_t = a_t * h_{t-1} + b_t        (t = 0..S-1, from h0)
 
@@ -12,14 +12,22 @@ state in float32 and each ``h_t`` stored in the inputs' dtype.
 ``csrc/rglru_scan.cu`` (built with ``nvcc`` on first use, see
 :mod:`repro_torch.kernels._build`); on a CPU tensor it runs
 :func:`rglru_scan_plain`, the same arithmetic in plain torch ops. There is
-no other route: a CUDA tensor never falls back to the plain version, a
-failed build or launch raises ``KernelError``, and an input that requires
-grad raises ``RuntimeError`` on the card (the kernel has no backward yet).
+no other route: a CUDA tensor never falls back to the plain version, and a
+failed build or launch raises ``KernelError``.
 
-Both round each step's multiply and add on their own, in the same order, so
-kernel and plain version agree to the last bit. (The JAX package's oracle,
-``rglru_scan_ref``, is a ``lax.scan`` of ``a_t * h + b_t``; it agrees to
-~1e-7 relative.)
+When grad is enabled and an input requires grad, the call goes through
+:class:`RGLRUScan`, a ``torch.autograd.Function`` that saves ``a``, ``h``
+and ``h0`` and whose backward is :func:`rglru_scan_backward`: the reverse
+scan ``g_t = dh_t + a_{t+1} g_{t+1}``, ``da_t = g_t h_{t-1}``, ``db_t =
+g_t``, ``dh0 = a_0 g_0``, again the CUDA kernel on the card and
+:func:`rglru_scan_backward_plain` on the CPU. Grad is taken in float32 only
+(the model's ``a`` and ``b`` are float32): a bfloat16 input that requires
+grad raises ``RuntimeError``, since its stored ``h`` is not the float32
+state the backward needs.
+
+Kernel and plain version round each multiply and add on their own, in the
+same order, so they agree to the last bit. (The JAX package's oracle,
+``rglru_scan_ref``, is an associative scan; it agrees to ~1e-7 relative.)
 """
 from __future__ import annotations
 
@@ -47,6 +55,24 @@ def rglru_scan_plain(a, b, h0):
     return out
 
 
+def rglru_scan_backward_plain(a, h, h0, dh):
+    """Plain torch version of the backward, float32: a loop over t from
+    S - 1 down to 0 of ``g = dh_t + a_{t+1} * g`` (a separate multiply and
+    add, g = 0 past the end), ``da_t = g * h_{t-1}`` (``h_{-1} = h0``) and
+    ``db_t = g``. Returns (da, db, dh0 = a_0 * g_0)."""
+    S = a.shape[1]
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    g = torch.zeros_like(h0)
+    a_next = torch.zeros_like(h0)
+    for t in range(S - 1, -1, -1):
+        g = a_next * g
+        g = dh[:, t] + g
+        da[:, t] = g * (h[:, t - 1] if t > 0 else h0)
+        db[:, t] = g
+        a_next = a[:, t]
+    return da, db, a_next * g
+
+
 _LIB = None
 
 
@@ -60,16 +86,24 @@ def load() -> ctypes.CDLL:
         lib.rglru_scan.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                                    + [ctypes.c_void_p])
         lib.rglru_scan.restype = ctypes.c_int
+        lib.rglru_scan_backward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                                            + [ctypes.c_void_p])
+        lib.rglru_scan_backward.restype = ctypes.c_int
         lib.rglru_error_string.argtypes = [ctypes.c_int]
         lib.rglru_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise KernelError(f"{what} kernel launch failed: "
+                          f"{lib.rglru_error_string(err).decode()} (cuda error {err})")
+
+
 def _launch(a, b, h0) -> torch.Tensor:
-    """Launch the CUDA kernel on checked operands (``h0`` float32); returns
-    (B, S, D) in ``a``'s dtype."""
-    _build.refuse_grad("rglru_scan", a=a, b=b, h0=h0)
+    """Launch the forward kernel on checked operands (``h0`` float32);
+    returns (B, S, D) in ``a``'s dtype."""
     lib = load()
     B, S, D = a.shape
     out = torch.empty_like(a)
@@ -77,12 +111,86 @@ def _launch(a, b, h0) -> torch.Tensor:
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.rglru_scan(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
                              out.data_ptr(), B, S, D, DTYPES[a.dtype], stream)
-    if err != 0:
-        raise KernelError(
-            f"rglru_scan kernel launch failed: "
-            f"{lib.rglru_error_string(err).decode()} (cuda error {err})")
+    _check(lib, err, "rglru_scan")
     rglru_scan.launches += 1
     return out
+
+
+def _launch_backward(a, h, h0, dh):
+    """Launch the backward kernel on checked float32 operands; returns
+    (da, db, dh0)."""
+    lib = load()
+    B, S, D = a.shape
+    da, db, dh0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.rglru_scan_backward(
+            a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dh0.data_ptr(), B, S, D, stream)
+    _check(lib, err, "rglru_scan_backward")
+    rglru_scan_backward.launches += 1
+    return da, db, dh0
+
+
+def rglru_scan_backward(a, h, h0, dh):
+    """The backward of the recurrence: given ``a``, the output ``h`` and
+    ``h0`` of a forward and the incoming ``dh``, returns (da, db, dh0).
+
+    a, h, dh: (B, S, D) float32; h0: (B, D) float32; all on one device.
+    CUDA tensors go through the kernel (``rglru_scan_backward.launches``
+    counts its launches) and must be contiguous; CPU tensors go through
+    :func:`rglru_scan_backward_plain`.
+    """
+    B, S, D = a.shape
+    for name, t, shape in (("h", h, a.shape), ("dh", dh, a.shape), ("h0", h0, (B, D))):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {tuple(shape)}")
+        if t.dtype != torch.float32 or t.device != a.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; the backward "
+                             f"takes float32 on {a.device}, as a is")
+    if a.dtype != torch.float32:
+        raise ValueError(f"the backward takes float32 a, got {a.dtype}")
+    if a.device.type == "cuda":
+        for name, t in (("a", a), ("h", h), ("h0", h0), ("dh", dh)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous for the kernel")
+        return _launch_backward(a, h, h0, dh)
+    if a.device.type == "cpu":
+        return rglru_scan_backward_plain(a, h, h0, dh)
+    raise ValueError(f"rglru_scan_backward runs on cuda or cpu, not {a.device}")
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The scan with its backward: the forward kernel (or, with
+    ``on_card`` False, the plain version), saving ``a``, ``h`` and ``h0``;
+    the backward is :func:`rglru_scan_backward`."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0, on_card: bool):
+        h = _launch(a, b, h0) if on_card else rglru_scan_plain(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_backward(a, h, h0, dh.contiguous())
+        return da, db, dh0 if ctx.needs_input_grad[2] else None, None
+
+
+def _scan(a, b, h0, on_card: bool):
+    """The forward on checked operands (``h0`` float32): through
+    :class:`RGLRUScan` when grad is enabled and an input requires grad,
+    else the kernel (on the card) or the plain version."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
+                                    or h0.requires_grad):
+        if a.dtype != torch.float32:
+            raise RuntimeError(
+                f"rglru_scan takes grad in float32 only, got {a.dtype} inputs: "
+                f"the backward needs the float32 state h, and the stored "
+                f"{a.dtype} h is not it")
+        return RGLRUScan.apply(a, b, h0, on_card)
+    return _launch(a, b, h0) if on_card else rglru_scan_plain(a, b, h0)
 
 
 def rglru_scan(a, b, h0):
@@ -92,7 +200,8 @@ def rglru_scan(a, b, h0):
     dtype (the state is float32). Returns (B, S, D) in ``a``'s dtype. All
     on one device. CUDA tensors go through the kernel
     (``rglru_scan.launches`` counts its launches) and must be contiguous;
-    CPU tensors go through :func:`rglru_scan_plain`.
+    CPU tensors go through :func:`rglru_scan_plain`. Differentiable in
+    float32 (see :class:`RGLRUScan`).
     """
     if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
         raise ValueError(f"a and b must share a (B, S, D) shape, got "
@@ -118,11 +227,14 @@ def rglru_scan(a, b, h0):
                 raise ValueError(f"{name} must be contiguous for the kernel")
         if B > 65535:
             raise ValueError(f"the rglru_scan kernel takes B <= 65535, got {B}")
-        return _launch(a, b, h0.float().contiguous())
+        return _scan(a, b, h0.float().contiguous(), True)
     if dev.type == "cpu":
-        return rglru_scan_plain(a, b, h0)
+        return _scan(a, b, h0.float(), False)
     raise ValueError(f"rglru_scan runs on cuda or cpu, not {dev}")
 
 
-#: launches of the CUDA kernel in this process (plain-version calls excluded).
+#: launches of the forward CUDA kernel in this process (plain-version calls
+#: excluded).
 rglru_scan.launches = 0
+#: launches of the backward CUDA kernel in this process.
+rglru_scan_backward.launches = 0

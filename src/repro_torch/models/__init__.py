@@ -1,5 +1,5 @@
-"""The model stack's serving path (recurrentgemma-2b): config, layers,
-model assembly with prefill and greedy decode."""
+"""The model stack (recurrentgemma-2b): config, layers, model assembly with
+the training loss, prefill and greedy decode."""
 from .config import ArchConfig, SHAPE_CELLS, ShapeCell, shape_cell  # noqa: F401
 from .model import (  # noqa: F401
     Model,
@@ -7,5 +7,7 @@ from .model import (  # noqa: F401
     init_cache,
     init_params,
     layer_kinds,
+    loss_fn,
+    param_leaves,
     prefill,
 )

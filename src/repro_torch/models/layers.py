@@ -1,4 +1,4 @@
-"""Layers of the recurrentgemma-2b serving path, as ``nn.Module``s.
+"""Layers of the recurrentgemma-2b model, as ``nn.Module``s.
 
 The port of ``repro.models.layers`` for what recurrentgemma-2b uses: RMSNorm,
 RoPE, grouped-query attention with a sliding window (full-sequence apply with
@@ -20,12 +20,15 @@ Conventions, as in the JAX package:
     without repeating KV.
 
 The JAX code keeps float32 params and casts each weight to ``cfg.dtype``
-at every use. Here the matrix-product weights are stored in ``cfg.dtype``
-once, when the model is built or loaded: the values are the same, and a
-decode step does not re-read the float32 weights to cast them. The RG-LRU
-gate weights ``w_a``, ``w_i`` and ``lam`` stay float32 (``u @ w_a`` is a
-float32 product) and the norm scales are applied in float32. Parameters do
-not require grad: this is the serving path.
+at every use (``.astype(dt)`` at every product). A layer built with
+``trainable=True`` does the same: float32 parameters that require grad,
+each matrix weight cast to ``cfg.dtype`` where it is used. A serving layer
+(the default) stores the matrix-product weights in ``cfg.dtype`` once, when
+the model is built or loaded, with no grad: the values are the same, the
+cast at use is then a no-op, and a decode step does not re-read float32
+weights to cast them. In both the RG-LRU gate weights ``w_a``, ``w_i`` and
+``lam`` are float32 (``u @ w_a`` is a float32 product) and the norm scales
+are applied in float32.
 """
 from __future__ import annotations
 
@@ -49,9 +52,11 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def new_param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+def new_param(shape, dtype, device, trainable: bool = False) -> nn.Parameter:
+    """An uninitialised parameter: float32 that requires grad when
+    ``trainable`` (a master weight), else ``dtype`` without grad."""
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32 if trainable else dtype,
+                                    device=device), requires_grad=trainable)
 
 
 def normal_(w: torch.Tensor, gen: torch.Generator, scale: float) -> None:
@@ -68,10 +73,10 @@ def normal_(w: torch.Tensor, gen: torch.Generator, scale: float) -> None:
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, eps: float, device=None):
+    def __init__(self, d: int, eps: float, device=None, trainable: bool = False):
         super().__init__()
         self.eps = eps
-        self.scale = new_param((d,), torch.float32, device)
+        self.scale = new_param((d,), torch.float32, device, trainable)
 
     def init_(self, gen: torch.Generator) -> None:
         self.scale.fill_(1.0)
@@ -151,7 +156,7 @@ class Attention(nn.Module):
     positions. (The JAX layer also serves full attention, ``window=None``;
     no ported model has it.)"""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         if cfg.attention_impl == "blocked":
             raise NotImplementedError(
@@ -163,11 +168,11 @@ class Attention(nn.Module):
         self.cfg = cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
         nq, nkv = cfg.n_heads, cfg.n_kv_heads
-        dt = compute_dtype(cfg)
-        self.wq = new_param((d, nq * hd), dt, device)
-        self.wk = new_param((d, nkv * hd), dt, device)
-        self.wv = new_param((d, nkv * hd), dt, device)
-        self.wo = new_param((nq * hd, d), dt, device)
+        self.dt = dt = compute_dtype(cfg)
+        self.wq = new_param((d, nq * hd), dt, device, trainable)
+        self.wk = new_param((d, nkv * hd), dt, device, trainable)
+        self.wv = new_param((d, nkv * hd), dt, device, trainable)
+        self.wo = new_param((nq * hd, d), dt, device, trainable)
 
     def init_(self, gen: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv):
@@ -178,9 +183,9 @@ class Attention(nn.Module):
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         B, S = x.shape[0], x.shape[1]
-        q = (x @ self.wq).reshape(B, S, cfg.n_heads, hd)
-        k = (x @ self.wk).reshape(B, S, cfg.n_kv_heads, hd)
-        v = (x @ self.wv).reshape(B, S, cfg.n_kv_heads, hd)
+        q = (x @ self.wq.to(self.dt)).reshape(B, S, cfg.n_heads, hd)
+        k = (x @ self.wk.to(self.dt)).reshape(B, S, cfg.n_kv_heads, hd)
+        v = (x @ self.wv.to(self.dt)).reshape(B, S, cfg.n_kv_heads, hd)
         return q, k, v
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False,
@@ -200,7 +205,7 @@ class Attention(nn.Module):
         probs = _masked_probs(_group_scores(q, k).float(), mask, hd, dt)
         out = _group_out(probs, v).reshape(B, S, cfg.n_heads * hd)
         del probs
-        y = out @ self.wo
+        y = out @ self.wo.to(self.dt)
         if not return_state:
             return y
         # a decode-ready KV cache from the prefill K/V, as the JAX package
@@ -217,7 +222,7 @@ class Attention(nn.Module):
         """KV cache: a ring buffer of ``min(window, max_len)`` slots."""
         cfg = self.cfg
         shape = (batch, min(cfg.window, max_len), cfg.n_kv_heads, cfg.resolved_head_dim)
-        kw = {"dtype": compute_dtype(cfg), "device": self.wq.device}
+        kw = {"dtype": self.dt, "device": self.wq.device}
         return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
     def decode(self, x: torch.Tensor, cache: Cache,
@@ -245,7 +250,7 @@ class Attention(nn.Module):
         valid = (abs_pos >= 0) & (abs_pos >= pos - cfg.window + 1) & (abs_pos <= pos)
         probs = _masked_probs(_group_scores(q, k_cache).float(), valid, hd, dt)
         out = _group_out(probs, v_cache).reshape(B, 1, cfg.n_heads * hd)
-        return out @ self.wo, cache
+        return out @ self.wo.to(self.dt), cache
 
 
 # ---------------------------------------------------------------------------
@@ -254,24 +259,24 @@ class Attention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         d, f = cfg.d_model, cfg.d_ff
-        dt = compute_dtype(cfg)
-        self.w_in = new_param((d, 2 * f), dt, device)
-        self.w_out = new_param((f, d), dt, device)
+        self.dt = dt = compute_dtype(cfg)
+        self.w_in = new_param((d, 2 * f), dt, device, trainable)
+        self.w_out = new_param((f, d), dt, device, trainable)
 
     def init_(self, gen: torch.Generator) -> None:
         normal_(self.w_in, gen, 0.02)
         normal_(self.w_out, gen, 0.02 / math.sqrt(2 * self.cfg.n_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x @ self.w_in
+        h = x @ self.w_in.to(self.dt)
         gate, up = h.chunk(2, dim=-1)
         act = F.silu(gate.float()).to(x.dtype) * up
         del h, gate, up
-        return act @ self.w_out
+        return act @ self.w_out.to(self.dt)
 
 
 # ---------------------------------------------------------------------------
@@ -280,18 +285,18 @@ class SwiGLU(nn.Module):
 
 
 class RGLRU(nn.Module):
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
         dr = d  # lru width = d_model (RecurrentGemma-2B)
-        dt = compute_dtype(cfg)
-        self.w_gate = new_param((d, dr), dt, device)
-        self.w_rec_in = new_param((d, dr), dt, device)
-        self.w_a = new_param((dr, dr), torch.float32, device)
-        self.w_i = new_param((dr, dr), torch.float32, device)
-        self.lam = new_param((dr,), torch.float32, device)
-        self.w_down = new_param((dr, d), dt, device)
+        self.dt = dt = compute_dtype(cfg)
+        self.w_gate = new_param((d, dr), dt, device, trainable)
+        self.w_rec_in = new_param((d, dr), dt, device, trainable)
+        self.w_a = new_param((dr, dr), torch.float32, device, trainable)
+        self.w_i = new_param((dr, dr), torch.float32, device, trainable)
+        self.lam = new_param((dr,), torch.float32, device, trainable)
+        self.w_down = new_param((dr, d), dt, device, trainable)
 
     def init_(self, gen: torch.Generator) -> None:
         normal_(self.w_gate, gen, 0.02)
@@ -314,15 +319,16 @@ class RGLRU(nn.Module):
         return a, b
 
     def _gate_and_input(self, x: torch.Tensor):
-        gate = F.gelu((x @ self.w_gate).float(), approximate="tanh")
-        u = (x @ self.w_rec_in).float()
+        gate = F.gelu((x @ self.w_gate.to(self.dt)).float(), approximate="tanh")
+        u = (x @ self.w_rec_in.to(self.dt)).float()
         return gate, u
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False,
                 cache_len: Optional[int] = None):
         """Full sequence: the scan is ``kernels.ops.rglru_scan`` from a zero
-        state, the CUDA kernel on the card (its plain version on the CPU).
-        The state is one vector per row, whatever ``cache_len``."""
+        state, the CUDA kernel on the card (its plain version on the CPU),
+        differentiable through its backward kernel. The state is one vector
+        per row, whatever ``cache_len``."""
         B = x.shape[0]
         gate, u = self._gate_and_input(x)
         a, b = self._coeffs(u)
@@ -330,7 +336,7 @@ class RGLRU(nn.Module):
         h = kops.rglru_scan(a, b, torch.zeros((B, a.shape[-1]), dtype=torch.float32,
                                               device=x.device))
         del a, b
-        y = (h * gate).to(x.dtype) @ self.w_down
+        y = (h * gate).to(x.dtype) @ self.w_down.to(self.dt)
         if return_state:
             return y, {"h": h[:, -1].contiguous()}
         return y
@@ -346,4 +352,4 @@ class RGLRU(nn.Module):
         a, b = self._coeffs(u[:, None, :])
         h = a[:, 0] * state["h"] + b[:, 0]
         y = (h * gate).to(x.dtype)[:, None]
-        return y @ self.w_down, {"h": h}
+        return y @ self.w_down.to(self.dt), {"h": h}

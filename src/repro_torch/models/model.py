@@ -1,4 +1,4 @@
-"""Model assembly for serving: prefill and greedy decode.
+"""Model assembly: the training loss, prefill and greedy decode.
 
 The port of ``repro.models.model`` for the layer kinds ``rglru`` and
 ``sliding`` with the ``swiglu`` FFN (recurrentgemma-2b):
@@ -12,9 +12,14 @@ through every call; this is one card with no mesh, where every
 ``plan.constrain`` is a no-op, so the plan is dropped.
 
 Entry points: :func:`init_params` (a ``Model`` with weights drawn from a
-``torch.Generator``), :func:`init_cache`, :func:`prefill` and
-:func:`decode_step`. A cache is ``{"layers": [per-layer state], "pos": int}``;
+``torch.Generator``; ``trainable=True`` for float32 masters that require
+grad), :func:`loss_fn` (the training loss, with :func:`cross_entropy` and
+:func:`_chunked_xent`, and ``cfg.remat`` over each pattern unit),
+:func:`init_cache`, :func:`prefill` and :func:`decode_step`. A cache is
+``{"layers": [per-layer state], "pos": int}``;
 ``repro_torch.interop.cache_to_jax`` gives it in the JAX package's layout.
+:func:`param_leaves` groups the parameters as the JAX params pytree holds
+them, for the optimizers, the checkpoint and the interop helpers.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from . import layers as L
@@ -87,15 +93,16 @@ class Block(nn.Module):
     """One layer: pre-norm mixer (RG-LRU or sliding attention) and pre-norm
     SwiGLU, each added to the residual stream."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, device=None):
+    def __init__(self, cfg: ArchConfig, kind: str, device=None, trainable: bool = False):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(kind)
         self.kind = kind
-        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.mixer = L.Attention(cfg, device) if kind == "sliding" else L.RGLRU(cfg, device)
-        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.ffn = L.SwiGLU(cfg, device)
+        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+        mixer = L.Attention if kind == "sliding" else L.RGLRU
+        self.mixer = mixer(cfg, device, trainable)
+        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+        self.ffn = L.SwiGLU(cfg, device, trainable)
 
     def init_(self, gen: torch.Generator) -> None:
         for m in (self.norm1, self.mixer, self.norm2, self.ffn):
@@ -122,21 +129,23 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """The serving model: tied embedding, ``n_units`` pattern units then the
-    tail, as ``Block``s in order (``kinds[i]`` is layer i's kind). Weights
-    are uninitialised; :func:`init_params` or
-    ``repro_torch.interop.model_from_jax`` fills them."""
+    """The model: tied embedding, ``n_units`` pattern units then the tail,
+    as ``Block``s in order (``kinds[i]`` is layer i's kind). Weights are
+    uninitialised; :func:`init_params` or
+    ``repro_torch.interop.model_from_jax`` fills them. ``trainable=True``
+    holds float32 masters that require grad (training); the default stores
+    the matrix weights in ``cfg.dtype`` without grad (serving)."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         kinds = layer_kinds(cfg)
         self.kinds = kinds["pattern"] * cfg.n_units + kinds["tail"]
         self.embed = L.new_param((cfg.padded_vocab, cfg.d_model),
-                                 L.compute_dtype(cfg), device)
-        self.layers = nn.ModuleList(Block(cfg, k, device) for k in self.kinds)
-        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+                                 L.compute_dtype(cfg), device, trainable)
+        self.layers = nn.ModuleList(Block(cfg, k, device, trainable) for k in self.kinds)
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full causal forward: logits (B, S, padded_vocab) at every position."""
@@ -147,12 +156,14 @@ class Model(nn.Module):
 
 
 @torch.no_grad()
-def init_params(cfg: ArchConfig, generator: torch.Generator) -> Model:
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                trainable: bool = False) -> Model:
     """A ``Model`` on the generator's device with the JAX package's shapes,
     scales and init: N(0, 1) * scale drawn in float32, norms at one, ``lam``
     at 2.0. ``jax.random`` and ``torch.Generator`` give different numbers
-    for one seed."""
-    model = Model(cfg, device=generator.device)
+    for one seed; a seed gives the same draws with or without
+    ``trainable``."""
+    model = Model(cfg, device=generator.device, trainable=trainable)
     L.normal_(model.embed, generator, 0.02)
     model.final_norm.init_(generator)
     for layer in model.layers:
@@ -166,12 +177,138 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> Model:
 
 
 def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return F.embedding(batch["tokens"], model.embed) * math.sqrt(model.cfg.d_model)
+    table = model.embed.to(L.compute_dtype(model.cfg))
+    return F.embedding(batch["tokens"], table) * math.sqrt(model.cfg.d_model)
 
 
 def logits_of(model: Model, h: torch.Tensor) -> torch.Tensor:
     h = model.final_norm(h)
-    return h @ model.embed.t()
+    return h @ model.embed.to(L.compute_dtype(model.cfg)).t()
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def _unit_body(layers):
+    def body(x: torch.Tensor) -> torch.Tensor:
+        for layer in layers:
+            x = layer(x)
+        return x
+
+    return body
+
+
+def backbone(model: Model, x: torch.Tensor) -> torch.Tensor:
+    """The pattern units, then the tail. With ``cfg.remat == "full"`` each
+    unit's body runs under ``torch.utils.checkpoint`` (non-reentrant): only
+    its input is kept, and the backward recomputes the unit, as the JAX
+    ``_remat_wrap`` wraps each unit body and not the tail."""
+    cfg = model.cfg
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} (a checkpoint policy) is not ported to "
+            f"repro_torch; 'none' and 'full' are (ROADMAP.md, Queue A)")
+    P = len(cfg.pattern)
+    for u in range(cfg.n_units):
+        body = _unit_body(model.layers[u * P:(u + 1) * P])
+        if cfg.remat == "full":
+            x = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
+        else:
+            x = body(x)
+    for layer in model.layers[cfg.n_units * P:]:
+        x = layer(x)
+    return x
+
+
+def _pad_mask(cfg: ArchConfig, lf: torch.Tensor) -> torch.Tensor:
+    """Padded vocab entries of float32 logits set to -1e9."""
+    if cfg.padded_vocab == cfg.vocab:
+        return lf
+    pad = torch.arange(cfg.padded_vocab, device=lf.device) >= cfg.vocab
+    return torch.where(pad, torch.full((), -1e9, device=lf.device), lf)
+
+
+def cross_entropy(cfg: ArchConfig, logits: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy of (B, S, padded_vocab) logits, in float32."""
+    lf = _pad_mask(cfg, logits.float())
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _chunked_xent(model: Model, h: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The cross-entropy without (B, S, V) logits: the final norm, then
+    chunks of ``cfg.logits_chunk`` positions, the sequence zero-padded to a
+    whole number of chunks and the padding weighted out; the sum over
+    chunks divided by B * S."""
+    cfg = model.cfg
+    h = model.final_norm(h)
+    W = model.embed.to(L.compute_dtype(cfg)).t()
+    B, S, _ = h.shape
+    C = cfg.logits_chunk
+    n_chunk = (S + C - 1) // C
+    pad = n_chunk * C - S
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+    valid = (torch.arange(n_chunk * C, device=h.device) < S).reshape(n_chunk, C)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunk):
+        hb, tb, vb = h[:, c * C:(c + 1) * C], targets[:, c * C:(c + 1) * C], valid[c]
+        logits = _pad_mask(cfg, (hb @ W).float())
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tb[..., None].long())[..., 0]
+        total = total + torch.sum((logz - gold) * vb[None, :])
+    return total / (B * S)
+
+
+def loss_fn(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The training loss of ``repro.models.loss_fn``: embed, backbone, then
+    the cross-entropy against ``batch["targets"]`` (chunked when
+    ``cfg.logits_chunk > 0``). The JAX loss adds 0.01 x the MoE aux loss,
+    which is zero without MoE layers (the port has none)."""
+    x = _embed_inputs(model, batch)
+    h = backbone(model, x)
+    if model.cfg.logits_chunk > 0:
+        return _chunked_xent(model, h, batch["targets"])
+    return cross_entropy(model.cfg, logits_of(model, h), batch["targets"])
+
+
+# ---------------------------------------------------------------------------
+# Parameters in the JAX layout
+# ---------------------------------------------------------------------------
+
+
+def _jax_path(cfg: ArchConfig, name: str) -> str:
+    """A parameter name of the port (``layers.4.mixer.w_a``) as its leaf
+    path in the JAX params pytree (``units/p1/mixer/w_a``)."""
+    if not name.startswith("layers."):
+        return name.replace(".", "/")
+    _, i, rest = name.split(".", 2)
+    unit, p = divmod(int(i), len(cfg.pattern))
+    rest = rest.replace(".", "/")
+    if unit < cfg.n_units:
+        return f"units/p{p}/{rest}"
+    return f"tail/{int(i) - cfg.n_units * len(cfg.pattern)}/{rest}"
+
+
+def _path_key(path: str):
+    # the JAX flatten order: dict keys sorted, list entries by index
+    return [(0, int(k), "") if k.isdigit() else (1, 0, k) for k in path.split("/")]
+
+
+def param_leaves(model: Model) -> Dict[str, List[nn.Parameter]]:
+    """The parameters grouped as the JAX params pytree holds them, in its
+    flatten order: a leaf path (``units/p0/mixer/w_gate``, ``tail/0/...``,
+    ``embed``) maps to its parameters, one per unit for a pattern leaf
+    (the JAX leaf stacks them on a leading ``n_units`` axis), else one."""
+    out: Dict[str, List[nn.Parameter]] = {}
+    for name, p in model.named_parameters():
+        out.setdefault(_jax_path(model.cfg, name), []).append(p)
+    return {k: out[k] for k in sorted(out, key=_path_key)}
 
 
 def init_cache(model: Model, batch: int, cache_len: int) -> Cache:

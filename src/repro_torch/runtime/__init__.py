@@ -1,2 +1,8 @@
-"""The prefill and serve steps of the serving path."""
-from .trainstep import make_prefill_step, make_serve_step  # noqa: F401
+"""The train, prefill and serve steps and the trainer."""
+from .trainstep import (  # noqa: F401
+    TrainState,
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+)
+from .trainer import SimulatedFailure, Trainer, TrainerConfig  # noqa: F401

@@ -1,13 +1,80 @@
-"""Serving steps: the port of ``make_prefill_step`` and ``make_serve_step``
-of ``repro.runtime.trainstep``. (The train step, its optimizers and the
-sharding specs are not ported yet: ROADMAP.md, Queue A.)"""
+"""Train, prefill and serve steps: the port of ``repro.runtime.trainstep``.
+
+``make_train_step`` returns ``(state, batch) -> (state, metrics)``: the loss
+and its gradients (summed in float32 over ``cfg.microbatches`` and divided
+by their number, as the JAX step accumulates), then one optimizer update.
+The JAX step is a pure function; here the state is updated in place (the
+parameters, the optimizer's states and ``step``) and returned. The sharding
+specs and ``grad_spec_constraint`` are not ported: one card, no mesh
+(ROADMAP.md, Queue A item 8).
+"""
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Callable, Dict, Tuple
 
 import torch
 
-from ..models.model import Model, decode_step, prefill
+from ..models.config import ArchConfig
+from ..models.model import Model, decode_step, loss_fn, param_leaves, prefill
+from ..optim.optimizers import Leaves, Optimizer, global_norm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters), the optimizer's states and the step."""
+    model: Model
+    opt_state: Leaves
+    step: int
+
+    @property
+    def params(self) -> Leaves:
+        """The parameters as leaves of the JAX params pytree."""
+        return param_leaves(self.model)
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optimizer
+                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                  Tuple[TrainState, Dict[str, object]]]:
+    """The train step. ``cfg.microbatches`` sets the gradient accumulation;
+    the loss itself follows the model's own config. Metrics: ``loss`` and
+    ``grad_norm`` (float32 scalar tensors on the model's device, the norm
+    before clipping) and ``step`` (the step this update was)."""
+    mb = max(1, cfg.microbatches)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model = state.model
+        params = state.params
+        model.zero_grad(set_to_none=True)
+        if mb == 1:
+            loss = loss_fn(model, batch)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            # the gradients accumulate in each parameter's float32 .grad:
+            # g_1 + g_2 + ..., in order, then divided by mb, as the JAX sum
+            loss = torch.zeros((), dtype=torch.float32, device=model.embed.device)
+            for i in range(mb):
+                b_i = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
+                       for k, v in batch.items()}
+                l_i = loss_fn(model, b_i)
+                l_i.backward()
+                loss = loss + l_i.detach()
+            n = torch.full((), mb, dtype=torch.float32, device=loss.device)
+            loss = loss / n
+            for ps in params.values():
+                for p in ps:
+                    p.grad.div_(n)
+        grads = {k: [p.grad for p in ps] for k, ps in params.items()}
+        grad_norm = global_norm(grads)
+        optimizer.update(grads, state.opt_state, params, state.step)
+        del grads
+        model.zero_grad(set_to_none=True)
+        metrics = {"loss": loss, "grad_norm": grad_norm, "step": state.step}
+        state.step += 1
+        return state, metrics
+
+    return train_step
 
 
 def make_prefill_step(model: Model, cache_len: int):

@@ -11,6 +11,7 @@ no key follow the oracle: the mean of V over all keys. The CUDA kernel is
 held against the plain version on the card by ``chip_smoke.py`` (phase 13).
 """
 import os
+import traceback
 
 import numpy as np
 import pytest
@@ -174,10 +175,13 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.py``'s phase 13 on the CPU, at cut full-width shapes: the
     plain version stands in for the kernel and counts as its launch (on the
     path ``_path_for`` names), the timers and the SASS report are stubbed,
-    and the three wrappers' plain versions carry the kernels' grad guard.
-    Its checks (one launch per op call on the expected path, kernel ==
-    plain on every case, an input that requires grad raises, a second
-    launch identical, SDPA against the kernel) must all pass."""
+    the flash and cross-entropy plain versions carry their kernels' grad
+    guard, and the RG-LRU scan's plain forward and backward count as their
+    kernels' launches. Its checks (one launch per op call on the expected
+    path, kernel == plain on every case, an input that requires grad raises
+    in flash and the cross-entropy and flows through the RG-LRU scan's two
+    kernels, a second launch identical, SDPA against the kernel) must all
+    pass."""
     monkeypatch.syspath_prepend(ROOT)
     import chip_smoke as cs
 
@@ -202,8 +206,16 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(monkeypatch):
                                                                   window=w))
     monkeypatch.setattr(xe, "softmax_xent_plain", guarded(
         "softmax_xent", xe.softmax_xent_plain, "logits", "targets"))
-    monkeypatch.setattr(rg, "rglru_scan_plain", guarded(
-        "rglru_scan", rg.rglru_scan_plain, "a", "b", "h0"))
+    def counted_as(wrapper, fn):
+        def call(*args):
+            wrapper.launches += 1
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(rg, "rglru_scan_plain",
+                        counted_as(rg.rglru_scan, rg.rglru_scan_plain))
+    monkeypatch.setattr(rg, "rglru_scan_backward_plain",
+                        counted_as(rg.rglru_scan_backward, rg.rglru_scan_backward_plain))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(cs, "graph_ms", lambda torch, fn, reps=1, rounds=1: (fn(), 1.0)[1])
     monkeypatch.setattr(cs, "call_ms", lambda torch, fn, reps=1: (fn(), 1.0)[1])
@@ -239,9 +251,12 @@ def _unreachable_load():
 
 @pytest.mark.parametrize("op", ["flash_attention", "softmax_xent", "rglru_scan"])
 def test_kernel_wrappers_refuse_inputs_that_require_grad(op, monkeypatch):
-    """The CUDA branch of each wrapper raises before it loads the kernel
-    when grad is enabled and an input requires grad: the kernels have no
-    backward, and their output would carry no grad_fn."""
+    """The CUDA branch of the flash and cross-entropy wrappers raises before
+    it loads the kernel when grad is enabled and an input requires grad:
+    those kernels have no backward, and their output would carry no
+    grad_fn. The RG-LRU scan has a backward kernel: its CUDA branch takes
+    the autograd Function and reaches the kernel's load inside the
+    Function's forward, with no refusal."""
     if op == "flash_attention":
         mod = fa
         _, (q, k, v) = operands((1, 2, 128, 32), (1, 2, 128, 32), seed=9)
@@ -254,6 +269,15 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(op, monkeypatch):
         args = (torch.rand(1, 8, 16), torch.rand(1, 8, 16).requires_grad_(),
                 torch.zeros(1, 16))
     monkeypatch.setattr(mod, "load", _unreachable_load)
+    if op == "rglru_scan":
+        with pytest.raises(AssertionError, match="before the kernel") as info:
+            rg._scan(*args, True)
+        frames = [f.name for f in traceback.extract_tb(info.tb)]
+        assert "forward" in frames and frames[-2] == "_launch"
+        with torch.no_grad(), pytest.raises(AssertionError, match="before the kernel") as info:
+            rg._scan(*args, True)
+        assert "forward" not in [f.name for f in traceback.extract_tb(info.tb)]
+        return
     with pytest.raises(RuntimeError, match="no backward"):
         mod._launch(*args)
     # without grad the guard lets the call through to the kernel's load

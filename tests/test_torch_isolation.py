@@ -56,6 +56,9 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert "repro_torch.kernels.flash_attention" in out["modules"]
     assert "repro_torch.kernels.xent" in out["modules"]
     assert "repro_torch.kernels.ref" in out["modules"]
+    for name in ("optim.optimizers", "data.pipeline", "checkpoint.manager",
+                 "runtime.trainstep", "runtime.trainer", "launch.train"):
+        assert f"repro_torch.{name}" in out["modules"]
 
 
 def test_service_interop_loads_no_model_stack():
