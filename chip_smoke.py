@@ -70,19 +70,29 @@ raises and the script exits non-zero:
 9. 64 tenants on 64x3 devices, ``oef-coop``, replayed with ``torch`` on the
    card, ``torch`` on the CPU and ``numpy`` (the LP): card and CPU make the
    same decisions (as in phase 5), the LP replay is within ``NUMPY_REL``;
-10. hold the RG-LRU scan kernel against its plain torch version on the
-    card (atol 1e-6, rtol 1e-5): the model's prefill shape (8, 2048, 2560)
-    in float32, the JAX kernel test's range, a ragged D, S = 1 and
-    S = 4097, bf16 inputs and a nonzero ``h0``; and time it at the model's
-    shape: device time by CUDA-graph replay, wrapper call, plain version,
-    the byte bound and the nearest library form (the private
+10. hold the RG-LRU forward kernels against their plain torch version on
+    the card, bit for bit (``torch.equal``), through ``rglru_scan`` on the
+    route ``_route`` names (one launch per call, counted per route) and,
+    where that is the TMA kernel, through the direct kernel too: the
+    model's training and prefill shapes in float32 and the prefill shape in
+    bf16, the JAX kernel test's range, S = 1, S below one tile, one tile
+    +- 1 and 4097, D = 32, ragged 32-feature columns (2568, 2564), bf16
+    with D % 8 == 0 and != 0, float32 D = 97 and misaligned views (the
+    last three on the direct kernel), nonzero ``h0``; ptxas's registers
+    and spills of every RG-LRU kernel (no spill) and a TMA load (UTMALDG)
+    in each TMA kernel's SASS; and both kernels' times at (2, 2048, 2560)
+    and (8, 2048, 2560) in float32 and bf16: device time by CUDA-graph
+    replay, wrapper call (the TMA one encodes its tensor maps on the
+    host), share of the byte bound; at the prefill shape also the plain
+    version and the nearest library form (the private
     ``torch._higher_order_ops.associative_scan``, where the card's torch
     has it);
 11. serve recurrentgemma-2b at full width (``get_config``, weights from a
     seeded ``torch.Generator``, bf16 compute, TF32 off): prefill 8 prompts
     of 2048 tokens, then 32 greedy decode steps, through
     ``repro_torch.launch.serve.generate``. Exactly 18 kernel launches per
-    prefill (one per RG-LRU layer) and none in decode, finite logits, and
+    prefill (one per RG-LRU layer), all on the TMA kernel, and none in
+    decode, finite logits, and
     a second run repeats the tokens and logits bit for bit; prefill and
     decode rates, the kernel's share of prefill, peak memory and the top
     device operations of one prefill (``torch.profiler``); no launch of
@@ -118,20 +128,24 @@ raises and the script exits non-zero:
     then one training-loss chunk of 4096 tokens over gemma3-4b's 262,144
     and recurrentgemma-2b's 256,000 vocab, timed against the plain version,
     ``F.cross_entropy`` and the byte bound;
-15. hold the RG-LRU backward kernel (the reverse scan of the training
-    path) against its plain version on the card (atol 1e-6, rtol 1e-5, and
-    whether bit for bit): the training shape (2, 2048, 2560), the JAX
-    kernel test's range, a ragged D, S = 1, S = 4097 and nonzero ``h0``;
-    grad through ``ops.rglru_scan`` (both kernels) against autograd of the
-    plain forward (atol 1e-5, rtol 1e-4); and its times at the training
-    shape: CUDA-graph device time, wrapper call, plain version, the byte
-    bound and the private ``associative_scan`` run in reverse;
+15. hold the RG-LRU backward kernels (the reverse scan of the training
+    path) against their plain version on the card, bit for bit, on the
+    route ``_route`` names and, where that is the TMA kernel, on the direct
+    one too: the training shape (2, 2048, 2560), the JAX kernel test's
+    range, ragged D (2568, 2564), S = 1, 17, one tile +- 1 and 4097,
+    D = 32, float32 D = 97 and a misaligned view (the direct kernel),
+    nonzero ``h0``; grad through ``ops.rglru_scan`` (both kernels) against
+    autograd of the plain forward (atol 1e-5, rtol 1e-4); and both
+    kernels' times at the training shape: CUDA-graph device time, wrapper
+    call, share of the byte bound, the plain version and the private
+    ``associative_scan`` run in reverse;
 16. train recurrentgemma-2b at full width (``get_config``: bf16 compute,
     float32 masters, ``remat="full"``, ``logits_chunk=512``, AdamW) through
     ``repro_torch.runtime.Trainer``, the trainer of ``launch.train``: a
     global batch of 2 x 2048 seeded tokens, 3 steps, TF32 off. Exactly 34
     forward (18 layers and the 16 recomputed in the units) and 18 backward
-    RG-LRU launches a step and no launch of any other kernel, finite
+    RG-LRU launches a step, all on the TMA kernels, and no launch of any
+    other kernel, finite
     losses, a second run's first loss identical bit for bit; step times,
     tokens/s, peak memory and the top device operations of one profiled
     step;
@@ -181,8 +195,6 @@ COOP_TOL = 1e-6  # coop tier vs the LP: certificate gap and envy
 #: total throughput. (Mean JCT is not held: it averages over the jobs that
 #: finish inside the horizon, and two jobs more or less move it by ~6%.)
 NUMPY_REL = 0.05
-#: RG-LRU kernel vs its plain version (phase 10)
-RG_ATOL, RG_RTOL = 1e-6, 1e-5
 #: card vs CPU prefill logits, max |diff| / max |logits| (phase 12): float32,
 #: and bf16 (the bound tests/test_models.py holds prefill to)
 CARD_CPU_F32, CARD_CPU_BF16 = 1e-4, 5e-2
@@ -918,67 +930,167 @@ def coop_devices_phase(detail) -> None:
             "n_events": r.n_events} for k, r in reports.items()}
 
 
-def rglru_phase(torch, rg, detail, dev="cuda") -> dict:
-    """Phase 10: the RG-LRU scan kernel against its plain version, and its
-    times at the model's prefill shape."""
-    g = torch.Generator(device=dev).manual_seed(10)
+#: RG-LRU time steps per TMA tile (``kSteps`` in csrc/rglru_scan.cu):
+#: phases 10 and 15 place S around it
+RG_TILE = 32
+#: the RG-LRU forward's timed shapes (phase 10): the training step's, and
+#: the prefill's in float32 and in bf16
+RG_FULL = (("train_fp32", TRAIN_SHAPE, "float32"),
+           ("prefill_fp32", (8, 2048, 2560), "float32"),
+           ("prefill_bf16", (8, 2048, 2560), "bfloat16"))
 
-    def operands(B, S, D, dtype, h0_zero):
-        a = torch.sigmoid(torch.randn((B, S, D), generator=g, device=dev)).to(dtype)
-        b = torch.randn((B, S, D), generator=g, device=dev).to(dtype)
-        h0 = (torch.zeros((B, D), device=dev) if h0_zero
-              else torch.randn((B, D), generator=g, device=dev))
+
+def rglru_operands(torch, g, dev, shape, dtype, h0_zero, misaligned=False, grad=False):
+    """Seeded RG-LRU operands: a = sigmoid(N) and b = N in ``dtype``, h0 = N
+    (or 0) in float32, and with ``grad`` an incoming dh = N. With
+    ``misaligned``, a, b and dh are contiguous views one element into their
+    buffers (4- or 2-byte aligned), which TMA cannot take."""
+    B, S, D = shape
+
+    def place(x):
+        if not misaligned:
+            return x
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:].copy_(x.reshape(-1))
+        return buf[1:].view(x.shape)
+
+    a = place(torch.sigmoid(torch.randn(shape, generator=g, device=dev)).to(dtype))
+    b = place(torch.randn(shape, generator=g, device=dev).to(dtype))
+    h0 = (torch.zeros((B, D), device=dev) if h0_zero
+          else torch.randn((B, D), generator=g, device=dev))
+    if not grad:
         return a, b, h0
+    return a, b, h0, place(torch.randn(shape, generator=g, device=dev))
 
+
+def rglru_route(torch, dtype, D: int, misaligned: bool) -> str:
+    """The route the RG-LRU wrappers must take: ``"tma"`` for rows of D
+    elements a multiple of 16 bytes (D % 4 == 0 in float32, D % 8 == 0 in
+    bf16) at 16-byte aligned addresses, else ``"direct"``."""
+    row_bytes = D * (4 if dtype == torch.float32 else 2)
+    return "tma" if row_bytes % 16 == 0 and not misaligned else "direct"
+
+
+def rglru_sass(detail) -> dict:
+    """ptxas's registers and spills and the SASS TMA loads of the RG-LRU
+    kernels: each TMA kernel must hold UTMALDG and none may spill."""
+    report = {kernel_name(f): r for f, r in kernel_report("rglru_scan").items()
+              if "rglru_scan" in f}
+    tma = {f: r for f, r in report.items() if "_tma_kernel" in f}
+    check(len(tma) >= 3, f"RG-LRU TMA kernels in the library: {sorted(report)}")
+    for fn, rep in report.items():
+        check(rep.get("UTMALDG", 0) > 0 or fn not in tma, f"{fn}: no UTMALDG in its SASS")
+        check("spills" not in rep or "0 bytes spill stores, 0 bytes spill loads"
+              in rep["spills"], f"{fn} spills: {rep}")
+        log(f"    {fn}: {rep.get('registers', 'registers not reported')}; "
+            f"{rep.get('spills', 'spills not reported')}; UTMALDG {rep.get('UTMALDG', 0)}")
+    detail["rglru_sass"] = report
+    return report
+
+
+def rglru_phase(torch, rg, detail, dev="cuda") -> dict:
+    """Phase 10: the RG-LRU forward kernels against their plain version, bit
+    for bit, on the route ``_route`` names and, where that is the TMA
+    kernel, on the direct one too; the kernels' ptxas report and SASS; and
+    both kernels' times at the training and prefill shapes."""
+    g = torch.Generator(device=dev).manual_seed(10)
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [((8, 2048, 2560), f32, True),          # the model's prefill
-             ((1, 64, 32), f32, False), ((2, 128, 64), f32, False),
-             ((3, 192, 128), f32, False), ((3, 256, 256), f32, False),
-             ((2, 64, 96), f32, False), ((1, 128, 2568), f32, False),  # ragged D
-             ((2, 1, 2560), f32, False), ((1, 4097, 256), f32, False),
-             ((8, 2048, 2560), bf16, True), ((2, 64, 96), bf16, False),
-             ((1, 4097, 256), bf16, False)]
+    T = RG_TILE
+    # (shape, dtype, h0 = 0, misaligned views): the timed full-width shapes,
+    # then the JAX kernel test's range and the TMA kernel's edges
+    cases = [(shape, getattr(torch, dt), True, False) for _, shape, dt in RG_FULL]
+    cases += [((1, 64, 32), f32, False, False), ((2, 128, 64), f32, False, False),
+              ((3, 192, 128), f32, False, False), ((3, 256, 256), f32, False, False),
+              ((2, 64, 96), f32, False, False), ((2, 1, 2560), f32, False, False),
+              ((2, 17, 256), f32, False, False),  # S below one tile
+              ((2, T - 1, 256), f32, False, False), ((2, T + 1, 256), f32, False, False),
+              ((1, 4097, 256), f32, False, False), ((3, 200, 32), f32, False, False),
+              ((1, 128, 2568), f32, False, False),  # a ragged 32-feature column
+              ((1, 130, 2564), f32, False, False), ((2, 64, 96), bf16, False, False),
+              ((1, 4097, 256), bf16, False, False),
+              ((1, 130, 2564), bf16, False, False),  # bf16 with D % 8 != 0
+              ((2, 65, 100), bf16, False, False),
+              ((2, 70, 97), f32, False, False),  # float32 with D % 4 != 0
+              ((2, 129, 256), f32, False, True), ((1, 64, 256), bf16, False, True)]
+    runs = {"tma": 0, "direct": 0}
     max_err = 0.0
-    for shape, dtype, h0_zero in cases:
-        a, b, h0 = operands(*shape, dtype, h0_zero)
-        got = rg.rglru_scan(a, b, h0)
+    for shape, dtype, h0_zero, misaligned in cases:
+        a, b, h0 = rglru_operands(torch, g, dev, shape, dtype, h0_zero, misaligned)
+        route = rglru_route(torch, dtype, shape[2], misaligned)
+        what = f"rglru_scan {shape} {dtype}{' misaligned' if misaligned else ''}"
         ref = rg.rglru_scan_plain(a, b, h0)
+        before = (rg.rglru_scan.launches, rg.rglru_scan.launches_tma)
+        outs = {route: rg.rglru_scan(a, b, h0)}
+        took = (rg.rglru_scan.launches - before[0], rg.rglru_scan.launches_tma - before[1])
+        check(took == (1, int(route == "tma")),
+              f"{what}: {took[0]} launches, {took[1]} on the TMA kernel; want the {route} route")
+        if route == "tma":
+            outs["direct"] = rg._launch(a, b, h0, route="direct")
+            check(rg.rglru_scan.launches_tma == before[1] + 1,
+                  f"{what}: the direct route counted a TMA launch")
         torch.cuda.synchronize()
-        check(got.dtype == dtype and tuple(got.shape) == shape,
-              f"rglru_scan {shape} {dtype}: got {got.dtype} {tuple(got.shape)}")
-        torch.testing.assert_close(got, ref, atol=RG_ATOL, rtol=RG_RTOL)
-        max_err = max(max_err, float((got.float() - ref.float()).abs().max()))
-        del a, b, h0, got, ref
-    log(f"[10] rglru_scan kernel == plain on {len(cases)} cases (atol {RG_ATOL:g}, "
-        f"rtol {RG_RTOL:g}), max |diff| {max_err:.3e}")
-    B, S, D = 8, 2048, 2560
-    a, b, h0 = operands(B, S, D, f32, True)
-    t = {"kernel_ms": graph_ms(torch, lambda: rg._launch(a, b, h0), reps=20),
-         "call_ms": call_ms(torch, lambda: rg.rglru_scan(a, b, h0), reps=50),
-         "plain_ms": graph_ms(torch, lambda: rg.rglru_scan_plain(a, b, h0),
-                              reps=1, rounds=2),
-         "library_ms": None}
-    # the nearest library form: a private API, timed only as a yardstick
-    import importlib.util
-    if importlib.util.find_spec("torch._higher_order_ops.associative_scan"):
-        from torch._higher_order_ops.associative_scan import associative_scan
+        for r, got in outs.items():
+            check(got.dtype == dtype and tuple(got.shape) == shape,
+                  f"{what}: got {got.dtype} {tuple(got.shape)}")
+            err = float((got.float() - ref.float()).abs().max())
+            check(torch.equal(got, ref), f"{what}: the {r} kernel differs from the "
+                  f"plain version (max |diff| {err:.3e})")
+            max_err = max(max_err, err)
+            runs[r] += 1
+        del a, b, h0, ref, outs
+    log(f"[10] rglru_scan kernels == plain bit for bit on {len(cases)} cases ({runs['tma']} "
+        f"runs on the TMA kernel, {runs['direct']} on the direct one), one launch per call "
+        f"on the expected route")
+    rglru_sass(detail)
 
-        def combine(x, y):
-            return x[0] * y[0], y[0] * x[1] + y[1]
+    full = {}
+    for label, shape, dt in RG_FULL:
+        B, S, D = shape
+        dtype = getattr(torch, dt)
+        a, b, h0 = rglru_operands(torch, g, dev, shape, dtype, True)
+        row = dict(zip(("bound_ms", "bound_by"), bound(3 * B * S * D * a.element_size(),
+                                                       2 * B * S * D, FP32_FLOPS)))
+        for r, call in (("tma", lambda: rg.rglru_scan(a, b, h0)),
+                        ("direct", lambda: rg._launch(a, b, h0, route="direct"))):
+            ms = graph_ms(torch, lambda: rg._launch(a, b, h0, route=r), reps=20)
+            row[r] = {"kernel_ms": ms, "call_ms": call_ms(torch, call, reps=50),
+                      "share_of_bound": row["bound_ms"] / ms}
+        full[label] = row
+        log(f"    {shape} {dt}: TMA kernel {row['tma']['kernel_ms'] * 1e3:.2f} us "
+            f"({row['tma']['share_of_bound']:.1%} of the bound; wrapper call "
+            f"{row['tma']['call_ms'] * 1e3:.2f} us), direct kernel "
+            f"{row['direct']['kernel_ms'] * 1e3:.2f} us ({row['direct']['share_of_bound']:.1%};"
+            f" call {row['direct']['call_ms'] * 1e3:.2f} us), bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+        if label != "prefill_fp32":
+            del a, b, h0
+            continue
+        t = {"plain_ms": graph_ms(torch, lambda: rg.rglru_scan_plain(a, b, h0),
+                                  reps=1, rounds=2),
+             "library_ms": None}
+        # the nearest library form: a private API, timed only as a yardstick
+        import importlib.util
+        if importlib.util.find_spec("torch._higher_order_ops.associative_scan"):
+            from torch._higher_order_ops.associative_scan import associative_scan
 
-        def library():
-            return associative_scan(combine, (a, b), dim=1, combine_mode="generic")[1]
+            def combine(x, y):
+                return x[0] * y[0], y[0] * x[1] + y[1]
 
-        torch.testing.assert_close(library(), rg._launch(a, b, h0), atol=1e-5, rtol=1e-4)
-        t["library_ms"] = call_ms(torch, library, reps=3)
-    t["bound_ms"], t["bound_by"] = bound(3 * B * S * D * 4, 2 * B * S * D, FP32_FLOPS)
-    lib = "n/a" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
-    log(f"    (8, 2048, 2560) fp32: kernel {t['kernel_ms'] * 1e3:.2f} us (graph "
-        f"replay; {t['call_ms'] * 1e3:.2f} us per wrapper call), plain "
-        f"{t['plain_ms'] * 1e3:.2f} us, associative_scan {lib}, bound "
-        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
-    detail["rglru_kernel"] = {"cases": len(cases), "max_abs_err": max_err, **t}
-    return {"max_abs_err": max_err, **t}
+            def library():
+                return associative_scan(combine, (a, b), dim=1, combine_mode="generic")[1]
+
+            torch.testing.assert_close(library(), rg._launch(a, b, h0), atol=1e-5, rtol=1e-4)
+            t["library_ms"] = call_ms(torch, library, reps=3)
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
+        log(f"    {shape} {dt}: plain {t['plain_ms'] * 1e3:.2f} us, associative_scan {lib}")
+        del a, b, h0
+    pre = full["prefill_fp32"]
+    out = {"cases": len(cases), "runs": runs, "max_abs_err": max_err, "shapes": full,
+           "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"], **t,
+           "kernel_ms": pre["tma"]["kernel_ms"], "call_ms": pre["tma"]["call_ms"],
+           "direct_ms": pre["direct"]["kernel_ms"]}
+    detail["rglru_kernel"] = out
+    return out
 
 
 def device_kernels(torch, fn) -> list:
@@ -1018,11 +1130,14 @@ def serve_phase(torch, rg, idle, detail, rg_t, dev="cuda", cfg=None) -> int:
         generate(model, prompts, steps)  # warm-up
         warm_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        rg.rglru_scan.launches = 0
+        rg.rglru_scan.launches = rg.rglru_scan.launches_tma = 0
         for wrapper in idle.values():
             wrapper.launches = 0
         toks, rec = generate(model, prompts, steps)
-        launches = rg.rglru_scan.launches
+        launches, launches_tma = rg.rglru_scan.launches, rg.rglru_scan.launches_tma
+        check(launches_tma == launches,
+              f"{launches - rg.rglru_scan.launches_tma} of {launches} RG-LRU launches "
+              f"took the direct route, not the TMA one")
         idle_launches = {name: w.launches for name, w in idle.items()}
         check(not any(idle_launches.values()),
               f"the serve path launched other kernels: {idle_launches}")
@@ -1046,12 +1161,12 @@ def serve_phase(torch, rg, idle, detail, rg_t, dev="cuda", cfg=None) -> int:
     prefill_s = min(rec["prefill_s"], rec2["prefill_s"])
     decode_s = min(rec["decode_s"], rec2["decode_s"])
     busy_ms = sum(k["device_ms"] for k in kernels)
-    rglru_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_kernel" in k["op"])
+    rglru_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_tma_kernel" in k["op"])
     out = {"batch": B, "prompt_len": S, "decode_steps": steps, "warmup_s": warm_s,
            "prefill_s": [rec["prefill_s"], rec2["prefill_s"]],
            "decode_s": [rec["decode_s"], rec2["decode_s"]],
            "prefill_tok_s": B * S / prefill_s, "decode_tok_s": B * steps / decode_s,
-           "prefill_launches": rec["prefill_launches"],
+           "prefill_launches": rec["prefill_launches"], "launches_tma": launches_tma,
            "decode_launches": rec["decode_launches"],
            "kernel_share_of_prefill": n_rglru * rg_t["kernel_ms"] / 1e3 / prefill_s,
            "profiled_prefill": {"device_busy_ms": busy_ms, "rglru_scan_ms": rglru_ms,
@@ -1064,7 +1179,8 @@ def serve_phase(torch, rg, idle, detail, rg_t, dev="cuda", cfg=None) -> int:
         f"(warm-up {warm_s:.2f} s): prefill {prefill_s:.3f} s "
         f"({out['prefill_tok_s']:.0f} tok/s), decode {decode_s:.3f} s "
         f"({out['decode_tok_s']:.1f} tok/s); {rec['prefill_launches']} kernel "
-        f"launches per prefill, {rec['decode_launches']} in decode; kernel "
+        f"launches per prefill (all on the TMA kernel), {rec['decode_launches']} in "
+        f"decode; kernel "
         f"{out['kernel_share_of_prefill']:.2%} of prefill; peak {peak_gb:.2f} GB; "
         f"second run identical; 0 launches of {', '.join(idle)}")
     log(f"    one profiled prefill: kernels busy {busy_ms:.1f} ms (device idle "
@@ -1180,10 +1296,16 @@ def kernel_report(name: str) -> dict:
 
 def kernel_name(mangled: str) -> str:
     """``flash_tc_kernel<256>`` / ``flash_kernel<bf16, 64>`` /
-    ``waterfill_solve_kernel<true>`` / ``pd_segment_kernel`` for a mangled
-    kernel name; other names as they are."""
+    ``waterfill_solve_kernel<true>`` / ``pd_segment_kernel`` /
+    ``rglru_scan_tma_kernel<float>`` for a mangled kernel name; other names
+    as they are."""
     import re
 
+    m = re.search(r"(rglru_scan(?:_backward)?(?:_tma)?_kernel)(?:I(f|13__nv_bfloat16))?",
+                  mangled)
+    if m:
+        dtype = {"f": "<float>", "13__nv_bfloat16": "<bf16>"}.get(m.group(2) or "", "")
+        return m.group(1) + dtype
     m = re.search(r"waterfill_solve_kernelILb([01])E", mangled)
     if m:
         return f"waterfill_solve_kernel<{'true' if m.group(1) == '1' else 'false'}>"
@@ -1196,8 +1318,9 @@ def kernel_name(mangled: str) -> str:
     return f"{m.group(1)}<{dtype}{m.group(3)}>"
 
 
-#: SASS opcodes counted in the flash library: the tensor-core kernel must
-#: hold the warpgroup products (HGMMA) and TMA tile loads (UTMALDG).
+#: SASS opcodes counted by ``kernel_report``: the flash tensor-core kernel
+#: must hold the warpgroup products (HGMMA) and TMA tile loads (UTMALDG),
+#: the RG-LRU TMA kernels the TMA loads.
 SASS_OPS = ("HGMMA", "UTMALDG")
 
 
@@ -1522,46 +1645,68 @@ def xent_phase(torch, xe, detail, dev="cuda") -> dict:
 
 
 def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
-    """Phase 15: the RG-LRU backward kernel against its plain version, grad
-    through the autograd Function against autograd of the plain forward,
-    and its times at the training shape (2, 2048, 2560)."""
+    """Phase 15: the RG-LRU backward kernels against their plain version,
+    bit for bit, on the route ``_route`` names and, where that is the TMA
+    kernel, on the direct one too; grad through the autograd Function
+    against autograd of the plain forward; and both kernels' times at the
+    training shape (2, 2048, 2560)."""
     from repro_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(15)
+    f32 = torch.float32
 
-    def operands(B, S, D, h0_zero):
-        a = torch.sigmoid(torch.randn((B, S, D), generator=g, device=dev))
-        b = torch.randn((B, S, D), generator=g, device=dev)
-        h0 = (torch.zeros((B, D), device=dev) if h0_zero
-              else torch.randn((B, D), generator=g, device=dev))
-        dh = torch.randn((B, S, D), generator=g, device=dev)
+    def operands(shape, h0_zero, misaligned=False):
+        a, b, h0, dh = rglru_operands(torch, g, dev, shape, f32, h0_zero, misaligned,
+                                      grad=True)
         with torch.no_grad():
             h = rg.rglru_scan(a, b, h0)
         return a, b, h0, h, dh
 
     B, S, D = TRAIN_SHAPE
-    cases = [((B, S, D), True),                     # the training shape
-             ((1, 64, 32), False), ((2, 128, 64), False), ((3, 192, 128), False),
-             ((3, 256, 256), False), ((1, 128, 2568), False),   # ragged D
-             ((2, 1, 2560), False), ((1, 4097, 256), False), ((2, 17, 96), False)]
-    max_err, bitwise = 0.0, True
-    for shape, h0_zero in cases:
-        a, _, h0, h, dh = operands(*shape, h0_zero)
-        got = rg.rglru_scan_backward(a, h, h0, dh)
+    T = RG_TILE
+    # (shape, h0 = 0, misaligned views)
+    cases = [((B, S, D), True, False),  # the training shape
+             ((1, 64, 32), False, False), ((2, 128, 64), False, False),
+             ((3, 192, 128), False, False), ((3, 256, 256), False, False),
+             ((1, 128, 2568), False, False), ((1, 130, 2564), False, False),
+             ((2, 1, 2560), False, False), ((2, 17, 96), False, False),
+             ((2, T - 1, 256), False, False), ((2, T + 1, 256), False, False),
+             ((1, 4097, 256), False, False), ((3, 200, 32), False, False),
+             ((2, 70, 97), False, False),  # D % 4 != 0
+             ((2, 129, 256), False, True)]  # misaligned views
+    runs = {"tma": 0, "direct": 0}
+    max_err = 0.0
+    for shape, h0_zero, misaligned in cases:
+        a, _, h0, h, dh = operands(shape, h0_zero, misaligned)
+        route = rglru_route(torch, f32, shape[2], misaligned)
+        what = f"rglru_scan_backward {shape}{' misaligned' if misaligned else ''}"
         want = rg.rglru_scan_backward_plain(a, h, h0, dh)
+        w = rg.rglru_scan_backward
+        before = (w.launches, w.launches_tma)
+        outs = {route: rg.rglru_scan_backward(a, h, h0, dh)}
+        took = (w.launches - before[0], w.launches_tma - before[1])
+        check(took == (1, int(route == "tma")),
+              f"{what}: {took[0]} launches, {took[1]} on the TMA kernel; want the {route} route")
+        if route == "tma":
+            outs["direct"] = rg._launch_backward(a, h, h0, dh, route="direct")
+            check(w.launches_tma == before[1] + 1,
+                  f"{what}: the direct route counted a TMA launch")
         torch.cuda.synchronize()
-        for x, y in zip(got, want):
-            check(x.dtype == torch.float32 and x.shape == y.shape,
-                  f"rglru_scan_backward {shape}: {x.dtype} {tuple(x.shape)}")
-            torch.testing.assert_close(x, y, atol=RG_ATOL, rtol=RG_RTOL)
-            max_err = max(max_err, float((x - y).abs().max()))
-            bitwise = bitwise and torch.equal(x, y)
-        del a, h0, h, dh, got, want
+        for r, got in outs.items():
+            for name, x, y in zip(("da", "db", "dh0"), got, want):
+                check(x.dtype == f32 and x.shape == y.shape,
+                      f"{what} {name}: {x.dtype} {tuple(x.shape)}")
+                err = float((x - y).abs().max())
+                check(torch.equal(x, y), f"{what}: {name} of the {r} kernel differs "
+                      f"from the plain version (max |diff| {err:.3e})")
+                max_err = max(max_err, err)
+            runs[r] += 1
+        del a, h0, h, dh, want, outs
     # grad through the Function (both kernels) against autograd of the plain
     # forward, at small shapes, float32
     grad_err = 0.0
     for shape in ((2, 64, 96), (1, 300, 40), (3, 1, 8)):
-        a, b, h0, _, dh = operands(*shape, False)
+        a, b, h0, _, dh = operands(shape, False)
         xs = [t.clone().requires_grad_() for t in (a, b, h0)]
         ys = [t.clone().requires_grad_() for t in (a, b, h0)]
         before = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
@@ -1572,17 +1717,22 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
         for x, y in zip(xs, ys):
             torch.testing.assert_close(x.grad, y.grad, atol=1e-5, rtol=1e-4)
             grad_err = max(grad_err, float((x.grad - y.grad).abs().max()))
-    log(f"[15] rglru_scan_backward kernel == plain on {len(cases)} cases (atol "
-        f"{RG_ATOL:g}, rtol {RG_RTOL:g}), max |diff| {max_err:.3e}, "
-        f"{'bit for bit' if bitwise else 'not bit for bit'}; grad through both "
-        f"kernels vs autograd of the plain forward {grad_err:.3e} (atol 1e-5)")
-    a, b, h0, h, dh = operands(B, S, D, True)
-    t = {"kernel_ms": graph_ms(torch, lambda: rg._launch_backward(a, h, h0, dh), reps=20),
-         "call_ms": call_ms(torch, lambda: rg.rglru_scan_backward(a, h, h0, dh), reps=50),
-         "plain_ms": graph_ms(torch, lambda: rg.rglru_scan_backward_plain(a, h, h0, dh),
-                              reps=1, rounds=2),
-         "forward_ms": graph_ms(torch, lambda: rg._launch(a, b, h0), reps=20),
-         "library_ms": None}
+    log(f"[15] rglru_scan_backward kernels == plain bit for bit on {len(cases)} cases "
+        f"({runs['tma']} runs on the TMA kernel, {runs['direct']} on the direct one), one "
+        f"launch per call on the expected route; grad through both kernels vs autograd "
+        f"of the plain forward {grad_err:.3e} (atol 1e-5)")
+    a, b, h0, h, dh = operands((B, S, D), True)
+    n = B * S * D
+    t = dict(zip(("bound_ms", "bound_by"), bound(5 * n * 4 + 2 * B * D * 4, 3 * n + B * D,
+                                                 FP32_FLOPS)))
+    for r, call in (("tma", lambda: rg.rglru_scan_backward(a, h, h0, dh)),
+                    ("direct", lambda: rg._launch_backward(a, h, h0, dh, route="direct"))):
+        ms = graph_ms(torch, lambda: rg._launch_backward(a, h, h0, dh, route=r), reps=20)
+        t[r] = {"kernel_ms": ms, "call_ms": call_ms(torch, call, reps=50),
+                "share_of_bound": t["bound_ms"] / ms}
+    t["plain_ms"] = graph_ms(torch, lambda: rg.rglru_scan_backward_plain(a, h, h0, dh),
+                             reps=1, rounds=2)
+    t["library_ms"] = None
     import importlib.util
     if importlib.util.find_spec("torch._higher_order_ops.associative_scan"):
         from torch._higher_order_ops.associative_scan import associative_scan
@@ -1601,19 +1751,19 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
         for x, y in zip(library(), rg._launch_backward(a, h, h0, dh)):
             torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
         t["library_ms"] = call_ms(torch, library, reps=3)
-    n = B * S * D
-    t["bound_ms"], t["bound_by"] = bound(5 * n * 4 + 2 * B * D * 4, 3 * n + B * D,
-                                         FP32_FLOPS)
-    t["forward_bound_ms"], _ = bound(3 * n * 4, 2 * n, FP32_FLOPS)
     lib = "n/a" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
-    log(f"    {TRAIN_SHAPE} fp32: backward kernel {t['kernel_ms'] * 1e3:.2f} us (graph "
-        f"replay; {t['call_ms'] * 1e3:.2f} us per wrapper call), plain "
-        f"{t['plain_ms'] * 1e3:.2f} us, associative_scan reversed {lib}, bound "
-        f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); the forward kernel at this "
-        f"shape {t['forward_ms'] * 1e3:.2f} us (bound {t['forward_bound_ms'] * 1e3:.2f} us)")
-    detail["rglru_backward_kernel"] = {"cases": len(cases), "max_abs_err": max_err,
-                                       "bitwise": bitwise, "grad_err": grad_err, **t}
-    return {"max_abs_err": max_err, **t}
+    log(f"    {TRAIN_SHAPE} fp32: TMA backward kernel {t['tma']['kernel_ms'] * 1e3:.2f} us "
+        f"({t['tma']['share_of_bound']:.1%} of the bound; wrapper call "
+        f"{t['tma']['call_ms'] * 1e3:.2f} us), direct kernel "
+        f"{t['direct']['kernel_ms'] * 1e3:.2f} us ({t['direct']['share_of_bound']:.1%}; call "
+        f"{t['direct']['call_ms'] * 1e3:.2f} us), plain {t['plain_ms'] * 1e3:.2f} us, "
+        f"associative_scan reversed {lib}, bound {t['bound_ms'] * 1e3:.2f} us "
+        f"({t['bound_by']})")
+    out = {"cases": len(cases), "runs": runs, "max_abs_err": max_err,
+           "grad_err": grad_err, **t, "kernel_ms": t["tma"]["kernel_ms"],
+           "call_ms": t["tma"]["call_ms"], "direct_ms": t["direct"]["kernel_ms"]}
+    detail["rglru_backward_kernel"] = out
+    return out
 
 
 def train_phase(torch, rg, idle, detail, dev="cuda", cfg=None) -> dict:
@@ -1644,8 +1794,8 @@ def train_phase(torch, rg, idle, detail, dev="cuda", cfg=None) -> dict:
     trainer = Trainer(cfg, tcfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rg.rglru_scan.launches = 0
-    rg.rglru_scan_backward.launches = 0
+    rg.rglru_scan.launches = rg.rglru_scan.launches_tma = 0
+    rg.rglru_scan_backward.launches = rg.rglru_scan_backward.launches_tma = 0
     for wrapper in idle.values():
         wrapper.launches = 0
     per_step, losses, walls = [], [], []
@@ -1659,8 +1809,11 @@ def train_phase(torch, rg, idle, detail, dev="cuda", cfg=None) -> dict:
         per_step.append((rg.rglru_scan.launches - before[0],
                          rg.rglru_scan_backward.launches - before[1]))
     launches = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+    launches_tma = (rg.rglru_scan.launches_tma, rg.rglru_scan_backward.launches_tma)
     idle_launches = {name: w.launches for name, w in idle.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches_tma == launches, f"RG-LRU launches (forward, backward) {launches}, "
+          f"of which {launches_tma} took the TMA route: want all")
     check(not any(idle_launches.values()),
           f"the train path launched other kernels: {idle_launches}")
     check(all(p == (want_fwd, n_rglru) for p in per_step),
@@ -1679,12 +1832,14 @@ def train_phase(torch, rg, idle, detail, dev="cuda", cfg=None) -> dict:
     torch.cuda.empty_cache()
     step_s = sum(walls[1:]) / len(walls[1:])
     busy_ms = sum(k["device_ms"] for k in kernels)
-    fwd_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_kernel" in k["op"])
-    bwd_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_backward_kernel" in k["op"])
+    fwd_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_tma_kernel" in k["op"])
+    bwd_ms = sum(k["device_ms"] for k in kernels
+                 if "rglru_scan_backward_tma_kernel" in k["op"])
     params = cfg.param_count()
     out = {"batch": B, "seq_len": S, "steps": steps, "init_s": init_s,
            "step_s": walls, "losses": losses, "steady_step_s": step_s,
            "tokens_per_s": B * S / step_s, "launches": list(launches),
+           "launches_tma": list(launches_tma),
            "launches_per_step": per_step, "peak_memory_gb": peak_gb,
            "params": params, "model_tflop_per_step_6nt": 6 * params * B * S / 1e12,
            "second_run_first_loss": first,
@@ -1696,7 +1851,8 @@ def train_phase(torch, rg, idle, detail, dev="cuda", cfg=None) -> dict:
         f"(init {init_s:.2f} s): steps {', '.join(f'{w:.3f}' for w in walls)} s, "
         f"{out['tokens_per_s']:.0f} tokens/s (steps 2-{steps}); losses "
         f"{', '.join(f'{x:.5f}' for x in losses)}; RG-LRU launches a step "
-        f"{per_step[0][0]} forward + {per_step[0][1]} backward; peak {peak_gb:.2f} GB; "
+        f"{per_step[0][0]} forward + {per_step[0][1]} backward, all on the TMA kernels; "
+        f"peak {peak_gb:.2f} GB; "
         f"a second run's first loss identical; 0 launches of {', '.join(idle)}")
     log(f"    one profiled step: kernels busy {busy_ms:.1f} ms; RG-LRU forward "
         f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; top: " + "; ".join(
@@ -1998,6 +2154,7 @@ def main() -> int:
             "envy_gaps": ev.envy_gaps, "pd_segment": ev.pd_segment,
             "flash_attention": fa.flash_attention, "softmax_xent": xe.softmax_xent}
     rg_launches = serve_phase(torch, rg, idle, detail, rg_t)
+    rg_tma = detail["serve_full_width"]["launches_tma"]
     devices_phase(torch, rg, detail)
 
     # -- 13-14. the attention and cross-entropy ops -------------------------------
@@ -2072,7 +2229,7 @@ def main() -> int:
         "bound_by": envy_t["bound_by"],
         "library_ms": envy_t["library_ms"],
     }, {
-        "name": "rglru_scan",
+        "name": "rglru_scan_tma",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:22",
@@ -2083,7 +2240,37 @@ def main() -> int:
         "bound_ms": rg_t["bound_ms"],
         "bound_by": rg_t["bound_by"],
         "library_ms": rg_t["library_ms"],
-        "launches_train": train["launches"][0],
+        "launches_train": train["launches_tma"][0],
+        "train_shape_ms": rg_t["shapes"]["train_fp32"]["tma"]["kernel_ms"],
+    }, {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:22",
+        "launches": rg_launches - rg_tma,
+        "launches_in": "phase 10: the direct route, for operands TMA cannot take; "
+                       "the serve and train paths take the TMA kernel",
+        "max_abs_err": rg_t["max_abs_err"],
+        "ms": rg_t["direct_ms"],
+        "plain_ms": rg_t["plain_ms"],
+        "bound_ms": rg_t["bound_ms"],
+        "bound_by": rg_t["bound_by"],
+        "library_ms": rg_t["library_ms"],
+        "train_shape_ms": rg_t["shapes"]["train_fp32"]["direct"]["kernel_ms"],
+    }, {
+        "name": "rglru_scan_backward_tma",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:22",
+        "replaces_note": "the backward of that scan, which the JAX model takes by "
+                         "differentiating rglru_scan_ref (src/repro/models/layers.py:770)",
+        "launches": train["launches_tma"][1],
+        "max_abs_err": rgb_t["max_abs_err"],
+        "ms": rgb_t["kernel_ms"],
+        "plain_ms": rgb_t["plain_ms"],
+        "bound_ms": rgb_t["bound_ms"],
+        "bound_by": rgb_t["bound_by"],
+        "library_ms": rgb_t["library_ms"],
     }, {
         "name": "rglru_scan_backward",
         "route": "cuda",
@@ -2091,9 +2278,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/rglru_scan.py:22",
         "replaces_note": "the backward of that scan, which the JAX model takes by "
                          "differentiating rglru_scan_ref (src/repro/models/layers.py:770)",
-        "launches": train["launches"][1],
+        "launches": train["launches"][1] - train["launches_tma"][1],
+        "launches_in": "phase 15: the direct route, for operands TMA cannot take; "
+                       "the train path takes the TMA kernel",
         "max_abs_err": rgb_t["max_abs_err"],
-        "ms": rgb_t["kernel_ms"],
+        "ms": rgb_t["direct_ms"],
         "plain_ms": rgb_t["plain_ms"],
         "bound_ms": rgb_t["bound_ms"],
         "bound_by": rgb_t["bound_by"],

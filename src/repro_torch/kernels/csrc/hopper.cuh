@@ -5,7 +5,9 @@
 //   - mbarriers: init, an arrival with an expected transaction count,
 //     and a parity wait;
 //   - TMA: a 3-D tile load from global into shared memory that completes on
-//     an mbarrier, and the host-side tensor-map encoder, reached through the
+//     an mbarrier, a 3-D tile store back with its bulk-group commit and
+//     wait, and the host-side tensor-map encoders (flash attention's
+//     swizzled bf16 one and a general unswizzled one), reached through the
 //     runtime's driver entry point so the library needs no -lcuda;
 //   - wgmma: fence / commit / wait, the shared-memory matrix descriptor for
 //     the 128-byte swizzle that TMA writes, and m64n64k16 bf16 products with
@@ -85,6 +87,36 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// Copies the box at element coordinates (c0, c1, c2) of `map` from `src`
+// (shared memory) to global memory; elements past the tensor's edge are not
+// written. The copy joins this thread's open bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Closes this thread's open bulk group of TMA stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's bulk groups still read their
+// shared memory (the source may then be overwritten).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kPending) : "memory");
+}
+
+// Waits until at most kPending of this thread's bulk groups are incomplete.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
 // ---- wgmma ---------------------------------------------------------------------
@@ -207,6 +239,29 @@ inline CUresult tensor_map_bf16_3d(CUtensorMap* map, const void* base, uint64_t 
             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A tensor map over a contiguous float32 or bf16 array of shape (n2, n1, n0),
+// innermost n0 (n0 x the element's bytes a multiple of 16, base 16-byte
+// aligned), with boxes of box0 x box1 x 1 elements laid out in shared memory
+// row after row, unswizzled (box0 x the element's bytes a multiple of 16).
+// Out-of-range elements read as zeros and are skipped by a store.
+inline CUresult tensor_map_3d(CUtensorMap* map, CUtensorMapDataType type,
+                              const void* base, uint64_t n0, uint64_t n1, uint64_t n2,
+                              uint32_t box0, uint32_t box1) {
+  uint64_t elem = 0;
+  if (type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32) elem = 4;
+  if (type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) elem = 2;
+  if (elem == 0) return CUDA_ERROR_INVALID_VALUE;
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {n0, n1, n2};
+  const cuuint64_t strides[2] = {n0 * elem, n1 * n0 * elem};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace hopper

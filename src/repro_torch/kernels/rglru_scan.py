@@ -8,24 +8,47 @@ over ``a``, ``b`` of shape (B, S, D), independently per feature, with the
 state in float32 and each ``h_t`` stored in the inputs' dtype.
 
 :func:`rglru_scan` takes float32 or bfloat16 ``a`` and ``b`` of any shape
-(B, S, D). On a CUDA tensor it launches the hand-written kernel of
+(B, S, D). On a CUDA tensor it launches a hand-written kernel of
 ``csrc/rglru_scan.cu`` (built with ``nvcc`` on first use, see
 :mod:`repro_torch.kernels._build`); on a CPU tensor it runs
-:func:`rglru_scan_plain`, the same arithmetic in plain torch ops. There is
-no other route: a CUDA tensor never falls back to the plain version, and a
-failed build or launch raises ``KernelError``.
+:func:`rglru_scan_plain`, the same arithmetic in plain torch ops. A CUDA
+tensor never falls back to the plain version or to the other kernel: a
+failed build, tensor-map encode or launch raises ``KernelError``.
+
+Two kernels each way, chosen by :func:`_route` from the dtype, D and the
+operands' addresses alone (never on failure):
+
+  - ``"tma"``: rows of D elements a multiple of 16 bytes (D % 4 == 0 in
+    float32, D % 8 == 0 in bfloat16) and every operand 16-byte aligned,
+    what TMA needs. One warp walks 32 features of one batch row (64 in
+    the backward, two chains a lane), fed by a ring of shared-memory tiles
+    of 32 steps per operand that TMA fills while the lanes walk the tile
+    that has landed (7 tiles a block in flight forward, 2 backward); the
+    results leave through shared memory by TMA stores. Every shape the
+    model runs takes it.
+  - ``"direct"``: everything else (another D, a misaligned view). One
+    thread per feature loads 16 steps, waits for them and walks them, so
+    every 16 steps cost a round trip to memory. It bound the first design
+    on an H100 at ~230 us at the training shape (2, 2048, 2560), 16% of
+    its byte bound; the ring keeps the loads in flight instead.
+
+Both walk each chain's steps in order, one after the other, so neither
+re-associates the recurrence (a chunked or associative scan would).
+``rglru_scan.launches`` counts the launches of both forward kernels,
+``rglru_scan.launches_tma`` those of the TMA one; the backward's counters
+are ``rglru_scan_backward.launches`` and ``.launches_tma``.
 
 When grad is enabled and an input requires grad, the call goes through
 :class:`RGLRUScan`, a ``torch.autograd.Function`` that saves ``a``, ``h``
 and ``h0`` and whose backward is :func:`rglru_scan_backward`: the reverse
 scan ``g_t = dh_t + a_{t+1} g_{t+1}``, ``da_t = g_t h_{t-1}``, ``db_t =
-g_t``, ``dh0 = a_0 g_0``, again the CUDA kernel on the card and
-:func:`rglru_scan_backward_plain` on the CPU. Grad is taken in float32 only
-(the model's ``a`` and ``b`` are float32): a bfloat16 input that requires
-grad raises ``RuntimeError``, since its stored ``h`` is not the float32
-state the backward needs.
+g_t``, ``dh0 = a_0 g_0``, again a CUDA kernel on the card (routed the same
+way) and :func:`rglru_scan_backward_plain` on the CPU. Grad is taken in
+float32 only (the model's ``a`` and ``b`` are float32): a bfloat16 input
+that requires grad raises ``RuntimeError``, since its stored ``h`` is not
+the float32 state the backward needs.
 
-Kernel and plain version round each multiply and add on their own, in the
+Kernels and plain versions round each multiply and add on their own, in the
 same order, so they agree to the last bit. (The JAX package's oracle,
 ``rglru_scan_ref``, is an associative scan; it agrees to ~1e-7 relative.)
 """
@@ -40,6 +63,19 @@ from ._build import KernelError
 
 #: operand dtypes the kernel takes, and their codes in csrc/rglru_scan.cu.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the two kernels of each direction, as :func:`_route` names them.
+TMA, DIRECT = "tma", "direct"
+
+
+def _route(dtype, D: int, ptrs) -> str:
+    """The kernel for operands of ``dtype`` with ``D`` features at the
+    addresses ``ptrs``: :data:`TMA` when a row of D elements is a multiple
+    of 16 bytes and every address is 16-byte aligned (TMA's row stride and
+    base), else :data:`DIRECT`."""
+    row_bytes = D * (4 if dtype == torch.float32 else 2)
+    if row_bytes % 16 == 0 and all(p % 16 == 0 for p in ptrs):
+        return TMA
+    return DIRECT
 
 
 def rglru_scan_plain(a, b, h0):
@@ -77,7 +113,7 @@ _LIB = None
 
 
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel's library, setting its C
+    """Build (if needed) and load the kernels' library, setting its C
     signatures once; raises :class:`~repro_torch.kernels.KernelError` when
     ``nvcc`` is missing or the build fails."""
     global _LIB
@@ -85,10 +121,13 @@ def load() -> ctypes.CDLL:
         lib = _build.load("rglru_scan")
         lib.rglru_scan.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                                    + [ctypes.c_void_p])
-        lib.rglru_scan.restype = ctypes.c_int
+        lib.rglru_scan_tma.argtypes = lib.rglru_scan.argtypes
         lib.rglru_scan_backward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                                             + [ctypes.c_void_p])
-        lib.rglru_scan_backward.restype = ctypes.c_int
+        lib.rglru_scan_backward_tma.argtypes = lib.rglru_scan_backward.argtypes
+        for fn in (lib.rglru_scan, lib.rglru_scan_tma, lib.rglru_scan_backward,
+                   lib.rglru_scan_backward_tma):
+            fn.restype = ctypes.c_int
         lib.rglru_error_string.argtypes = [ctypes.c_int]
         lib.rglru_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -98,38 +137,63 @@ def load() -> ctypes.CDLL:
 def _check(lib, err: int, what: str) -> None:
     if err != 0:
         raise KernelError(f"{what} kernel launch failed: "
-                          f"{lib.rglru_error_string(err).decode()} (cuda error {err})")
+                          f"{lib.rglru_error_string(err).decode()} (error {err})")
 
 
-def _launch(a, b, h0) -> torch.Tensor:
-    """Launch the forward kernel on checked operands (``h0`` float32);
-    returns (B, S, D) in ``a``'s dtype."""
+def _launch(a, b, h0, route=None) -> torch.Tensor:
+    """Launch the forward kernel of ``route`` (by default the one
+    :func:`_route` names) on checked operands (``h0`` float32); returns
+    (B, S, D) in ``a``'s dtype."""
     lib = load()
     B, S, D = a.shape
     out = torch.empty_like(a)
+    route = route or _route(a.dtype, D, (a.data_ptr(), b.data_ptr(), out.data_ptr()))
+    args = (a.data_ptr(), b.data_ptr(), h0.data_ptr(), out.data_ptr(), B, S, D,
+            DTYPES[a.dtype])
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rglru_scan(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
-                             out.data_ptr(), B, S, D, DTYPES[a.dtype], stream)
-    _check(lib, err, "rglru_scan")
+        if route == TMA:
+            err = lib.rglru_scan_tma(*args, stream)
+        else:
+            err = lib.rglru_scan(*args, stream)
+    _check(lib, err, f"rglru_scan {route}")
     rglru_scan.launches += 1
+    rglru_scan.launches_tma += route == TMA
     return out
 
 
-def _launch_backward(a, h, h0, dh):
-    """Launch the backward kernel on checked float32 operands; returns
-    (da, db, dh0)."""
+def _launch_backward(a, h, h0, dh, route=None):
+    """Launch the backward kernel of ``route`` (by default the one
+    :func:`_route` names) on checked float32 operands; returns (da, db,
+    dh0)."""
     lib = load()
     B, S, D = a.shape
     da, db, dh0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
+    ptrs = (a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dh0.data_ptr())
+    route = route or _route(a.dtype, D, ptrs[:2] + ptrs[3:6])
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rglru_scan_backward(
-            a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(), da.data_ptr(),
-            db.data_ptr(), dh0.data_ptr(), B, S, D, stream)
-    _check(lib, err, "rglru_scan_backward")
+        if route == TMA:
+            err = lib.rglru_scan_backward_tma(*ptrs, B, S, D, stream)
+        else:
+            err = lib.rglru_scan_backward(*ptrs, B, S, D, stream)
+    _check(lib, err, f"rglru_scan_backward {route}")
     rglru_scan_backward.launches += 1
+    rglru_scan_backward.launches_tma += route == TMA
     return da, db, dh0
+
+
+def _check_kernel_operands(op: str, **operands) -> None:
+    """Raise ``ValueError`` on what the kernels of ``op`` take on neither
+    route: an operand that is not contiguous, or more than 65,535 batch
+    rows (the first operand's first dimension)."""
+    for name, t in operands.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the {op} kernels")
+    B = next(iter(operands.values())).shape[0]
+    if B > 65535:
+        raise ValueError(f"the {op} kernels take B <= 65535, got {B}")
 
 
 def rglru_scan_backward(a, h, h0, dh):
@@ -137,9 +201,9 @@ def rglru_scan_backward(a, h, h0, dh):
     ``h0`` of a forward and the incoming ``dh``, returns (da, db, dh0).
 
     a, h, dh: (B, S, D) float32; h0: (B, D) float32; all on one device.
-    CUDA tensors go through the kernel (``rglru_scan_backward.launches``
-    counts its launches) and must be contiguous; CPU tensors go through
-    :func:`rglru_scan_backward_plain`.
+    CUDA tensors go through the kernel :func:`_route` names
+    (``rglru_scan_backward.launches`` counts the launches) and must be
+    contiguous; CPU tensors go through :func:`rglru_scan_backward_plain`.
     """
     B, S, D = a.shape
     for name, t, shape in (("h", h, a.shape), ("dh", dh, a.shape), ("h0", h0, (B, D))):
@@ -151,9 +215,7 @@ def rglru_scan_backward(a, h, h0, dh):
     if a.dtype != torch.float32:
         raise ValueError(f"the backward takes float32 a, got {a.dtype}")
     if a.device.type == "cuda":
-        for name, t in (("a", a), ("h", h), ("h0", h0), ("dh", dh)):
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous for the kernel")
+        _check_kernel_operands("rglru_scan_backward", a=a, h=h, h0=h0, dh=dh)
         return _launch_backward(a, h, h0, dh)
     if a.device.type == "cpu":
         return rglru_scan_backward_plain(a, h, h0, dh)
@@ -198,8 +260,8 @@ def rglru_scan(a, b, h0):
 
     a, b: (B, S, D), both float32 or both bfloat16; h0: (B, D), any float
     dtype (the state is float32). Returns (B, S, D) in ``a``'s dtype. All
-    on one device. CUDA tensors go through the kernel
-    (``rglru_scan.launches`` counts its launches) and must be contiguous;
+    on one device. CUDA tensors go through the kernel :func:`_route` names
+    (``rglru_scan.launches`` counts the launches) and must be contiguous;
     CPU tensors go through :func:`rglru_scan_plain`. Differentiable in
     float32 (see :class:`RGLRUScan`).
     """
@@ -222,19 +284,17 @@ def rglru_scan(a, b, h0):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, a on {dev}")
     if dev.type == "cuda":
-        for name, t in (("a", a), ("b", b)):
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous for the kernel")
-        if B > 65535:
-            raise ValueError(f"the rglru_scan kernel takes B <= 65535, got {B}")
+        _check_kernel_operands("rglru_scan", a=a, b=b)
         return _scan(a, b, h0.float().contiguous(), True)
     if dev.type == "cpu":
         return _scan(a, b, h0.float(), False)
     raise ValueError(f"rglru_scan runs on cuda or cpu, not {dev}")
 
 
-#: launches of the forward CUDA kernel in this process (plain-version calls
-#: excluded).
+#: launches of the forward CUDA kernels in this process (plain-version calls
+#: excluded), and of the TMA one among them.
 rglru_scan.launches = 0
-#: launches of the backward CUDA kernel in this process.
+rglru_scan.launches_tma = 0
+#: launches of the backward CUDA kernels in this process, and of the TMA one.
 rglru_scan_backward.launches = 0
+rglru_scan_backward.launches_tma = 0

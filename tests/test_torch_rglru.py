@@ -9,6 +9,8 @@ installed jax (its body calls ``pl.load``), so the oracle is the reference.
 The CUDA kernel is held against the plain version on the card by
 ``chip_smoke.py``.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -119,3 +121,166 @@ def test_load_without_nvcc_raises_kernel_error(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     with pytest.raises(KernelError, match="nvcc not found"):
         rg.load()
+
+
+# ---------------------------------------------------------------------------
+# the two kernels' route rule, the build's sources, what the CUDA branch
+# refuses, and chip_smoke.py's phase 10 rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+BASE = 0x7F0000000000
+
+
+@pytest.mark.parametrize("dtype,D,offset,want", [
+    (torch.float32, 2560, 0, rg.TMA),      # the model's width
+    (torch.bfloat16, 2560, 0, rg.TMA),
+    (torch.float32, 2564, 0, rg.TMA),      # D % 4 == 0 is a 16-byte row
+    (torch.float32, 32, 0, rg.TMA),
+    (torch.float32, 97, 0, rg.DIRECT),     # rows TMA cannot stride
+    (torch.float32, 2562, 0, rg.DIRECT),
+    (torch.bfloat16, 2564, 0, rg.DIRECT),  # bf16 needs D % 8 == 0
+    (torch.bfloat16, 100, 0, rg.DIRECT),
+    (torch.float32, 2560, 4, rg.DIRECT),   # a view one element in
+    (torch.bfloat16, 2560, 2, rg.DIRECT),
+    (torch.float32, 2560, 8, rg.DIRECT),
+])
+def test_route_goes_by_dtype_width_and_alignment(dtype, D, offset, want):
+    """The TMA kernels take rows of D elements that are a multiple of 16
+    bytes at 16-byte aligned addresses; everything else takes the direct
+    kernels. Only the second operand is offset here: one misaligned operand
+    is enough."""
+    ptrs = (BASE, BASE + 0x100000 + offset, BASE + 0x200000)
+    assert rg._route(dtype, D, ptrs) == want
+
+
+def test_a_view_into_its_buffer_takes_the_direct_route():
+    buf = torch.zeros(2 * 8 * 256 + 1)
+    view = buf[1:].view(2, 8, 256)
+    whole = torch.zeros(2, 8, 256)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    assert rg._route(view.dtype, 256, (whole.data_ptr(), view.data_ptr())) == rg.DIRECT
+    assert rg._route(whole.dtype, 256, (whole.data_ptr(),)) == rg.TMA
+
+
+def test_the_library_is_keyed_by_the_hopper_header_too(tmp_path):
+    """``rglru_scan.cu`` includes ``hopper.cuh`` (TMA, mbarriers, the tensor
+    map encoder): an edit to the header must rebuild the library."""
+    import shutil
+
+    assert [os.path.basename(p) for p in _build.sources("rglru_scan")] == [
+        "rglru_scan.cu", "hopper.cuh"]
+    for name in ("rglru_scan.cu", "hopper.cuh"):
+        shutil.copy(os.path.join(_build.SRC_DIR, name), tmp_path / name)
+    before = _build.digest("rglru_scan", str(tmp_path))
+    assert before == _build.digest("rglru_scan")
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.digest("rglru_scan", str(tmp_path)) != before
+
+
+@pytest.mark.parametrize("op,names", [("rglru_scan", ("a", "b")),
+                                      ("rglru_scan_backward", ("a", "h", "h0", "dh"))])
+def test_cuda_branch_refuses_non_contiguous_operands(op, names):
+    """The check the CUDA branch of each wrapper makes before either route:
+    every operand contiguous."""
+    shapes = {"h0": (2, 16)}
+    for bad in names:
+        operands = {n: torch.zeros(shapes.get(n, (2, 8, 16))) for n in names}
+        operands[bad] = operands[bad].t().contiguous().t() if bad == "h0" else \
+            torch.zeros(2, 16, 8).transpose(1, 2)
+        assert not operands[bad].is_contiguous()
+        with pytest.raises(ValueError, match=f"{bad} must be contiguous"):
+            rg._check_kernel_operands(op, **operands)
+    rg._check_kernel_operands(op, **{n: torch.zeros(shapes.get(n, (2, 8, 16)))
+                                     for n in names})
+
+
+def test_cuda_branch_refuses_more_than_65535_rows():
+    a = torch.zeros((65536, 1, 4))
+    with pytest.raises(ValueError, match="B <= 65535, got 65536"):
+        rg._check_kernel_operands("rglru_scan", a=a, b=a)
+    rg._check_kernel_operands("rglru_scan", a=a[:65535], b=a[:65535])
+
+
+def counting_plain_versions(monkeypatch):
+    """The CPU stands in for the card: each plain version counts as a launch
+    of its wrapper, on the route ``_route`` names for its operands (or, for
+    ``_launch`` / ``_launch_backward``, the route asked for)."""
+    fwd, bwd = rg.rglru_scan_plain, rg.rglru_scan_backward_plain
+
+    def count(wrapper, a, others, route=None):
+        wrapper.launches += 1
+        route = route or rg._route(a.dtype, a.shape[-1], [t.data_ptr() for t in (a, *others)])
+        wrapper.launches_tma += route == rg.TMA
+
+    def plain(a, b, h0):
+        count(rg.rglru_scan, a, (b,))
+        return fwd(a, b, h0)
+
+    def plain_backward(a, h, h0, dh):
+        count(rg.rglru_scan_backward, a, (h, dh))
+        return bwd(a, h, h0, dh)
+
+    def launch(a, b, h0, route=None):
+        count(rg.rglru_scan, a, (b,), route)
+        return fwd(a, b, h0)
+
+    def launch_backward(a, h, h0, dh, route=None):
+        count(rg.rglru_scan_backward, a, (h, dh), route)
+        return bwd(a, h, h0, dh)
+
+    monkeypatch.setattr(rg, "rglru_scan_plain", plain)
+    monkeypatch.setattr(rg, "rglru_scan_backward_plain", plain_backward)
+    monkeypatch.setattr(rg, "_launch", launch)
+    monkeypatch.setattr(rg, "_launch_backward", launch_backward)
+
+
+def test_chip_smoke_phase_10_rehearses_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phase 10 on the CPU with its full-width shapes
+    cut: the plain version stands in for both routes' kernels and counts as
+    their launches, the timers and the SASS report are stubbed. Its checks
+    (kernel == plain bit for bit on every case and route, one launch per
+    call on the route the rule names, a TMA load in each TMA kernel, no
+    spill) must pass."""
+    monkeypatch.syspath_prepend(os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
+    import chip_smoke as cs
+
+    counting_plain_versions(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "graph_ms", lambda torch, fn, reps=1, rounds=1: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "call_ms", lambda torch, fn, reps=1: (fn(), 1.0)[1])
+    spills = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    monkeypatch.setattr(cs, "kernel_report", lambda name: {
+        "_ZN12_GLOBAL__N_121rglru_scan_tma_kernelIfEEv14CUtensorMap_st": {
+            "UTMALDG": 16, "registers": "Used 50 registers", "spills": spills},
+        "_ZN12_GLOBAL__N_121rglru_scan_tma_kernelI13__nv_bfloat16EEv14CUtensorMap_st": {
+            "UTMALDG": 16},
+        "_ZN12_GLOBAL__N_130rglru_scan_backward_tma_kernelEv14CUtensorMap_st": {
+            "UTMALDG": 6},
+        "_ZN12_GLOBAL__N_117rglru_scan_kernelIfEEvPKT_": {"spills": spills}})
+    monkeypatch.setattr(cs, "RG_FULL", (("train_fp32", (2, 70, 96), "float32"),
+                                        ("prefill_fp32", (3, 40, 64), "float32"),
+                                        ("prefill_bf16", (3, 40, 64), "bfloat16")))
+    detail = {}
+    out = cs.rglru_phase(torch, rg, detail, dev="cpu")
+    # 23 cases: 18 the TMA kernel takes (each also run on the direct one),
+    # 5 only the direct one takes (D 97, bf16 D 2564 and 100, two views)
+    assert out["cases"] == 23 and out["runs"] == {"tma": 18, "direct": 23}
+    assert out["max_abs_err"] == 0.0 and out["bound_by"] == "bytes"
+    assert sorted(detail["rglru_sass"]) == [
+        "rglru_scan_backward_tma_kernel", "rglru_scan_kernel<float>",
+        "rglru_scan_tma_kernel<bf16>", "rglru_scan_tma_kernel<float>"]
+    assert set(out["shapes"]) == {"train_fp32", "prefill_fp32", "prefill_bf16"}
+
+
+def test_chip_smoke_phase_10_fails_on_a_missing_tma_load(monkeypatch):
+    """The SASS check bites: a TMA kernel without UTMALDG fails phase 10."""
+    monkeypatch.syspath_prepend(os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
+    import chip_smoke as cs
+
+    monkeypatch.setattr(cs, "kernel_report", lambda name: {
+        "rglru_scan_tma_kernelIfE": {"UTMALDG": 4},
+        "rglru_scan_tma_kernelI13__nv_bfloat16E": {},
+        "rglru_scan_backward_tma_kernel": {"UTMALDG": 6}})
+    with pytest.raises(cs.SmokeFailure, match="no UTMALDG"):
+        cs.rglru_sass({})

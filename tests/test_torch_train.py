@@ -503,27 +503,39 @@ def test_train_cli_refuses_what_is_not_ported(flags):
 def test_chip_smoke_train_phases_rehearse_on_the_cpu(monkeypatch):
     """``chip_smoke.py``'s phases 15-17 on the CPU at cut shapes: the RG-LRU
     plain forward and backward stand in for the kernels and count as their
-    launches, the timers, the profiler and the card's memory counters are
-    stubbed. Their checks must pass: backward == plain, grad through both
-    "kernels", 6 forward and 4 backward launches a step at n_layers 5 (one
-    unit, recomputed, and a two-layer tail), no other kernel, a second
-    run's first loss identical, card (here the CPU) against the CPU."""
+    launches on the route ``_route`` names, the timers, the profiler and the
+    card's memory counters are stubbed. Their checks must pass: backward ==
+    plain bit for bit on both routes, grad through both "kernels", 6
+    forward and 4 backward launches a step at n_layers 5 (one unit,
+    recomputed, and a two-layer tail), all on the TMA route, no other
+    kernel, a second run's first loss identical, card (here the CPU)
+    against the CPU."""
     monkeypatch.syspath_prepend(os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
     import chip_smoke as cs
     from repro_torch.kernels import envy as ev, flash_attention as fa, waterfill as wf
     from repro_torch.kernels import xent as xe
 
-    def counted_as(wrapper, fn):
-        def call(*args):
-            wrapper.launches += 1
-            return fn(*args)
-        return call
-
     fwd, bwd = rg.rglru_scan_plain, rg.rglru_scan_backward_plain
-    monkeypatch.setattr(rg, "rglru_scan_plain", counted_as(rg.rglru_scan, fwd))
-    monkeypatch.setattr(rg, "rglru_scan_backward_plain", counted_as(rg.rglru_scan_backward, bwd))
-    monkeypatch.setattr(rg, "_launch", lambda a, b, h0: fwd(a, b, h0))
-    monkeypatch.setattr(rg, "_launch_backward", lambda *t: bwd(*t))
+
+    def count(wrapper, a, others, route=None):
+        wrapper.launches += 1
+        route = route or rg._route(a.dtype, a.shape[-1], [t.data_ptr() for t in (a, *others)])
+        wrapper.launches_tma += route == rg.TMA
+
+    def plain(a, b, h0):
+        count(rg.rglru_scan, a, (b,))
+        return fwd(a, b, h0)
+
+    def plain_backward(a, h, h0, dh):
+        count(rg.rglru_scan_backward, a, (h, dh))
+        return bwd(a, h, h0, dh)
+
+    monkeypatch.setattr(rg, "rglru_scan_plain", plain)
+    monkeypatch.setattr(rg, "rglru_scan_backward_plain", plain_backward)
+    monkeypatch.setattr(rg, "_launch", lambda a, b, h0, route=None: (
+        count(rg.rglru_scan, a, (b,), route), fwd(a, b, h0))[1])
+    monkeypatch.setattr(rg, "_launch_backward", lambda a, h, h0, dh, route=None: (
+        count(rg.rglru_scan_backward, a, (h, dh), route), bwd(a, h, h0, dh))[1])
     for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
@@ -533,12 +545,14 @@ def test_chip_smoke_train_phases_rehearse_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "TRAIN_SHAPE", (2, 40, 96))
     detail = {}
     t = cs.rglru_backward_phase(torch, rg, detail, dev="cpu")
-    assert detail["rglru_backward_kernel"]["bitwise"] and t["bound_by"] == "bytes"
+    assert detail["rglru_backward_kernel"]["max_abs_err"] == 0.0 and t["bound_by"] == "bytes"
     idle = {"waterfill_masses": wf.waterfill_masses, "envy_gaps": ev.envy_gaps,
             "flash_attention": fa.flash_attention, "softmax_xent": xe.softmax_xent}
     cfg = get_smoke(ARCH, n_layers=5, remat="full", logits_chunk=16)
     out = cs.train_phase(torch, rg, idle, detail, dev="cpu", cfg=cfg)
     assert out["launches_per_step"] == [(6, 4)] * 3 and out["launches"] == [18, 12]
+    assert out["launches_tma"] == [18, 12]
+    assert detail["rglru_backward_kernel"]["runs"] == {"tma": 13, "direct": 15}
     assert len(out["losses"]) == 3 and out["second_run_first_loss"] == out["losses"][0]
     cs.train_devices_phase(torch, rg, detail, dev="cpu",
                            cfg=get_smoke(ARCH, n_layers=5, dtype="float32", remat="full"))
