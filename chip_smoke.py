@@ -95,8 +95,9 @@ raises and the script exits non-zero:
     decode, finite logits, and
     a second run repeats the tokens and logits bit for bit; prefill and
     decode rates, the kernel's share of prefill, peak memory and the top
-    device operations of one prefill (``torch.profiler``); no launch of
-    any other kernel (the model calls neither flash attention nor the
+    device operations of one prefill and of 8 decode steps
+    (``torch.profiler``), with the device's idle share of each; no launch
+    of any other kernel (the model calls neither flash attention nor the
     cross-entropy);
 12. the card against the CPU at full width and cut depth (``n_layers=5``:
     one unit and the two-layer tail), B = 1, S = 256, the same weights
@@ -147,13 +148,40 @@ raises and the script exits non-zero:
     RG-LRU launches a step, all on the TMA kernels, and no launch of any
     other kernel, finite
     losses, a second run's first loss identical bit for bit; step times,
-    tokens/s, peak memory and the top device operations of one profiled
-    step;
+    tokens/s, peak memory, ``costs.model_flops`` a step and its share of
+    the bf16 tensor-core peak, and the top device operations of one
+    profiled step;
 17. one training step on the card against the CPU at full width and cut
     depth (``n_layers=5``, B 1, S 256, float32, the same weights): the loss
     within 1e-5 relative, every gradient leaf within 1e-4 of its max |g|,
     and one AdamW update on the card's gradients within 1e-6 of each
-    leaf's max |p| on the card and on the CPU.
+    leaf's max |p| on the card and on the CPU;
+18. serve qwen2-1.5b and gemma3-4b at full width (``get_config``, full
+    attention with the QKV bias; gemma3's 5:1 sliding and full pattern
+    with its four-layer sliding tail) through ``launch.serve.generate``:
+    8 prompts of 2048 tokens, 32 greedy steps, bf16, TF32 off, seeded.
+    No launch of any kernel wrapper (``repro_torch.kernels.wrappers``:
+    the JAX model runs no Pallas kernel on these paths), finite logits of
+    shape (8, 1, padded_vocab), tokens in [0, vocab), a second run
+    identical bit for bit; prefill and decode rates, peak memory and the
+    top device operations of one profiled prefill and of 8 profiled decode
+    steps, with the device's idle share of each;
+19. each of them on the card against the CPU at full width and cut depth
+    (qwen2 ``n_layers=3``, S 256; gemma3 ``n_layers=8``, one unit and a
+    two-layer sliding tail, S 1152 past its 1024 window), B 1, 8 greedy
+    steps, the same weights: prefill and last-decode logits within 1e-4
+    (float32) and 5e-2 (bf16) of max |logits|, float32 tokens identical;
+20. train each at full width through ``runtime.Trainer``: qwen2-1.5b at
+    8 x 2048 (the JAX launcher's default batch), gemma3-4b at 2 x 2048 in
+    its two microbatches; 3 AdamW steps, seeded Zipf tokens, TF32 off. No
+    kernel launch, finite losses, a second run's first loss identical bit
+    for bit; step times, tokens/s, peak memory, ``costs.model_flops`` a
+    step and its share of the bf16 tensor-core peak, the top device
+    operations of one profiled step;
+21. one float32 training step of each on the card against the CPU at
+    phase 19's cut depths and lengths: the loss within 1e-5 relative,
+    every gradient leaf (the QKV biases included) within 1e-4 of its max
+    |g|, one AdamW update within 1e-6 of max |p|.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
@@ -205,6 +233,19 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 XENT_ATOL, XENT_RTOL = 1e-4, 1e-5
 #: the training cell of phase 16: global batch x sequence x RG-LRU width
 TRAIN_SHAPE = (2, 2048, 2560)
+#: the serving cell of phases 11 and 18: batch, prompt length, greedy steps
+SERVE_SHAPE = (8, 2048, 32)
+#: the training cells of phases 16 and 20, global batch x sequence:
+#: recurrentgemma-2b at 2 (its fp32 state and B 8's logits chunks would not
+#: fit at 8), qwen2-1.5b at the JAX launcher's default batch of 8, gemma3-4b
+#: at 2 (its fp32 state alone is 62 GB), split into its ``microbatches=2``
+TRAIN_CELLS = {"recurrentgemma-2b": TRAIN_SHAPE[:2], "qwen2-1.5b": (8, 2048),
+               "gemma3-4b": (2, 2048)}
+#: the dense-attention tenants of phases 18-21, each with its cut depth and
+#: prompt length for the card-vs-CPU phases 19 and 21 (qwen2-1.5b: 3 full
+#: layers; gemma3-4b: one (5 sliding + 1 full) unit and a two-layer sliding
+#: tail, with S past its 1024 window)
+DENSE = (("qwen2-1.5b", 3, 256), ("gemma3-4b", 8, 1152))
 #: card vs CPU, one float32 training step at cut depth (phase 17): the loss,
 #: relative; each gradient leaf, as a share of its max |g| (float32 products
 #: and reductions summed in other orders on the two devices, through five
@@ -1107,137 +1148,200 @@ def device_kernels(torch, fn) -> list:
     return sorted(rows, key=lambda r: -r["device_ms"])
 
 
-def serve_phase(torch, rg, idle, detail, rg_t, dev="cuda", cfg=None) -> int:
-    """Phase 11: recurrentgemma-2b at full width, prefill + greedy decode;
-    returns the kernel launches of the main run. ``idle`` names the wrappers
-    of the other kernels, none of which the serve path may launch."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import init_params, prefill
+def rglru_layers(cfg) -> tuple:
+    """The RG-LRU layers of ``cfg``: in the pattern units (which
+    ``remat="full"`` recomputes in the backward), and in all."""
+    n_unit = cfg.n_units * cfg.pattern.count("rglru")
+    return n_unit, n_unit + cfg.tail_kinds.count("rglru")
 
+
+def _zero_launches(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _launches(wrappers) -> dict:
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def _want(wrappers, **counts) -> dict:
+    """Launches a path must make: ``counts`` for the named wrappers, 0 for
+    every other."""
+    return dict(dict.fromkeys(wrappers, 0), **counts)
+
+
+def _tf32_off(torch) -> None:
     check(torch.get_float32_matmul_precision() == "highest"
           and not torch.backends.cuda.matmul.allow_tf32,
           "float32 matrix products must run in full float32 (TF32 is on)")
+
+
+def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=None) -> int:
+    """Phases 11 and 18: serve ``arch`` at full width through
+    ``launch.serve.generate``, ``SERVE_SHAPE`` prompts and greedy steps;
+    returns the RG-LRU launches of the main run. Each RG-LRU layer launches
+    the TMA kernel once a prefill, a decode step launches nothing, and no
+    other kernel wrapper may launch (qwen2-1.5b and gemma3-4b launch none:
+    their attention is the grouped einsum, as the JAX model's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wrappers
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, init_params, prefill
+
+    _tf32_off(torch)
     full = cfg is None
-    cfg = get_config(ARCH) if full else cfg
-    B, S, steps = 8, 2048, 32
+    cfg = get_config(arch) if full else cfg
+    B, S, steps = SERVE_SHAPE
+    ws = wrappers()
+    torch.cuda.empty_cache()
     with torch.inference_mode():
         t0 = time.perf_counter()
         g = torch.Generator(device=dev).manual_seed(0)
         model = init_params(cfg, g)
-        n_rglru = model.kinds.count("rglru")
+        n_rglru = rglru_layers(cfg)[1]
         prompts = torch.randint(2, cfg.vocab, (B, S), generator=g, device=dev)
         generate(model, prompts, steps)  # warm-up
         warm_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        rg.rglru_scan.launches = rg.rglru_scan.launches_tma = 0
-        for wrapper in idle.values():
-            wrapper.launches = 0
+        _zero_launches(ws)
+        rg.rglru_scan.launches_tma = 0
         toks, rec = generate(model, prompts, steps)
         launches, launches_tma = rg.rglru_scan.launches, rg.rglru_scan.launches_tma
+        want = _want(ws, rglru_scan=n_rglru)
+        check(not full or arch != ARCH or n_rglru == 18,
+              f"{n_rglru} RG-LRU layers at full width")
+        check(_launches(ws) == want and rec["prefill_kernel_launches"] == want
+              and not any(rec["decode_kernel_launches"].values()),
+              f"{arch}: kernel launches in prefill {rec['prefill_kernel_launches']}, "
+              f"in decode {rec['decode_kernel_launches']}; want {n_rglru} RG-LRU "
+              f"launches a prefill and no other launch")
         check(launches_tma == launches,
-              f"{launches - rg.rglru_scan.launches_tma} of {launches} RG-LRU launches "
+              f"{launches - launches_tma} of {launches} RG-LRU launches "
               f"took the direct route, not the TMA one")
-        idle_launches = {name: w.launches for name, w in idle.items()}
-        check(not any(idle_launches.values()),
-              f"the serve path launched other kernels: {idle_launches}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        check(n_rglru == 18 or not full, f"{n_rglru} RG-LRU layers at full width")
-        check(rec["prefill_launches"] == n_rglru,
-              f"{rec['prefill_launches']} kernel launches in one prefill of "
-              f"{n_rglru} RG-LRU layers")
-        check(rec["decode_launches"] == 0 and launches == n_rglru,
-              f"{rec['decode_launches']} kernel launches in decode")
         logits = rec["logits"]
-        check(tuple(logits.shape) == (B, 1, cfg.padded_vocab)
-              and bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        for key in ("logits", "last_logits"):
+            check(tuple(rec[key].shape) == (B, 1, cfg.padded_vocab)
+                  and bool(torch.isfinite(rec[key]).all()),
+                  f"{arch}: {key} of shape {tuple(rec[key].shape)} or not finite")
         check(tuple(toks.shape) == (B, steps + 1)
-              and bool(((toks >= 0) & (toks < cfg.vocab)).all()), "tokens out of range")
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"{arch}: tokens out of [0, {cfg.vocab})")
         toks2, rec2 = generate(model, prompts, steps)
-        check(torch.equal(toks, toks2) and torch.equal(logits, rec2["logits"]),
-              "a second run with the same weights and prompts differs")
+        check(torch.equal(toks, toks2) and torch.equal(logits, rec2["logits"])
+              and torch.equal(rec["last_logits"], rec2["last_logits"]),
+              f"{arch}: a second run with the same weights and prompts differs")
         kernels = device_kernels(
             torch, lambda: prefill(model, {"tokens": prompts}, S + steps + 8))
+        cache, _ = prefill(model, {"tokens": prompts}, S + steps + 8)
+
+        def decode_8():  # 8 greedy steps from the prompts' cache
+            c, tok = cache, toks[:, :1]
+            for _ in range(8):
+                c, lg = decode_step(model, c, tok)
+                tok = torch.argmax(lg[:, -1, :cfg.vocab], dim=-1)[:, None]
+
+        decode_kernels = device_kernels(torch, decode_8)
+        del cache
+    del model
     prefill_s = min(rec["prefill_s"], rec2["prefill_s"])
     decode_s = min(rec["decode_s"], rec2["decode_s"])
     busy_ms = sum(k["device_ms"] for k in kernels)
     rglru_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_tma_kernel" in k["op"])
+    decode_busy_ms = sum(k["device_ms"] for k in decode_kernels) / 8
     out = {"batch": B, "prompt_len": S, "decode_steps": steps, "warmup_s": warm_s,
            "prefill_s": [rec["prefill_s"], rec2["prefill_s"]],
            "decode_s": [rec["decode_s"], rec2["decode_s"]],
            "prefill_tok_s": B * S / prefill_s, "decode_tok_s": B * steps / decode_s,
            "prefill_launches": rec["prefill_launches"], "launches_tma": launches_tma,
            "decode_launches": rec["decode_launches"],
+           "kernel_launches": rec["prefill_kernel_launches"],
            "kernel_share_of_prefill": n_rglru * rg_t["kernel_ms"] / 1e3 / prefill_s,
            "profiled_prefill": {"device_busy_ms": busy_ms, "rglru_scan_ms": rglru_ms,
                                 "idle_share": 1.0 - busy_ms / 1e3 / prefill_s,
                                 "top_kernels": kernels[:15]},
-           "peak_memory_gb": peak_gb, "first_tokens": toks[:, :8].tolist(),
-           "other_kernel_launches": idle_launches}
-    detail["serve_full_width"] = out
-    log(f"[11] {cfg.name} at full width, {B} x {S} prompt + {steps} greedy steps "
+           "profiled_decode_step": {
+               "device_busy_ms": decode_busy_ms,
+               "idle_share": 1.0 - decode_busy_ms / 1e3 / (decode_s / steps),
+               "top_kernels": [dict(k, device_ms=k["device_ms"] / 8, count=k["count"] / 8)
+                               for k in decode_kernels[:10]]},
+           "peak_memory_gb": peak_gb, "first_tokens": toks[:, :8].tolist()}
+    detail[f"serve_{arch}"] = out
+    launched = {k: n for k, n in want.items() if n} or "none"
+    log(f"[{phase}] {cfg.name} at full width, {B} x {S} prompt + {steps} greedy steps "
         f"(warm-up {warm_s:.2f} s): prefill {prefill_s:.3f} s "
         f"({out['prefill_tok_s']:.0f} tok/s), decode {decode_s:.3f} s "
-        f"({out['decode_tok_s']:.1f} tok/s); {rec['prefill_launches']} kernel "
-        f"launches per prefill (all on the TMA kernel), {rec['decode_launches']} in "
-        f"decode; kernel "
-        f"{out['kernel_share_of_prefill']:.2%} of prefill; peak {peak_gb:.2f} GB; "
-        f"second run identical; 0 launches of {', '.join(idle)}")
+        f"({out['decode_tok_s']:.1f} tok/s); kernel launches a prefill {launched} "
+        f"(RG-LRU all on the TMA kernel, {out['kernel_share_of_prefill']:.2%} of "
+        f"prefill), none in decode and of {', '.join(k for k in ws if not want[k])}; "
+        f"logits {tuple(logits.shape)} finite; peak {peak_gb:.2f} GB; second run "
+        f"identical")
     log(f"    one profiled prefill: kernels busy {busy_ms:.1f} ms (device idle "
         f"{out['profiled_prefill']['idle_share']:.1%} of the untraced prefill), "
         f"rglru_scan {rglru_ms:.2f} ms; top: " + "; ".join(
             f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:4]))
+    dec = out["profiled_decode_step"]
+    log(f"    8 profiled decode steps: kernels busy {decode_busy_ms:.2f} ms a step (device "
+        f"idle {dec['idle_share']:.1%} of an untraced step, {decode_s / steps * 1e3:.2f} "
+        f"ms); top: " + "; ".join(f"{k['op'][:48]} {k['device_ms']:.2f} ms x{k['count']:g}"
+                                   for k in dec["top_kernels"][:4]))
     return launches
 
 
-def devices_phase(torch, rg, detail, dev="cuda", cfg_of=None) -> None:
-    """Phase 12: the card against the CPU at full width, cut depth."""
+def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev="cuda",
+                  cfg_of=None) -> None:
+    """Phases 12 and 19: ``arch`` on the card against the CPU at full width
+    and cut depth, B 1, ``S`` prompt tokens and 8 greedy steps, the same
+    weights built on the CPU and copied to the card, in float32 and bf16;
+    one RG-LRU launch per RG-LRU layer and no other kernel on the card."""
     import copy
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import wrappers
     from repro_torch.launch.serve import generate
     from repro_torch.models import init_params
 
-    cfg_of = cfg_of or (lambda dtype: get_config(ARCH, n_layers=5, dtype=dtype))
-    B, S, steps = 1, 256, 8
+    cfg_of = cfg_of or (lambda dtype: get_config(arch, n_layers=n_layers, dtype=dtype))
+    B, steps = 1, 8
+    ws = wrappers()
     out = {}
     for dtype, tol in (("float32", CARD_CPU_F32), ("bfloat16", CARD_CPU_BF16)):
         cfg = cfg_of(dtype)
         with torch.inference_mode():
-            g = torch.Generator(device="cpu").manual_seed(12)
+            g = torch.Generator(device="cpu").manual_seed(phase)
             cpu_model = init_params(cfg, g)
             card_model = copy.deepcopy(cpu_model).to(dev)
             prompts = torch.randint(2, cfg.vocab, (B, S), generator=g)
-            before = rg.rglru_scan.launches
+            _zero_launches(ws)
             toks_card, rec = generate(card_model, prompts.to(dev), steps)
-            card_launches = rg.rglru_scan.launches - before
+            card_launches = _launches(ws)
             toks_cpu, rec_cpu = generate(cpu_model, prompts, steps)
         errs = []
         for key in ("logits", "last_logits"):
             a, b = rec[key].float().cpu(), rec_cpu[key].float()
-            check(bool(torch.isfinite(a).all()), f"{dtype}: card {key} not finite")
+            check(bool(torch.isfinite(a).all()), f"{arch} {dtype}: card {key} not finite")
             errs.append(float((a - b).abs().max() / b.abs().max()))
         err, err_dec = errs
         same = torch.equal(toks_card.cpu(), toks_cpu)
-        n_rglru = card_model.kinds.count("rglru")
-        check(card_launches == n_rglru, f"{dtype}: {card_launches} launches, "
-              f"want {n_rglru}")
-        check(err <= tol, f"{dtype}: card vs CPU prefill logits {err:.3e} > {tol:g}")
-        check(err_dec <= tol, f"{dtype}: card vs CPU logits of the last decode step "
-              f"{err_dec:.3e} > {tol:g}")
+        n_rglru = rglru_layers(cfg)[1]
+        check(card_launches == _want(ws, rglru_scan=n_rglru),
+              f"{arch} {dtype}: kernel launches {card_launches}, want {n_rglru} RG-LRU "
+              f"launches and no other")
+        check(err <= tol, f"{arch} {dtype}: card vs CPU prefill logits {err:.3e} > {tol:g}")
+        check(err_dec <= tol, f"{arch} {dtype}: card vs CPU logits of the last decode "
+              f"step {err_dec:.3e} > {tol:g}")
         if dtype == "float32":
-            check(same, f"float32: card tokens {toks_card.tolist()} vs CPU "
+            check(same, f"{arch} float32: card tokens {toks_card.tolist()} vs CPU "
                   f"{toks_cpu.tolist()}")
         out[dtype] = {"rel_err": err, "rel_err_last_decode": err_dec,
-                      "tokens_equal": same, "launches": card_launches,
+                      "tokens_equal": same, "launches": n_rglru,
                       "card_tokens": toks_card.tolist(), "cpu_tokens": toks_cpu.tolist()}
-        log(f"[12] {cfg.name} n_layers=5 (unit + tail) {dtype}, {B} x {S} + "
-            f"{steps} steps: card vs CPU logits, prefill {err:.3e}, last decode "
-            f"step {err_dec:.3e} (<= {tol:g}); greedy tokens "
-            f"{'identical' if same else 'differ'}, "
-            f"{card_launches} kernel launches")
+        log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} ({', '.join(card_model.kinds)}) "
+            f"{dtype}, {B} x {S} + {steps} steps: card vs CPU logits, prefill {err:.3e}, "
+            f"last decode step {err_dec:.3e} (<= {tol:g}); greedy tokens "
+            f"{'identical' if same else 'differ'}; {n_rglru} kernel launches, all RG-LRU")
         del cpu_model, card_model
-    detail["card_vs_cpu"] = out
+    detail[f"card_vs_cpu_{arch}"] = out
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -1766,27 +1870,30 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
     return out
 
 
-def train_phase(torch, rg, idle, detail, dev="cuda", cfg=None) -> dict:
-    """Phase 16: train recurrentgemma-2b at full width through
-    ``repro_torch.runtime.Trainer`` (the trainer of ``launch.train``),
-    global batch 2 x 2048, 3 steps; returns the RG-LRU kernel launches of
-    those steps. ``idle`` names the wrappers of the other kernels, none of
-    which the train path may launch."""
+def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None) -> dict:
+    """Phases 16 and 20: train ``arch`` at full width through
+    ``repro_torch.runtime.Trainer`` (the trainer of ``launch.train``) on its
+    ``TRAIN_CELLS`` batch, 3 AdamW steps of seeded Zipf tokens; returns the
+    launches and times. Each step launches the RG-LRU forward kernel once a
+    layer and once more a unit layer that ``remat="full"`` recomputes, and
+    the backward kernel once a layer, all on the TMA kernels; no other
+    kernel wrapper may launch (qwen2-1.5b and gemma3-4b launch none)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import wrappers
+    from repro_torch.models import costs
+    from repro_torch.models.config import ShapeCell
     from repro_torch.runtime import Trainer, TrainerConfig
 
-    check(torch.get_float32_matmul_precision() == "highest"
-          and not torch.backends.cuda.matmul.allow_tf32,
-          "float32 matrix products must run in full float32 (TF32 is on)")
+    _tf32_off(torch)
     full = cfg is None
-    cfg = get_config(ARCH) if full else cfg
-    B, S = TRAIN_SHAPE[:2]
+    cfg = get_config(arch) if full else cfg
+    B, S = TRAIN_CELLS[arch]
     steps = 3
-    n_unit_rglru = cfg.n_units * cfg.pattern.count("rglru")
-    n_rglru = n_unit_rglru + cfg.tail_kinds.count("rglru")
+    n_unit_rglru, n_rglru = rglru_layers(cfg)
     want_fwd = n_rglru + (n_unit_rglru if cfg.remat == "full" else 0)
-    check(not full or (want_fwd, n_rglru) == (34, 18),
+    check(not full or arch != ARCH or (want_fwd, n_rglru) == (34, 18),
           f"{want_fwd} forward and {n_rglru} backward launches a step at full width")
+    ws = wrappers()
     tcfg = TrainerConfig(seq_len=S, global_batch=B, total_steps=steps)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1794,39 +1901,34 @@ def train_phase(torch, rg, idle, detail, dev="cuda", cfg=None) -> dict:
     trainer = Trainer(cfg, tcfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rg.rglru_scan.launches = rg.rglru_scan.launches_tma = 0
-    rg.rglru_scan_backward.launches = rg.rglru_scan_backward.launches_tma = 0
-    for wrapper in idle.values():
-        wrapper.launches = 0
+    _zero_launches(ws)
+    rg.rglru_scan.launches_tma = rg.rglru_scan_backward.launches_tma = 0
     per_step, losses, walls = [], [], []
     for _ in range(steps):
-        before = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+        before = _launches(ws)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = trainer.run(1)
         walls.append(time.perf_counter() - t1)
         losses += out["losses"]
-        per_step.append((rg.rglru_scan.launches - before[0],
-                         rg.rglru_scan_backward.launches - before[1]))
+        per_step.append({k: n - before[k] for k, n in _launches(ws).items()})
     launches = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
     launches_tma = (rg.rglru_scan.launches_tma, rg.rglru_scan_backward.launches_tma)
-    idle_launches = {name: w.launches for name, w in idle.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(launches_tma == launches, f"RG-LRU launches (forward, backward) {launches}, "
           f"of which {launches_tma} took the TMA route: want all")
-    check(not any(idle_launches.values()),
-          f"the train path launched other kernels: {idle_launches}")
-    check(all(p == (want_fwd, n_rglru) for p in per_step),
-          f"RG-LRU launches per step (forward, backward) {per_step}, want "
-          f"({want_fwd}, {n_rglru})")
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(trainer.state.step == steps, f"step {trainer.state.step}")
+    want = _want(ws, rglru_scan=want_fwd, rglru_scan_backward=n_rglru)
+    check(all(p == want for p in per_step),
+          f"{arch}: kernel launches per step {per_step}, want {want_fwd} RG-LRU "
+          f"forward, {n_rglru} backward and no other")
+    check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
+    check(trainer.state.step == steps, f"{arch}: step {trainer.state.step}")
     del trainer
     torch.cuda.empty_cache()
     again = Trainer(cfg, tcfg, device=dev)
     first = again.run(1)["losses"][0]
-    check(first == losses[0], f"a second run's first loss {first!r} differs from "
-          f"{losses[0]!r}")
+    check(first == losses[0], f"{arch}: a second run's first loss {first!r} differs "
+          f"from {losses[0]!r}")
     kernels = device_kernels(torch, lambda: again.run(1))
     del again
     torch.cuda.empty_cache()
@@ -1835,59 +1937,68 @@ def train_phase(torch, rg, idle, detail, dev="cuda", cfg=None) -> dict:
     fwd_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_tma_kernel" in k["op"])
     bwd_ms = sum(k["device_ms"] for k in kernels
                  if "rglru_scan_backward_tma_kernel" in k["op"])
-    params = cfg.param_count()
-    out = {"batch": B, "seq_len": S, "steps": steps, "init_s": init_s,
-           "step_s": walls, "losses": losses, "steady_step_s": step_s,
+    flops = costs.model_flops(cfg, ShapeCell(f"train_{B}x{S}", "train", S, B))
+    out = {"batch": B, "seq_len": S, "microbatches": cfg.microbatches, "steps": steps,
+           "init_s": init_s, "step_s": walls, "losses": losses, "steady_step_s": step_s,
            "tokens_per_s": B * S / step_s, "launches": list(launches),
            "launches_tma": list(launches_tma),
-           "launches_per_step": per_step, "peak_memory_gb": peak_gb,
-           "params": params, "model_tflop_per_step_6nt": 6 * params * B * S / 1e12,
+           "launches_per_step": [(p["rglru_scan"], p["rglru_scan_backward"])
+                                 for p in per_step],
+           "peak_memory_gb": peak_gb, "params": cfg.param_count(),
+           "model_flops_per_step": flops, "model_tflop_s": flops / step_s / 1e12,
+           "bf16_tc_share": flops / step_s / BF16_TC_FLOPS,
            "second_run_first_loss": first,
            "profiled_step": {"device_busy_ms": busy_ms, "rglru_forward_ms": fwd_ms,
-                             "rglru_backward_ms": bwd_ms, "top_kernels": kernels[:15]},
-           "other_kernel_launches": idle_launches}
-    detail["train_full_width"] = out
-    log(f"[16] {cfg.name} training at full width, {B} x {S} tokens a step, AdamW "
-        f"(init {init_s:.2f} s): steps {', '.join(f'{w:.3f}' for w in walls)} s, "
-        f"{out['tokens_per_s']:.0f} tokens/s (steps 2-{steps}); losses "
-        f"{', '.join(f'{x:.5f}' for x in losses)}; RG-LRU launches a step "
-        f"{per_step[0][0]} forward + {per_step[0][1]} backward, all on the TMA kernels; "
-        f"peak {peak_gb:.2f} GB; "
-        f"a second run's first loss identical; 0 launches of {', '.join(idle)}")
+                             "rglru_backward_ms": bwd_ms, "top_kernels": kernels[:15]}}
+    detail[f"train_{arch}"] = out
+    mb = cfg.microbatches
+    log(f"[{phase}] {cfg.name} training at full width, {B} x {S} tokens a step "
+        f"({mb} microbatch{'es' if mb > 1 else ''}), AdamW (init {init_s:.2f} s): steps "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, {out['tokens_per_s']:.0f} tokens/s "
+        f"(steps 2-{steps}); model FLOPs {flops / 1e12:.1f} T a step, "
+        f"{out['model_tflop_s']:.1f} TFLOP/s, {out['bf16_tc_share']:.1%} of the bf16 "
+        f"tensor-core peak; losses {', '.join(f'{x:.5f}' for x in losses)}; kernel "
+        f"launches a step: RG-LRU {want_fwd} forward + {n_rglru} backward, all on the TMA "
+        f"kernels, no other; peak {peak_gb:.2f} GB; a second run's first loss identical")
     log(f"    one profiled step: kernels busy {busy_ms:.1f} ms; RG-LRU forward "
         f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; top: " + "; ".join(
             f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:5]))
     return out
 
 
-def train_devices_phase(torch, rg, detail, dev="cuda", cfg=None) -> None:
-    """Phase 17: one training step's loss and gradients on the card against
-    the CPU at full width, cut depth (``n_layers=5``: one unit and the
-    two-layer tail), float32, the same weights; then one AdamW update on
-    the card's gradients, on the card and on the CPU."""
+def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=256,
+                        dev="cuda", cfg=None) -> None:
+    """Phases 17 and 21: one float32 training step of ``arch`` on the card
+    against the CPU at full width and cut depth, B 1, ``S`` tokens, the same
+    weights: the loss, every gradient leaf (QKV biases included), the
+    kernel launches, then one AdamW update on the card's gradients, on the
+    card and on the CPU."""
     import copy
 
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch
+    from repro_torch.kernels import wrappers
     from repro_torch.models import init_params, loss_fn, param_leaves
     from repro_torch.optim import make_optimizer
 
-    cfg = cfg or get_config(ARCH, n_layers=5, dtype="float32")
-    B, S = 1, 256
-    cpu_model = init_params(cfg, torch.Generator(device="cpu").manual_seed(17),
+    cfg = cfg or get_config(arch, n_layers=n_layers, dtype="float32")
+    B = 1
+    ws = wrappers()
+    cpu_model = init_params(cfg, torch.Generator(device="cpu").manual_seed(phase),
                             trainable=True)
     card_model = copy.deepcopy(cpu_model).to(dev)
-    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, S, B, seed=17).items()}
-    before = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, S, B, seed=phase).items()}
+    _zero_launches(ws)
     card_loss = loss_fn(card_model, {k: v.to(dev) for k, v in batch.items()})
     card_loss.backward()
-    launches = (rg.rglru_scan.launches - before[0], rg.rglru_scan_backward.launches - before[1])
+    card_launches = _launches(ws)
     cpu_loss = loss_fn(cpu_model, batch)
     cpu_loss.backward()
     card_loss, cpu_loss = card_loss.detach(), cpu_loss.detach()
     loss_err = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
     check(math.isfinite(float(card_loss)) and loss_err <= TRAIN_LOSS_REL,
-          f"card loss {float(card_loss)!r} vs CPU {float(cpu_loss)!r}: {loss_err:.3e}")
+          f"{arch}: card loss {float(card_loss)!r} vs CPU {float(cpu_loss)!r}: "
+          f"{loss_err:.3e}")
     card_leaves, cpu_leaves = param_leaves(card_model), param_leaves(cpu_model)
     grad_err, worst = 0.0, ""
     for path, ps in cpu_leaves.items():
@@ -1895,12 +2006,16 @@ def train_devices_phase(torch, rg, detail, dev="cuda", cfg=None) -> None:
             e = float((q.grad.cpu() - p.grad).abs().max() / p.grad.abs().max())
             if e > grad_err:
                 grad_err, worst = e, path
-    check(grad_err <= TRAIN_GRAD_SHARE, f"card vs CPU gradient of {worst}: "
+    check(grad_err <= TRAIN_GRAD_SHARE, f"{arch}: card vs CPU gradient of {worst}: "
           f"{grad_err:.3e} of its max |g| > {TRAIN_GRAD_SHARE:g}")
-    n_rglru = card_model.kinds.count("rglru")
-    n_unit = cfg.n_units * cfg.pattern.count("rglru")
-    check(launches == (n_rglru + (n_unit if cfg.remat == "full" else 0), n_rglru),
-          f"RG-LRU launches (forward, backward) {launches}")
+    n_unit, n_rglru = rglru_layers(cfg)
+    launches = (n_rglru + (n_unit if cfg.remat == "full" else 0), n_rglru)
+    check(card_launches == _want(ws, rglru_scan=launches[0],
+                                 rglru_scan_backward=launches[1]),
+          f"{arch}: kernel launches {card_launches}, want RG-LRU (forward, backward) "
+          f"{launches} and no other")
+    biases = [k for k in cpu_leaves if k.rsplit("/", 1)[-1] in ("bq", "bk", "bv")]
+    check(bool(biases) == cfg.qkv_bias, f"{arch}: bias leaves {biases}")
     # one AdamW update on the card's gradients, on the card and on the CPU
     opt = make_optimizer("adamw", peak_lr=3e-4, warmup=0, total=100)
     grads = {k: [p.grad for p in ps] for k, ps in card_leaves.items()}
@@ -1912,17 +2027,18 @@ def train_devices_phase(torch, rg, detail, dev="cuda", cfg=None) -> None:
         for p, q in zip(ps, card_leaves[path]):
             opt_err = max(opt_err, float((q.detach().cpu() - p.detach()).abs().max()
                                          / p.detach().abs().max()))
-    check(opt_err <= OPT_CARD_CPU, f"AdamW on the card vs the CPU, same gradients: "
-          f"{opt_err:.3e} of max |p| > {OPT_CARD_CPU:g}")
-    detail["train_card_vs_cpu"] = {
+    check(opt_err <= OPT_CARD_CPU, f"{arch}: AdamW on the card vs the CPU, same "
+          f"gradients: {opt_err:.3e} of max |p| > {OPT_CARD_CPU:g}")
+    detail[f"train_card_vs_cpu_{arch}"] = {
         "loss_card": float(card_loss), "loss_cpu": float(cpu_loss), "loss_rel_err": loss_err,
-        "grad_err": grad_err, "worst_grad_leaf": worst, "launches": list(launches),
-        "adamw_err": opt_err}
-    log(f"[17] {cfg.name} n_layers=5 (unit + tail) float32, {B} x {S}, one step: card "
-        f"vs CPU loss {loss_err:.3e} (<= {TRAIN_LOSS_REL:g}), gradients {grad_err:.3e} "
-        f"of each leaf's max |g| (<= {TRAIN_GRAD_SHARE:g}; worst {worst}); AdamW on the "
-        f"card's gradients, card vs CPU {opt_err:.3e} of max |p| (<= {OPT_CARD_CPU:g}); "
-        f"RG-LRU launches {launches[0]} forward + {launches[1]} backward")
+        "grad_err": grad_err, "worst_grad_leaf": worst, "leaves": len(cpu_leaves),
+        "bias_leaves": biases, "launches": list(launches), "adamw_err": opt_err}
+    log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} float32, {B} x {S}, one step: card "
+        f"vs CPU loss {loss_err:.3e} (<= {TRAIN_LOSS_REL:g}), gradients {grad_err:.3e} of "
+        f"each leaf's max |g| over {len(cpu_leaves)} leaves, {len(biases)} of them QKV "
+        f"biases (<= {TRAIN_GRAD_SHARE:g}; worst {worst}); AdamW on the card's gradients, "
+        f"card vs CPU {opt_err:.3e} of max |p| (<= {OPT_CARD_CPU:g}); RG-LRU launches "
+        f"{launches[0]} forward + {launches[1]} backward, no other kernel")
     del cpu_model, card_model
 
 
@@ -2149,12 +2265,8 @@ def main() -> int:
 
     # -- 10-12. serving recurrentgemma-2b and its RG-LRU scan kernel ------------
     rg_t = rglru_phase(torch, rg, detail)
-    # the kernels the model's paths must not launch
-    idle = {"waterfill_masses": wf.waterfill_masses, "waterfill_solve": wf.waterfill_solve,
-            "envy_gaps": ev.envy_gaps, "pd_segment": ev.pd_segment,
-            "flash_attention": fa.flash_attention, "softmax_xent": xe.softmax_xent}
-    rg_launches = serve_phase(torch, rg, idle, detail, rg_t)
-    rg_tma = detail["serve_full_width"]["launches_tma"]
+    rg_launches = serve_phase(torch, rg, detail, rg_t)
+    rg_tma = detail[f"serve_{ARCH}"]["launches_tma"]
     devices_phase(torch, rg, detail)
 
     # -- 13-14. the attention and cross-entropy ops -------------------------------
@@ -2167,10 +2279,23 @@ def main() -> int:
     # -- 15-17. training recurrentgemma-2b and the RG-LRU backward kernel -------
     t0 = time.perf_counter()
     rgb_t = rglru_backward_phase(torch, rg, detail)
-    train = train_phase(torch, rg, idle, detail)
+    train = train_phase(torch, rg, detail)
     train_devices_phase(torch, rg, detail)
     detail["train_phases_s"] = time.perf_counter() - t0
     log(f"    phases 15-17 took {detail['train_phases_s']:.1f} s")
+
+    # -- 18-21. serving and training qwen2-1.5b and gemma3-4b --------------------
+    t0 = time.perf_counter()
+    for arch, _, _ in DENSE:
+        serve_phase(torch, rg, detail, rg_t, 18, arch)
+    for arch, n_layers, S in DENSE:
+        devices_phase(torch, rg, detail, 19, arch, n_layers, S)
+    for arch, _, _ in DENSE:
+        train_phase(torch, rg, detail, 20, arch)
+    for arch, n_layers, S in DENSE:
+        train_devices_phase(torch, rg, detail, 21, arch, n_layers, S)
+    detail["dense_phases_s"] = time.perf_counter() - t0
+    log(f"    phases 18-21 took {detail['dense_phases_s']:.1f} s")
     detail["total_s"] = time.perf_counter() - t_all
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -14,11 +14,15 @@ from typing import Dict, List
 from repro_torch.models.config import ArchConfig
 
 ALL_ARCHS: List[str] = [
+    "gemma3_4b",
+    "qwen2_1_5b",
     "recurrentgemma_2b",
 ]
 
 # canonical dashed ids -> module names
 ALIASES: Dict[str, str] = {
+    "gemma3-4b": "gemma3_4b",
+    "qwen2-1.5b": "qwen2_1_5b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 

@@ -25,9 +25,32 @@ Every Pallas kernel of the JAX package has its counterpart here:
 The last three are the public ops of ``ops`` (``rglru_scan``,
 ``flash_attention``, ``flash_attention_gqa``, ``softmax_xent``), and
 ``ref`` holds the plain oracles they are held to. A kernel that fails to
-build, load or launch raises :class:`KernelError`.
+build, load or launch raises :class:`KernelError`. :func:`wrappers` names
+every wrapper that launches a kernel, each with its ``launches`` counter;
+:func:`launch_counts` reads them all.
 """
+from typing import Callable, Dict
+
 from ._build import KernelError
 from .envy import envy_gaps, envy_gaps_plain
 
-__all__ = ["KernelError", "envy_gaps", "envy_gaps_plain"]
+__all__ = ["KernelError", "envy_gaps", "envy_gaps_plain", "launch_counts", "wrappers"]
+
+
+def wrappers() -> Dict[str, Callable]:
+    """Every wrapper of a hand-written kernel, by name. Each adds one to
+    its ``launches`` where it launches its kernel, and nowhere else."""
+    from . import envy, flash_attention, rglru_scan, waterfill, xent
+
+    return {"waterfill_masses": waterfill.waterfill_masses,
+            "waterfill_solve": waterfill.waterfill_solve,
+            "envy_gaps": envy.envy_gaps, "pd_segment": envy.pd_segment,
+            "rglru_scan": rglru_scan.rglru_scan,
+            "rglru_scan_backward": rglru_scan.rglru_scan_backward,
+            "flash_attention": flash_attention.flash_attention,
+            "softmax_xent": xent.softmax_xent}
+
+
+def launch_counts() -> Dict[str, int]:
+    """The ``launches`` of every kernel wrapper in this process, by name."""
+    return {name: w.launches for name, w in wrappers().items()}

@@ -2,16 +2,20 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
         --batch 8 --prompt-len 2048 --decode-steps 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu
 
 The port of ``repro.launch.serve``: the same flags and defaults, plus
-``--device`` (default ``cuda``; it raises when torch sees no GPU). Weights
-and prompts come from a ``torch.Generator`` seeded with ``--seed``. A first
-run of the same prefill and decode builds the RG-LRU kernel and warms up,
-and is reported apart; then the timed prefill and decode run. On the card
-every RG-LRU layer's prefill scan is the CUDA kernel and a decode step runs
-no kernel; the launch counts are printed.
+``--device`` (default ``cuda``; it raises when torch sees no GPU).
+``--arch`` is one of ``repro_torch.configs.ALIASES``: recurrentgemma-2b,
+qwen2-1.5b or gemma3-4b. Weights and prompts come from a
+``torch.Generator`` seeded with ``--seed``. A first run of the same
+prefill and decode builds any kernel and warms up, and is reported apart;
+then the timed prefill and decode run. On the card every RG-LRU layer's
+prefill scan is the CUDA kernel, a decode step runs no kernel, and
+qwen2-1.5b and gemma3-4b launch none at all (their attention is the plain
+grouped einsum, as the JAX model's); the launches of every kernel wrapper
+are printed.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels.ops import rglru_scan
+from ..kernels import launch_counts
 from ..models.model import Model
 from ..obs.clock import wall
 from ..runtime import make_prefill_step, make_serve_step
@@ -38,29 +42,35 @@ def generate(model: Model, prompts: torch.Tensor,
 
     Returns the tokens (B, steps + 1) (the prefill's argmax, then one per
     step) and a record: wall seconds of the prefill and of the decode loop
-    (each ends in a device sync), the RG-LRU kernel launches in each, the
-    prefill's last-position logits and the last decode step's logits.
+    (each ends in a device sync), the RG-LRU kernel launches in each
+    (``prefill_launches``, ``decode_launches``) and those of every kernel
+    wrapper (``prefill_kernel_launches``, ``decode_kernel_launches``, by
+    wrapper name), the prefill's last-position logits and the last decode
+    step's logits.
     """
     prefill_step = make_prefill_step(model, prompts.shape[1] + steps + 8)
     serve_step = make_serve_step(model)
     vocab = model.cfg.vocab
     dev = prompts.device
     _sync(dev)
-    l0, t0 = rglru_scan.launches, wall()
+    k0, t0 = launch_counts(), wall()
     cache, logits = prefill_step({"tokens": prompts})
     tok = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None]
     _sync(dev)
-    l1, t1 = rglru_scan.launches, wall()
+    k1, t1 = launch_counts(), wall()
     outs = [tok]
     last_logits = logits
     for _ in range(steps):
         cache, tok, last_logits = serve_step(cache, tok)
         outs.append(tok)
     _sync(dev)
-    l2, t2 = rglru_scan.launches, wall()
+    k2, t2 = launch_counts(), wall()
+    pre = {k: k1[k] - k0[k] for k in k0}
+    dec = {k: k2[k] - k1[k] for k in k0}
     return torch.cat(outs, dim=1), {
         "prefill_s": t1 - t0, "decode_s": t2 - t1,
-        "prefill_launches": l1 - l0, "decode_launches": l2 - l1,
+        "prefill_launches": pre["rglru_scan"], "decode_launches": dec["rglru_scan"],
+        "prefill_kernel_launches": pre, "decode_kernel_launches": dec,
         "logits": logits, "last_logits": last_logits}
 
 
@@ -98,6 +108,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
           f"({B * steps / rec['decode_s']:.1f} tok/s)")
     print(f"rglru_scan kernel launches: prefill {rec['prefill_launches']}, "
           f"decode {rec['decode_launches']}")
+    for phase in ("prefill", "decode"):
+        counts = rec[f"{phase}_kernel_launches"]
+        print(f"kernel launches in {phase}: "
+              + ", ".join(f"{k} {n}" for k, n in counts.items()))
     for b in range(min(B, 4)):
         print(f"  seq{b}: {toks[b][:16].tolist()}{'...' if steps > 15 else ''}")
 

@@ -2,17 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
         --batch 2 --seq-len 2048 --steps 3
-    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+        --batch 8 --seq-len 2048 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \
         --smoke --device cpu --steps 3
 
 The port of ``repro.launch.train``'s single-job mode: the same flags and
 defaults, plus ``--device`` (default ``cuda``; it raises when torch sees no
-GPU). Weights come from a ``torch.Generator`` seeded with the trainer's
-seed (0), data from the synthetic pipeline. It prints the parameter count,
-the steps, the first and last loss, steps/s and tokens/s (wall time of
-``Trainer.run``, kernel builds and warm-up included). ``--scheduler`` (the
-OEF-scheduled multi-tenant mode) and ``--mesh`` are not ported yet and
-raise.
+GPU). ``--arch`` is recurrentgemma-2b, qwen2-1.5b or gemma3-4b (gemma3-4b
+accumulates its gradients over ``microbatches=2``). Weights come from a
+``torch.Generator`` seeded with the trainer's seed (0), data from the
+synthetic pipeline. It prints the parameter count, the steps, the first and
+last loss, steps/s and tokens/s (wall time of ``Trainer.run``, kernel
+builds and warm-up included), and the launches of every kernel wrapper
+(qwen2-1.5b and gemma3-4b launch none). ``--scheduler`` (the OEF-scheduled
+multi-tenant mode) and ``--mesh`` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
 def run_single(args) -> dict:
     from ..configs import get_config, get_smoke
+    from ..kernels import launch_counts
     from ..runtime import Trainer, TrainerConfig
     from ..runtime.trainer import SimulatedFailure
 
@@ -68,6 +73,7 @@ def run_single(args) -> dict:
                 device=args.device)
     print(f"training {cfg.name} on {t.device}: {cfg.param_count()/1e6:.1f}M params, "
           f"{args.steps} steps of {args.batch} x {args.seq_len} tokens, ckpt -> {ckpt}")
+    before = launch_counts()
     try:
         out = t.run(args.steps, fail_at=args.fail_at)
     except SimulatedFailure as e:
@@ -79,6 +85,8 @@ def run_single(args) -> dict:
     print(f"done: step {out['final_step']}, "
           f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "
           f"{rate:.2f} steps/s, {rate * args.batch * args.seq_len:.1f} tokens/s")
+    after = launch_counts()
+    print("kernel launches: " + ", ".join(f"{k} {after[k] - before[k]}" for k in after))
     return out
 
 

@@ -1,11 +1,14 @@
-"""Layers of the recurrentgemma-2b model, as ``nn.Module``s.
+"""Layers of the ported models, as ``nn.Module``s.
 
-The port of ``repro.models.layers`` for what recurrentgemma-2b uses: RMSNorm,
-RoPE, grouped-query attention with a sliding window (full-sequence apply with
-decode-cache building, cache init and one-token decode on a ring buffer),
-SwiGLU and the RG-LRU recurrent block. Not ported: the blocked attention
-path (``attention_impl="blocked"`` raises), the head-parallel branch (it
-needs a mesh), QKV bias, cross-attention, MoE, mLSTM and sLSTM.
+The port of ``repro.models.layers`` for what recurrentgemma-2b, qwen2-1.5b
+and gemma3-4b use: RMSNorm, RoPE, grouped-query attention over the whole
+prefix (``full``) or a sliding window (``sliding``), with the optional QKV
+bias and a ``head_dim`` of its own (full-sequence apply with decode-cache
+building, cache init and one-token decode: a prefix cache for full
+attention, a ring buffer for a window), SwiGLU and the RG-LRU recurrent
+block. Not ported: the blocked attention path (``attention_impl="blocked"``
+raises), the head-parallel branch (it needs a mesh), non-causal and
+cross-attention, MoE, mLSTM and sLSTM.
 
 The two mixers, ``Attention`` and ``RGLRU``, share one interface:
 ``forward(x, return_state=, cache_len=)`` for a full sequence,
@@ -22,13 +25,13 @@ Conventions, as in the JAX package:
 The JAX code keeps float32 params and casts each weight to ``cfg.dtype``
 at every use (``.astype(dt)`` at every product). A layer built with
 ``trainable=True`` does the same: float32 parameters that require grad,
-each matrix weight cast to ``cfg.dtype`` where it is used. A serving layer
-(the default) stores the matrix-product weights in ``cfg.dtype`` once, when
-the model is built or loaded, with no grad: the values are the same, the
-cast at use is then a no-op, and a decode step does not re-read float32
-weights to cast them. In both the RG-LRU gate weights ``w_a``, ``w_i`` and
-``lam`` are float32 (``u @ w_a`` is a float32 product) and the norm scales
-are applied in float32.
+each matrix weight and bias cast to ``cfg.dtype`` where it is used. A
+serving layer (the default) stores the matrix-product weights and the QKV
+biases in ``cfg.dtype`` once, when the model is built or loaded, with no
+grad: the values are the same, the cast at use is then a no-op, and a
+decode step does not re-read float32 weights to cast them. In both the
+RG-LRU gate weights ``w_a``, ``w_i`` and ``lam`` are float32 (``u @ w_a``
+is a float32 product) and the norm scales are applied in float32.
 """
 from __future__ import annotations
 
@@ -115,7 +118,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# Attention (sliding window), GQA
+# Attention (full / sliding window), GQA, optional QKV bias
 # ---------------------------------------------------------------------------
 
 
@@ -135,11 +138,15 @@ def _group_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, Hkv * G, out.shape[-1])
 
 
-def _attn_mask(sq: int, skv: int, window: int, device=None) -> torch.Tensor:
-    """Causal sliding-window mask: query i sees keys i - window < j <= i."""
+def _attn_mask(sq: int, skv: int, window: Optional[int], device=None) -> torch.Tensor:
+    """Causal mask: query i sees keys j <= i, and with a ``window`` only
+    i - window < j."""
     diff = (torch.arange(sq, device=device)[:, None]
             - torch.arange(skv, device=device)[None, :])
-    return (diff >= 0) & (diff < window)
+    mask = diff >= 0
+    if window is not None:
+        mask &= diff < window
+    return mask
 
 
 def _masked_probs(scores: torch.Tensor, valid: torch.Tensor, hd: int,
@@ -152,20 +159,20 @@ def _masked_probs(scores: torch.Tensor, valid: torch.Tensor, hd: int,
 
 
 class Attention(nn.Module):
-    """Causal GQA attention with RoPE over a window of ``cfg.window``
-    positions. (The JAX layer also serves full attention, ``window=None``;
-    no ported model has it.)"""
+    """Causal GQA attention with RoPE over every earlier position
+    (``window=None``: a ``full`` layer) or over the last ``window``
+    positions (a ``sliding`` layer), with ``bq``, ``bk``, ``bv`` added to
+    the projections when ``cfg.qkv_bias`` (zeros at init, as in JAX)."""
 
-    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False,
+                 window: Optional[int] = None):
         super().__init__()
         if cfg.attention_impl == "blocked":
             raise NotImplementedError(
                 "attention_impl='blocked' is not ported to repro_torch; the "
                 "grouped path runs for 'xla' and 'pallas' (ROADMAP.md, Queue A)")
-        if cfg.qkv_bias:
-            raise NotImplementedError("QKV bias is not ported to repro_torch "
-                                      "(ROADMAP.md, Queue A)")
         self.cfg = cfg
+        self.window = window
         d, hd = cfg.d_model, cfg.resolved_head_dim
         nq, nkv = cfg.n_heads, cfg.n_kv_heads
         self.dt = dt = compute_dtype(cfg)
@@ -173,20 +180,32 @@ class Attention(nn.Module):
         self.wk = new_param((d, nkv * hd), dt, device, trainable)
         self.wv = new_param((d, nkv * hd), dt, device, trainable)
         self.wo = new_param((nq * hd, d), dt, device, trainable)
+        if cfg.qkv_bias:
+            self.bq = new_param((nq * hd,), dt, device, trainable)
+            self.bk = new_param((nkv * hd,), dt, device, trainable)
+            self.bv = new_param((nkv * hd,), dt, device, trainable)
+        else:
+            self.bq = self.bk = self.bv = None
 
     def init_(self, gen: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv):
             normal_(w, gen, 0.02)
         normal_(self.wo, gen, 0.02 / math.sqrt(2 * self.cfg.n_layers))
+        if self.bq is not None:  # zeros, drawing nothing from gen
+            for b in (self.bq, self.bk, self.bv):
+                b.zero_()
 
     def _qkv(self, x: torch.Tensor):
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         B, S = x.shape[0], x.shape[1]
-        q = (x @ self.wq.to(self.dt)).reshape(B, S, cfg.n_heads, hd)
-        k = (x @ self.wk.to(self.dt)).reshape(B, S, cfg.n_kv_heads, hd)
-        v = (x @ self.wv.to(self.dt)).reshape(B, S, cfg.n_kv_heads, hd)
-        return q, k, v
+        q, k, v = (x @ w.to(self.dt) for w in (self.wq, self.wk, self.wv))
+        if self.bq is not None:  # added in the compute dtype, as JAX adds them
+            q = q + self.bq.to(self.dt)
+            k = k + self.bk.to(self.dt)
+            v = v + self.bv.to(self.dt)
+        return (q.reshape(B, S, cfg.n_heads, hd), k.reshape(B, S, cfg.n_kv_heads, hd),
+                v.reshape(B, S, cfg.n_kv_heads, hd))
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False,
                 cache_len: Optional[int] = None):
@@ -201,7 +220,7 @@ class Attention(nn.Module):
         cos, sin = rope_table(torch.arange(S, device=x.device), hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        mask = _attn_mask(S, T, cfg.window, device=x.device)
+        mask = _attn_mask(S, T, self.window, device=x.device)
         probs = _masked_probs(_group_scores(q, k).float(), mask, hd, dt)
         out = _group_out(probs, v).reshape(B, S, cfg.n_heads * hd)
         del probs
@@ -211,17 +230,21 @@ class Attention(nn.Module):
         # a decode-ready KV cache from the prefill K/V, as the JAX package
         # builds it: its length is cache_len even for a sliding layer
         L = cache_len if cache_len is not None else T
-        if L <= T:
+        if L > T:
+            k_c, v_c = (F.pad(t, (0, 0, 0, 0, 0, L - T)) for t in (k, v))
+        elif self.window is not None:
             # ring buffer: valid because prefill length is a multiple of L
             k_c, v_c = k[:, -L:], v[:, -L:]
         else:
-            k_c, v_c = (F.pad(t, (0, 0, 0, 0, 0, L - T)) for t in (k, v))
+            k_c, v_c = k[:, :L], v[:, :L]
         return y, {"k": k_c.contiguous(), "v": v_c.contiguous()}
 
     def cache_init(self, batch: int, max_len: int) -> Cache:
-        """KV cache: a ring buffer of ``min(window, max_len)`` slots."""
+        """KV cache: ``max_len`` slots for full attention, a ring buffer of
+        ``min(window, max_len)`` for a sliding layer."""
         cfg = self.cfg
-        shape = (batch, min(cfg.window, max_len), cfg.n_kv_heads, cfg.resolved_head_dim)
+        length = max_len if self.window is None else min(self.window, max_len)
+        shape = (batch, length, cfg.n_kv_heads, cfg.resolved_head_dim)
         kw = {"dtype": self.dt, "device": self.wq.device}
         return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
@@ -240,14 +263,19 @@ class Attention(nn.Module):
         k = apply_rope(k, cos, sin)
         k_cache, v_cache = cache["k"], cache["v"]
         L = k_cache.shape[1]
-        slot = pos % L  # floored, as jnp.mod
+        idx = torch.arange(L, device=x.device)
+        if self.window is None:
+            # a prefix: past its end the last slot is overwritten, as in JAX
+            slot = min(pos, L - 1)
+            valid = idx <= pos
+        else:
+            slot = pos % L  # floored, as jnp.mod
+            # valid slots of the ring buffer: slot i holds absolute position
+            # p where p % L == i and p <= pos (floored remainder: pos - i < 0)
+            abs_pos = pos - torch.remainder(pos - idx, L)
+            valid = (abs_pos >= 0) & (abs_pos >= pos - self.window + 1) & (abs_pos <= pos)
         k_cache[:, slot] = k[:, 0]
         v_cache[:, slot] = v[:, 0]
-        # valid slots of the ring buffer: slot i holds absolute position p
-        # where p % L == i and p <= pos (floored remainder: pos - i < 0)
-        idx = torch.arange(L, device=x.device)
-        abs_pos = pos - torch.remainder(pos - idx, L)
-        valid = (abs_pos >= 0) & (abs_pos >= pos - cfg.window + 1) & (abs_pos <= pos)
         probs = _masked_probs(_group_scores(q, k_cache).float(), valid, hd, dt)
         out = _group_out(probs, v_cache).reshape(B, 1, cfg.n_heads * hd)
         return out @ self.wo.to(self.dt), cache

@@ -1,7 +1,8 @@
 """Model assembly: the training loss, prefill and greedy decode.
 
-The port of ``repro.models.model`` for the layer kinds ``rglru`` and
-``sliding`` with the ``swiglu`` FFN (recurrentgemma-2b):
+The port of ``repro.models.model`` for the layer kinds ``rglru``,
+``sliding`` and ``full`` with the ``swiglu`` FFN (recurrentgemma-2b,
+qwen2-1.5b, gemma3-4b):
 
     embed -> pattern units -> tail layers -> final RMSNorm -> tied unembedding
 
@@ -37,7 +38,7 @@ from .config import ArchConfig
 Cache = Dict[str, Any]
 
 #: layer kinds the port runs; the JAX package's others are not ported yet.
-KINDS = ("rglru", "sliding")
+KINDS = ("rglru", "sliding", "full")
 
 
 # ---------------------------------------------------------------------------
@@ -90,8 +91,9 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 
 class Block(nn.Module):
-    """One layer: pre-norm mixer (RG-LRU or sliding attention) and pre-norm
-    SwiGLU, each added to the residual stream."""
+    """One layer: pre-norm mixer (RG-LRU, or attention over the whole prefix
+    or over ``cfg.window`` positions) and pre-norm SwiGLU, each added to
+    the residual stream."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None, trainable: bool = False):
         super().__init__()
@@ -99,8 +101,11 @@ class Block(nn.Module):
             raise ValueError(kind)
         self.kind = kind
         self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
-        mixer = L.Attention if kind == "sliding" else L.RGLRU
-        self.mixer = mixer(cfg, device, trainable)
+        if kind == "rglru":
+            self.mixer = L.RGLRU(cfg, device, trainable)
+        else:  # the window as the JAX _layer_apply passes it
+            self.mixer = L.Attention(cfg, device, trainable,
+                                     window=cfg.window if kind == "sliding" else None)
         self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
         self.ffn = L.SwiGLU(cfg, device, trainable)
 
@@ -283,8 +288,9 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _jax_path(cfg: ArchConfig, name: str) -> str:
-    """A parameter name of the port (``layers.4.mixer.w_a``) as its leaf
-    path in the JAX params pytree (``units/p1/mixer/w_a``)."""
+    """A parameter name of the port (``layers.4.mixer.w_a``,
+    ``layers.0.mixer.bq``) as its leaf path in the JAX params pytree
+    (``units/p1/mixer/w_a``, ``units/p0/mixer/bq``)."""
     if not name.startswith("layers."):
         return name.replace(".", "/")
     _, i, rest = name.split(".", 2)
@@ -333,8 +339,9 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
 def decode_step(model: Model, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
     """One decode step: tokens (B, 1) -> (new cache, logits (B, 1, V)). The
-    attention layers' KV ring buffers are updated in place (the JAX
-    package returns new arrays); the RG-LRU states are new tensors."""
+    attention layers' KV caches (prefixes and ring buffers) are updated in
+    place (the JAX package returns new arrays); the RG-LRU states are new
+    tensors."""
     pos = cache["pos"]
     x = _embed_inputs(model, {"tokens": tokens})
     new_layers = []

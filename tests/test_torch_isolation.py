@@ -57,7 +57,8 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert "repro_torch.kernels.xent" in out["modules"]
     assert "repro_torch.kernels.ref" in out["modules"]
     for name in ("optim.optimizers", "data.pipeline", "checkpoint.manager",
-                 "runtime.trainstep", "runtime.trainer", "launch.train"):
+                 "runtime.trainstep", "runtime.trainer", "launch.train",
+                 "models.costs", "configs.qwen2_1_5b", "configs.gemma3_4b"):
         assert f"repro_torch.{name}" in out["modules"]
 
 

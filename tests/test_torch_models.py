@@ -334,7 +334,7 @@ def test_blocked_attention_and_unported_archs_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("yi-9b")
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_smoke("gemma3-4b")
+        get_smoke("xlstm-350m")
 
 
 def test_serve_cli_runs_on_the_cpu():
@@ -380,3 +380,42 @@ def test_generate_matches_prefill_and_decode():
     assert out.shape == (2, 4)
     assert torch.equal(out, torch.cat(want, 1))
     assert rec["prefill_launches"] == rec["decode_launches"] == 0
+
+
+def test_chip_smoke_serve_phases_rehearse_on_the_cpu(monkeypatch):
+    """``chip_smoke.py``'s phases 11-12 on the CPU at the smoke widths with
+    ``n_layers=5``: the plain scan stands in for the kernel and counts as
+    its launch on the route ``_route`` names, the card's memory counters
+    and the profiler are stubbed. Their checks must pass: 4 RG-LRU launches
+    a prefill (one per RG-LRU layer), all on the TMA route, none in decode
+    and no other kernel, a second run identical, card (here the CPU)
+    against the CPU."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke as cs
+    from repro_torch.kernels import rglru_scan as rg
+
+    plain = rg.rglru_scan_plain
+
+    def counted(a, b, h0):
+        rg.rglru_scan.launches += 1
+        rg.rglru_scan.launches_tma += rg._route(
+            a.dtype, a.shape[-1], [a.data_ptr(), b.data_ptr()]) == rg.TMA
+        return plain(a, b, h0)
+
+    monkeypatch.setattr(rg, "rglru_scan_plain", counted)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(cs, "device_kernels", lambda torch, fn: (fn(), [])[1])
+    monkeypatch.setattr(cs, "SERVE_SHAPE", (2, 40, 4))
+    detail = {}
+    launches = cs.serve_phase(torch, rg, detail, {"kernel_ms": 1.0}, dev="cpu",
+                              cfg=get_smoke(ARCH, n_layers=5))
+    out = detail[f"serve_{ARCH}"]
+    assert launches == out["launches_tma"] == out["prefill_launches"] == 4
+    assert out["decode_launches"] == 0 and out["kernel_launches"]["rglru_scan"] == 4
+    cs.devices_phase(torch, rg, detail, dev="cpu",
+                     cfg_of=lambda dtype: get_smoke(ARCH, n_layers=5, dtype=dtype))
+    rec = detail[f"card_vs_cpu_{ARCH}"]
+    assert rec["float32"]["tokens_equal"] and rec["float32"]["rel_err"] == 0.0
+    assert rec["bfloat16"]["launches"] == 4

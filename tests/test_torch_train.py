@@ -512,8 +512,6 @@ def test_chip_smoke_train_phases_rehearse_on_the_cpu(monkeypatch):
     against the CPU."""
     monkeypatch.syspath_prepend(os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
     import chip_smoke as cs
-    from repro_torch.kernels import envy as ev, flash_attention as fa, waterfill as wf
-    from repro_torch.kernels import xent as xe
 
     fwd, bwd = rg.rglru_scan_plain, rg.rglru_scan_backward_plain
 
@@ -543,18 +541,17 @@ def test_chip_smoke_train_phases_rehearse_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "call_ms", lambda torch, fn, reps=1: (fn(), 1.0)[1])
     monkeypatch.setattr(cs, "device_kernels", lambda torch, fn: (fn(), [])[1])
     monkeypatch.setattr(cs, "TRAIN_SHAPE", (2, 40, 96))
+    monkeypatch.setitem(cs.TRAIN_CELLS, ARCH, (2, 40))
     detail = {}
     t = cs.rglru_backward_phase(torch, rg, detail, dev="cpu")
     assert detail["rglru_backward_kernel"]["max_abs_err"] == 0.0 and t["bound_by"] == "bytes"
-    idle = {"waterfill_masses": wf.waterfill_masses, "envy_gaps": ev.envy_gaps,
-            "flash_attention": fa.flash_attention, "softmax_xent": xe.softmax_xent}
     cfg = get_smoke(ARCH, n_layers=5, remat="full", logits_chunk=16)
-    out = cs.train_phase(torch, rg, idle, detail, dev="cpu", cfg=cfg)
+    out = cs.train_phase(torch, rg, detail, dev="cpu", cfg=cfg)
     assert out["launches_per_step"] == [(6, 4)] * 3 and out["launches"] == [18, 12]
     assert out["launches_tma"] == [18, 12]
     assert detail["rglru_backward_kernel"]["runs"] == {"tma": 13, "direct": 15}
     assert len(out["losses"]) == 3 and out["second_run_first_loss"] == out["losses"][0]
     cs.train_devices_phase(torch, rg, detail, dev="cpu",
                            cfg=get_smoke(ARCH, n_layers=5, dtype="float32", remat="full"))
-    rec = detail["train_card_vs_cpu"]
+    rec = detail[f"train_card_vs_cpu_{ARCH}"]
     assert rec["launches"] == [6, 4] and rec["grad_err"] == 0.0 and rec["adamw_err"] == 0.0
