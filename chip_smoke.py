@@ -181,7 +181,21 @@ raises and the script exits non-zero:
 21. one float32 training step of each on the card against the CPU at
     phase 19's cut depths and lengths: the loss within 1e-5 relative,
     every gradient leaf (the QKV biases included) within 1e-4 of its max
-    |g|, one AdamW update within 1e-6 of max |p|.
+    |g|, one AdamW update within 1e-6 of max |p|;
+22. serve xlstm-350m at full width and depth (12 (mLSTM, sLSTM) units, no
+    FFN) as phase 18 serves the others, but profile the prefill of one
+    unit (``XLSTM_PROFILE_LAYERS``) at the same width and prompts, untraced
+    for its idle share and each layer timed alone: the sLSTM's eager loop
+    over time would put millions of events in a full-depth trace;
+23. xlstm-350m on the card against the CPU as phase 19, at
+    ``n_layers=4`` (two units) and S 600 (three mLSTM chunks, the last
+    padded);
+24. train xlstm-350m at full width and depth as phase 20, 8 x 2048,
+    ``logits_chunk=512``; the model-FLOP share by ``costs.model_flops``
+    and by 6 x the model's real parameter count; one unit's step profiled
+    and each of its layers' forward and backward timed alone;
+25. one float32 training step of xlstm-350m on the card against the CPU
+    at phase 23's cut depth, held as phase 21.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
@@ -240,12 +254,22 @@ SERVE_SHAPE = (8, 2048, 32)
 #: fit at 8), qwen2-1.5b at the JAX launcher's default batch of 8, gemma3-4b
 #: at 2 (its fp32 state alone is 62 GB), split into its ``microbatches=2``
 TRAIN_CELLS = {"recurrentgemma-2b": TRAIN_SHAPE[:2], "qwen2-1.5b": (8, 2048),
-               "gemma3-4b": (2, 2048)}
+               "gemma3-4b": (2, 2048), "xlstm-350m": (8, 2048)}
 #: the dense-attention tenants of phases 18-21, each with its cut depth and
 #: prompt length for the card-vs-CPU phases 19 and 21 (qwen2-1.5b: 3 full
 #: layers; gemma3-4b: one (5 sliding + 1 full) unit and a two-layer sliding
 #: tail, with S past its 1024 window)
 DENSE = (("qwen2-1.5b", 3, 256), ("gemma3-4b", 8, 1152))
+#: xlstm-350m in phases 22-25: its cut depth (two (mLSTM, sLSTM) units) and
+#: prompt length (three 256-position mLSTM chunks, the last one padded) for
+#: the card-vs-CPU phases 23 and 25, and the depth of the profiled prefill
+#: and train step (one unit: the sLSTM's eager loop over time makes ~20
+#: small ops a position a layer, too many profiler events at full depth)
+XLSTM = ("xlstm-350m", 4, 600)
+XLSTM_PROFILE_LAYERS = 2
+#: a first train step longer than this is a warm-up, and the second run's
+#: first step is the one timed (phase 24)
+LONG_STEP_S = 60.0
 #: card vs CPU, one float32 training step at cut depth (phase 17): the loss,
 #: relative; each gradient leaf, as a share of its max |g| (float32 products
 #: and reductions summed in other orders on the two devices, through five
@@ -1176,13 +1200,43 @@ def _tf32_off(torch) -> None:
           "float32 matrix products must run in full float32 (TF32 is on)")
 
 
-def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=None) -> int:
-    """Phases 11 and 18: serve ``arch`` at full width through
+def layer_seconds(torch, model, x, train: bool = False) -> dict:
+    """Wall seconds of each layer of ``model`` on ``x`` by kind (the last
+    layer of a kind counts), after a warm-up call: its forward, and with
+    ``train`` the backward of its output's sum. Each ends in a device
+    sync."""
+    out = {}
+    for layer in model.layers:
+        for _ in range(2):  # warm-up, then timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = layer(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if train:
+                y.float().sum().backward()
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            del y
+            model.zero_grad(set_to_none=True)
+        out[layer.kind] = {"forward_s": t1 - t0, "backward_s": t2 - t1}
+    return out
+
+
+def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=None,
+                profile_layers=None) -> int:
+    """Phases 11, 18 and 22: serve ``arch`` at full width through
     ``launch.serve.generate``, ``SERVE_SHAPE`` prompts and greedy steps;
     returns the RG-LRU launches of the main run. Each RG-LRU layer launches
     the TMA kernel once a prefill, a decode step launches nothing, and no
-    other kernel wrapper may launch (qwen2-1.5b and gemma3-4b launch none:
-    their attention is the grouped einsum, as the JAX model's)."""
+    other kernel wrapper may launch (qwen2-1.5b, gemma3-4b and xlstm-350m
+    launch none: the grouped-einsum attention and the xLSTM mixers are
+    plain torch, as the JAX model's). With ``profile_layers`` the profiled
+    prefill is that of the first ``profile_layers`` layers' model (same
+    width and prompts), timed untraced for its idle share, with each of its
+    layers timed alone."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import wrappers
     from repro_torch.launch.serve import generate
@@ -1231,8 +1285,23 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
         check(torch.equal(toks, toks2) and torch.equal(logits, rec2["logits"])
               and torch.equal(rec["last_logits"], rec2["last_logits"]),
               f"{arch}: a second run with the same weights and prompts differs")
+        prof_model, prof_s, per_layer = model, None, None
+        if profile_layers:
+            prof_model = init_params(dataclasses.replace(cfg, n_layers=profile_layers),
+                                     torch.Generator(device=dev).manual_seed(0))
+            for _ in range(2):  # warm-up, then timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill(prof_model, {"tokens": prompts}, S + steps + 8)
+                torch.cuda.synchronize()
+                prof_s = time.perf_counter() - t0
+            x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
+                getattr(torch, cfg.dtype))
+            per_layer = layer_seconds(torch, prof_model, x)
+            del x
         kernels = device_kernels(
-            torch, lambda: prefill(model, {"tokens": prompts}, S + steps + 8))
+            torch, lambda: prefill(prof_model, {"tokens": prompts}, S + steps + 8))
+        del prof_model
         cache, _ = prefill(model, {"tokens": prompts}, S + steps + 8)
 
         def decode_8():  # 8 greedy steps from the prompts' cache
@@ -1257,9 +1326,11 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
            "decode_launches": rec["decode_launches"],
            "kernel_launches": rec["prefill_kernel_launches"],
            "kernel_share_of_prefill": n_rglru * rg_t["kernel_ms"] / 1e3 / prefill_s,
-           "profiled_prefill": {"device_busy_ms": busy_ms, "rglru_scan_ms": rglru_ms,
-                                "idle_share": 1.0 - busy_ms / 1e3 / prefill_s,
-                                "top_kernels": kernels[:15]},
+           "profiled_prefill": {"layers": profile_layers or cfg.n_layers,
+                                "untraced_s": prof_s or prefill_s,
+                                "device_busy_ms": busy_ms, "rglru_scan_ms": rglru_ms,
+                                "idle_share": 1.0 - busy_ms / 1e3 / (prof_s or prefill_s),
+                                "layer_s": per_layer, "top_kernels": kernels[:15]},
            "profiled_decode_step": {
                "device_busy_ms": decode_busy_ms,
                "idle_share": 1.0 - decode_busy_ms / 1e3 / (decode_s / steps),
@@ -1276,10 +1347,18 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
         f"prefill), none in decode and of {', '.join(k for k in ws if not want[k])}; "
         f"logits {tuple(logits.shape)} finite; peak {peak_gb:.2f} GB; second run "
         f"identical")
-    log(f"    one profiled prefill: kernels busy {busy_ms:.1f} ms (device idle "
-        f"{out['profiled_prefill']['idle_share']:.1%} of the untraced prefill), "
-        f"rglru_scan {rglru_ms:.2f} ms; top: " + "; ".join(
+    pp = out["profiled_prefill"]
+    log(f"    one profiled prefill of {pp['layers']} layers: kernels busy {busy_ms:.1f} ms "
+        f"(device idle {pp['idle_share']:.1%} of the untraced prefill, "
+        f"{pp['untraced_s']:.3f} s), rglru_scan {rglru_ms:.2f} ms; top: " + "; ".join(
             f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:4]))
+    if per_layer:
+        kinds = list(cfg.pattern) * cfg.n_units + list(cfg.tail_kinds)
+        n_of = {k: kinds.count(k) for k in per_layer}
+        log("    one layer alone, forward: " + "; ".join(
+            f"{k} {t['forward_s'] * 1e3:.1f} ms (x{n_of[k]} layers = "
+            f"{n_of[k] * t['forward_s'] / prefill_s:.1%} of the prefill)"
+            for k, t in per_layer.items()))
     dec = out["profiled_decode_step"]
     log(f"    8 profiled decode steps: kernels busy {decode_busy_ms:.2f} ms a step (device "
         f"idle {dec['idle_share']:.1%} of an untraced step, {decode_s / steps * 1e3:.2f} "
@@ -1870,14 +1949,22 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
     return out
 
 
-def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None) -> dict:
-    """Phases 16 and 20: train ``arch`` at full width through
+def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
+                profile_layers=None) -> dict:
+    """Phases 16, 20 and 24: train ``arch`` at full width through
     ``repro_torch.runtime.Trainer`` (the trainer of ``launch.train``) on its
     ``TRAIN_CELLS`` batch, 3 AdamW steps of seeded Zipf tokens; returns the
     launches and times. Each step launches the RG-LRU forward kernel once a
     layer and once more a unit layer that ``remat="full"`` recomputes, and
     the backward kernel once a layer, all on the TMA kernels; no other
-    kernel wrapper may launch (qwen2-1.5b and gemma3-4b launch none)."""
+    kernel wrapper may launch (qwen2-1.5b, gemma3-4b and xlstm-350m launch none). With
+    ``profile_layers`` the profiled step is that of the first
+    ``profile_layers`` layers' trainer, timed untraced for its idle share,
+    with each of its layers' forward and backward timed alone. A first step
+    over ``LONG_STEP_S`` is a warm-up: the second run's first step, whose
+    loss must equal it, is then the one timed."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import wrappers
     from repro_torch.models import costs
@@ -1903,18 +1990,37 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None) ->
     init_s = time.perf_counter() - t0
     _zero_launches(ws)
     rg.rglru_scan.launches_tma = rg.rglru_scan_backward.launches_tma = 0
-    per_step, losses, walls = [], [], []
-    for _ in range(steps):
+    per_step, walls = [], []
+
+    def timed_step(tr) -> float:
         before = _launches(ws)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = trainer.run(1)
+        loss = tr.run(1)["losses"][0]
         walls.append(time.perf_counter() - t1)
-        losses += out["losses"]
         per_step.append({k: n - before[k] for k, n in _launches(ws).items()})
+        return loss
+
+    losses = [timed_step(trainer)]
+    # a first step over LONG_STEP_S: the second run's first step, after this
+    # warm-up, is the one timed
+    long_step = walls[0] > LONG_STEP_S
+    while not long_step and len(walls) < steps:
+        losses.append(timed_step(trainer))
+    check(trainer.state.step == len(walls), f"{arch}: step {trainer.state.step}")
     launches = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
     launches_tma = (rg.rglru_scan.launches_tma, rg.rglru_scan_backward.launches_tma)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in trainer.state.model.parameters())
+    del trainer
+    torch.cuda.empty_cache()
+    again = Trainer(cfg, tcfg, device=dev)
+    first = timed_step(again) if long_step else again.run(1)["losses"][0]
+    check(first == losses[0], f"{arch}: a second run's first loss {first!r} differs "
+          f"from {losses[0]!r}")
+    if long_step:
+        losses.append(first)
+    steps = len(walls)
     check(launches_tma == launches, f"RG-LRU launches (forward, backward) {launches}, "
           f"of which {launches_tma} took the TMA route: want all")
     want = _want(ws, rglru_scan=want_fwd, rglru_scan_backward=n_rglru)
@@ -1922,15 +2028,28 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None) ->
           f"{arch}: kernel launches per step {per_step}, want {want_fwd} RG-LRU "
           f"forward, {n_rglru} backward and no other")
     check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
-    check(trainer.state.step == steps, f"{arch}: step {trainer.state.step}")
-    del trainer
-    torch.cuda.empty_cache()
-    again = Trainer(cfg, tcfg, device=dev)
-    first = again.run(1)["losses"][0]
-    check(first == losses[0], f"{arch}: a second run's first loss {first!r} differs "
-          f"from {losses[0]!r}")
-    kernels = device_kernels(torch, lambda: again.run(1))
-    del again
+    prof, prof_s, unit_s, per_layer = again, None, None, None
+    if profile_layers:
+        del again
+        torch.cuda.empty_cache()
+        unit_s = {}
+        for remat in ("none", cfg.remat):  # the unit's step with and without remat
+            prof = Trainer(dataclasses.replace(cfg, n_layers=profile_layers, remat=remat),
+                           tcfg, device=dev)
+            for _ in range(2):  # warm-up, then timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prof.run(1)
+                torch.cuda.synchronize()
+                unit_s[remat] = time.perf_counter() - t0
+        prof_s = unit_s[cfg.remat]
+        x = torch.randn((B // max(1, cfg.microbatches), S, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(phase)).to(
+            getattr(torch, cfg.dtype))
+        per_layer = layer_seconds(torch, prof.state.model, x, train=True)
+        del x
+    kernels = device_kernels(torch, lambda: prof.run(1))
+    del prof
     torch.cuda.empty_cache()
     step_s = sum(walls[1:]) / len(walls[1:])
     busy_ms = sum(k["device_ms"] for k in kernels)
@@ -1938,6 +2057,7 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None) ->
     bwd_ms = sum(k["device_ms"] for k in kernels
                  if "rglru_scan_backward_tma_kernel" in k["op"])
     flops = costs.model_flops(cfg, ShapeCell(f"train_{B}x{S}", "train", S, B))
+    real_flops = 6.0 * n_params * B * S
     out = {"batch": B, "seq_len": S, "microbatches": cfg.microbatches, "steps": steps,
            "init_s": init_s, "step_s": walls, "losses": losses, "steady_step_s": step_s,
            "tokens_per_s": B * S / step_s, "launches": list(launches),
@@ -1947,22 +2067,45 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None) ->
            "peak_memory_gb": peak_gb, "params": cfg.param_count(),
            "model_flops_per_step": flops, "model_tflop_s": flops / step_s / 1e12,
            "bf16_tc_share": flops / step_s / BF16_TC_FLOPS,
-           "second_run_first_loss": first,
-           "profiled_step": {"device_busy_ms": busy_ms, "rglru_forward_ms": fwd_ms,
-                             "rglru_backward_ms": bwd_ms, "top_kernels": kernels[:15]}}
+           "numel": n_params, "numel_flops_per_step": real_flops,
+           "numel_bf16_tc_share": real_flops / step_s / BF16_TC_FLOPS,
+           "second_run_first_loss": first, "second_run_timed": long_step,
+           "profiled_step": {"layers": profile_layers or cfg.n_layers,
+                             "untraced_s": prof_s or step_s, "untraced_s_by_remat": unit_s,
+                             "device_busy_ms": busy_ms,
+                             "idle_share": 1.0 - busy_ms / 1e3 / (prof_s or step_s),
+                             "rglru_forward_ms": fwd_ms,
+                             "rglru_backward_ms": bwd_ms, "layer_s": per_layer,
+                             "top_kernels": kernels[:15]}}
     detail[f"train_{arch}"] = out
     mb = cfg.microbatches
     log(f"[{phase}] {cfg.name} training at full width, {B} x {S} tokens a step "
         f"({mb} microbatch{'es' if mb > 1 else ''}), AdamW (init {init_s:.2f} s): steps "
         f"{', '.join(f'{w:.3f}' for w in walls)} s, {out['tokens_per_s']:.0f} tokens/s "
-        f"(steps 2-{steps}); model FLOPs {flops / 1e12:.1f} T a step, "
-        f"{out['model_tflop_s']:.1f} TFLOP/s, {out['bf16_tc_share']:.1%} of the bf16 "
+        f"({'the second run' if long_step else f'steps 2-{steps}'}); model FLOPs "
+        f"{flops / 1e12:.1f} T a step, "
+        f"{out['model_tflop_s']:.1f} TFLOP/s, {out['bf16_tc_share']:.2%} of the bf16 "
         f"tensor-core peak; losses {', '.join(f'{x:.5f}' for x in losses)}; kernel "
         f"launches a step: RG-LRU {want_fwd} forward + {n_rglru} backward, all on the TMA "
         f"kernels, no other; peak {peak_gb:.2f} GB; a second run's first loss identical")
-    log(f"    one profiled step: kernels busy {busy_ms:.1f} ms; RG-LRU forward "
-        f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; top: " + "; ".join(
+    ps = out["profiled_step"]
+    log(f"    one profiled step of {ps['layers']} layers: kernels busy {busy_ms:.1f} ms "
+        f"(device idle {ps['idle_share']:.1%} of an untraced step, {ps['untraced_s']:.3f} "
+        f"s); RG-LRU forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; top: " + "; ".join(
             f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:5]))
+    if per_layer:
+        log(f"    model FLOPs by 6 x numel ({n_params / 1e6:.1f}M, not param_count's "
+            f"{cfg.param_count() / 1e6:.1f}M): {real_flops / 1e12:.1f} T a step, "
+            f"{out['numel_bf16_tc_share']:.2%} of the bf16 tensor-core peak")
+        log(f"    the {ps['layers']}-layer step untraced, by remat: " + ", ".join(
+            f"{k} {t:.3f} s" for k, t in unit_s.items()))
+        kinds = list(cfg.pattern) * cfg.n_units + list(cfg.tail_kinds)
+        remat = 2 if cfg.remat == "full" else 1  # forwards a step
+        log("    one layer alone: " + "; ".join(
+            f"{k} forward {t['forward_s'] * 1e3:.1f} ms, backward "
+            f"{t['backward_s'] * 1e3:.1f} ms (x{kinds.count(k)} layers, {remat} forwards "
+            f"= {kinds.count(k) * (remat * t['forward_s'] + t['backward_s']) / step_s:.1%} "
+            f"of the step)" for k, t in per_layer.items()))
     return out
 
 
@@ -2296,6 +2439,19 @@ def main() -> int:
         train_devices_phase(torch, rg, detail, 21, arch, n_layers, S)
     detail["dense_phases_s"] = time.perf_counter() - t0
     log(f"    phases 18-21 took {detail['dense_phases_s']:.1f} s")
+
+    # -- 22-25. serving and training xlstm-350m ----------------------------------
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    arch, n_layers, S = XLSTM
+    serve_phase(torch, rg, detail, rg_t, 22, arch, profile_layers=XLSTM_PROFILE_LAYERS)
+    devices_phase(torch, rg, detail, 23, arch, n_layers, S)
+    train_phase(torch, rg, detail, 24, arch, cfg=get_config(arch, logits_chunk=512),
+                profile_layers=XLSTM_PROFILE_LAYERS)
+    train_devices_phase(torch, rg, detail, 25, arch, n_layers, S)
+    detail["xlstm_phases_s"] = time.perf_counter() - t0
+    log(f"    phases 22-25 took {detail['xlstm_phases_s']:.1f} s")
     detail["total_s"] = time.perf_counter() - t_all
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -17,6 +17,7 @@ ALL_ARCHS: List[str] = [
     "gemma3_4b",
     "qwen2_1_5b",
     "recurrentgemma_2b",
+    "xlstm_350m",
 ]
 
 # canonical dashed ids -> module names
@@ -24,6 +25,7 @@ ALIASES: Dict[str, str] = {
     "gemma3-4b": "gemma3_4b",
     "qwen2-1.5b": "qwen2_1_5b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 

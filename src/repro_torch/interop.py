@@ -192,8 +192,10 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def cache_to_jax(model: Model, cache: Cache) -> Dict[str, Any]:
     """The port's decode cache in the JAX package's layout, as numpy: pattern
     position ``p``'s states stacked over units under ``units/p{p}/mixer``,
-    the tail's as a list, ``pos`` an int32 scalar. bfloat16 leaves come as
-    float32 (numpy has no bfloat16)."""
+    the tail's as a list, ``pos`` an int32 scalar. A layer's state is its
+    mixer's, named as in JAX: ``k``, ``v`` (attention), ``h`` (RG-LRU),
+    ``C``, ``n`` (mLSTM), ``h``, ``c``, ``n``, ``m`` (sLSTM). bfloat16
+    leaves come as float32 (numpy has no bfloat16)."""
     cfg = model.cfg
     P = len(cfg.pattern)
     out: Dict[str, Any] = {}

@@ -4,18 +4,20 @@
         --batch 8 --prompt-len 2048 --decode-steps 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+        --batch 8 --prompt-len 2048 --decode-steps 32
 
 The port of ``repro.launch.serve``: the same flags and defaults, plus
 ``--device`` (default ``cuda``; it raises when torch sees no GPU).
 ``--arch`` is one of ``repro_torch.configs.ALIASES``: recurrentgemma-2b,
-qwen2-1.5b or gemma3-4b. Weights and prompts come from a
+qwen2-1.5b, gemma3-4b or xlstm-350m. Weights and prompts come from a
 ``torch.Generator`` seeded with ``--seed``. A first run of the same
 prefill and decode builds any kernel and warms up, and is reported apart;
 then the timed prefill and decode run. On the card every RG-LRU layer's
 prefill scan is the CUDA kernel, a decode step runs no kernel, and
-qwen2-1.5b and gemma3-4b launch none at all (their attention is the plain
-grouped einsum, as the JAX model's); the launches of every kernel wrapper
-are printed.
+qwen2-1.5b, gemma3-4b and xlstm-350m launch none at all (their attention
+is the plain grouped einsum and the xLSTM mixers plain torch, as the JAX
+model's); the launches of every kernel wrapper are printed.
 """
 from __future__ import annotations
 

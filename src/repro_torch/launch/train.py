@@ -6,16 +6,18 @@
         --batch 8 --seq-len 2048 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \
         --smoke --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
+        --batch 8 --seq-len 2048 --steps 3
 
 The port of ``repro.launch.train``'s single-job mode: the same flags and
 defaults, plus ``--device`` (default ``cuda``; it raises when torch sees no
-GPU). ``--arch`` is recurrentgemma-2b, qwen2-1.5b or gemma3-4b (gemma3-4b
-accumulates its gradients over ``microbatches=2``). Weights come from a
+GPU). ``--arch`` is recurrentgemma-2b, qwen2-1.5b, gemma3-4b (which
+accumulates its gradients over ``microbatches=2``) or xlstm-350m. Weights come from a
 ``torch.Generator`` seeded with the trainer's seed (0), data from the
 synthetic pipeline. It prints the parameter count, the steps, the first and
 last loss, steps/s and tokens/s (wall time of ``Trainer.run``, kernel
 builds and warm-up included), and the launches of every kernel wrapper
-(qwen2-1.5b and gemma3-4b launch none). ``--scheduler`` (the OEF-scheduled
+(qwen2-1.5b, gemma3-4b and xlstm-350m launch none). ``--scheduler`` (the OEF-scheduled
 multi-tenant mode) and ``--mesh`` are not ported yet and raise.
 """
 from __future__ import annotations

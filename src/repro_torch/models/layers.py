@@ -1,17 +1,18 @@
 """Layers of the ported models, as ``nn.Module``s.
 
-The port of ``repro.models.layers`` for what recurrentgemma-2b, qwen2-1.5b
-and gemma3-4b use: RMSNorm, RoPE, grouped-query attention over the whole
-prefix (``full``) or a sliding window (``sliding``), with the optional QKV
-bias and a ``head_dim`` of its own (full-sequence apply with decode-cache
-building, cache init and one-token decode: a prefix cache for full
-attention, a ring buffer for a window), SwiGLU and the RG-LRU recurrent
-block. Not ported: the blocked attention path (``attention_impl="blocked"``
-raises), the head-parallel branch (it needs a mesh), non-causal and
-cross-attention, MoE, mLSTM and sLSTM.
+The port of ``repro.models.layers`` for what recurrentgemma-2b, qwen2-1.5b,
+gemma3-4b and xlstm-350m use: RMSNorm, RoPE, grouped-query attention over
+the whole prefix (``full``) or a sliding window (``sliding``), with the
+optional QKV bias and a ``head_dim`` of its own (full-sequence apply with
+decode-cache building, cache init and one-token decode: a prefix cache for
+full attention, a ring buffer for a window), SwiGLU, the RG-LRU recurrent
+block and the two xLSTM mixers, the mLSTM (chunkwise over 256 positions)
+and the sLSTM (a loop over time). Not ported: the blocked attention path
+(``attention_impl="blocked"`` raises), the head-parallel branch (it needs a
+mesh), non-causal and cross-attention, and MoE.
 
-The two mixers, ``Attention`` and ``RGLRU``, share one interface:
-``forward(x, return_state=, cache_len=)`` for a full sequence,
+The mixers, ``Attention``, ``RGLRU``, ``MLSTM`` and ``SLSTM``, share one
+interface: ``forward(x, return_state=, cache_len=)`` for a full sequence,
 ``cache_init(batch, max_len)`` and ``decode(x, cache, pos)`` for one token.
 
 Conventions, as in the JAX package:
@@ -30,8 +31,10 @@ serving layer (the default) stores the matrix-product weights and the QKV
 biases in ``cfg.dtype`` once, when the model is built or loaded, with no
 grad: the values are the same, the cast at use is then a no-op, and a
 decode step does not re-read float32 weights to cast them. In both the
-RG-LRU gate weights ``w_a``, ``w_i`` and ``lam`` are float32 (``u @ w_a``
-is a float32 product) and the norm scales are applied in float32.
+RG-LRU gate weights ``w_a``, ``w_i`` and ``lam``, the mLSTM gate weights
+``w_if``, ``b_if``, the sLSTM recurrence ``r`` and bias ``b`` are float32
+(their products are float32 products) and the norm scales are applied in
+float32.
 """
 from __future__ import annotations
 
@@ -85,10 +88,16 @@ class RMSNorm(nn.Module):
         self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + self.eps)
-        return (y * self.scale).to(x.dtype)
+        return rms_norm(x, self.scale, self.eps)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS-normalise ``x`` over its last axis in float32, scale by the
+    float32 ``scale`` and cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +314,249 @@ class SwiGLU(nn.Module):
         act = F.silu(gate.float()).to(x.dtype) * up
         del h, gate, up
         return act @ self.w_out.to(self.dt)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory block), chunkwise-parallel linear attention form
+# ---------------------------------------------------------------------------
+
+
+class MLSTM(nn.Module):
+    """The xLSTM matrix-memory mixer with its stabilised sigmoid gating, as
+    the JAX package writes it: an up-projection to ``di = 2 d`` (u and the
+    output gate z), per-head q, k, v of width ``di / H``, a forget gate
+    ``f in (0, 1)`` and a bounded input gate ``i = exp(min(pre, 0))``.
+    A full sequence runs chunkwise (``chunk`` positions at a time, S padded
+    to a whole number of chunks) in float32; decode carries the matrix
+    memory ``C`` (B, H, hd, hd) and the normaliser ``n`` (B, H, hd)."""
+
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        d, H = cfg.d_model, cfg.n_heads
+        di = 2 * d  # up-projection factor 2 (xLSTM paper)
+        self.dt = dt = compute_dtype(cfg)
+        self.w_up = new_param((d, 2 * di), dt, device, trainable)  # u and gate z
+        self.wq = new_param((di, di), dt, device, trainable)
+        self.wk = new_param((di, di), dt, device, trainable)
+        self.wv = new_param((di, di), dt, device, trainable)
+        self.w_if = new_param((d, 2 * H), torch.float32, device, trainable)
+        self.b_if = new_param((2 * H,), torch.float32, device, trainable)
+        self.w_down = new_param((di, d), dt, device, trainable)
+        # a plain scale, as the JAX leaf ``mixer/norm`` (not ``norm/scale``)
+        self.norm = new_param((di,), torch.float32, device, trainable)
+
+    def init_(self, gen: torch.Generator) -> None:
+        for w in (self.w_up, self.wq, self.wk, self.wv, self.w_if):
+            normal_(w, gen, 0.02)
+        H = self.cfg.n_heads
+        self.b_if[:H] = 0.0  # input gate
+        self.b_if[H:] = 3.0  # forget gate, open at init
+        normal_(self.w_down, gen, 0.02 / math.sqrt(2 * self.cfg.n_layers))
+        self.norm.fill_(1.0)
+
+    def _gates(self, x: torch.Tensor):
+        """x: (B, S, d) -> the input gate and log forget gate, (B, S, H)
+        float32, from x cast to float32."""
+        gif = x.float() @ self.w_if + self.b_if
+        i_pre, f_pre = gif.chunk(2, dim=-1)
+        return torch.exp(torch.clamp_max(i_pre, 0.0)), F.logsigmoid(f_pre)
+
+    def _up(self, x: torch.Tensor):
+        u, z = (x @ self.w_up.to(self.dt)).chunk(2, dim=-1)
+        q, k, v = (u @ w.to(self.dt) for w in (self.wq, self.wk, self.wv))
+        return z, q, k, v
+
+    def _out(self, h: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """h (in ``cfg.dtype``) normalised, gated by silu(z) and projected
+        down."""
+        h = rms_norm(h, self.norm, self.cfg.norm_eps)
+        h = h * F.silu(z.float()).to(self.dt)
+        return h @ self.w_down.to(self.dt)
+
+    def forward(self, x: torch.Tensor, *, return_state: bool = False,
+                cache_len: Optional[int] = None, chunk: int = 256):
+        """Full sequence from a zero state, ``chunk`` positions at a time.
+        The state ``{"C", "n"}`` after the last position does not depend on
+        ``cache_len``."""
+        dt = self.dt
+        B, S, _ = x.shape
+        H = self.cfg.n_heads
+        z, q, k, v = self._up(x)
+        di = q.shape[-1]
+        hd = di // H
+        q = q.reshape(B, S, H, hd)
+        k = k.reshape(B, S, H, hd) / math.sqrt(hd)  # in cfg.dtype, as JAX
+        v = v.reshape(B, S, H, hd)
+        i_gate, log_f = self._gates(x)  # (B, S, H)
+        C = max(1, min(chunk, S))
+        n_chunks = (S + C - 1) // C
+        pad = n_chunks * C - S
+        # heads first: (B, H, S, hd) float32 and (B, H, S), zero-padded to
+        # whole chunks (a padded position adds nothing and decays nothing)
+        q, k, v = (F.pad(a.float().transpose(1, 2), (0, 0, 0, pad)) for a in (q, k, v))
+        i_gate, log_f = (F.pad(a.transpose(1, 2), (0, pad)) for a in (i_gate, log_f))
+        Cst = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+        nst = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+        tri = torch.ones((C, C), dtype=torch.bool, device=x.device).tril()
+        hs = []
+        for qc, kc, vc, ic, fc in zip(*(a.split(C, dim=2) for a in (q, k, v, i_gate, log_f))):
+            Cst, nst, h = _mlstm_chunk(Cst, nst, qc, kc, vc, ic, fc, tri)
+            hs.append(h.to(dt))
+        h = torch.cat(hs, dim=2).transpose(1, 2).reshape(B, n_chunks * C, di)[:, :S]
+        y = self._out(h, z)
+        if return_state:
+            return y, {"C": Cst, "n": nst}
+        return y
+
+    def cache_init(self, batch: int, max_len: int) -> Cache:
+        H = self.cfg.n_heads
+        hd = 2 * self.cfg.d_model // H
+        kw = {"dtype": torch.float32, "device": self.w_if.device}
+        return {"C": torch.zeros((batch, H, hd, hd), **kw),
+                "n": torch.zeros((batch, H, hd), **kw)}
+
+    def decode(self, x: torch.Tensor, state: Cache,
+               pos: int) -> Tuple[torch.Tensor, Cache]:
+        """One token: one step of the recurrence in float32 (q, k, v cast
+        up before k is scaled, as the JAX decode casts)."""
+        B = x.shape[0]
+        H = self.cfg.n_heads
+        z, q, k, v = self._up(x)
+        di = q.shape[-1]
+        hd = di // H
+        q = q.reshape(B, H, hd).float()
+        k = k.reshape(B, H, hd).float() / math.sqrt(hd)
+        v = v.reshape(B, H, hd).float()
+        i_gate, log_f = self._gates(x)
+        f = torch.exp(log_f[:, 0])  # (B, H)
+        ki = k * i_gate[:, 0, :, None]
+        Cn = state["C"] * f[..., None, None] + ki[..., :, None] * v[..., None, :]
+        nn_ = state["n"] * f[..., None] + ki
+        num = (q[..., None, :] @ Cn)[..., 0, :]  # (B, H, hd)
+        den = torch.clamp_min(torch.abs(torch.sum(q * nn_, dim=-1)), 1.0)
+        h = (num / den[..., None]).reshape(B, 1, di).to(self.dt)
+        return self._out(h, z), {"C": Cn, "n": nn_}
+
+
+def _mlstm_chunk(Cst, nst, q, k, v, i_gate, log_f, tri):
+    """One chunk of the mLSTM, heads first: q, k, v (B, H, C, hd) float32,
+    ``i_gate``, ``log_f`` (B, H, C), the carried state ``Cst`` (B, H, hd,
+    hd) and ``nst`` (B, H, hd). Returns the new state and h (B, H, C, hd).
+
+    The JAX ``chunk_step``'s four-operand einsums as pairwise products in
+    their left-to-right order: nothing larger than (B, H, C, C) or
+    (B, H, hd, hd) is built."""
+    cum = torch.cumsum(log_f, dim=-1)  # (B, H, C) inclusive
+    total = cum[..., -1]  # (B, H)
+    # intra-chunk: causal decayed attention, w = exp(F(q) - F(k)) for k <= q
+    # (the upper triangle set to -inf before exp: the same values as JAX's
+    # where after exp, without an inf whose zero gradient would be a NaN)
+    decay = cum[..., :, None] - cum[..., None, :]  # (B, H, Cq, Ck)
+    w = torch.exp(decay.masked_fill_(~tri, float("-inf")))
+    s = q @ k.transpose(-1, -2)  # (B, H, Cq, Ck)
+    p = s * i_gate[..., None, :] * w
+    intra = p @ v  # (B, H, Cq, hd)
+    n_intra = torch.sum(p, dim=-1)  # (B, H, Cq)
+    # inter-chunk: the carried state, decayed from the chunk start to q
+    qdecay = torch.exp(cum)
+    inter = (q @ Cst) * qdecay[..., None]
+    n_inter = (q @ nst[..., None])[..., 0] * qdecay
+    # the state after the chunk
+    kdecay = torch.exp(total[..., None] - cum)  # from k to the chunk's end
+    kw = k * i_gate[..., None] * kdecay[..., None]  # (B, H, Ck, hd)
+    g = torch.exp(total)
+    Cnew = Cst * g[..., None, None] + kw.transpose(-1, -2) @ v
+    nnew = nst * g[..., None] + torch.sum(kw, dim=-2)
+    h = intra + inter
+    norm = torch.clamp_min(torch.abs(n_intra + n_inter), 1.0)[..., None]
+    return Cnew, nnew, h / norm
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar-memory block), block-diagonal recurrence over time
+# ---------------------------------------------------------------------------
+
+
+class SLSTM(nn.Module):
+    """The xLSTM scalar-memory mixer: input pre-activations ``x @ w_x``
+    ([i | f | z | o] blocks of width d), a block-diagonal recurrence ``r``
+    (H, hd, 4 hd) on h, and the stabilised exponential gating of the
+    xLSTM paper (eq. 15-17), stepped over time in float32 with the state
+    ``h, c, n, m`` (B, d) (``m`` starts at -1e9)."""
+
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        d, H = cfg.d_model, cfg.n_heads
+        hd = d // H
+        self.dt = dt = compute_dtype(cfg)
+        self.w_x = new_param((d, 4 * d), dt, device, trainable)  # i, f, z, o pre-acts
+        self.r = new_param((H, hd, 4 * hd), torch.float32, device, trainable)
+        self.b = new_param((4 * d,), torch.float32, device, trainable)
+        self.w_down = new_param((d, d), dt, device, trainable)
+
+    def init_(self, gen: torch.Generator) -> None:
+        d = self.cfg.d_model
+        normal_(self.w_x, gen, 0.02)
+        normal_(self.r, gen, 0.02)
+        self.b.zero_()
+        self.b[d:2 * d] = 3.0  # forget gate, open at init
+        normal_(self.w_down, gen, 0.02 / math.sqrt(2 * self.cfg.n_layers))
+
+    def _cell(self, xwb: torch.Tensor, state: Tuple[torch.Tensor, ...]):
+        """One step. xwb: (B, 4d) float32 input pre-activation with the bias
+        added; state: h, c, n, m (B, d)."""
+        h, c, n, m = state
+        B, d = h.shape
+        H = self.r.shape[0]
+        rec = torch.bmm(h.reshape(B, H, d // H).transpose(0, 1), self.r)  # (H, B, 4hd)
+        # per head [4 hd] laid end to end, then split into [i | f | z | o]
+        pre = xwb + rec.transpose(0, 1).reshape(B, 4 * d)
+        i_pre, f_pre, z_pre, o_pre = pre.split(d, dim=1)
+        lfm = F.logsigmoid(f_pre) + m
+        m_new = torch.maximum(lfm, i_pre)
+        i_g = torch.exp(i_pre - m_new)
+        f_g = torch.exp(lfm - m_new)
+        z_g = torch.tanh(z_pre)
+        o_g = torch.sigmoid(o_pre)
+        c_new = f_g * c + i_g * z_g
+        n_new = f_g * n + i_g
+        h_new = o_g * c_new / torch.clamp_min(n_new, 1.0)
+        return h_new, c_new, n_new, m_new
+
+    def forward(self, x: torch.Tensor, *, return_state: bool = False,
+                cache_len: Optional[int] = None):
+        """Full sequence from the initial state: one ``_cell`` step per
+        position, a loop in Python (the JAX ``lax.scan``); h stays float32
+        until the down-projection."""
+        xwb = (x @ self.w_x.to(self.dt)).float() + self.b  # (B, S, 4d)
+        state = self._state(x.shape[0])
+        hs = []
+        # one unbind, not S slices: its backward stacks the S gradients once,
+        # where each slice's would write a zero-filled (B, S, 4d) gradient
+        for xt in xwb.unbind(1):
+            state = self._cell(xt, state)
+            hs.append(state[0])
+        y = torch.stack(hs, dim=1).to(self.dt) @ self.w_down.to(self.dt)
+        if return_state:
+            return y, dict(zip("hcnm", state))
+        return y
+
+    def _state(self, batch: int) -> Tuple[torch.Tensor, ...]:
+        h, c, n = (torch.zeros((batch, self.cfg.d_model), dtype=torch.float32,
+                               device=self.r.device) for _ in range(3))
+        return h, c, n, torch.full_like(h, NEG_INF)
+
+    def cache_init(self, batch: int, max_len: int) -> Cache:
+        return dict(zip("hcnm", self._state(batch)))
+
+    def decode(self, x: torch.Tensor, state: Cache,
+               pos: int) -> Tuple[torch.Tensor, Cache]:
+        xwb = (x[:, 0] @ self.w_x.to(self.dt)).float() + self.b
+        new = self._cell(xwb, tuple(state[k] for k in "hcnm"))
+        out = (new[0].to(self.dt) @ self.w_down.to(self.dt))[:, None]
+        return out, dict(zip("hcnm", new))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Model assembly: the training loss, prefill and greedy decode.
 
 The port of ``repro.models.model`` for the layer kinds ``rglru``,
-``sliding`` and ``full`` with the ``swiglu`` FFN (recurrentgemma-2b,
-qwen2-1.5b, gemma3-4b):
+``sliding``, ``full``, ``mlstm`` and ``slstm``, with the ``swiglu`` FFN or
+none (recurrentgemma-2b, qwen2-1.5b, gemma3-4b; xlstm-350m, whose layers
+have no FFN):
 
     embed -> pattern units -> tail layers -> final RMSNorm -> tied unembedding
 
@@ -38,7 +39,8 @@ from .config import ArchConfig
 Cache = Dict[str, Any]
 
 #: layer kinds the port runs; the JAX package's others are not ported yet.
-KINDS = ("rglru", "sliding", "full")
+KINDS = ("rglru", "sliding", "full", "mlstm", "slstm")
+_MIXERS = {"rglru": L.RGLRU, "mlstm": L.MLSTM, "slstm": L.SLSTM}
 
 
 # ---------------------------------------------------------------------------
@@ -53,8 +55,10 @@ def layer_kinds(cfg: ArchConfig) -> Dict[str, List[str]]:
 
 
 def _ffn_kind(cfg: ArchConfig) -> str:
-    """The FFN of every layer: ``moe`` is refused by ``_check_supported``
-    (the JAX package's dense-prefix override of it is not ported)."""
+    """The FFN of every layer: ``swiglu``, or ``none`` when ``d_ff == 0``
+    (the xLSTM blocks carry their own projections); ``moe`` is refused by
+    ``_check_supported`` (the JAX package's dense-prefix override of it is
+    not ported)."""
     if cfg.ffn_kind == "moe":
         return "moe"
     return "swiglu" if cfg.d_ff > 0 else "none"
@@ -69,8 +73,8 @@ def _check_supported(cfg: ArchConfig) -> None:
     other = sorted(set(kinds["pattern"] + kinds["tail"]) - set(KINDS))
     if other:
         missing.append(f"layer kinds {other}")
-    if _ffn_kind(cfg) != "swiglu":
-        missing.append(f"FFN kind {_ffn_kind(cfg)!r}")
+    if _ffn_kind(cfg) == "moe":
+        missing.append("FFN kind 'moe'")
     if cfg.encoder_layers:
         missing.append("the encoder and cross-attention")
     if cfg.input_kind != "tokens":
@@ -91,9 +95,11 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 
 class Block(nn.Module):
-    """One layer: pre-norm mixer (RG-LRU, or attention over the whole prefix
-    or over ``cfg.window`` positions) and pre-norm SwiGLU, each added to
-    the residual stream."""
+    """One layer: pre-norm mixer (RG-LRU, mLSTM, sLSTM, or attention over
+    the whole prefix or over ``cfg.window`` positions) and, unless the FFN
+    kind is ``none``, pre-norm SwiGLU, each added to the residual stream.
+    A layer without an FFN has no ``norm2`` and no ``ffn``, as the JAX
+    ``_layer_init`` builds it."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None, trainable: bool = False):
         super().__init__()
@@ -101,25 +107,31 @@ class Block(nn.Module):
             raise ValueError(kind)
         self.kind = kind
         self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
-        if kind == "rglru":
-            self.mixer = L.RGLRU(cfg, device, trainable)
+        if kind in _MIXERS:
+            self.mixer = _MIXERS[kind](cfg, device, trainable)
         else:  # the window as the JAX _layer_apply passes it
             self.mixer = L.Attention(cfg, device, trainable,
                                      window=cfg.window if kind == "sliding" else None)
-        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
-        self.ffn = L.SwiGLU(cfg, device, trainable)
+        if _ffn_kind(cfg) == "swiglu":
+            self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+            self.ffn = L.SwiGLU(cfg, device, trainable)
+        else:
+            self.norm2 = self.ffn = None
 
     def init_(self, gen: torch.Generator) -> None:
         for m in (self.norm1, self.mixer, self.norm2, self.ffn):
-            m.init_(gen)
+            if m is not None:
+                m.init_(gen)
+
+    def _add_ffn(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.ffn is None else x + self.ffn(self.norm2(x))
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False,
                 cache_len: Optional[int] = None):
         out = self.mixer(self.norm1(x), return_state=return_state, cache_len=cache_len)
         if return_state:
             out, state = out
-        x = x + out
-        x = x + self.ffn(self.norm2(x))
+        x = self._add_ffn(x + out)
         return (x, state) if return_state else x
 
     def cache_init(self, batch: int, cache_len: int) -> L.Cache:
@@ -128,9 +140,7 @@ class Block(nn.Module):
     def decode(self, x: torch.Tensor, cache: L.Cache,
                pos: int) -> Tuple[torch.Tensor, L.Cache]:
         out, new = self.mixer.decode(self.norm1(x), cache, pos)
-        x = x + out
-        x = x + self.ffn(self.norm2(x))
-        return x, new
+        return self._add_ffn(x + out), new
 
 
 class Model(nn.Module):
@@ -326,7 +336,8 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
             cache_len: int) -> Tuple[Cache, torch.Tensor]:
     """Run the full prompt, returning (decode cache, last-position logits
     (B, 1, padded_vocab)). Every RG-LRU layer's scan is one call of
-    ``kernels.ops.rglru_scan``."""
+    ``kernels.ops.rglru_scan``; an xLSTM layer's state is its mixer's
+    after the last position."""
     x = _embed_inputs(model, batch)
     states = []
     for layer in model.layers:
@@ -340,8 +351,8 @@ def decode_step(model: Model, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
     """One decode step: tokens (B, 1) -> (new cache, logits (B, 1, V)). The
     attention layers' KV caches (prefixes and ring buffers) are updated in
-    place (the JAX package returns new arrays); the RG-LRU states are new
-    tensors."""
+    place (the JAX package returns new arrays); the RG-LRU and xLSTM
+    states are new tensors."""
     pos = cache["pos"]
     x = _embed_inputs(model, {"tokens": tokens})
     new_layers = []

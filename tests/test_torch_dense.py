@@ -475,7 +475,7 @@ def test_checkpoint_restores_across_packages(arch, direction, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("recurrentgemma-2b",))
+@pytest.mark.parametrize("arch", ARCHS + ("recurrentgemma-2b", "xlstm-350m"))
 def test_costs_match_jax(arch):
     """``models.costs`` is the JAX package's, number for number: the
     assigned shape cells and the train / prefill / decode cells of

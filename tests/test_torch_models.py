@@ -334,7 +334,7 @@ def test_blocked_attention_and_unported_archs_raise():
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("yi-9b")
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_smoke("xlstm-350m")
+        get_smoke("whisper-tiny")
 
 
 def test_serve_cli_runs_on_the_cpu():
