@@ -195,7 +195,35 @@ raises and the script exits non-zero:
     and by 6 x the model's real parameter count; one unit's step profiled
     and each of its layers' forward and backward timed alone;
 25. one float32 training step of xlstm-350m on the card against the CPU
-    at phase 23's cut depth, held as phase 21.
+    at phase 23's cut depth, held as phase 21;
+26. OEF-scheduled multi-tenant training through
+    ``repro_torch.launch.train.run_scheduled`` (the JAX launcher's
+    simulated TPU fleet, smoke models, 8 x 128): ``oef-coop`` over
+    qwen2-1.5b, gemma3-4b and xlstm-350m for 3 rounds, then ``oef-noncoop``
+    over recurrentgemma-2b and qwen2-1.5b for 2. The shares, grants and
+    steps equal ``schedule_rounds``' on the host, every loss is finite,
+    each wrapper's launches are exact (recurrentgemma-2b's steps x its
+    RG-LRU forward and backward launches a step, none for the others);
+    walls per round and tenant, steps/s;
+27. the chaos engine on the non-coop torch tier: ``standard_plan(0)``
+    merged into phase 5's 128-tenant trace, replayed on the card and on
+    the CPU with the engine on the ``torch`` chain (same decisions, same
+    fault summary; the CPU run's ladder, LP answers and degraded solves,
+    must be the plan's crashes and timeouts), then into phase 4's
+    1024-tenant trace (``until=1200``), traced with metrics: every planned
+    solver fault fires, the ladder is the CPU run's, ``waterfill_solve``
+    launches once per torch attempt that got past the wrapper and no other
+    kernel runs; ``obs.report`` reads the run's trace and metrics files
+    back and lists the ``resolve;solve`` and ``resolve;placement`` stages;
+28. the journal on the card, ``oef-coop``: phase 8's 256-tenant trace with
+    ``tests/test_chaos.py``'s trace-level chaos, replayed plain and
+    journaled (the same report), killed at the median of its distinct
+    event times and resumed by ``resume_scheduler(..., device="cuda")``:
+    the uninterrupted report bit for bit, and the ``pd_segment`` launches
+    of the killed and resumed halves, less the journal tail the resume
+    re-ran, add up to the uninterrupted run's;
+29. the same for ``oef-noncoop`` at phase 5's 128 tenants, with
+    ``waterfill_solve``.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
@@ -354,14 +382,11 @@ def call_ms(torch, fn, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
-def service_replay(n_tenants: int, scale: int, backend: str, device: str,
-                   until: float, record=None, tracer=None,
-                   policy: str = "oef-noncoop"):
-    """One replay as ``benchmarks/service_throughput.py`` builds it."""
-    from repro_torch import obs
-    from repro_torch.core import backends
+def service_trace(n_tenants: int, scale: int):
+    """The cluster and trace of ``benchmarks/service_throughput.py``:
+    ``n_tenants`` on 8 x ``scale`` devices of each of three types."""
     from repro_torch.core.types import ClusterSpec
-    from repro_torch.service import OnlineScheduler, synthetic_trace
+    from repro_torch.service import synthetic_trace
     from repro_torch.service.traces import default_job_types
 
     cluster = ClusterSpec(types=("rtx3070", "rtx3080", "rtx3090"),
@@ -370,6 +395,18 @@ def service_replay(n_tenants: int, scale: int, backend: str, device: str,
         n_tenants, job_types=default_job_types("paper"), cluster=cluster,
         duration_s=1800.0, mean_interarrival_s=1200.0, mean_work_s=1200.0,
         seed=0)
+    return cluster, events
+
+
+def service_replay(n_tenants: int, scale: int, backend: str, device: str,
+                   until: float, record=None, tracer=None,
+                   policy: str = "oef-noncoop"):
+    """One replay as ``benchmarks/service_throughput.py`` builds it."""
+    from repro_torch import obs
+    from repro_torch.core import backends
+    from repro_torch.service import OnlineScheduler
+
+    cluster, events = service_trace(n_tenants, scale)
     sched = OnlineScheduler(cluster, policy, min_resolve_interval_s=30.0,
                             solver_backend=backend, device=device)
 
@@ -971,14 +1008,7 @@ def coop_devices_phase(detail) -> None:
     a, b = reports["cpu"], reports["cuda"]
     check(set(b.solver_backends) == {"torch"} and b.fallback_count == 0,
           f"card replay backends {b.solver_backends}")
-    check((a.n_solves, a.jobs_finished, a.n_events)
-          == (b.n_solves, b.jobs_finished, b.n_events),
-          "card and CPU coop replays made different decisions")
-    check(abs(a.mean_jct_s - b.mean_jct_s) <= 1e-6 * max(a.mean_jct_s, 1.0),
-          "coop mean JCT differs")
-    d_tp = max(abs(a.tenant_throughput[t] - b.tenant_throughput[t])
-               for t in a.tenant_throughput)
-    check(d_tp <= 1e-6, f"coop tenant throughput differs by {d_tp:.3e}")
+    d_tp = same_decisions(a, b, "card and CPU coop replays")
     c = reports["numpy"]
     for what, x, y in (("solves", c.n_solves, b.n_solves),
                        ("jobs finished", c.jobs_finished, b.jobs_finished),
@@ -1064,6 +1094,7 @@ def rglru_phase(torch, rg, detail, dev="cuda") -> dict:
     # (shape, dtype, h0 = 0, misaligned views): the timed full-width shapes,
     # then the JAX kernel test's range and the TMA kernel's edges
     cases = [(shape, getattr(torch, dt), True, False) for _, shape, dt in RG_FULL]
+    cases.append((sched_rglru_shape(), f32, True, False))  # phase 26's tenant
     cases += [((1, 64, 32), f32, False, False), ((2, 128, 64), f32, False, False),
               ((3, 192, 128), f32, False, False), ((3, 256, 256), f32, False, False),
               ((2, 64, 96), f32, False, False), ((2, 1, 2560), f32, False, False),
@@ -1849,6 +1880,7 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
     T = RG_TILE
     # (shape, h0 = 0, misaligned views)
     cases = [((B, S, D), True, False),  # the training shape
+             (sched_rglru_shape(), True, False),  # phase 26's tenant
              ((1, 64, 32), False, False), ((2, 128, 64), False, False),
              ((3, 192, 128), False, False), ((3, 256, 256), False, False),
              ((1, 128, 2568), False, False), ((1, 130, 2564), False, False),
@@ -2185,6 +2217,412 @@ def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=25
     del cpu_model, card_model
 
 
+# ---------------------------------------------------------------------------
+# phases 26-29: scheduled training, the chaos engine and the journal
+# ---------------------------------------------------------------------------
+
+#: phase 26's two calls of ``launch.train.run_scheduled``: (scheduler,
+#: tenants, rounds); the first is the JAX launcher's defaults
+SCHED_RUNS = (("oef-coop", "qwen2-1.5b,gemma3-4b,xlstm-350m", 3),
+              ("oef-noncoop", "recurrentgemma-2b,qwen2-1.5b", 2))
+#: phase 26's sequence length and global batch (the JAX launcher's defaults)
+SCHED_SHAPE = (128, 8)
+#: phase 27's cells, (tenants, scale, until) as ``service_trace`` takes
+#: them: phase 4's full-size non-coop replay, and phase 5's 128 tenants,
+#: replayed on the card and on the CPU
+CHAOS_FULL = (1024, 128, 1200.0)
+CHAOS_SMALL = (128, 16, 7200.0)
+#: phases 28-29, (policy, tenants, scale, until): phase 8's coop replay and
+#: phase 5's 128-tenant non-coop one, journaled, killed at the median event
+#: time and resumed
+JOURNAL_CELLS = {28: ("oef-coop", 256, 32, 7200.0),
+                 29: ("oef-noncoop", 128, 16, 7200.0)}
+JOURNAL_SNAPSHOT_EVERY = 50
+
+
+def report_view(report) -> str:
+    """A report minus its two wall-clock latency fields, as repr (NaN !=
+    NaN under ==): the comparison of ``tests/test_chaos.py``'s ``_view``."""
+    import dataclasses
+
+    d = dataclasses.asdict(report)
+    d.pop("resolve_latency_ms_mean")
+    d.pop("resolve_latency_ms_p95")
+    return repr(d)
+
+
+def same_decisions(a, b, what: str) -> float:
+    """Two replays made the same decisions (phase 5's criteria): solves,
+    finished jobs and events equal, mean JCT within 1e-6 relative, each
+    tenant's throughput within 1e-6. Returns the largest throughput
+    difference."""
+    check((a.n_solves, a.jobs_finished, a.n_events)
+          == (b.n_solves, b.jobs_finished, b.n_events),
+          f"{what}: the replays made different decisions")
+    check(abs(a.mean_jct_s - b.mean_jct_s) <= 1e-6 * max(a.mean_jct_s, 1.0),
+          f"{what}: mean JCT differs")
+    d_tp = max(abs(a.tenant_throughput[t] - b.tenant_throughput[t])
+               for t in a.tenant_throughput)
+    check(d_tp <= 1e-6, f"{what}: tenant throughput differs by {d_tp:.3e}")
+    return d_tp
+
+
+def sched_rglru_shape() -> tuple:
+    """The (B, S, D) of the RG-LRU scans that phase 26's recurrentgemma-2b
+    tenant runs: the global batch, the sequence and the smoke config's
+    width (float32, from a zero state). Phases 10 and 15 hold both kernels
+    to their plain versions there."""
+    from repro_torch.configs import get_smoke
+
+    seq_len, batch = SCHED_SHAPE
+    return (batch, seq_len, get_smoke("recurrentgemma-2b").d_model)
+
+
+def rglru_step_launches(cfg) -> tuple:
+    """RG-LRU forward and backward launches of one train step of ``cfg``:
+    a forward per RG-LRU layer and again per layer of each unit that
+    ``remat="full"`` recomputes, a backward per layer."""
+    n_unit, n_all = rglru_layers(cfg)
+    return n_all + (n_unit if cfg.remat == "full" else 0), n_all
+
+
+def sched_train_phase(torch, np, detail, dev="cuda") -> dict:
+    """Phase 26: OEF-scheduled multi-tenant training through
+    ``launch.train.run_scheduled``, each tenant's smoke model on ``dev``.
+    Each tenant must take the steps of its grant (the schedule is
+    ``schedule_rounds``', numpy on the host, which
+    ``tests/test_torch_sched_train.py`` holds to the JAX package), every
+    loss be finite, and every wrapper's launches exact: the RG-LRU kernels'
+    for recurrentgemma-2b's steps, none for any other tenant.
+    Returns the RG-LRU (forward, backward) launches."""
+    from argparse import Namespace
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wrappers
+    from repro_torch.launch import train as train_cli
+
+    ws = wrappers()
+    seq_len, batch = SCHED_SHAPE
+    out = {}
+    rglru = dict.fromkeys(("rglru_scan", "rglru_scan_tma", "rglru_scan_backward",
+                           "rglru_scan_backward_tma"), 0)
+    for scheduler, tenants, rounds in SCHED_RUNS:
+        names = tenants.split(",")
+        args = Namespace(scheduler=scheduler, tenants=tenants, rounds=rounds,
+                         seq_len=seq_len, batch=batch, lr=3e-4, device=dev)
+        _zero_launches(ws)
+        rg.rglru_scan.launches_tma = rg.rglru_scan_backward.launches_tma = 0
+        t0 = time.perf_counter()
+        got = train_cli.run_scheduled(args)
+        wall = time.perf_counter() - t0
+        total = _launches(ws)
+        tma = (rg.rglru_scan.launches_tma, rg.rglru_scan_backward.launches_tma)
+        label = f"{scheduler} {tenants}"
+        check(len(got["rounds"]) == rounds == len(got["schedule"]["rounds"]),
+              f"{label}: {len(got['rounds'])} rounds")
+        want_total = _want(ws)
+        rec = []
+        for r, w in enumerate(got["schedule"]["rounds"]):
+            per = {}
+            for name in names:
+                t = got["rounds"][r]["tenants"][name]
+                steps = w["steps"][name]
+                check(len(t["losses"]) == steps
+                      and all(math.isfinite(x) for x in t["losses"]),
+                      f"{label}, round {r}, {name}: {len(t['losses'])} losses for "
+                      f"{steps} steps, or one not finite")
+                fwd, bwd = rglru_step_launches(get_smoke(name))
+                launches = _want(ws, rglru_scan=steps * fwd,
+                                 rglru_scan_backward=steps * bwd)
+                check(t["launches"] == launches,
+                      f"{label}, round {r}, {name}: launches {t['launches']}, "
+                      f"want {launches}")
+                for k, n in launches.items():
+                    want_total[k] += n
+                per[name] = {"steps": steps, "seconds": t["seconds"],
+                             "steps_per_s": steps / t["seconds"],
+                             "first_loss": t["losses"][0], "last_loss": t["losses"][-1]}
+            rec.append({"grants": np.asarray(w["grants"]).tolist(),
+                        "wall_s": got["rounds"][r]["wall_s"], "tenants": per})
+            log(f"[26] {label}, round {r}: wall {got['rounds'][r]['wall_s']:.2f} s; "
+                + "; ".join(f"{n} {p['steps']} steps {p['seconds']:.2f} s "
+                            f"({p['steps_per_s']:.2f} steps/s, loss "
+                            f"{p['last_loss']:.4f})" for n, p in per.items()))
+        check(total == want_total, f"{label}: launches {total}, want {want_total}")
+        n_steps = sum(p["steps"] for r in rec for p in r["tenants"].values())
+        for name, n in (("rglru_scan", total["rglru_scan"]), ("rglru_scan_tma", tma[0]),
+                        ("rglru_scan_backward", total["rglru_scan_backward"]),
+                        ("rglru_scan_backward_tma", tma[1])):
+            rglru[name] += n
+        out[label] = {"rounds": rec, "wall_s": wall, "steps": n_steps,
+                      "steps_per_s": n_steps / wall, "launches": total,
+                      "launches_tma": list(tma)}
+        log(f"    {label}: {n_steps} steps in {wall:.2f} s ({n_steps / wall:.2f} "
+            f"steps/s, trainers' build included), each tenant its granted "
+            f"steps, RG-LRU launches {total['rglru_scan']} forward "
+            f"({tma[0]} TMA), {total['rglru_scan_backward']} backward ({tma[1]} "
+            f"TMA), no other kernel")
+    detail["sched_train"] = out
+    return rglru
+
+
+def chaos_replay(n_tenants: int, scale: int, until: float, device: str, plan,
+                 tracer=None, sink=None):
+    """``service_trace``'s trace merged with ``plan`` by ``chaos_trace`` and
+    replayed on ``oef-noncoop``, ``backend="torch"`` on ``device``, with
+    the engine installed on that chain."""
+    from repro_torch import obs
+    from repro_torch.service import ChaosEngine, OnlineScheduler
+
+    cluster, base = service_trace(n_tenants, scale)
+    engine = ChaosEngine(plan, cluster)
+    events = engine.chaos_trace(base)
+    sched = OnlineScheduler(cluster, "oef-noncoop", min_resolve_interval_s=30.0,
+                            solver_backend="torch", device=device)
+    if tracer is not None:
+        obs.set_tracer(tracer)
+    if sink is not None:
+        obs.set_metrics(obs.MetricsRegistry(sink=sink))
+    t0 = time.perf_counter()
+    try:
+        with engine.installed(backend="torch"):
+            report = sched.run(events, until=until)
+    finally:
+        if tracer is not None:
+            obs.set_tracer(None)
+        if sink is not None:
+            obs.set_metrics(None)
+    return sched, report, engine, time.perf_counter() - t0
+
+
+def ladder(sched) -> dict:
+    """What the guardrail ladder made of a run's solver faults: the solves
+    that a fallback backend answered and the solves stamped degraded (a
+    reused solve runs no solver and is neither, though it carries its
+    predecessor's ``fallback_reason`` into the report's ``fallback_count``)."""
+    solved = [s for s in sched.metrics.solves if not s.reused]
+    return {"fallback_solves": sum(1 for s in solved if s.fallback_reason),
+            "degraded": sum(1 for s in solved if s.degraded)}
+
+
+def chaos_phase(np, detail, dev="cuda") -> int:
+    """Phase 27: the standard fault storm (``standard_plan(0)``) on the
+    non-coop torch tier. At 128 tenants the card and the CPU make the same
+    decisions and the same faults fire; the CPU run says what the ladder
+    makes of the plan (a transient fault retried, a crash or a timeout
+    answered by the LP and degraded). At full size every planned solver
+    fault fires, the ladder does the same, ``waterfill_solve`` is launched
+    once per torch attempt that got past the wrapper and no other kernel
+    runs; the run's trace and metrics files are read back by
+    ``obs.report``. Returns the fused solve's launches."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.kernels import wrappers
+    from repro_torch.obs.report import report_lines
+    from repro_torch.service import standard_plan
+
+    plan = standard_plan(seed=0)
+    kinds = [k for _, k in plan.solver_faults]
+    planned = {"fallback_solves": kinds.count("crash") + kinds.count("timeout")}
+    planned["degraded"] = planned["fallback_solves"]
+    ws = wrappers()
+    runs = {}
+    for label, device in (("cuda", dev), ("cpu", "cpu")):
+        sched, rep, engine, w = chaos_replay(*CHAOS_SMALL, device, plan)
+        runs[label] = (sched, rep, engine.summary())
+        log(f"[27] {CHAOS_SMALL[0]} tenants, standard_plan(0), {label:4s}: "
+            f"{rep.n_solves} solves, {rep.jobs_finished} jobs, {rep.n_events} "
+            f"events, wall {w:.1f} s, backends {rep.solver_backends}, "
+            f"{runs[label][2]['solver_faults_fired']} solver faults fired, "
+            f"ladder {ladder(sched)}")
+    (s_cpu, a, sum_cpu), (s_card, b, sum_card) = runs["cpu"], runs["cuda"]
+    d_tp = same_decisions(a, b, f"chaos at {CHAOS_SMALL[0]} tenants, card vs CPU")
+    check(sum_cpu == sum_card, f"chaos summaries differ: CPU {sum_cpu}, card {sum_card}")
+    derived = ladder(s_cpu)
+    check(derived == planned and a.degraded_solves == derived["degraded"],
+          f"the CPU run's ladder {derived} (report degraded {a.degraded_solves}), "
+          f"the plan's {planned}")
+    check(ladder(s_card) == derived, f"the card's ladder {ladder(s_card)}")
+
+    _zero_launches(ws)
+    with tempfile.TemporaryDirectory() as d:
+        tpath, mpath = os.path.join(d, "trace.json"), os.path.join(d, "metrics.jsonl")
+        tracer = obs.Tracer()
+        sink = obs.JsonlSink(mpath)
+        try:
+            sched, rep, engine, wall = chaos_replay(*CHAOS_FULL, dev, plan,
+                                                    tracer=tracer, sink=sink)
+        finally:
+            sink.close()
+        launches = _launches(ws)
+        tracer.save(tpath)
+        lines = report_lines([tpath, mpath])
+    summary = engine.summary()
+    fired = summary["solver_faults_fired"]
+    torch_attempts = summary["attempts"].get("oef-noncoop/torch", 0)
+    reached = torch_attempts - fired
+    got = ladder(sched)
+    log(f"    {CHAOS_FULL[0]} tenants / {3 * 8 * CHAOS_FULL[1]} devices, until "
+        f"{CHAOS_FULL[2]:g} s: {rep.n_solves} solves, {rep.n_events} events, wall "
+        f"{wall:.1f} s (traced, metrics on); {fired} solver faults fired "
+        f"({summary['stats']}), attempts {summary['attempts']}, ladder {got}, "
+        f"report fallback_count {rep.fallback_count}, degraded "
+        f"{rep.degraded_solves}, quarantines "
+        f"{sum(1 for e in rep.quarantine_events if e['action'] == 'quarantine')}, "
+        f"{launches['waterfill_solve']} fused-solve launches")
+    check(fired == len(plan.solver_faults),
+          f"{fired} solver faults fired, the plan has {len(plan.solver_faults)}")
+    check(got == derived and rep.degraded_solves == derived["degraded"],
+          f"ladder {got} (report degraded {rep.degraded_solves}), the CPU run's "
+          f"{derived}")
+    check(summary["attempts"].get("oef-noncoop/lp", 0) == derived["fallback_solves"],
+          f"LP attempts {summary['attempts']}")
+    check(launches == _want(ws, waterfill_solve=reached),
+          f"launches {launches}, want waterfill_solve {reached} ({torch_attempts} "
+          f"torch attempts less {fired} faults)")
+    text = "\n".join(lines)
+    stages = [p for p in ("resolve;solve", "resolve;placement") if p in text]
+    check(len(stages) == 2, f"obs.report lists {stages} of the resolve stages")
+    log(f"    obs.report read the run's trace and metrics back "
+        f"({len(lines)} lines, both resolve stages listed)")
+    detail["chaos"] = {
+        "small": {k: {"n_solves": r[1].n_solves, "jobs_finished": r[1].jobs_finished,
+                      "n_events": r[1].n_events, "summary": r[2],
+                      "ladder": ladder(r[0])} for k, r in runs.items()},
+        "small_throughput_diff": d_tp,
+        "full": {"n_solves": rep.n_solves, "n_events": rep.n_events,
+                 "jobs_finished": rep.jobs_finished, "wall_s": wall,
+                 "summary": summary, "ladder": got,
+                 "fallback_count": rep.fallback_count,
+                 "degraded_solves": rep.degraded_solves, "launches": launches,
+                 "resolve_latency_ms_mean": rep.resolve_latency_ms_mean,
+                 "resolve_latency_ms_p95": rep.resolve_latency_ms_p95},
+        "report_lines": lines[:60]}
+    return launches["waterfill_solve"]
+
+
+def journal_phase(np, detail, phase: int, dev="cuda") -> dict:
+    """Phases 28 and 29: a replay of ``JOURNAL_CELLS[phase]`` on the torch
+    tier over a trace with ``tests/test_chaos.py``'s chaos (storms and
+    corrupt profiles, no solver faults: those are the process's state, not
+    the trace's). The journaled run's report equals the plain run's; a run
+    killed at the median of the distinct event times and resumed by
+    ``resume_scheduler`` on
+    ``dev`` equals the uninterrupted journaled run bit for bit; each run
+    launches its fused kernel once a solve (non-coop) or once a PD segment
+    (coop) and no other, and the killed and resumed halves add up to the
+    whole, less the journal tail the resume re-ran. Returns the kernel's
+    launches in each run."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.core.torch_coop import SEG_ITERS
+    from repro_torch.kernels import wrappers
+    from repro_torch.service import (ChaosEngine, FaultPlan, Journal,
+                                     OnlineScheduler, resume_scheduler)
+
+    policy, n, scale, until = JOURNAL_CELLS[phase]
+    coop = policy == "oef-coop"
+    wrapper = "pd_segment" if coop else "waterfill_solve"
+    ws = wrappers()
+    plan = FaultPlan(seed=7, storms=3, storm_size=3, corrupt_profiles=3,
+                     solver_faults=())
+    cluster, base = service_trace(n, scale)
+    trace = ChaosEngine(plan, cluster).chaos_trace(base)
+    # the median of the distinct event times: over all events it would be
+    # t = 0, where every tenant joins and submits its first job
+    times = sorted({e.time for e in trace})
+    mid = times[len(times) // 2]
+
+    def solve_launches(solves) -> int:
+        solved = [s for s in solves if not s.reused]
+        return sum(s.pd_iters // SEG_ITERS for s in solved) if coop else len(solved)
+
+    def run(jdir=None, stop=until, tracer=None):
+        sched = OnlineScheduler(cluster, policy, min_resolve_interval_s=30.0,
+                                solver_backend="torch", device=dev)
+        journal = (Journal(jdir, snapshot_every=JOURNAL_SNAPSHOT_EVERY)
+                   if jdir else None)
+        _zero_launches(ws)
+        if tracer is not None:
+            obs.set_tracer(tracer)
+        t0 = time.perf_counter()
+        try:
+            report = sched.run(list(trace), until=stop, journal=journal)
+        finally:
+            if tracer is not None:
+                obs.set_tracer(None)
+            if journal is not None:
+                journal.close()
+        return sched, report, _launches(ws), time.perf_counter() - t0
+
+    tracer = obs.Tracer()
+    with tempfile.TemporaryDirectory() as d:
+        _, plain, l_plain, w_plain = run()
+        s_ref, ref, l_ref, w_ref = run(os.path.join(d, "ref"), tracer=tracer)
+        crash = os.path.join(d, "crash")
+        s_kill, killed, l_kill, w_kill = run(crash, stop=mid)
+        journal = Journal(crash, snapshot_every=JOURNAL_SNAPSHOT_EVERY)
+        snaps = journal.available_snapshots()
+        n_records = journal.n_recorded
+        n_snap = len(journal.load_snapshot(snaps[-1])["metrics"]["solves"])
+        _zero_launches(ws)
+        t0 = time.perf_counter()
+        resumed = resume_scheduler(crash, list(trace), until=until,
+                                   snapshot_every=JOURNAL_SNAPSHOT_EVERY, device=dev)
+        w_res = time.perf_counter() - t0
+        l_res = _launches(ws)
+    tail = solve_launches(s_kill.metrics.solves[n_snap:])
+    log(f"[{phase}] {n} tenants, {policy} on torch, {len(trace)} events (chaos: 3 "
+        f"storms, 3 corrupt profiles): plain {w_plain:.1f} s, journaled "
+        f"{w_ref:.1f} s ({ref.n_solves} solves, {l_ref[wrapper]} {wrapper} "
+        f"launches); killed at t={mid:g} s after {n_records} journaled events "
+        f"({w_kill:.1f} s, {l_kill[wrapper]} launches), {len(snaps)} snapshots, "
+        f"the last at {snaps[-1]} events ({n_snap} solves); resumed on {dev} in "
+        f"{w_res:.1f} s ({l_res[wrapper]} launches, {tail} of them re-running "
+        f"the journal tail)")
+    check(set(ref.solver_backends) == {"torch"} and ref.fallback_count == 0
+          and ref.degraded_solves == 0,
+          f"backends {ref.solver_backends}, fallbacks {ref.fallback_count}, "
+          f"degraded {ref.degraded_solves}")
+    check(report_view(plain) == report_view(ref),
+          "the journaled run's report differs from the plain run's")
+    check(report_view(resumed) == report_view(ref),
+          "the resumed run's report differs from the uninterrupted journaled run's")
+    check(len(snaps) >= 2 and snaps[0] == 0, f"snapshots {snaps}")
+    check(l_plain == l_ref == _want(ws, **{wrapper: solve_launches(s_ref.metrics.solves)}),
+          f"launches: plain {l_plain}, journaled {l_ref}")
+    check(l_kill == _want(ws, **{wrapper: solve_launches(s_kill.metrics.solves)}),
+          f"the killed run's launches {l_kill}")
+    check(l_res == _want(ws, **{wrapper: l_res[wrapper]})
+          and l_kill[wrapper] - tail + l_res[wrapper] == l_ref[wrapper],
+          f"killed {l_kill[wrapper]} - tail {tail} + resumed {l_res} != "
+          f"{l_ref[wrapper]}")
+    split = coop_breakdown(tracer, w_ref)
+    stats = tracer.flame_stats()
+    for name in ("journal/append", "journal/snapshot"):
+        split[name] = sum(st["total_s"] for path, st in stats.items()
+                          if path.split(";")[-1] == name)
+    log(f"    journaled == plain (the journaled run traced), resumed == "
+        f"uninterrupted bit for bit; {wrapper} launches {l_kill[wrapper]} - "
+        f"{tail} + {l_res[wrapper]} == {l_ref[wrapper]}; the journaled run's "
+        f"{w_ref:.1f} s: placement {split['placement_s']:.2f} s, solve "
+        f"{split['solve_s']:.2f} s (execute {split['execute_s']:.3f} s), journal "
+        f"append {split['journal/append']:.2f} s, snapshots "
+        f"{split['journal/snapshot']:.2f} s")
+    out = {"policy": policy, "tenants": n, "events": len(trace), "kill_at": mid,
+           "traced": split,
+           "n_recorded": n_records, "snapshots": len(snaps), "last_snapshot": snaps[-1],
+           "n_solves": ref.n_solves, "wall_s": {"plain": w_plain, "journaled": w_ref,
+                                                "killed": w_kill, "resumed": w_res},
+           "launches": {"journaled": l_ref[wrapper], "killed": l_kill[wrapper],
+                        "resumed": l_res[wrapper], "tail": tail}}
+    detail[f"journal_{phase}"] = out
+    return out["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2373,14 +2811,7 @@ def main() -> int:
     a, b = reports["cpu"], reports["cuda"]
     check(set(b.solver_backends) == {"torch"} and b.fallback_count == 0,
           f"card replay backends {b.solver_backends}")
-    check((a.n_solves, a.jobs_finished, a.n_events)
-          == (b.n_solves, b.jobs_finished, b.n_events),
-          "card and CPU torch replays made different decisions")
-    check(abs(a.mean_jct_s - b.mean_jct_s) <= 1e-6 * max(a.mean_jct_s, 1.0),
-          "mean JCT differs")
-    d_tp = max(abs(a.tenant_throughput[t] - b.tenant_throughput[t])
-               for t in a.tenant_throughput)
-    check(d_tp <= 1e-6, f"tenant throughput differs by {d_tp:.3e}")
+    d_tp = same_decisions(a, b, "card and CPU torch replays")
     c = reports["numpy"]
     for what, x, y in (("solves", c.n_solves, b.n_solves),
                        ("jobs finished", c.jobs_finished, b.jobs_finished),
@@ -2452,6 +2883,20 @@ def main() -> int:
     train_devices_phase(torch, rg, detail, 25, arch, n_layers, S)
     detail["xlstm_phases_s"] = time.perf_counter() - t0
     log(f"    phases 22-25 took {detail['xlstm_phases_s']:.1f} s")
+
+    # -- 26-29. scheduled training, the chaos engine, the journal ---------------
+    phase_s = {}
+    t0 = time.perf_counter()
+    sched_t = sched_train_phase(torch, np, detail)
+    phase_s[26] = time.perf_counter() - t0
+    chaos_launches = chaos_phase(np, detail)
+    phase_s[27] = time.perf_counter() - t0 - sum(phase_s.values())
+    journal_t = {}
+    for phase in (28, 29):
+        journal_t[phase] = journal_phase(np, detail, phase)
+        phase_s[phase] = time.perf_counter() - t0 - sum(phase_s.values())
+    detail["phases_26_29_s"] = phase_s
+    log("    phases 26-29 took " + ", ".join(f"{p}: {v:.1f} s" for p, v in phase_s.items()))
     detail["total_s"] = time.perf_counter() - t_all
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2470,6 +2915,10 @@ def main() -> int:
         "bound_ms": solve_t["bound_ms"],
         "bound_by": solve_t["bound_by"],
         "library_ms": solve_t["library_ms"],
+        "launches_in": "phase 4 (the count above), phase 27 (chaos at full size), "
+                       "phase 29 (the journaled non-coop replay, uninterrupted)",
+        "launches_by_phase": {"4": launches, "27": chaos_launches,
+                              "29": journal_t[29]},
     }, {
         "name": "waterfill_masses",
         "route": "cuda",
@@ -2496,6 +2945,9 @@ def main() -> int:
         "bound_ms": segment_t["bound_ms"],
         "bound_by": segment_t["bound_by"],
         "library_ms": segment_t["library_ms"],
+        "launches_in": "phase 8 (the count above), phase 28 (the journaled coop "
+                       "replay, uninterrupted)",
+        "launches_by_phase": {"8": segment_launches, "28": journal_t[28]},
     }, {
         "name": "envy_gaps",
         "route": "cuda",
@@ -2522,6 +2974,10 @@ def main() -> int:
         "bound_by": rg_t["bound_by"],
         "library_ms": rg_t["library_ms"],
         "launches_train": train["launches_tma"][0],
+        "launches_in": "phase 11 (the count above), phase 16 (launches_train), "
+                       "phase 26 (recurrentgemma-2b as a scheduled tenant)",
+        "launches_by_phase": {"11": rg_launches, "16": train["launches_tma"][0],
+                              "26": sched_t["rglru_scan_tma"]},
         "train_shape_ms": rg_t["shapes"]["train_fp32"]["tma"]["kernel_ms"],
     }, {
         "name": "rglru_scan",
@@ -2531,6 +2987,7 @@ def main() -> int:
         "launches": rg_launches - rg_tma,
         "launches_in": "phase 10: the direct route, for operands TMA cannot take; "
                        "the serve and train paths take the TMA kernel",
+        "launches_by_phase": {"26": sched_t["rglru_scan"] - sched_t["rglru_scan_tma"]},
         "max_abs_err": rg_t["max_abs_err"],
         "ms": rg_t["direct_ms"],
         "plain_ms": rg_t["plain_ms"],
@@ -2546,6 +3003,10 @@ def main() -> int:
         "replaces_note": "the backward of that scan, which the JAX model takes by "
                          "differentiating rglru_scan_ref (src/repro/models/layers.py:770)",
         "launches": train["launches_tma"][1],
+        "launches_in": "phase 16 (the count above), phase 26 (recurrentgemma-2b "
+                       "as a scheduled tenant)",
+        "launches_by_phase": {"16": train["launches_tma"][1],
+                              "26": sched_t["rglru_scan_backward_tma"]},
         "max_abs_err": rgb_t["max_abs_err"],
         "ms": rgb_t["kernel_ms"],
         "plain_ms": rgb_t["plain_ms"],
@@ -2562,6 +3023,8 @@ def main() -> int:
         "launches": train["launches"][1] - train["launches_tma"][1],
         "launches_in": "phase 15: the direct route, for operands TMA cannot take; "
                        "the train path takes the TMA kernel",
+        "launches_by_phase": {"26": sched_t["rglru_scan_backward"]
+                              - sched_t["rglru_scan_backward_tma"]},
         "max_abs_err": rgb_t["max_abs_err"],
         "ms": rgb_t["direct_ms"],
         "plain_ms": rgb_t["plain_ms"],

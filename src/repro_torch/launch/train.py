@@ -1,30 +1,58 @@
-"""Training launcher, single-job mode.
+"""Training launcher.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
-        --batch 2 --seq-len 2048 --steps 3
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
-        --batch 8 --seq-len 2048 --steps 3
-    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \
-        --smoke --device cpu --steps 3
-    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
-        --batch 8 --seq-len 2048 --steps 3
+Two modes, as ``repro.launch.train``:
 
-The port of ``repro.launch.train``'s single-job mode: the same flags and
-defaults, plus ``--device`` (default ``cuda``; it raises when torch sees no
-GPU). ``--arch`` is recurrentgemma-2b, qwen2-1.5b, gemma3-4b (which
-accumulates its gradients over ``microbatches=2``) or xlstm-350m. Weights come from a
-``torch.Generator`` seeded with the trainer's seed (0), data from the
-synthetic pipeline. It prints the parameter count, the steps, the first and
-last loss, steps/s and tokens/s (wall time of ``Trainer.run``, kernel
-builds and warm-up included), and the launches of every kernel wrapper
-(qwen2-1.5b, gemma3-4b and xlstm-350m launch none). ``--scheduler`` (the OEF-scheduled
-multi-tenant mode) and ``--mesh`` are not ported yet and raise.
+1. Single-job training (``--arch``) on one card:
+
+       PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
+           --batch 2 --seq-len 2048 --steps 3
+       PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+           --batch 8 --seq-len 2048 --steps 3
+       PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \
+           --smoke --device cpu --steps 3
+       PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
+           --batch 8 --seq-len 2048 --steps 3
+
+2. OEF-scheduled multi-tenant mode (``--scheduler``): the paper's control
+   plane drives several training jobs; each round the fair-share evaluator
+   (cooperative or non-cooperative OEF) re-allocates the heterogeneous
+   fleet and every tenant trains as many steps as its grant buys (see
+   ``repro_torch.examples.cluster_scheduler_e2e`` for the annotated
+   version):
+
+       PYTHONPATH=src python -m repro_torch.launch.train --scheduler oef-coop \
+           --tenants qwen2-1.5b,gemma3-4b,xlstm-350m --rounds 3
+       PYTHONPATH=src python -m repro_torch.launch.train --scheduler oef-noncoop \
+           --tenants recurrentgemma-2b,qwen2-1.5b --rounds 2 --device cpu
+
+The port of ``repro.launch.train``: the same flags and defaults, plus
+``--device`` (default ``cuda``; it raises when torch sees no GPU).
+``--arch`` is recurrentgemma-2b, qwen2-1.5b, gemma3-4b (which accumulates
+its gradients over ``microbatches=2``) or xlstm-350m, and so is each of
+``--tenants``. Weights come from a ``torch.Generator`` seeded with the
+trainer's seed (0), data from the synthetic pipeline. A single job prints
+the parameter count, the steps, the first and last loss, steps/s and
+tokens/s (wall time of ``Trainer.run``, kernel builds and warm-up
+included), and the launches of every kernel wrapper (qwen2-1.5b, gemma3-4b
+and xlstm-350m launch none). The scheduled mode keeps the JAX launcher's
+simulated TPU fleet and analytic profiles, so its allocations are the JAX
+package's exactly (:func:`schedule_rounds`); it prints each round's grants
+and each tenant's steps, loss, wall time and launches. ``--mesh`` is not
+ported yet and raises.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import tempfile
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+#: the JAX launcher's simulated fleet: four TPU generations, 24 devices.
+FLEET_TYPES = ("tpu-v5e", "tpu-v4", "tpu-v5p", "tpu-v6e")
+FLEET_M = (8, 8, 4, 4)
+DEFAULT_TENANTS = "qwen2-1.5b,gemma3-4b,xlstm-350m"
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -42,22 +70,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--mesh", type=str, default=None, help="not ported yet")
     # scheduler mode
     ap.add_argument("--scheduler", type=str, default=None,
-                    choices=["oef-coop", "oef-noncoop"], help="not ported yet")
-    ap.add_argument("--tenants", type=str, default="qwen2-1.5b,gemma3-4b,xlstm-350m")
+                    choices=["oef-coop", "oef-noncoop"])
+    ap.add_argument("--tenants", type=str, default=DEFAULT_TENANTS)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
-    if args.scheduler:
-        raise NotImplementedError(
-            "--scheduler (OEF-scheduled multi-tenant training) is not ported to "
-            "repro_torch yet (ROADMAP.md, Queue A item 5)")
     if args.mesh:
         raise NotImplementedError(
             "--mesh is not ported to repro_torch yet: it trains on one card "
             "(ROADMAP.md, Queue A item 8)")
+    if args.scheduler:
+        run_scheduled(args)
+        return
     if not args.arch:
-        ap.error("--arch required")
+        ap.error("--arch or --scheduler required")
     run_single(args)
 
 
@@ -90,6 +117,118 @@ def run_single(args) -> dict:
     after = launch_counts()
     print("kernel launches: " + ", ".join(f"{k} {after[k] - before[k]}" for k in after))
     return out
+
+
+def schedule_rounds(names: Sequence[str], scheduler: str, *, rounds: int,
+                    seq_len: int, batch: int) -> Dict[str, object]:
+    """The allocations of the scheduled mode, without training.
+
+    Each tenant's profile comes from the ``ProfilingAgent`` over the
+    analytic costs of its smoke config (``models.costs.model_flops`` of a
+    ``(seq_len, batch)`` cell per sequence, 3 x ``param_bytes``), as the
+    JAX launcher builds it. Each round ``evaluate_tenants`` solves the fleet
+    on the default backend chain (numpy water-filling or the LP, as in
+    JAX), one ``RoundingPlacer`` carried across rounds rounds the shares to
+    whole devices, and a tenant's steps are ``max(1, int(speedup . grant))``.
+
+    Returns ``{"speedups": {name: [..]}, "rounds": [{"shares", "grants",
+    "steps"}, ...]}``: fractional shares (n, k) float64, integer grants
+    (n, k) and the steps by tenant name.
+    """
+    from ..configs import get_smoke
+    from ..core import ClusterSpec, ProfilingAgent, Tenant, WorkloadCost, oef
+    from ..core.placement import RoundingPlacer
+    from ..models.config import ShapeCell
+    from ..models.costs import model_flops, param_bytes
+
+    cluster = ClusterSpec(types=FLEET_TYPES, m=FLEET_M)
+    agent = ProfilingAgent()
+    cell = ShapeCell("sched", "train", seq_len, batch)
+    tenants = []
+    for name in names:
+        cfg = get_smoke(name)
+        cost = WorkloadCost(name=name, flops=model_flops(cfg, cell) / batch,
+                            hbm_bytes=float(param_bytes(cfg)) * 3)
+        tenants.append(Tenant(name=name, job_types=(agent.profile(cost),)))
+    placer = RoundingPlacer(len(tenants), cluster.m)
+    mode = "cooperative" if scheduler == "oef-coop" else "noncooperative"
+    out: List[Dict[str, object]] = []
+    for _ in range(rounds):
+        ta = oef.evaluate_tenants(tenants, cluster, mode=mode)
+        real = placer.round_shares(ta.X)
+        steps = {}
+        for ti, tenant in enumerate(tenants):
+            units = float(np.dot(np.asarray(tenant.job_types[0].speedup), real[ti]))
+            steps[tenant.name] = max(1, int(units))
+        out.append({"shares": ta.X, "grants": real, "steps": steps})
+    return {"speedups": {t.name: list(t.job_types[0].speedup) for t in tenants},
+            "rounds": out}
+
+
+def run_scheduled(args) -> Dict[str, object]:
+    """Train ``--tenants`` under ``--scheduler`` for ``--rounds`` rounds on
+    ``--device``: each round, each tenant's ``Trainer`` (its smoke config,
+    ``--seq-len`` x ``--batch``) runs the steps :func:`schedule_rounds`
+    grants it. Returns the schedule and, per round, each tenant's steps,
+    losses, wall seconds (``Trainer.run``, ending in the last loss read) and
+    kernel launches by wrapper, and the round's wall seconds. The tenants'
+    checkpoints go to one temporary directory, removed when the run ends."""
+    from ..core.torch_solve import resolve_device
+
+    device = resolve_device(args.device)
+    names = [n.strip() for n in args.tenants.split(",")]
+    plan = schedule_rounds(names, args.scheduler, rounds=args.rounds,
+                           seq_len=args.seq_len, batch=args.batch)
+    with tempfile.TemporaryDirectory(prefix="oef-sched-") as ckpt_root:
+        return _train_scheduled(args, names, plan, device, ckpt_root)
+
+
+def _train_scheduled(args, names, plan, device, ckpt_root) -> Dict[str, object]:
+    """``run_scheduled``'s rounds, each tenant checkpointing under
+    ``ckpt_root``."""
+    from ..configs import get_smoke
+    from ..kernels import launch_counts
+    from ..obs.clock import wall
+    from ..runtime import Trainer, TrainerConfig
+
+    trainers = {}
+    for name in names:
+        trainers[name] = Trainer(get_smoke(name), TrainerConfig(
+            seq_len=args.seq_len, global_batch=args.batch, peak_lr=args.lr,
+            total_steps=10_000,
+            ckpt_dir=os.path.join(ckpt_root, name), ckpt_every=20),
+            device=device)
+        print(f"tenant {name}: speedups "
+              f"{np.round(np.asarray(plan['speedups'][name]), 3)}")
+    rounds = []
+    for rnd, sched in enumerate(plan["rounds"]):
+        print(f"\nround {rnd}: grants\n{sched['grants']}")
+        t0 = wall()
+        per = {}
+        for name in names:
+            steps = sched["steps"][name]
+            k0 = launch_counts()
+            out = trainers[name].run(steps)
+            k1 = launch_counts()
+            per[name] = {"steps": steps, "losses": out["losses"],
+                         "seconds": out["seconds"],
+                         "launches": {k: k1[k] - k0[k] for k in k0}}
+            print(f"  {name}: {steps} steps, loss -> {out['losses'][-1]:.4f}, "
+                  f"{out['seconds']:.2f} s ({steps / max(out['seconds'], 1e-9):.2f} "
+                  f"steps/s)")
+        rounds.append({"tenants": per, "wall_s": wall() - t0})
+        print(f"  round wall {rounds[-1]['wall_s']:.2f} s")
+    total = sum(r["wall_s"] for r in rounds)
+    n_steps = sum(t["steps"] for r in rounds for t in r["tenants"].values())
+    counts = {}
+    for r in rounds:
+        for t in r["tenants"].values():
+            for k, n in t["launches"].items():
+                counts[k] = counts.get(k, 0) + n
+    print(f"done: {n_steps} steps in {total:.2f} s ({n_steps / max(total, 1e-9):.2f} "
+          f"steps/s) on {device}; kernel launches: "
+          + ", ".join(f"{k} {n}" for k, n in counts.items()))
+    return {"schedule": plan, "rounds": rounds}
 
 
 if __name__ == "__main__":

@@ -1,14 +1,14 @@
 """repro_torch.obs — deterministic tracing + streaming metrics for the control plane.
 
-Two pieces, copied from the JAX package with their schemas unchanged (see
+Three pieces, copied from the JAX package with their schemas unchanged (see
 ``docs/observability.md``):
 
   - :mod:`repro_torch.obs.trace` — process-global span tracer (sim-time + wall
     time), Chrome ``trace_event`` export and a text flamegraph;
   - :mod:`repro_torch.obs.metrics` — typed counters/gauges/histograms sampled
-    periodically into JSONL.
-
-The offline reader, ``python -m repro.obs report``, reads both files.
+    periodically into JSONL;
+  - :mod:`repro_torch.obs.report` / ``python -m repro_torch.obs report`` — the
+    offline reader (per-stage latency breakdown, fairness-over-time table).
 
 Layering rule: ``repro_torch.service`` and ``repro_torch.core`` import
 ``repro_torch.obs``, never the reverse — this package is stdlib+numpy only (no

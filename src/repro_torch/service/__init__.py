@@ -17,14 +17,18 @@ Modules:
     (``core.oef.solve_incremental`` / ``core.baselines.solve_incremental``),
     placement via ``core.placement.RoundingPlacer``;
   - metrics   — per-tenant throughput / JCT / queue delay, re-solve latency,
-    and fairness-property telemetry emitted as JSON.
-
-The JAX package's chaos engine (``faults``) and crash-recovery journal
-(``journal``) are not ported yet.
+    and fairness-property telemetry emitted as JSON;
+  - faults    — seeded chaos engine: fault plans compiled into event streams
+    and a solver-fault wrapper on the chain the service dispatches
+    (docs/robustness.md);
+  - journal   — write-ahead event journal + state snapshots for bit-exact
+    crash recovery of a killed scheduler.
 
 CLI:  ``python -m repro_torch.service [--device cuda] [--replay trace.csv]``
 """
 from .events import Event, EventKind, EventQueue  # noqa: F401
+from .faults import ChaosEngine, FaultPlan, standard_plan  # noqa: F401
+from .journal import Journal, recover_scheduler, resume_scheduler  # noqa: F401
 from .metrics import MetricsCollector, ServiceReport  # noqa: F401
 from .scheduler import OnlineScheduler, ServiceJob, ServiceTenant  # noqa: F401
 from .traces import (  # noqa: F401

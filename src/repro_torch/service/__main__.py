@@ -12,12 +12,18 @@ the torch primal–dual tier the same way:
     PYTHONPATH=src python -m repro_torch.service --replay trace.csv --policy gavel
     PYTHONPATH=src python -m repro_torch.service --emit-trace trace.csv --tenants 8
     PYTHONPATH=src python -m repro_torch.service --trace t.json --metrics m.jsonl
+    PYTHONPATH=src python -m repro_torch.service --chaos --journal j/ --until 3600
 
 Exit code 0 on a completed replay; the JSON report goes to stdout (or
 ``--out``). ``--trace``/``--metrics`` write observability artifacts (Chrome
 trace JSON for Perfetto, metrics JSONL) readable via
-``python -m repro.obs report`` — see docs/observability.md. ``--device
-cuda`` (the default) raises when torch sees no GPU.
+``python -m repro_torch.obs report`` — see docs/observability.md.
+``--chaos`` merges the standard seeded fault storm into the trace and puts
+the solver-fault wrapper on the ``--backend`` chain (so with ``torch``
+every planned fault fires on the torch tier); its summary goes to stderr.
+``--journal DIR`` journals the run; a directory that already holds
+snapshots resumes it. ``--device cuda`` (the default) raises when torch
+sees no GPU, for a resumed run too.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import sys
 
 from .. import obs
 from ..core import backends
+from .faults import ChaosEngine, standard_plan
+from .journal import Journal, recover_scheduler
 from .scheduler import OnlineScheduler, SERVICE_POLICIES
 from .traces import (
     default_cluster,
@@ -65,10 +73,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--audit-every", type=int, default=10,
                     help="fairness-property audit every Nth solve (0 = off)")
     ap.add_argument("--chaos", action="store_true",
-                    help="not available yet: the chaos engine is not ported")
+                    help="inject the standard seeded fault storm (host-burst "
+                         "storms, corrupt profiles, solver faults on the "
+                         "--backend chain; see "
+                         "repro_torch.service.faults.standard_plan)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed for the chaos fault plan (with --chaos)")
     ap.add_argument("--journal", type=str, default=None,
-                    help="not available yet: the crash-recovery journal is "
-                         "not ported")
+                    help="journal directory: write-ahead event log + periodic "
+                         "state snapshots; if it already holds a journal, the "
+                         "run resumes from the latest snapshot (crash recovery)")
+    ap.add_argument("--snapshot-every", type=int, default=50,
+                    help="snapshot the full scheduler state every N journaled "
+                         "events (with --journal)")
     ap.add_argument("--no-guardrails", action="store_true",
                     help="disable the robustness layer (solver escalation "
                          "ladder, retries, profile quarantine)")
@@ -91,10 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.chaos or args.journal:
-        ap.error("--chaos and --journal need the chaos engine and the journal "
-                 "(service/faults.py, service/journal.py), which the torch "
-                 "port does not have yet; use python -m repro.service for them")
     cluster = default_cluster(args.cluster)
     if args.replay:
         events = read_trace_csv(args.replay)
@@ -109,22 +122,41 @@ def main(argv=None) -> int:
             host_failures_per_hour=args.host_failures_per_hour,
             seed=args.seed,
         )
+    engine = None
+    if args.chaos:
+        engine = ChaosEngine(standard_plan(seed=args.chaos_seed), cluster)
+        events = engine.chaos_trace(events)
     if args.emit_trace:
         write_trace_csv(events, args.emit_trace)
         print(f"wrote {len(events)} events -> {args.emit_trace}", file=sys.stderr)
         return 0
-    try:
-        sched = OnlineScheduler(
-            cluster,
-            args.policy,
-            min_resolve_interval_s=args.resolve_interval,
-            audit_every=args.audit_every,
-            solver_backend=args.backend,
-            guardrails=not args.no_guardrails,
-            device=args.device,
-        )
-    except ValueError as e:
-        ap.error(str(e))
+    journal = None
+    sched = None
+    if args.journal:
+        if Journal(args.journal,
+                   snapshot_every=args.snapshot_every).available_snapshots():
+            sched, journal, n_applied = recover_scheduler(
+                args.journal, snapshot_every=args.snapshot_every,
+                device=args.device)
+            tail = journal.events(journal.n_applied)
+            events = list(tail) + list(events)[n_applied:]
+            print(f"recovered from {args.journal}: {n_applied} events "
+                  f"journaled, replaying {len(tail)}-event tail", file=sys.stderr)
+        else:
+            journal = Journal(args.journal, snapshot_every=args.snapshot_every)
+    if sched is None:
+        try:
+            sched = OnlineScheduler(
+                cluster,
+                args.policy,
+                min_resolve_interval_s=args.resolve_interval,
+                audit_every=args.audit_every,
+                solver_backend=args.backend,
+                guardrails=not args.no_guardrails,
+                device=args.device,
+            )
+        except ValueError as e:
+            ap.error(str(e))
     tracer = None
     if args.trace:
         tracer = obs.Tracer()
@@ -134,13 +166,21 @@ def main(argv=None) -> int:
         sink = obs.JsonlSink(args.metrics)
         obs.set_metrics(obs.MetricsRegistry(sink=sink))
     try:
-        report = sched.run(events, until=args.until)
+        if engine is not None:
+            # the chain the scheduler dispatches: a resumed run's comes from
+            # its snapshot
+            with engine.installed(backend=sched.solver_backend):
+                report = sched.run(events, until=args.until, journal=journal)
+        else:
+            report = sched.run(events, until=args.until, journal=journal)
     finally:
         if tracer is not None:
             obs.set_tracer(None)
         if sink is not None:
             obs.set_metrics(None)
             sink.close()
+        if journal is not None:
+            journal.close()
     if tracer is not None:
         tracer.save(args.trace)
         print(f"trace -> {args.trace} ({len(tracer.spans)} spans, "
@@ -168,6 +208,8 @@ def main(argv=None) -> int:
         f"({reasons}) | degraded={report.degraded_solves} "
         f"quarantines={quarantines} anomalies={sum(report.anomalies.values())}",
         file=sys.stderr)
+    if engine is not None:
+        print(f"chaos: {engine.summary()}", file=sys.stderr)
     return 0
 
 

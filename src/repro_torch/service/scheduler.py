@@ -46,7 +46,7 @@ from ..obs import trace as obs_trace
 from ..core.placement import JobRequest, RoundingPlacer
 from ..core.simulator import SimTenant
 from ..core.types import Allocation, ClusterSpec, JobTypeProfile, Tenant
-from .events import Event, EventKind, EventQueue
+from .events import Event, EventKind, EventQueue, TRACE_KINDS
 from .metrics import MetricsCollector, ServiceReport, SolveRecord
 
 Array = np.ndarray
@@ -226,11 +226,25 @@ class OnlineScheduler:
     # ------------------------------------------------------------------
     # main loop
     # ------------------------------------------------------------------
-    def run(self, events: Sequence[Event], *,
-            until: Optional[float] = None) -> ServiceReport:
+    def run(self, events: Sequence[Event], *, until: Optional[float] = None,
+            journal=None) -> ServiceReport:
         """Replay ``events`` (stopping the clock at ``until`` if given) and
-        return the run's report."""
+        return the run's report.
+
+        ``journal`` (a :class:`repro_torch.service.journal.Journal`) makes the
+        run crash-safe: every external event is journaled *before* it is
+        applied (write-ahead) and full-state snapshots land every
+        ``snapshot_every`` events, so :func:`repro_torch.service.journal.resume_scheduler`
+        can replay a killed run to its bit-exact pre-crash state."""
         queue = EventQueue(events)
+        if journal is not None:
+            # Recovered internal events (predicted finishes, deferred RESOLVE
+            # timers) are pushed *after* every external so they sort behind
+            # same-time externals — exactly where their original (higher)
+            # sequence numbers placed them in the pre-crash queue.
+            for ev in journal.take_restored_internals():
+                queue.push(ev)
+            journal.ensure_initial(self, queue)
         tracer = obs_trace.get_tracer()
         if tracer is not None:
             tracer.set_sim_clock(lambda: self._clock)
@@ -249,6 +263,9 @@ class OnlineScheduler:
                     self._advance(until)
                     self._clock = until
                     break
+                external = ev.kind in TRACE_KINDS
+                if journal is not None and external:
+                    journal.record(ev)  # write-ahead: journal, then apply
                 self._advance(ev.time)
                 self._clock = max(self._clock, ev.time)
                 if tracer is None:
@@ -273,6 +290,8 @@ class OnlineScheduler:
                         self._handle(ev, queue)
                     finally:
                         _end(tok)
+                if journal is not None and external:
+                    journal.maybe_snapshot(self, queue)
         finally:
             if tracer is not None:
                 tracer.set_sim_clock(None)

@@ -58,7 +58,10 @@ print(json.dumps({"modules": names, "bad": bad}))
     assert "repro_torch.kernels.ref" in out["modules"]
     for name in ("optim.optimizers", "data.pipeline", "checkpoint.manager",
                  "runtime.trainstep", "runtime.trainer", "launch.train",
-                 "models.costs", "configs.qwen2_1_5b", "configs.gemma3_4b"):
+                 "models.costs", "configs.qwen2_1_5b", "configs.gemma3_4b",
+                 "core.elastic", "service.faults", "service.journal", "obs.report",
+                 "obs.__main__", "examples.cluster_scheduler_e2e",
+                 "examples.serve_decode"):
         assert f"repro_torch.{name}" in out["modules"]
 
 

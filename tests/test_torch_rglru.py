@@ -263,9 +263,9 @@ def test_chip_smoke_phase_10_rehearses_on_the_cpu(monkeypatch):
                                         ("prefill_bf16", (3, 40, 64), "bfloat16")))
     detail = {}
     out = cs.rglru_phase(torch, rg, detail, dev="cpu")
-    # 23 cases: 18 the TMA kernel takes (each also run on the direct one),
+    # 24 cases: 19 the TMA kernel takes (each also run on the direct one),
     # 5 only the direct one takes (D 97, bf16 D 2564 and 100, two views)
-    assert out["cases"] == 23 and out["runs"] == {"tma": 18, "direct": 23}
+    assert out["cases"] == 24 and out["runs"] == {"tma": 19, "direct": 24}
     assert out["max_abs_err"] == 0.0 and out["bound_by"] == "bytes"
     assert sorted(detail["rglru_sass"]) == [
         "rglru_scan_backward_tma_kernel", "rglru_scan_kernel<float>",
