@@ -95,15 +95,18 @@ raises and the script exits non-zero:
     decode, finite logits, and
     a second run repeats the tokens and logits bit for bit; prefill and
     decode rates, the kernel's share of prefill, peak memory and the top
-    device operations of one prefill and of 8 decode steps
-    (``torch.profiler``), with the device's idle share of each; no launch
+    device operations of one prefill and of ``DECODE_PROFILE_STEPS``
+    decode steps (``torch.profiler``), with the device's idle share of
+    each; no launch
     of any other kernel (the model calls neither flash attention nor the
     cross-entropy);
 12. the card against the CPU at full width and cut depth (``n_layers=5``:
     one unit and the two-layer tail), B = 1, S = 256, the same weights
-    built on the CPU and copied to the card: in float32 the prefill logits
-    within 1e-4 of max |logits| and 8 greedy decode tokens identical; in
-    bf16 within 5e-2;
+    (drawn on the card and copied to the CPU; the card-vs-CPU phases all
+    do so): in float32 the prefill logits, the final-normed hidden state
+    at every position (the full logits' input) and the last decode step's
+    logits within 1e-4 of their max and 8 greedy decode tokens identical;
+    in bf16 within 5e-2;
 13. hold the flash attention kernels against their plain version through
     ``ops.flash_attention`` / ``flash_attention_gqa`` (1e-5 in float32,
     2e-2 in bf16), one launch per op call on the path the routing rule
@@ -117,12 +120,14 @@ raises and the script exits non-zero:
     input that requires grad raises in flash attention and the
     cross-entropy, and grad flows through the RG-LRU scan's forward and
     backward kernels; the tensor-core kernel's SASS holds HGMMA and
-    UTMALDG (ptxas's registers and spills printed); then two full-width
-    shapes (recurrentgemma-2b's and gemma3-4b's local attention) held to
-    the plain version and to ``scaled_dot_product_attention``, a second
-    launch identical bit for bit, and timed: device time by CUDA-graph
-    replay, op call, TFLOP/s, share of the bound, plain version, SDPA; and
-    the float32 path at recurrentgemma-2b's shape;
+    UTMALDG (ptxas's registers and spills printed); then the full-width
+    shapes of ``FLASH_FULL`` (the three that phase 30's yi-9b and gemma3-4b
+    blocked prefills give the kernel, recurrentgemma-2b's and gemma3-4b's
+    at S 4096) held to the plain version and to
+    ``scaled_dot_product_attention``, a second launch identical bit for
+    bit, and timed: device time by CUDA-graph replay, op call, TFLOP/s,
+    share of the bound, plain version, SDPA; and the float32 path at
+    yi-9b's shape;
 14. the same for the cross-entropy kernel through ``ops.softmax_xent``
     (atol 1e-4, rtol 1e-5): the JAX kernel tests' shapes, a prime V,
     N = 1, V = 1, unaligned float32 rows, int64 targets, targets -1 and V (the loss is the logsumexp);
@@ -164,8 +169,8 @@ raises and the script exits non-zero:
     the JAX model runs no Pallas kernel on these paths), finite logits of
     shape (8, 1, padded_vocab), tokens in [0, vocab), a second run
     identical bit for bit; prefill and decode rates, peak memory and the
-    top device operations of one profiled prefill and of 8 profiled decode
-    steps, with the device's idle share of each;
+    top device operations of one profiled prefill and of the profiled
+    decode steps, with the device's idle share of each;
 19. each of them on the card against the CPU at full width and cut depth
     (qwen2 ``n_layers=3``, S 256; gemma3 ``n_layers=8``, one unit and a
     two-layer sliding tail, S 1152 past its 1024 window), B 1, 8 greedy
@@ -190,8 +195,9 @@ raises and the script exits non-zero:
 23. xlstm-350m on the card against the CPU as phase 19, at
     ``n_layers=4`` (two units) and S 600 (three mLSTM chunks, the last
     padded);
-24. train xlstm-350m at full width and depth as phase 20, 8 x 2048,
-    ``logits_chunk=512``; the model-FLOP share by ``costs.model_flops``
+24. train xlstm-350m at full width as phase 20, 8 x 2048,
+    ``logits_chunk=512``, at ``XLSTM_TRAIN_LAYERS`` (two units, a cut for
+    the time limit); the model-FLOP share by ``costs.model_flops``
     and by 6 x the model's real parameter count; one unit's step profiled
     and each of its layers' forward and backward timed alone;
 25. one float32 training step of xlstm-350m on the card against the CPU
@@ -223,7 +229,30 @@ raises and the script exits non-zero:
     of the killed and resumed halves, less the journal tail the resume
     re-ran, add up to the uninterrupted run's;
 29. the same for ``oef-noncoop`` at phase 5's 128 tenants, with
-    ``waterfill_solve``.
+    ``waterfill_solve``;
+30. serve yi-9b (untied head), phi4-mini-3.8b and phi-3-vision-4.2b
+    (prompts as embeddings, decode on tokens) at full width and depth as
+    phase 18 (no launch), then yi-9b and gemma3-4b on
+    ``attention_impl="blocked"``: one flash launch per layer a prefill
+    (48 / 34), all on the tensor-core kernel, none in decode; yi-9b's
+    blocked prefill logits, and its final-normed hidden state at every
+    position, within 5e-2 of their max in its xla run on the same weights,
+    the two prefill times a pair; gemma3-4b's sliding layers hand the
+    kernel their window;
+31. card against CPU as phase 19 (``CUT_30``): yi-9b and phi-3-vision at
+    3 layers, S 256, yi-9b blocked with tiles 64 / 128, gemma3-4b blocked
+    at 8 layers, S 1152, tiles 128 / 384; the card runs the flash kernel,
+    the CPU its twin. On the two blocked cases a planted fault (every flash
+    call made non-causal) must fail the every-position check, and so must
+    gemma3-4b's sliding layers without their window in float32 (in bf16
+    that change is below rounding, and is recorded);
+32. train at full width as phase 20 (``TRAIN_30``, 2 x 2048, 3 AdamW
+    steps, ``logits_chunk=512``): phi4-mini-3.8b at full depth, yi-9b at
+    12 of 48 layers on both attention paths, phi-3-vision at 16 of 32 on
+    the pipeline's embeddings; no kernel launch (the blocked path trains
+    on its twin);
+33. one float32 training step card against CPU as phase 21
+    (``TRAIN_CUT_30``: yi-9b blocked, with the head, and phi-3-vision).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
@@ -233,6 +262,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -282,7 +312,9 @@ SERVE_SHAPE = (8, 2048, 32)
 #: fit at 8), qwen2-1.5b at the JAX launcher's default batch of 8, gemma3-4b
 #: at 2 (its fp32 state alone is 62 GB), split into its ``microbatches=2``
 TRAIN_CELLS = {"recurrentgemma-2b": TRAIN_SHAPE[:2], "qwen2-1.5b": (8, 2048),
-               "gemma3-4b": (2, 2048), "xlstm-350m": (8, 2048)}
+               "gemma3-4b": (2, 2048), "xlstm-350m": (8, 2048),
+               "phi4-mini-3.8b": (2, 2048), "yi-9b": (2, 2048),
+               "phi-3-vision-4.2b": (2, 2048)}
 #: the dense-attention tenants of phases 18-21, each with its cut depth and
 #: prompt length for the card-vs-CPU phases 19 and 21 (qwen2-1.5b: 3 full
 #: layers; gemma3-4b: one (5 sliding + 1 full) unit and a two-layer sliding
@@ -298,6 +330,41 @@ XLSTM_PROFILE_LAYERS = 2
 #: a first train step longer than this is a warm-up, and the second run's
 #: first step is the one timed (phase 24)
 LONG_STEP_S = 60.0
+#: xlstm-350m's depth in phase 24's training: two of its 12 units. Its full
+#: depth's host-bound steps (43-79 s each, 3-4 of them) did not leave the
+#: script room for phases 30-33 within its time limit
+XLSTM_TRAIN_LAYERS = 4
+#: decode steps in the profiled decode of phases 11, 18, 22 and 30 (8 before
+#: phases 30-33: the profiler took 13-25 s to record 8 full-width steps)
+DECODE_PROFILE_STEPS = 2
+#: phases 30-33: yi-9b (an untied head), phi4-mini-3.8b and phi-3-vision-4.2b
+#: (prompts and training inputs as embeddings), and the blocked attention
+#: path, which serves on the flash kernel
+ARCHS_30 = ("yi-9b", "phi4-mini-3.8b", "phi-3-vision-4.2b")
+#: the blocked path at cut depth (phases 31, 33): tiles of 64 / 128 over
+#: yi-9b's 256 positions (several tiles, skipped pairs), and of 128 / 384
+#: over gemma3-4b's 1152, past its 1024 window
+BLOCKED_YI = {"attention_impl": "blocked", "attention_block_q": 64,
+              "attention_block_kv": 128}
+BLOCKED_GEMMA = {"attention_impl": "blocked", "attention_block_q": 128,
+                 "attention_block_kv": 384}
+#: phase 31, card against CPU at full width: (arch, n_layers, prompt length,
+#: overrides). Cut for the script's time limit: phi4-mini-3.8b, whose path
+#: (full attention, tied table) is yi-9b's xla path without the head
+CUT_30 = (("yi-9b", 3, 256, {}), ("phi-3-vision-4.2b", 3, 256, {}),
+          ("yi-9b", 3, 256, BLOCKED_YI), ("gemma3-4b", 8, 1152, BLOCKED_GEMMA))
+#: phase 33, one float32 train step card against CPU: the head and the twin
+#: on the card (yi-9b blocked) and the embeddings input (phi-3-vision). Cut
+#: for the time limit: yi-9b xla (the same head; phase 21 holds the xla
+#: attention's gradients), phi4-mini and gemma3-4b blocked (the twin's window
+#: is held to JAX on the CPU, and on the card the twin is yi-9b's code)
+TRAIN_CUT_30 = (CUT_30[2], CUT_30[1])
+#: phase 32's training cells, 2 x 2048: (arch, n_layers (None: all),
+#: overrides). phi4-mini at full depth (~61 GB of fp32 state); yi-9b at 12
+#: of 48 layers (8.8 B params x 16 bytes would not fit one card; 12 layers
+#: are ~2.6 B, ~42 GB), on both attention paths; phi-3-vision at 16 of 32
+TRAIN_30 = (("phi4-mini-3.8b", None, {}), ("yi-9b", 12, {}),
+            ("yi-9b", 12, {"attention_impl": "blocked"}), ("phi-3-vision-4.2b", 16, {}))
 #: card vs CPU, one float32 training step at cut depth (phase 17): the loss,
 #: relative; each gradient leaf, as a share of its max |g| (float32 products
 #: and reductions summed in other orders on the two devices, through five
@@ -1210,6 +1277,28 @@ def rglru_layers(cfg) -> tuple:
     return n_unit, n_unit + cfg.tail_kinds.count("rglru")
 
 
+def layer_kinds_of(cfg) -> list:
+    """Each layer's kind, in order: ``Model.kinds`` of ``cfg`` built on the
+    meta device."""
+    from repro_torch.models import Model
+
+    return Model(cfg, device="meta").kinds
+
+
+def blocked_layers(cfg) -> int:
+    """The flash launches of one prefill of ``cfg``: one per attention layer
+    on the blocked path, none on the xla path."""
+    if cfg.attention_impl != "blocked":
+        return 0
+    return sum(kind in ("full", "sliding") for kind in layer_kinds_of(cfg))
+
+
+def run_key(arch: str, cfg) -> str:
+    """A run's name in ``detail``: ``arch``, with ``_blocked`` on the
+    blocked attention path."""
+    return f"{arch}_blocked" if cfg.attention_impl == "blocked" else arch
+
+
 def _zero_launches(wrappers) -> None:
     for w in wrappers.values():
         w.launches = 0
@@ -1255,29 +1344,35 @@ def layer_seconds(torch, model, x, train: bool = False) -> dict:
 
 
 def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=None,
-                profile_layers=None) -> int:
-    """Phases 11, 18 and 22: serve ``arch`` at full width through
-    ``launch.serve.generate``, ``SERVE_SHAPE`` prompts and greedy steps;
+                profile_layers=None, logits_out=None) -> int:
+    """Phases 11, 18, 22 and 30: serve ``arch`` at full width through
+    ``launch.serve.generate``, ``SERVE_SHAPE`` prompts and greedy steps
+    (an ``embeddings`` model's prompts as ``prompt_batch`` builds them);
     returns the RG-LRU launches of the main run. Each RG-LRU layer launches
-    the TMA kernel once a prefill, a decode step launches nothing, and no
-    other kernel wrapper may launch (qwen2-1.5b, gemma3-4b and xlstm-350m
-    launch none: the grouped-einsum attention and the xLSTM mixers are
-    plain torch, as the JAX model's). With ``profile_layers`` the profiled
-    prefill is that of the first ``profile_layers`` layers' model (same
-    width and prompts), timed untraced for its idle share, with each of its
-    layers timed alone."""
+    the TMA kernel once a prefill, the blocked path one flash launch per
+    attention layer a prefill, all on the tensor-core kernel, a decode step
+    launches nothing, and no other kernel wrapper may launch (the
+    grouped-einsum attention and the xLSTM mixers are plain torch, as the
+    JAX model's). With ``profile_layers`` the profiled prefill is that of
+    the first ``profile_layers`` layers' model (same width and prompts),
+    timed untraced for its idle share, with each of its layers timed alone.
+    ``logits_out`` receives the main run's prefill logits on the host and
+    its final-normed hidden state at every position on the card."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wrappers
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import generate, prompt_batch
     from repro_torch.models import decode_step, init_params, prefill
 
     _tf32_off(torch)
     full = cfg is None
     cfg = get_config(arch) if full else cfg
+    flash = blocked_layers(cfg)
     B, S, steps = SERVE_SHAPE
     ws = wrappers()
+    t_start = time.perf_counter()
     torch.cuda.empty_cache()
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -1289,22 +1384,31 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
         warm_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         _zero_launches(ws)
-        rg.rglru_scan.launches_tma = 0
-        toks, rec = generate(model, prompts, steps)
+        rg.rglru_scan.launches_tma = fa.flash_attention.launches_tc = 0
+        hidden = {}
+        with (prefill_hidden(model, hidden, "hidden") if logits_out is not None
+              else contextlib.nullcontext()):
+            toks, rec = generate(model, prompts, steps)
         launches, launches_tma = rg.rglru_scan.launches, rg.rglru_scan.launches_tma
-        want = _want(ws, rglru_scan=n_rglru)
+        flash_tc = fa.flash_attention.launches_tc
+        want = _want(ws, rglru_scan=n_rglru, flash_attention=flash)
         check(not full or arch != ARCH or n_rglru == 18,
               f"{n_rglru} RG-LRU layers at full width")
         check(_launches(ws) == want and rec["prefill_kernel_launches"] == want
               and not any(rec["decode_kernel_launches"].values()),
               f"{arch}: kernel launches in prefill {rec['prefill_kernel_launches']}, "
               f"in decode {rec['decode_kernel_launches']}; want {n_rglru} RG-LRU "
-              f"launches a prefill and no other launch")
+              f"and {flash} flash launches a prefill and no other launch")
         check(launches_tma == launches,
               f"{launches - launches_tma} of {launches} RG-LRU launches "
               f"took the direct route, not the TMA one")
+        check(flash_tc == flash, f"{flash_tc} of {flash} flash launches took the "
+              f"tensor-core kernel")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         logits = rec["logits"]
+        if logits_out is not None:
+            logits_out["prefill"] = logits.float().cpu()
+            logits_out["hidden"] = hidden["hidden"]
         for key in ("logits", "last_logits"):
             check(tuple(rec[key].shape) == (B, 1, cfg.padded_vocab)
                   and bool(torch.isfinite(rec[key]).all()),
@@ -1316,6 +1420,7 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
         check(torch.equal(toks, toks2) and torch.equal(logits, rec2["logits"])
               and torch.equal(rec["last_logits"], rec2["last_logits"]),
               f"{arch}: a second run with the same weights and prompts differs")
+        batch = prompt_batch(model, prompts)
         prof_model, prof_s, per_layer = model, None, None
         if profile_layers:
             prof_model = init_params(dataclasses.replace(cfg, n_layers=profile_layers),
@@ -1323,135 +1428,259 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
             for _ in range(2):  # warm-up, then timed
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                prefill(prof_model, {"tokens": prompts}, S + steps + 8)
+                prefill(prof_model, batch, S + steps + 8)
                 torch.cuda.synchronize()
                 prof_s = time.perf_counter() - t0
             x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
                 getattr(torch, cfg.dtype))
             per_layer = layer_seconds(torch, prof_model, x)
             del x
-        kernels = device_kernels(
-            torch, lambda: prefill(prof_model, {"tokens": prompts}, S + steps + 8))
+        t_prof = time.perf_counter()
+        kernels = device_kernels(torch, lambda: prefill(prof_model, batch, S + steps + 8))
+        t_prof = time.perf_counter() - t_prof
         del prof_model
-        cache, _ = prefill(model, {"tokens": prompts}, S + steps + 8)
+        cache, _ = prefill(model, batch, S + steps + 8)
 
-        def decode_8():  # 8 greedy steps from the prompts' cache
+        def decode_steps():  # greedy steps from the prompts' cache
             c, tok = cache, toks[:, :1]
-            for _ in range(8):
+            for _ in range(DECODE_PROFILE_STEPS):
                 c, lg = decode_step(model, c, tok)
                 tok = torch.argmax(lg[:, -1, :cfg.vocab], dim=-1)[:, None]
 
-        decode_kernels = device_kernels(torch, decode_8)
-        del cache
+        t_dec = time.perf_counter()
+        decode_kernels = device_kernels(torch, decode_steps)
+        t_dec = time.perf_counter() - t_dec
+        del cache, batch
     del model
     prefill_s = min(rec["prefill_s"], rec2["prefill_s"])
     decode_s = min(rec["decode_s"], rec2["decode_s"])
     busy_ms = sum(k["device_ms"] for k in kernels)
     rglru_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_tma_kernel" in k["op"])
-    decode_busy_ms = sum(k["device_ms"] for k in decode_kernels) / 8
+    flash_ms = sum(k["device_ms"] for k in kernels if "flash" in k["op"])
+    decode_busy_ms = sum(k["device_ms"] for k in decode_kernels) / DECODE_PROFILE_STEPS
     out = {"batch": B, "prompt_len": S, "decode_steps": steps, "warmup_s": warm_s,
            "prefill_s": [rec["prefill_s"], rec2["prefill_s"]],
            "decode_s": [rec["decode_s"], rec2["decode_s"]],
            "prefill_tok_s": B * S / prefill_s, "decode_tok_s": B * steps / decode_s,
            "prefill_launches": rec["prefill_launches"], "launches_tma": launches_tma,
+           "flash_launches_tc": flash_tc,
            "decode_launches": rec["decode_launches"],
            "kernel_launches": rec["prefill_kernel_launches"],
            "kernel_share_of_prefill": n_rglru * rg_t["kernel_ms"] / 1e3 / prefill_s,
            "profiled_prefill": {"layers": profile_layers or cfg.n_layers,
                                 "untraced_s": prof_s or prefill_s,
                                 "device_busy_ms": busy_ms, "rglru_scan_ms": rglru_ms,
+                                "flash_ms": flash_ms,
                                 "idle_share": 1.0 - busy_ms / 1e3 / (prof_s or prefill_s),
                                 "layer_s": per_layer, "top_kernels": kernels[:15]},
            "profiled_decode_step": {
                "device_busy_ms": decode_busy_ms,
                "idle_share": 1.0 - decode_busy_ms / 1e3 / (decode_s / steps),
-               "top_kernels": [dict(k, device_ms=k["device_ms"] / 8, count=k["count"] / 8)
+               "top_kernels": [dict(k, device_ms=k["device_ms"] / DECODE_PROFILE_STEPS,
+                                    count=k["count"] / DECODE_PROFILE_STEPS)
                                for k in decode_kernels[:10]]},
-           "peak_memory_gb": peak_gb, "first_tokens": toks[:, :8].tolist()}
-    detail[f"serve_{arch}"] = out
+           "peak_memory_gb": peak_gb, "first_tokens": toks[:, :8].tolist(),
+           "profile_s": {"prefill": t_prof, "decode": t_dec},
+           "seconds": time.perf_counter() - t_start}
+    detail[f"serve_{run_key(arch, cfg)}"] = out
     launched = {k: n for k, n in want.items() if n} or "none"
-    log(f"[{phase}] {cfg.name} at full width, {B} x {S} prompt + {steps} greedy steps "
+    log(f"[{phase}] {cfg.name} ({cfg.attention_impl} attention) at full width, {B} x {S} "
+        f"prompt + {steps} greedy steps "
         f"(warm-up {warm_s:.2f} s): prefill {prefill_s:.3f} s "
         f"({out['prefill_tok_s']:.0f} tok/s), decode {decode_s:.3f} s "
         f"({out['decode_tok_s']:.1f} tok/s); kernel launches a prefill {launched} "
         f"(RG-LRU all on the TMA kernel, {out['kernel_share_of_prefill']:.2%} of "
-        f"prefill), none in decode and of {', '.join(k for k in ws if not want[k])}; "
+        f"prefill; flash {flash_tc} on the tensor-core kernel), none in decode and "
+        f"of {', '.join(k for k in ws if not want[k])}; "
         f"logits {tuple(logits.shape)} finite; peak {peak_gb:.2f} GB; second run "
         f"identical")
     pp = out["profiled_prefill"]
     log(f"    one profiled prefill of {pp['layers']} layers: kernels busy {busy_ms:.1f} ms "
         f"(device idle {pp['idle_share']:.1%} of the untraced prefill, "
-        f"{pp['untraced_s']:.3f} s), rglru_scan {rglru_ms:.2f} ms; top: " + "; ".join(
+        f"{pp['untraced_s']:.3f} s), rglru_scan {rglru_ms:.2f} ms, flash {flash_ms:.2f} "
+        f"ms; top: " + "; ".join(
             f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:4]))
     if per_layer:
-        kinds = list(cfg.pattern) * cfg.n_units + list(cfg.tail_kinds)
+        kinds = layer_kinds_of(cfg)
         n_of = {k: kinds.count(k) for k in per_layer}
         log("    one layer alone, forward: " + "; ".join(
             f"{k} {t['forward_s'] * 1e3:.1f} ms (x{n_of[k]} layers = "
             f"{n_of[k] * t['forward_s'] / prefill_s:.1%} of the prefill)"
             for k, t in per_layer.items()))
     dec = out["profiled_decode_step"]
-    log(f"    8 profiled decode steps: kernels busy {decode_busy_ms:.2f} ms a step (device "
+    log(f"    {DECODE_PROFILE_STEPS} profiled decode steps: kernels busy {decode_busy_ms:.2f} ms a step (device "
         f"idle {dec['idle_share']:.1%} of an untraced step, {decode_s / steps * 1e3:.2f} "
         f"ms); top: " + "; ".join(f"{k['op'][:48]} {k['device_ms']:.2f} ms x{k['count']:g}"
                                    for k in dec["top_kernels"][:4]))
     return launches
 
 
+@contextlib.contextmanager
+def prefill_hidden(model, out: dict, key: str):
+    """While open, ``out[key]`` receives the final-normed output of
+    ``model``'s last layer at every position (the input of the logits) from
+    the first full-sequence call, a prefill; decode steps do not call the
+    layer's forward."""
+    def hook(_layer, _args, output):
+        if key not in out:
+            x = output[0] if isinstance(output, tuple) else output
+            out[key] = model.final_norm(x)
+
+    handle = model.layers[-1].register_forward_hook(hook)
+    try:
+        yield out
+    finally:
+        handle.remove()
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@contextlib.contextmanager
+def planted_noncausal(model):
+    """A planted fault for phase 31's control: every flash call of the
+    blocked path made non-causal (rows see later keys; the last row sees
+    the same keys as before)."""
+    from repro_torch.kernels import ops
+
+    real = ops.flash_attention_gqa
+    ops.flash_attention_gqa = lambda q, k, v, **kw: real(q, k, v, **dict(kw, causal=False))
+    try:
+        yield
+    finally:
+        ops.flash_attention_gqa = real
+
+
+@contextlib.contextmanager
+def planted_no_window(model):
+    """A planted fault for phase 31's control: the sliding layers attend
+    to every earlier position (their window dropped)."""
+    sliding = [layer.mixer for layer in model.layers if layer.kind == "sliding"]
+    windows = [m.window for m in sliding]
+    for m in sliding:
+        m.window = None
+    try:
+        yield
+    finally:
+        for m, w in zip(sliding, windows):
+            m.window = w
+
+
+def decode_on(model, prompts, toks, cache_len: int):
+    """The logits of the last of ``generate``'s decode steps when ``model``
+    is fed the tokens ``toks`` (B, steps + 1) after prefilling ``prompts``
+    (the last token of ``toks`` is an output and is not fed)."""
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import decode_step, prefill
+
+    cache, logits = prefill(model, prompt_batch(model, prompts), cache_len)
+    for i in range(toks.shape[1] - 1):
+        cache, logits = decode_step(model, cache, toks[:, i:i + 1])
+    return logits
+
+
 def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev="cuda",
-                  cfg_of=None) -> None:
-    """Phases 12 and 19: ``arch`` on the card against the CPU at full width
-    and cut depth, B 1, ``S`` prompt tokens and 8 greedy steps, the same
-    weights built on the CPU and copied to the card, in float32 and bf16;
-    one RG-LRU launch per RG-LRU layer and no other kernel on the card."""
+                  cfg_of=None, controls=()) -> None:
+    """Phases 12, 19, 23 and 31: ``arch`` on the card against the CPU at
+    full width and cut depth, B 1, ``S`` prompt tokens and 8 greedy steps,
+    the same weights (drawn on the card, where a billion normals take
+    milliseconds and not the host's ~10 s, and copied to the CPU), in
+    float32 and bf16: the prefill's last-position logits, the final-normed
+    hidden state at every position (the full logits' input: a fault in an
+    earlier row shows there, not only through later layers) and the last
+    decode step's logits; one RG-LRU launch per RG-LRU layer, one flash
+    launch per attention layer on the blocked path (the CPU runs its twin)
+    and no other kernel on the card. Each of ``controls`` ((name, planted
+    fault as a context manager on the card's model, the dtypes it is gated
+    in)) reruns the card's prefill with the fault planted and holds it to
+    the same every-position check, which it must fail where it is gated."""
     import copy
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import wrappers
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import init_params
+    from repro_torch.launch.serve import generate, prompt_batch
+    from repro_torch.models import init_params, prefill
 
     cfg_of = cfg_of or (lambda dtype: get_config(arch, n_layers=n_layers, dtype=dtype))
     B, steps = 1, 8
     ws = wrappers()
     out = {}
     for dtype, tol in (("float32", CARD_CPU_F32), ("bfloat16", CARD_CPU_BF16)):
+        t0 = time.perf_counter()
         cfg = cfg_of(dtype)
         with torch.inference_mode():
-            g = torch.Generator(device="cpu").manual_seed(phase)
-            cpu_model = init_params(cfg, g)
-            card_model = copy.deepcopy(cpu_model).to(dev)
-            prompts = torch.randint(2, cfg.vocab, (B, S), generator=g)
+            card_model = init_params(cfg, torch.Generator(device=dev).manual_seed(phase))
+            cpu_model = copy.deepcopy(card_model).cpu()
+            prompts = torch.randint(2, cfg.vocab, (B, S),
+                                    generator=torch.Generator().manual_seed(phase))
+            hidden = {}
             _zero_launches(ws)
-            toks_card, rec = generate(card_model, prompts.to(dev), steps)
+            with prefill_hidden(card_model, hidden, "card"):
+                toks_card, rec = generate(card_model, prompts.to(dev), steps)
             card_launches = _launches(ws)
-            toks_cpu, rec_cpu = generate(cpu_model, prompts, steps)
+            with prefill_hidden(cpu_model, hidden, "cpu"):
+                toks_cpu, rec_cpu = generate(cpu_model, prompts, steps)
+            same = torch.equal(toks_card.cpu(), toks_cpu)
+            # in bf16 a greedy step may pick another token at a near-tie, after
+            # which the two sides decode different inputs: the CPU's last
+            # logits are then taken on the card's tokens
+            last_cpu = rec_cpu["last_logits"] if same else decode_on(
+                cpu_model, prompts, toks_card.cpu(), S + steps + 8)
+            planted = {}
+            for name, plant, _gated in controls:
+                got = {}
+                with plant(card_model), prefill_hidden(card_model, got, "card"):
+                    _, logits = prefill(card_model, prompt_batch(card_model, prompts.to(dev)),
+                                        S + steps + 8)
+                planted[name] = {
+                    "rel_err_all_positions": rel_err(got["card"].cpu(), hidden["cpu"]),
+                    "rel_err_last_position": rel_err(logits.cpu(), rec_cpu["logits"])}
         errs = []
-        for key in ("logits", "last_logits"):
-            a, b = rec[key].float().cpu(), rec_cpu[key].float()
+        for key, a, b in (("logits", rec["logits"], rec_cpu["logits"]),
+                          ("hidden", hidden["card"], hidden["cpu"]),
+                          ("last_logits", rec["last_logits"], last_cpu)):
+            a = a.cpu()
             check(bool(torch.isfinite(a).all()), f"{arch} {dtype}: card {key} not finite")
-            errs.append(float((a - b).abs().max() / b.abs().max()))
-        err, err_dec = errs
-        same = torch.equal(toks_card.cpu(), toks_cpu)
-        n_rglru = rglru_layers(cfg)[1]
-        check(card_launches == _want(ws, rglru_scan=n_rglru),
+            errs.append(rel_err(a, b))
+        err, err_all, err_dec = errs
+        n_rglru, flash = rglru_layers(cfg)[1], blocked_layers(cfg)
+        check(card_launches == _want(ws, rglru_scan=n_rglru, flash_attention=flash),
               f"{arch} {dtype}: kernel launches {card_launches}, want {n_rglru} RG-LRU "
-              f"launches and no other")
+              f"and {flash} flash launches and no other")
         check(err <= tol, f"{arch} {dtype}: card vs CPU prefill logits {err:.3e} > {tol:g}")
+        check(err_all <= tol, f"{arch} {dtype}: card vs CPU prefill hidden state at every "
+              f"position {err_all:.3e} > {tol:g}")
         check(err_dec <= tol, f"{arch} {dtype}: card vs CPU logits of the last decode "
               f"step {err_dec:.3e} > {tol:g}")
+        for name, _plant, gated in controls:
+            check(dtype not in gated or planted[name]["rel_err_all_positions"] > tol,
+                  f"{arch} {dtype}: the planted fault {name!r} passes the every-position "
+                  f"check ({planted[name]['rel_err_all_positions']:.3e} <= {tol:g})")
         if dtype == "float32":
             check(same, f"{arch} float32: card tokens {toks_card.tolist()} vs CPU "
                   f"{toks_cpu.tolist()}")
-        out[dtype] = {"rel_err": err, "rel_err_last_decode": err_dec,
-                      "tokens_equal": same, "launches": n_rglru,
-                      "card_tokens": toks_card.tolist(), "cpu_tokens": toks_cpu.tolist()}
-        log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} ({', '.join(card_model.kinds)}) "
-            f"{dtype}, {B} x {S} + {steps} steps: card vs CPU logits, prefill {err:.3e}, "
-            f"last decode step {err_dec:.3e} (<= {tol:g}); greedy tokens "
-            f"{'identical' if same else 'differ'}; {n_rglru} kernel launches, all RG-LRU")
+        out[dtype] = {"rel_err": err, "rel_err_all_positions": err_all,
+                      "rel_err_last_decode": err_dec, "planted": planted,
+                      "tokens_equal": same, "last_decode_on_card_tokens": not same,
+                      "launches": n_rglru, "flash_launches": flash,
+                      "card_tokens": toks_card.tolist(), "cpu_tokens": toks_cpu.tolist(),
+                      "seconds": time.perf_counter() - t0}
+        log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} ({', '.join(card_model.kinds)}; "
+            f"{cfg.attention_impl} attention) {dtype}, {B} x {S} + {steps} steps: card vs "
+            f"CPU logits, prefill {err:.3e}, hidden state at every position {err_all:.3e}, "
+            f"last decode step {err_dec:.3e} (<= {tol:g}); "
+            f"greedy tokens {'identical' if same else 'differ: the CPU decoded the card tokens'}"
+            f"; kernel launches: RG-LRU {n_rglru}, flash {flash}, no other "
+            f"({out[dtype]['seconds']:.1f} s)")
+        for name, ctl in planted.items():
+            log(f"    planted fault {name!r} on the card: hidden state at every position "
+                f"{ctl['rel_err_all_positions']:.3e}, last-position logits "
+                f"{ctl['rel_err_last_position']:.3e} (tolerance {tol:g})")
         del cpu_model, card_model
-    detail[f"card_vs_cpu_{arch}"] = out
+    detail[f"card_vs_cpu_{run_key(arch, cfg)}"] = out
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
@@ -1465,11 +1694,19 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 
 
 #: full-width attention shapes of phase 13: (label, B, Hq, Hkv, S, D,
-#: causal, window). recurrentgemma-2b's sliding layer at the serve cell's
-#: prefill (configs/recurrentgemma_2b.py: 10 query heads, 1 KV head of 256,
-#: window 2048), and gemma3-4b's local layer (the JAX package's
-#: configs/gemma3_4b.py: 8 query heads, 4 KV heads of 256, window 1024).
-FLASH_FULL = (("flash_rgemma2b_b8_s2048", 8, 10, 1, 2048, 256, True, 2048),
+#: causal, window). First the three that phase 30's blocked prefills (8
+#: prompts of 2048) give the kernel: yi-9b's layers (configs/yi_9b.py: 32
+#: query heads, 4 KV heads of 128), whose times the kernels line reports
+#: and where the float32 path is timed, and gemma3-4b's sliding (window
+#: 1024) and full layers (configs/gemma3_4b.py: 8 query heads, 4 KV heads
+#: of 256). Then recurrentgemma-2b's sliding layer at its serve cell (10
+#: query heads, 1 KV head of 256, window 2048) and gemma3-4b's sliding
+#: layer at B 4, S 4096, which no model path runs (kept as earlier
+#: measurements' shapes).
+FLASH_FULL = (("flash_yi9b_b8_s2048", 8, 32, 4, 2048, 128, True, None),
+              ("flash_gemma3_4b_b8_s2048_w1024", 8, 8, 4, 2048, 256, True, 1024),
+              ("flash_gemma3_4b_b8_s2048_full", 8, 8, 4, 2048, 256, True, None),
+              ("flash_rgemma2b_b8_s2048", 8, 10, 1, 2048, 256, True, 2048),
               ("flash_gemma3_4b_b4_s4096_w1024", 4, 8, 4, 4096, 256, True, 1024))
 
 
@@ -1544,7 +1781,9 @@ def flash_phase(torch, fa, detail, dev="cuda") -> dict:
     call on the path ``_path_for`` names (bf16 with D % 8 == 0 and aligned
     operands on the tensor-core kernel, the rest on the CUDA-core one), the
     grad guard of the three workload wrappers, the tensor-core kernel's
-    SASS, and the times at two full-width shapes."""
+    SASS, and each ``FLASH_FULL`` shape held to the plain version and SDPA
+    and timed. Returns the first shape's numbers (yi-9b's) and, as
+    ``max_abs_err``, the worst of the full-width shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
@@ -1748,13 +1987,14 @@ def flash_phase(torch, fa, detail, dev="cuda") -> dict:
         f"({fp32['tflops']:.1f} TFLOP/s), max |diff| vs plain {fp32['max_abs_err']:.3e}")
     del q, k, v, got, ref
 
-    worst_all = max(*worst.values(), *(t["max_abs_err"] for t in full.values()))
     detail["flash_kernel"] = {"cases": len(cases), "tensor_core_cases": n_tc,
                               "max_abs_err": worst, "launches": launches,
                               "launches_tc": launches_tc, "full_width": full,
                               "float32_" + label: fp32}
-    return {"max_abs_err": worst_all, "launches": launches, "launches_tc": launches_tc,
-            "fp32_ms": fp32["kernel_ms"], **full[FLASH_FULL[0][0]]}
+    return {**full[label], "launches": launches, "launches_tc": launches_tc,
+            "fp32_ms": fp32["kernel_ms"],
+            "max_abs_err": max(t["max_abs_err"] for t in full.values()),
+            "max_abs_err_cases": max(worst.values())}
 
 
 #: full-width cross-entropy shapes of phase 14: (label, N, V). One chunk of
@@ -1983,7 +2223,7 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
 
 def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
                 profile_layers=None) -> dict:
-    """Phases 16, 20 and 24: train ``arch`` at full width through
+    """Phases 16, 20, 24 and 32: train ``arch`` at full width through
     ``repro_torch.runtime.Trainer`` (the trainer of ``launch.train``) on its
     ``TRAIN_CELLS`` batch, 3 AdamW steps of seeded Zipf tokens; returns the
     launches and times. Each step launches the RG-LRU forward kernel once a
@@ -2109,9 +2349,10 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
                              "rglru_forward_ms": fwd_ms,
                              "rglru_backward_ms": bwd_ms, "layer_s": per_layer,
                              "top_kernels": kernels[:15]}}
-    detail[f"train_{arch}"] = out
+    detail[f"train_{run_key(arch, cfg)}"] = out
     mb = cfg.microbatches
-    log(f"[{phase}] {cfg.name} training at full width, {B} x {S} tokens a step "
+    log(f"[{phase}] {cfg.name} ({cfg.n_layers} layers, {cfg.attention_impl} attention) "
+        f"training at full width, {B} x {S} tokens a step "
         f"({mb} microbatch{'es' if mb > 1 else ''}), AdamW (init {init_s:.2f} s): steps "
         f"{', '.join(f'{w:.3f}' for w in walls)} s, {out['tokens_per_s']:.0f} tokens/s "
         f"({'the second run' if long_step else f'steps 2-{steps}'}); model FLOPs "
@@ -2131,7 +2372,7 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
             f"{out['numel_bf16_tc_share']:.2%} of the bf16 tensor-core peak")
         log(f"    the {ps['layers']}-layer step untraced, by remat: " + ", ".join(
             f"{k} {t:.3f} s" for k, t in unit_s.items()))
-        kinds = list(cfg.pattern) * cfg.n_units + list(cfg.tail_kinds)
+        kinds = layer_kinds_of(cfg)
         remat = 2 if cfg.remat == "full" else 1  # forwards a step
         log("    one layer alone: " + "; ".join(
             f"{k} forward {t['forward_s'] * 1e3:.1f} ms, backward "
@@ -2143,11 +2384,12 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
 
 def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=256,
                         dev="cuda", cfg=None) -> None:
-    """Phases 17 and 21: one float32 training step of ``arch`` on the card
-    against the CPU at full width and cut depth, B 1, ``S`` tokens, the same
-    weights: the loss, every gradient leaf (QKV biases included), the
-    kernel launches, then one AdamW update on the card's gradients, on the
-    card and on the CPU."""
+    """Phases 17, 21 and 33: one float32 training step of ``arch`` on the
+    card against the CPU at full width and cut depth, B 1, ``S`` tokens (or
+    embeddings), the same weights: the loss, every gradient leaf (QKV
+    biases and an untied ``head`` included), the kernel launches (the
+    blocked path trains on its twin: no flash launch), then one AdamW
+    update on the card's gradients, on the card and on the CPU."""
     import copy
 
     from repro_torch.configs import get_config
@@ -2159,9 +2401,10 @@ def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=25
     cfg = cfg or get_config(arch, n_layers=n_layers, dtype="float32")
     B = 1
     ws = wrappers()
-    cpu_model = init_params(cfg, torch.Generator(device="cpu").manual_seed(phase),
-                            trainable=True)
-    card_model = copy.deepcopy(cpu_model).to(dev)
+    t0 = time.perf_counter()
+    card_model = init_params(cfg, torch.Generator(device=dev).manual_seed(phase),
+                             trainable=True)
+    cpu_model = copy.deepcopy(card_model).cpu()
     batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, S, B, seed=phase).items()}
     _zero_launches(ws)
     card_loss = loss_fn(card_model, {k: v.to(dev) for k, v in batch.items()})
@@ -2191,6 +2434,7 @@ def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=25
           f"{launches} and no other")
     biases = [k for k in cpu_leaves if k.rsplit("/", 1)[-1] in ("bq", "bk", "bv")]
     check(bool(biases) == cfg.qkv_bias, f"{arch}: bias leaves {biases}")
+    check(("head" in cpu_leaves) != cfg.tie_embeddings, f"{arch}: leaves {list(cpu_leaves)}")
     # one AdamW update on the card's gradients, on the card and on the CPU
     opt = make_optimizer("adamw", peak_lr=3e-4, warmup=0, total=100)
     grads = {k: [p.grad for p in ps] for k, ps in card_leaves.items()}
@@ -2204,17 +2448,107 @@ def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=25
                                          / p.detach().abs().max()))
     check(opt_err <= OPT_CARD_CPU, f"{arch}: AdamW on the card vs the CPU, same "
           f"gradients: {opt_err:.3e} of max |p| > {OPT_CARD_CPU:g}")
-    detail[f"train_card_vs_cpu_{arch}"] = {
+    detail[f"train_card_vs_cpu_{run_key(arch, cfg)}"] = {
         "loss_card": float(card_loss), "loss_cpu": float(cpu_loss), "loss_rel_err": loss_err,
         "grad_err": grad_err, "worst_grad_leaf": worst, "leaves": len(cpu_leaves),
-        "bias_leaves": biases, "launches": list(launches), "adamw_err": opt_err}
-    log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} float32, {B} x {S}, one step: card "
+        "bias_leaves": biases, "head": "head" in cpu_leaves, "launches": list(launches),
+        "adamw_err": opt_err, "seconds": time.perf_counter() - t0}
+    log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} ({cfg.attention_impl} attention) "
+        f"float32, {B} x {S}, one step: card "
         f"vs CPU loss {loss_err:.3e} (<= {TRAIN_LOSS_REL:g}), gradients {grad_err:.3e} of "
         f"each leaf's max |g| over {len(cpu_leaves)} leaves, {len(biases)} of them QKV "
         f"biases (<= {TRAIN_GRAD_SHARE:g}; worst {worst}); AdamW on the card's gradients, "
         f"card vs CPU {opt_err:.3e} of max |p| (<= {OPT_CARD_CPU:g}); RG-LRU launches "
-        f"{launches[0]} forward + {launches[1]} backward, no other kernel")
+        f"{launches[0]} forward + {launches[1]} backward, no other kernel "
+        f"({time.perf_counter() - t0:.1f} s)")
     del cpu_model, card_model
+
+
+def blocked_phases(torch, rg, detail, rg_t, dev="cuda") -> dict:
+    """Phases 30-33: serve (30) and train (32) yi-9b, phi4-mini-3.8b and
+    phi-3-vision-4.2b at full width, and yi-9b and gemma3-4b on the blocked
+    attention path, each also on the card against the CPU at cut depth (31,
+    33). Returns the flash launches of the blocked prefills (phase 30's main
+    runs), all and on the tensor-core kernel, and the seconds of each phase."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    phase_s, t0 = {}, time.perf_counter()
+    # 30: the default xla path launches no kernel; the blocked path one flash
+    # launch per attention layer a prefill, on the same weights (seed 0)
+    logits = {}
+    for arch in ARCHS_30:
+        serve_phase(torch, rg, detail, rg_t, 30, arch, dev=dev,
+                    logits_out=logits.setdefault(arch, {}))
+    flash, flash_tc = {}, {}
+    for arch in ("yi-9b", "gemma3-4b"):
+        serve_phase(torch, rg, detail, rg_t, 30, arch, dev=dev,
+                    cfg=get_config(arch, attention_impl="blocked"),
+                    logits_out=logits.setdefault(f"{arch}_blocked", {}))
+        run = detail[f"serve_{arch}_blocked"]
+        flash[arch], flash_tc[arch] = (run["kernel_launches"]["flash_attention"],
+                                       run["flash_launches_tc"])
+    xla, blk = logits["yi-9b"], logits["yi-9b_blocked"]
+    err = rel_err(blk["prefill"], xla["prefill"])
+    err_all = rel_err(blk["hidden"], xla["hidden"])
+    check(err <= CARD_CPU_BF16, f"yi-9b blocked vs xla prefill logits {err:.3e} > "
+          f"{CARD_CPU_BF16:g} of max |logits|")
+    check(err_all <= CARD_CPU_BF16, f"yi-9b blocked vs xla prefill hidden state at every "
+          f"position {err_all:.3e} > {CARD_CPU_BF16:g} of its max")
+    del logits, xla, blk
+    pre = {k: min(detail[f"serve_{k}"]["prefill_s"]) for k in ("yi-9b", "yi-9b_blocked")}
+    detail["serve_yi-9b_blocked"]["vs_xla"] = {"rel_err": err, "rel_err_all_positions": err_all,
+                                               "prefill_s": pre}
+    # the window each gemma3-4b layer hands the blocked path (phase 31 holds
+    # the kernel's windowed result to the twin's past 1024 positions)
+    model = Model(get_config("gemma3-4b", attention_impl="blocked"), device="meta")
+    windows = [layer.mixer.window for layer in model.layers]
+    check(windows == [model.cfg.window if k == "sliding" else None for k in model.kinds],
+          f"gemma3-4b windows {windows}")
+    log(f"    yi-9b prefill, xla {pre['yi-9b']:.3f} s vs blocked {pre['yi-9b_blocked']:.3f} s "
+        f"({pre['yi-9b'] / pre['yi-9b_blocked']:.2f}x, this call); blocked logits within "
+        f"{err:.3e} of the xla run's max |logits|, the hidden state at every position "
+        f"within {err_all:.3e} of its max; gemma3-4b's flash launches: "
+        f"{windows.count(model.cfg.window)} with window {model.cfg.window}, "
+        f"{windows.count(None)} full")
+    del model
+    phase_s[30] = time.perf_counter() - t0
+    # 31: card against CPU; the card's blocked path runs the kernel, the CPU's its
+    # twin. On the blocked cases the every-position check must catch a planted
+    # non-causal kernel call, and gemma3-4b's dropped window in float32 (in
+    # bf16 it changes the hidden state less than rounding does; phase 13
+    # holds the tensor-core kernel's window at gemma3-4b's shape)
+    both = ("float32", "bfloat16")
+    planted = {"yi-9b": (("noncausal", planted_noncausal, both),),
+               "gemma3-4b": (("noncausal", planted_noncausal, both),
+                             ("no_window", planted_no_window, ("float32",)))}
+    for arch, n_layers, S, over in CUT_30:
+        devices_phase(torch, rg, detail, 31, arch, n_layers, S, dev=dev,
+                      cfg_of=lambda dt, a=arch, n=n_layers, o=over: get_config(
+                          a, n_layers=n, dtype=dt, **o),
+                      controls=planted[arch] if over.get("attention_impl") == "blocked"
+                      else ())
+    phase_s[31] = time.perf_counter() - t0 - sum(phase_s.values())
+    # 32: training; the blocked path trains on its twin, so no kernel launches
+    for arch, n_layers, over in TRAIN_30:
+        cfg = get_config(arch, logits_chunk=512, **over)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        train_phase(torch, rg, detail, 32, arch, dev=dev, cfg=cfg)
+    steps = {k: detail[f"train_{k}"]["steady_step_s"] for k in ("yi-9b", "yi-9b_blocked")}
+    log(f"    yi-9b (12 layers) step, xla {steps['yi-9b']:.3f} s vs blocked twin "
+        f"{steps['yi-9b_blocked']:.3f} s ({steps['yi-9b_blocked'] / steps['yi-9b']:.2f}x)")
+    phase_s[32] = time.perf_counter() - t0 - sum(phase_s.values())
+    # 33: one float32 step, card against CPU
+    for arch, n_layers, S, over in TRAIN_CUT_30:
+        train_devices_phase(torch, rg, detail, 33, arch, n_layers, S, dev=dev,
+                            cfg=get_config(arch, n_layers=n_layers, dtype="float32", **over))
+    phase_s[33] = time.perf_counter() - t0 - sum(phase_s.values())
+    detail["phases_30_33_s"] = phase_s
+    log("    phases 30-33 took " + ", ".join(f"{p}: {v:.1f} s" for p, v in phase_s.items()))
+    return {"flash": flash, "flash_tc": flash_tc, "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2878,7 +3212,8 @@ def main() -> int:
     arch, n_layers, S = XLSTM
     serve_phase(torch, rg, detail, rg_t, 22, arch, profile_layers=XLSTM_PROFILE_LAYERS)
     devices_phase(torch, rg, detail, 23, arch, n_layers, S)
-    train_phase(torch, rg, detail, 24, arch, cfg=get_config(arch, logits_chunk=512),
+    train_phase(torch, rg, detail, 24, arch,
+                cfg=get_config(arch, logits_chunk=512, n_layers=XLSTM_TRAIN_LAYERS),
                 profile_layers=XLSTM_PROFILE_LAYERS)
     train_devices_phase(torch, rg, detail, 25, arch, n_layers, S)
     detail["xlstm_phases_s"] = time.perf_counter() - t0
@@ -2897,6 +3232,9 @@ def main() -> int:
         phase_s[phase] = time.perf_counter() - t0 - sum(phase_s.values())
     detail["phases_26_29_s"] = phase_s
     log("    phases 26-29 took " + ", ".join(f"{p}: {v:.1f} s" for p, v in phase_s.items()))
+
+    # -- 30-33. yi-9b, phi4-mini, phi-3-vision and the blocked path ------------
+    blocked_t = blocked_phases(torch, rg, detail, rg_t)
     detail["total_s"] = time.perf_counter() - t_all
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3036,9 +3374,18 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:25",
-        "launches": fa_t["launches"],
-        "launches_tc": fa_t["launches_tc"],
+        "launches": blocked_t["flash"]["yi-9b"],
+        "launches_in": "phase 30: the count above is one yi-9b prefill on the blocked "
+                       "path (one launch a layer; launches_tc of them on the tensor-core "
+                       "kernel); phase 13 held the op to its plain version at the shapes "
+                       "of phase 30's yi-9b and gemma3-4b prefills (max_abs_err: the "
+                       "worst full-width shape) and timed it at yi-9b's (ms, plain_ms, "
+                       "bound_ms, library_ms)",
+        "launches_by_phase": {"13": fa_t["launches"], "30": blocked_t["flash"]},
+        "launches_tc": blocked_t["flash_tc"]["yi-9b"],
+        "shape": list(FLASH_FULL[0][1:]),
         "max_abs_err": fa_t["max_abs_err"],
+        "max_abs_err_cases": fa_t["max_abs_err_cases"],
         "ms": fa_t["kernel_ms"],
         "plain_ms": fa_t["plain_ms"],
         "bound_ms": fa_t["bound_ms"],

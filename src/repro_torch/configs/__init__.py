@@ -14,18 +14,24 @@ from typing import Dict, List
 from repro_torch.models.config import ArchConfig
 
 ALL_ARCHS: List[str] = [
+    "yi_9b",
     "gemma3_4b",
     "qwen2_1_5b",
-    "recurrentgemma_2b",
+    "phi4_mini_3_8b",
     "xlstm_350m",
+    "recurrentgemma_2b",
+    "phi_3_vision_4_2b",
 ]
 
 # canonical dashed ids -> module names
 ALIASES: Dict[str, str] = {
+    "yi-9b": "yi_9b",
     "gemma3-4b": "gemma3_4b",
     "qwen2-1.5b": "qwen2_1_5b",
-    "recurrentgemma-2b": "recurrentgemma_2b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
     "xlstm-350m": "xlstm_350m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 

@@ -155,10 +155,11 @@ def model_from_jax(cfg: ArchConfig, params: Dict[str, Any], device=None,
 
     ``params`` is ``repro.models.init_params``'s pytree as numpy arrays.
     Each pattern position's params carry a leading ``n_units`` axis, which
-    is unstacked into one ``Block`` per unit; ``tail``, ``embed`` and
-    ``final_norm`` are copied. Names and layouts match, so every weight is a
-    copy: into the serving model's storage dtype (as the JAX code casts at
-    use), or with ``trainable=True`` into float32 masters that require grad.
+    is unstacked into one ``Block`` per unit; ``tail``, ``embed``,
+    ``final_norm`` and an untied model's ``head`` are copied. Names and
+    layouts match, so every weight is a copy: into the serving model's
+    storage dtype (as the JAX code casts at use), or with ``trainable=True``
+    into float32 masters that require grad.
     Raises if a leaf is missing, left over or of another shape. ``device``
     defaults to ``cuda`` and raises without a GPU (``resolve_device``); pass
     ``device="cpu"`` to build on the CPU.

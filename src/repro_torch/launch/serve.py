@@ -6,25 +6,33 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
         --batch 8 --prompt-len 2048 --decode-steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --smoke --device cpu
 
 The port of ``repro.launch.serve``: the same flags and defaults, plus
 ``--device`` (default ``cuda``; it raises when torch sees no GPU).
 ``--arch`` is one of ``repro_torch.configs.ALIASES``: recurrentgemma-2b,
-qwen2-1.5b, gemma3-4b or xlstm-350m. Weights and prompts come from a
-``torch.Generator`` seeded with ``--seed``. A first run of the same
-prefill and decode builds any kernel and warms up, and is reported apart;
-then the timed prefill and decode run. On the card every RG-LRU layer's
-prefill scan is the CUDA kernel, a decode step runs no kernel, and
-qwen2-1.5b, gemma3-4b and xlstm-350m launch none at all (their attention
-is the plain grouped einsum and the xLSTM mixers plain torch, as the JAX
-model's); the launches of every kernel wrapper are printed.
+qwen2-1.5b, gemma3-4b, xlstm-350m, yi-9b, phi4-mini-3.8b or
+phi-3-vision-4.2b (whose prompts enter as embeddings, built from the
+prompt tokens as the JAX launcher builds them; it decodes tokens). Weights
+and prompts come from a ``torch.Generator`` seeded with ``--seed``. A
+first run of the same prefill and decode builds any kernel and warms up,
+and is reported apart; then the timed prefill and decode run. On the card
+every RG-LRU layer's prefill scan is the CUDA kernel, a decode step runs
+no kernel, and under the default ``attention_impl="xla"`` the other models
+launch none at all (their attention is the plain grouped einsum and the
+xLSTM mixers plain torch, as the JAX model's); a config with
+``attention_impl="blocked"`` launches the flash kernel once per attention
+layer a prefill. The launches of every kernel wrapper are printed.
 """
 from __future__ import annotations
 
 import argparse
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import launch_counts
 from ..models.model import Model
@@ -37,10 +45,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prompt_batch(model: Model, prompts: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The prefill batch of prompt tokens (B, S): ``{"tokens": prompts}``,
+    or for an ``embeddings`` model ``{"embeds": ...}``, as the JAX launcher
+    builds them: the tokens' rows of the table in bf16 times sqrt(d_model),
+    a float32 product (JAX promotes bf16 times a numpy scalar to float32);
+    the model casts them to its compute dtype."""
+    cfg = model.cfg
+    if cfg.input_kind != "embeddings":
+        return {"tokens": prompts}
+    rows = F.embedding(prompts, model.embed.to(torch.bfloat16))
+    return {"embeds": rows.float() * math.sqrt(cfg.d_model)}
+
+
 def generate(model: Model, prompts: torch.Tensor,
              steps: int) -> Tuple[torch.Tensor, Dict[str, object]]:
-    """Prefill ``prompts`` (B, S) with a cache of S + steps + 8 positions,
-    as the JAX launcher sizes it, then ``steps`` greedy decode steps.
+    """Prefill ``prompts`` (B, S) (:func:`prompt_batch`) with a cache of
+    S + steps + 8 positions, as the JAX launcher sizes it, then ``steps``
+    greedy decode steps.
 
     Returns the tokens (B, steps + 1) (the prefill's argmax, then one per
     step) and a record: wall seconds of the prefill and of the decode loop
@@ -54,9 +76,10 @@ def generate(model: Model, prompts: torch.Tensor,
     serve_step = make_serve_step(model)
     vocab = model.cfg.vocab
     dev = prompts.device
+    batch = prompt_batch(model, prompts)
     _sync(dev)
     k0, t0 = launch_counts(), wall()
-    cache, logits = prefill_step({"tokens": prompts})
+    cache, logits = prefill_step(batch)
     tok = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None]
     _sync(dev)
     k1, t1 = launch_counts(), wall()

@@ -28,14 +28,16 @@ Two modes, as ``repro.launch.train``:
 The port of ``repro.launch.train``: the same flags and defaults, plus
 ``--device`` (default ``cuda``; it raises when torch sees no GPU).
 ``--arch`` is recurrentgemma-2b, qwen2-1.5b, gemma3-4b (which accumulates
-its gradients over ``microbatches=2``) or xlstm-350m, and so is each of
-``--tenants``. Weights come from a ``torch.Generator`` seeded with the
-trainer's seed (0), data from the synthetic pipeline. A single job prints
+its gradients over ``microbatches=2``), xlstm-350m, yi-9b, phi4-mini-3.8b
+or phi-3-vision-4.2b (trained on the pipeline's embeddings), and so is
+each of ``--tenants``. Weights come from a ``torch.Generator`` seeded with
+the trainer's seed (0), data from the synthetic pipeline. A single job prints
 the parameter count, the steps, the first and last loss, steps/s and
 tokens/s (wall time of ``Trainer.run``, kernel builds and warm-up
-included), and the launches of every kernel wrapper (qwen2-1.5b, gemma3-4b
-and xlstm-350m launch none). The scheduled mode keeps the JAX launcher's
-simulated TPU fleet and analytic profiles, so its allocations are the JAX
+included), and the launches of every kernel wrapper (the models other
+than recurrentgemma-2b launch none: the blocked attention path trains on
+its twin). The scheduled mode keeps the JAX launcher's simulated TPU fleet
+and analytic profiles, so its allocations are the JAX
 package's exactly (:func:`schedule_rounds`); it prints each round's grants
 and each tenant's steps, loss, wall time and launches. ``--mesh`` is not
 ported yet and raises.

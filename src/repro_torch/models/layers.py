@@ -1,14 +1,17 @@
 """Layers of the ported models, as ``nn.Module``s.
 
 The port of ``repro.models.layers`` for what recurrentgemma-2b, qwen2-1.5b,
-gemma3-4b and xlstm-350m use: RMSNorm, RoPE, grouped-query attention over
-the whole prefix (``full``) or a sliding window (``sliding``), with the
-optional QKV bias and a ``head_dim`` of its own (full-sequence apply with
-decode-cache building, cache init and one-token decode: a prefix cache for
-full attention, a ring buffer for a window), SwiGLU, the RG-LRU recurrent
-block and the two xLSTM mixers, the mLSTM (chunkwise over 256 positions)
-and the sLSTM (a loop over time). Not ported: the blocked attention path
-(``attention_impl="blocked"`` raises), the head-parallel branch (it needs a
+gemma3-4b, xlstm-350m, yi-9b, phi4-mini-3.8b and phi-3-vision-4.2b use:
+RMSNorm, RoPE, grouped-query attention over the whole prefix (``full``) or
+a sliding window (``sliding``), with the optional QKV bias and a
+``head_dim`` of its own (full-sequence apply with decode-cache building,
+cache init and one-token decode: a prefix cache for full attention, a ring
+buffer for a window), SwiGLU, the RG-LRU recurrent block and the two xLSTM
+mixers, the mLSTM (chunkwise over 256 positions) and the sLSTM (a loop over
+time). A full sequence's attention is the grouped einsum over fp32 scores
+(``attention_impl`` ``"xla"`` or ``"pallas"``) or, with ``"blocked"``,
+:func:`blocked_attention`: the flash kernel on the card when serving, its
+blockwise twin otherwise. Not ported: the head-parallel branch (it needs a
 mesh), non-causal and cross-attention, and MoE.
 
 The mixers, ``Attention``, ``RGLRU``, ``MLSTM`` and ``SLSTM``, share one
@@ -167,19 +170,107 @@ def _masked_probs(scores: torch.Tensor, valid: torch.Tensor, hd: int,
     return torch.softmax(scores, dim=-1).to(dt)
 
 
+def _blocked_tiles(S: int, T: int, block_q: int, block_kv: int) -> Tuple[int, int]:
+    """The blocked path's tiles, ``min(block, length)``; raises the JAX
+    ``_blocked_attention``'s ``ValueError`` when they do not divide S, T."""
+    bq, bkv = min(block_q, S), min(block_kv, T)
+    if S % bq or T % bkv:
+        raise ValueError(
+            f"blocked attention needs divisible tiles: S={S} vs block_q={bq}, "
+            f"T={T} vs block_kv={bkv}; adjust attention_block_q/_kv in the config"
+        )
+    return bq, bkv
+
+
+def blocked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            window: Optional[int], bq: int, bkv: int) -> torch.Tensor:
+    """The JAX ``_blocked_attention``, step for step: causal GQA attention
+    of q (B, S, Hq, D) on k, v (B, T, Hkv, D) (query head h on KV head
+    h // (Hq // Hkv)) as a Python loop over query tiles of ``bq`` and KV
+    tiles of ``bkv`` (tiles that divide S and T, as :func:`_blocked_tiles`
+    gives them), never building the (S, T) scores. Tile pairs above the
+    causal diagonal or wholly outside the ``window`` are skipped; each
+    pair's scores are float32, scaled by 1/sqrt(D), masked to ``NEG_INF``
+    and folded into the online max ``m``, sum ``l`` and float32 ``acc``
+    (``p @ v`` on float32 V). Returns (B, S, Hq, D) in q's dtype."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    f32 = {"dtype": torch.float32, "device": q.device}
+    out_blocks = []
+    for qi in range(S // bq):
+        qblk = q[:, qi * bq:(qi + 1) * bq].reshape(B, bq, Hkv, G, D)
+        m = torch.full((B, Hkv, G, bq), NEG_INF, **f32)
+        l = torch.zeros((B, Hkv, G, bq), **f32)
+        acc = torch.zeros((B, Hkv, G, bq, D), **f32)
+        q_lo, q_hi = qi * bq, (qi + 1) * bq - 1
+        for ki in range(T // bkv):
+            k_lo, k_hi = ki * bkv, (ki + 1) * bkv - 1
+            if k_lo > q_hi:
+                continue  # strictly above the causal diagonal
+            if window is not None and k_hi < q_lo - window + 1:
+                continue  # entirely outside the sliding window
+            kblk, vblk = k[:, k_lo:k_hi + 1], v[:, k_lo:k_hi + 1]
+            s = torch.einsum("bqkgd,btkd->bkgqt", qblk, kblk).float() * scale
+            diff = (torch.arange(q_lo, q_hi + 1, device=q.device)[:, None]
+                    - torch.arange(k_lo, k_hi + 1, device=q.device)[None, :])
+            mask = diff >= 0
+            if window is not None:
+                mask &= diff < window
+            s = torch.where(mask, s, torch.full((), NEG_INF, **f32))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqt,btkd->bkgqd", p, vblk.float())
+            m = m_new
+        out = (acc / torch.clamp_min(l, 1e-20)[..., None]).to(q.dtype)
+        out_blocks.append(out.permute(0, 3, 1, 2, 4).reshape(B, bq, Hq, D))
+    return torch.cat(out_blocks, dim=1)
+
+
+def _on_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """The blocked path's rule: the flash kernel for CUDA tensors none of
+    which requires grad (serving), the twin for all else. It reads the
+    device and ``requires_grad`` only, so a checkpointed forward and its
+    recompute take the same branch."""
+    return q.device.type == "cuda" and not (q.requires_grad or k.requires_grad
+                                             or v.requires_grad)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      window: Optional[int], block_q: int, block_kv: int) -> torch.Tensor:
+    """``attention_impl="blocked"``: q (B, S, Hq, D), k, v (B, T, Hkv, D)
+    -> (B, S, Hq, D) in q's dtype. When :func:`_on_kernel`, one launch of
+    ``kernels.ops.flash_attention_gqa`` on heads-first copies (a failed
+    build or launch raises ``KernelError``); else
+    :func:`blocked_attention_plain`, which autograd differentiates (the
+    JAX model differentiates its jnp loop, and the kernel has no
+    backward). Either way tiles that do not divide S, T raise the JAX
+    ``ValueError``."""
+    S, T = q.shape[1], k.shape[1]
+    bq, bkv = _blocked_tiles(S, T, block_q, block_kv)
+    if not _on_kernel(q, k, v):
+        return blocked_attention_plain(q, k, v, window=window, bq=bq, bkv=bkv)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out = kops.flash_attention_gqa(qh, kh, vh, causal=True, window=window,
+                                   block_q=bq, block_k=bkv)
+    return out.transpose(1, 2)
+
+
 class Attention(nn.Module):
     """Causal GQA attention with RoPE over every earlier position
     (``window=None``: a ``full`` layer) or over the last ``window``
     positions (a ``sliding`` layer), with ``bq``, ``bk``, ``bv`` added to
-    the projections when ``cfg.qkv_bias`` (zeros at init, as in JAX)."""
+    the projections when ``cfg.qkv_bias`` (zeros at init, as in JAX). A
+    full sequence runs :func:`blocked_attention` when
+    ``cfg.attention_impl == "blocked"``, else the grouped einsum; decode is
+    the same for both (the JAX package has no blocked decode)."""
 
     def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False,
                  window: Optional[int] = None):
         super().__init__()
-        if cfg.attention_impl == "blocked":
-            raise NotImplementedError(
-                "attention_impl='blocked' is not ported to repro_torch; the "
-                "grouped path runs for 'xla' and 'pallas' (ROADMAP.md, Queue A)")
         self.cfg = cfg
         self.window = window
         d, hd = cfg.d_model, cfg.resolved_head_dim
@@ -229,11 +320,16 @@ class Attention(nn.Module):
         cos, sin = rope_table(torch.arange(S, device=x.device), hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        mask = _attn_mask(S, T, self.window, device=x.device)
-        probs = _masked_probs(_group_scores(q, k).float(), mask, hd, dt)
-        out = _group_out(probs, v).reshape(B, S, cfg.n_heads * hd)
-        del probs
-        y = out @ self.wo.to(self.dt)
+        if cfg.attention_impl == "blocked":
+            out = blocked_attention(q, k, v, window=self.window,
+                                    block_q=cfg.attention_block_q,
+                                    block_kv=cfg.attention_block_kv)
+        else:
+            mask = _attn_mask(S, T, self.window, device=x.device)
+            probs = _masked_probs(_group_scores(q, k).float(), mask, hd, dt)
+            out = _group_out(probs, v)
+            del probs
+        y = out.reshape(B, S, cfg.n_heads * hd) @ self.wo.to(self.dt)
         if not return_state:
             return y
         # a decode-ready KV cache from the prefill K/V, as the JAX package

@@ -2,10 +2,16 @@
 
 The port of ``repro.models.model`` for the layer kinds ``rglru``,
 ``sliding``, ``full``, ``mlstm`` and ``slstm``, with the ``swiglu`` FFN or
-none (recurrentgemma-2b, qwen2-1.5b, gemma3-4b; xlstm-350m, whose layers
-have no FFN):
+none (recurrentgemma-2b, qwen2-1.5b, gemma3-4b, yi-9b, phi4-mini-3.8b,
+phi-3-vision-4.2b; xlstm-350m, whose layers have no FFN):
 
-    embed -> pattern units -> tail layers -> final RMSNorm -> tied unembedding
+    embed (tokens, or precomputed embeddings) -> pattern units -> tail
+    layers -> final RMSNorm -> unembedding (the tied table, or ``head``)
+
+With ``cfg.input_kind == "embeddings"`` (phi-3-vision's stubbed vision
+frontend) a batch's ``embeds`` (B, S, d) enter the first layer in the
+compute dtype, unscaled; decode still embeds tokens. An untied model
+(``tie_embeddings=False``, yi-9b) has its own ``head`` (d, padded_vocab).
 
 The JAX package stacks each pattern position's params over ``n_units`` and
 runs the units with ``lax.scan``; here the units are a Python loop over one
@@ -77,12 +83,8 @@ def _check_supported(cfg: ArchConfig) -> None:
         missing.append("FFN kind 'moe'")
     if cfg.encoder_layers:
         missing.append("the encoder and cross-attention")
-    if cfg.input_kind != "tokens":
-        missing.append(f"input_kind {cfg.input_kind!r}")
     if cfg.rope_theta <= 0:
         missing.append("sinusoidal positions")
-    if not cfg.tie_embeddings:
-        missing.append("an untied output head")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
@@ -144,8 +146,9 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """The model: tied embedding, ``n_units`` pattern units then the tail,
-    as ``Block``s in order (``kinds[i]`` is layer i's kind). Weights are
+    """The model: the embedding, ``n_units`` pattern units then the tail,
+    as ``Block``s in order (``kinds[i]`` is layer i's kind), the final norm
+    and, unless ``cfg.tie_embeddings``, the output ``head``. Weights are
     uninitialised; :func:`init_params` or
     ``repro_torch.interop.model_from_jax`` fills them. ``trainable=True``
     holds float32 masters that require grad (training); the default stores
@@ -161,6 +164,8 @@ class Model(nn.Module):
                                  L.compute_dtype(cfg), device, trainable)
         self.layers = nn.ModuleList(Block(cfg, k, device, trainable) for k in self.kinds)
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+        self.head = None if cfg.tie_embeddings else L.new_param(
+            (cfg.d_model, cfg.padded_vocab), L.compute_dtype(cfg), device, trainable)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full causal forward: logits (B, S, padded_vocab) at every position."""
@@ -174,12 +179,14 @@ class Model(nn.Module):
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 trainable: bool = False) -> Model:
     """A ``Model`` on the generator's device with the JAX package's shapes,
-    scales and init: N(0, 1) * scale drawn in float32, norms at one, ``lam``
-    at 2.0. ``jax.random`` and ``torch.Generator`` give different numbers
-    for one seed; a seed gives the same draws with or without
-    ``trainable``."""
+    scales and init: N(0, 1) * scale drawn in float32 (``head`` at 0.02,
+    as the embedding), norms at one, ``lam`` at 2.0. ``jax.random`` and
+    ``torch.Generator`` give different numbers for one seed; a seed gives
+    the same draws with or without ``trainable``."""
     model = Model(cfg, device=generator.device, trainable=trainable)
     L.normal_(model.embed, generator, 0.02)
+    if model.head is not None:
+        L.normal_(model.head, generator, 0.02)
     model.final_norm.init_(generator)
     for layer in model.layers:
         layer.init_(generator)
@@ -192,13 +199,24 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 
 def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    table = model.embed.to(L.compute_dtype(model.cfg))
-    return F.embedding(batch["tokens"], table) * math.sqrt(model.cfg.d_model)
+    """The first layer's input: ``batch["embeds"]`` cast to the compute
+    dtype for an ``embeddings`` model given them, else the tokens' rows of
+    the table times sqrt(d_model)."""
+    dt = L.compute_dtype(model.cfg)
+    if model.cfg.input_kind == "embeddings" and "embeds" in batch:
+        return batch["embeds"].to(dt)
+    return F.embedding(batch["tokens"], model.embed.to(dt)) * math.sqrt(model.cfg.d_model)
+
+
+def _unembedding(model: Model) -> torch.Tensor:
+    """The (d_model, padded_vocab) output matrix in the compute dtype:
+    ``head``, else the tied table transposed."""
+    W = model.head if model.head is not None else model.embed.t()
+    return W.to(L.compute_dtype(model.cfg))
 
 
 def logits_of(model: Model, h: torch.Tensor) -> torch.Tensor:
-    h = model.final_norm(h)
-    return h @ model.embed.to(L.compute_dtype(model.cfg)).t()
+    return model.final_norm(h) @ _unembedding(model)
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +279,7 @@ def _chunked_xent(model: Model, h: torch.Tensor, targets: torch.Tensor) -> torch
     chunks divided by B * S."""
     cfg = model.cfg
     h = model.final_norm(h)
-    W = model.embed.to(L.compute_dtype(cfg)).t()
+    W = _unembedding(model)
     B, S, _ = h.shape
     C = cfg.logits_chunk
     n_chunk = (S + C - 1) // C
@@ -320,7 +338,8 @@ def param_leaves(model: Model) -> Dict[str, List[nn.Parameter]]:
     """The parameters grouped as the JAX params pytree holds them, in its
     flatten order: a leaf path (``units/p0/mixer/w_gate``, ``tail/0/...``,
     ``embed``) maps to its parameters, one per unit for a pattern leaf
-    (the JAX leaf stacks them on a leading ``n_units`` axis), else one."""
+    (the JAX leaf stacks them on a leading ``n_units`` axis), else one
+    (``embed``, ``final_norm/scale``, ``head``)."""
     out: Dict[str, List[nn.Parameter]] = {}
     for name, p in model.named_parameters():
         out.setdefault(_jax_path(model.cfg, name), []).append(p)
@@ -334,17 +353,18 @@ def init_cache(model: Model, batch: int, cache_len: int) -> Cache:
 
 def prefill(model: Model, batch: Dict[str, torch.Tensor],
             cache_len: int) -> Tuple[Cache, torch.Tensor]:
-    """Run the full prompt, returning (decode cache, last-position logits
-    (B, 1, padded_vocab)). Every RG-LRU layer's scan is one call of
-    ``kernels.ops.rglru_scan``; an xLSTM layer's state is its mixer's
-    after the last position."""
+    """Run the full prompt (``tokens`` (B, S), or ``embeds`` (B, S, d) for
+    an ``embeddings`` model), returning (decode cache, last-position logits
+    (B, 1, padded_vocab)); the cache's ``pos`` is S. Every RG-LRU layer's
+    scan is one call of ``kernels.ops.rglru_scan``; an xLSTM layer's state
+    is its mixer's after the last position."""
     x = _embed_inputs(model, batch)
     states = []
     for layer in model.layers:
         x, st = layer(x, return_state=True, cache_len=cache_len)
         states.append(st)
     logits = logits_of(model, x[:, -1:])
-    return {"layers": states, "pos": batch["tokens"].shape[1]}, logits
+    return {"layers": states, "pos": x.shape[1]}, logits
 
 
 def decode_step(model: Model, cache: Cache,

@@ -59,6 +59,7 @@ print(json.dumps({"modules": names, "bad": bad}))
     for name in ("optim.optimizers", "data.pipeline", "checkpoint.manager",
                  "runtime.trainstep", "runtime.trainer", "launch.train",
                  "models.costs", "configs.qwen2_1_5b", "configs.gemma3_4b",
+                 "configs.yi_9b", "configs.phi4_mini_3_8b", "configs.phi_3_vision_4_2b",
                  "core.elastic", "service.faults", "service.journal", "obs.report",
                  "obs.__main__", "examples.cluster_scheduler_e2e",
                  "examples.serve_decode"):

@@ -36,7 +36,8 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.interop import cache_to_jax, model_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
-from repro_torch.models import Model, decode_step, init_cache, prefill
+from repro_torch.models import Model, decode_step, init_cache, init_params, prefill
+from repro_torch.models.model import backbone
 from repro_torch.models import layers as TL
 
 ARCH = "recurrentgemma-2b"
@@ -329,12 +330,20 @@ def test_full_config_has_the_jax_shapes():
 
 
 def test_blocked_attention_and_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="blocked"):
-        Model(get_smoke(ARCH, attention_impl="blocked"))
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("yi-9b")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_smoke("whisper-tiny")
+    """What the port still refuses: the whisper-tiny and arctic configs,
+    the encoder and MoE when a model is built, and the ``dots`` remat
+    policy when the backbone runs. The blocked path builds."""
+    for arch in ("whisper-tiny", "arctic-480b"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_smoke(arch)
+    for over in ({"encoder_layers": 2}, {"ffn_kind": "moe", "n_experts": 4, "top_k": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Model(get_smoke("qwen2-1.5b", **over))
+    Model(get_smoke(ARCH, attention_impl="blocked"))
+    cfg = get_smoke("yi-9b", remat="dots")
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        backbone(model, torch.zeros((1, 8, cfg.d_model)))
 
 
 def test_serve_cli_runs_on_the_cpu():
