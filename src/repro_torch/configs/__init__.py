@@ -21,6 +21,7 @@ ALL_ARCHS: List[str] = [
     "xlstm_350m",
     "recurrentgemma_2b",
     "phi_3_vision_4_2b",
+    "whisper_tiny",
 ]
 
 # canonical dashed ids -> module names
@@ -32,6 +33,7 @@ ALIASES: Dict[str, str] = {
     "xlstm-350m": "xlstm_350m",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 

@@ -155,8 +155,10 @@ def model_from_jax(cfg: ArchConfig, params: Dict[str, Any], device=None,
 
     ``params`` is ``repro.models.init_params``'s pytree as numpy arrays.
     Each pattern position's params carry a leading ``n_units`` axis, which
-    is unstacked into one ``Block`` per unit; ``tail``, ``embed``,
-    ``final_norm`` and an untied model's ``head`` are copied. Names and
+    is unstacked into one ``Block`` per unit (its ``cross`` and
+    ``norm_cross`` with it); ``tail``, ``embed``, ``final_norm``, an untied
+    model's ``head`` and an encoder model's ``encoder`` layers and
+    ``encoder_norm`` are copied. Names and
     layouts match, so every weight is a copy: into the serving model's
     storage dtype (as the JAX code casts at use), or with ``trainable=True``
     into float32 masters that require grad.
@@ -192,24 +194,30 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def cache_to_jax(model: Model, cache: Cache) -> Dict[str, Any]:
     """The port's decode cache in the JAX package's layout, as numpy: pattern
-    position ``p``'s states stacked over units under ``units/p{p}/mixer``,
-    the tail's as a list, ``pos`` an int32 scalar. A layer's state is its
+    position ``p``'s states stacked over units under ``units/p{p}/mixer``
+    (and an encoder model's cross caches under ``units/p{p}/cross``), the
+    tail's as a list, ``pos`` an int32 scalar. A layer's state is its
     mixer's, named as in JAX: ``k``, ``v`` (attention), ``h`` (RG-LRU),
-    ``C``, ``n`` (mLSTM), ``h``, ``c``, ``n``, ``m`` (sLSTM). bfloat16
-    leaves come as float32 (numpy has no bfloat16)."""
+    ``C``, ``n`` (mLSTM), ``h``, ``c``, ``n``, ``m`` (sLSTM); its cross
+    cache ``ck``, ``cv``. bfloat16 leaves come as float32 (numpy has no
+    bfloat16)."""
     cfg = model.cfg
     P = len(cfg.pattern)
+    n = cfg.n_units * P
     out: Dict[str, Any] = {}
-    states = cache["layers"]
+    parts = {"mixer": cache["layers"]}
+    if "cross" in cache:
+        parts["cross"] = cache["cross"]
     if cfg.n_units:
         out["units"] = {
-            f"p{p}": {"mixer": {k: np.stack([_to_numpy(states[u * P + p][k])
-                                             for u in range(cfg.n_units)])
-                                for k in states[p]}}
+            f"p{p}": {part: {k: np.stack([_to_numpy(states[u * P + p][k])
+                                          for u in range(cfg.n_units)])
+                             for k in states[p]}
+                      for part, states in parts.items()}
             for p in range(P)}
-    tail = states[cfg.n_units * P:]
-    if tail:
-        out["tail"] = [{"mixer": {k: _to_numpy(v) for k, v in st.items()}}
-                       for st in tail]
+    if len(cache["layers"]) > n:
+        out["tail"] = [{part: {k: _to_numpy(v) for k, v in states[i].items()}
+                        for part, states in parts.items()}
+                       for i in range(n, len(cache["layers"]))]
     out["pos"] = np.int32(cache["pos"])
     return out

@@ -8,20 +8,26 @@
         --batch 8 --prompt-len 2048 --decode-steps 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --batch 8 --prompt-len 1500 --decode-steps 32
 
 The port of ``repro.launch.serve``: the same flags and defaults, plus
 ``--device`` (default ``cuda``; it raises when torch sees no GPU).
 ``--arch`` is one of ``repro_torch.configs.ALIASES``: recurrentgemma-2b,
-qwen2-1.5b, gemma3-4b, xlstm-350m, yi-9b, phi4-mini-3.8b or
+qwen2-1.5b, gemma3-4b, xlstm-350m, yi-9b, phi4-mini-3.8b,
 phi-3-vision-4.2b (whose prompts enter as embeddings, built from the
-prompt tokens as the JAX launcher builds them; it decodes tokens). Weights
-and prompts come from a ``torch.Generator`` seeded with ``--seed``. A
+prompt tokens as the JAX launcher builds them; it decodes tokens) or
+whisper-tiny (whose encoder takes ``--prompt-len`` frames of bf16 normals
+beside the prompt tokens, as the JAX launcher draws them: the audio
+frontend is a stub). Weights, prompts and frames come from a
+``torch.Generator`` seeded with ``--seed``. A
 first run of the same prefill and decode builds any kernel and warms up,
 and is reported apart; then the timed prefill and decode run. On the card
 every RG-LRU layer's prefill scan is the CUDA kernel, a decode step runs
 no kernel, and under the default ``attention_impl="xla"`` the other models
 launch none at all (their attention is the plain grouped einsum and the
-xLSTM mixers plain torch, as the JAX model's); a config with
+xLSTM mixers plain torch, as the JAX model's; whisper's encoder and
+cross-attention never take the blocked path); a config with
 ``attention_impl="blocked"`` launches the flash kernel once per attention
 layer a prefill. The launches of every kernel wrapper are printed.
 """
@@ -45,24 +51,42 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prompt_batch(model: Model, prompts: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The prefill batch of prompt tokens (B, S): ``{"tokens": prompts}``,
-    or for an ``embeddings`` model ``{"embeds": ...}``, as the JAX launcher
+def audio_frames(cfg, batch: int, frames: int,
+                 generator: torch.Generator) -> torch.Tensor:
+    """An encoder model's stubbed audio input: (batch, frames, d_model)
+    standard normals in bf16, drawn in float32 on ``generator``'s device
+    (the JAX launcher draws ``jax.random.normal`` in bf16)."""
+    return torch.randn((batch, frames, cfg.d_model), generator=generator,
+                       device=generator.device).to(torch.bfloat16)
+
+
+def prompt_batch(model: Model, prompts: torch.Tensor,
+                 frames: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The prefill batch of prompt tokens (B, S): ``{"tokens": prompts}``;
+    for an ``embeddings`` model ``{"embeds": ...}``, as the JAX launcher
     builds them: the tokens' rows of the table in bf16 times sqrt(d_model),
     a float32 product (JAX promotes bf16 times a numpy scalar to float32);
-    the model casts them to its compute dtype."""
+    the model casts them to its compute dtype. An encoder model's batch is
+    ``{"frames", "tokens"}``: ``frames`` (B, T, d) as given, else S frames
+    of :func:`audio_frames` from a generator on the prompts' device seeded
+    with 0 (the JAX launcher ties the frames' length to the prompt's)."""
     cfg = model.cfg
+    if cfg.encoder_layers:
+        if frames is None:
+            gen = torch.Generator(device=prompts.device).manual_seed(0)
+            frames = audio_frames(cfg, prompts.shape[0], prompts.shape[1], gen)
+        return {"frames": frames, "tokens": prompts}
     if cfg.input_kind != "embeddings":
         return {"tokens": prompts}
     rows = F.embedding(prompts, model.embed.to(torch.bfloat16))
     return {"embeds": rows.float() * math.sqrt(cfg.d_model)}
 
 
-def generate(model: Model, prompts: torch.Tensor,
-             steps: int) -> Tuple[torch.Tensor, Dict[str, object]]:
-    """Prefill ``prompts`` (B, S) (:func:`prompt_batch`) with a cache of
-    S + steps + 8 positions, as the JAX launcher sizes it, then ``steps``
-    greedy decode steps.
+def generate(model: Model, prompts: torch.Tensor, steps: int,
+             frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, object]]:
+    """Prefill ``prompts`` (B, S) (:func:`prompt_batch`, with an encoder
+    model's ``frames``) with a cache of S + steps + 8 positions, as the
+    JAX launcher sizes it, then ``steps`` greedy decode steps.
 
     Returns the tokens (B, steps + 1) (the prefill's argmax, then one per
     step) and a record: wall seconds of the prefill and of the decode loop
@@ -76,7 +100,7 @@ def generate(model: Model, prompts: torch.Tensor,
     serve_step = make_serve_step(model)
     vocab = model.cfg.vocab
     dev = prompts.device
-    batch = prompt_batch(model, prompts)
+    batch = prompt_batch(model, prompts, frames)
     _sync(dev)
     k0, t0 = launch_counts(), wall()
     cache, logits = prefill_step(batch)
@@ -121,10 +145,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     with torch.inference_mode():
         model = init_params(cfg, gen)
         prompts = torch.randint(2, cfg.vocab, (B, S), generator=gen, device=dev)
+        frames = audio_frames(cfg, B, S, gen) if cfg.encoder_layers else None
         t0 = wall()
-        generate(model, prompts, steps)
+        generate(model, prompts, steps, frames)
         warm_s = wall() - t0
-        toks, rec = generate(model, prompts, steps)
+        toks, rec = generate(model, prompts, steps, frames)
     print(f"{cfg.name} on {dev}: warm-up (a first prefill and decode, kernel "
           f"build included) {warm_s:.2f}s")
     print(f"prefill {B}x{S}: {rec['prefill_s']:.3f}s "

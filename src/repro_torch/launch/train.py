@@ -12,6 +12,8 @@ Two modes, as ``repro.launch.train``:
            --smoke --device cpu --steps 3
        PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \
            --batch 8 --seq-len 2048 --steps 3
+       PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
+           --batch 8 --seq-len 1500 --steps 3
 
 2. OEF-scheduled multi-tenant mode (``--scheduler``): the paper's control
    plane drives several training jobs; each round the fair-share evaluator
@@ -28,9 +30,10 @@ Two modes, as ``repro.launch.train``:
 The port of ``repro.launch.train``: the same flags and defaults, plus
 ``--device`` (default ``cuda``; it raises when torch sees no GPU).
 ``--arch`` is recurrentgemma-2b, qwen2-1.5b, gemma3-4b (which accumulates
-its gradients over ``microbatches=2``), xlstm-350m, yi-9b, phi4-mini-3.8b
-or phi-3-vision-4.2b (trained on the pipeline's embeddings), and so is
-each of ``--tenants``. Weights come from a ``torch.Generator`` seeded with
+its gradients over ``microbatches=2``), xlstm-350m, yi-9b, phi4-mini-3.8b,
+phi-3-vision-4.2b (trained on the pipeline's embeddings) or whisper-tiny
+(on the pipeline's float32 frames, ``--seq-len`` of them beside as many
+tokens), and so is each of ``--tenants``. Weights come from a ``torch.Generator`` seeded with
 the trainer's seed (0), data from the synthetic pipeline. A single job prints
 the parameter count, the steps, the first and last loss, steps/s and
 tokens/s (wall time of ``Trainer.run``, kernel builds and warm-up

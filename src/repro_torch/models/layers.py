@@ -1,7 +1,8 @@
 """Layers of the ported models, as ``nn.Module``s.
 
 The port of ``repro.models.layers`` for what recurrentgemma-2b, qwen2-1.5b,
-gemma3-4b, xlstm-350m, yi-9b, phi4-mini-3.8b and phi-3-vision-4.2b use:
+gemma3-4b, xlstm-350m, yi-9b, phi4-mini-3.8b, phi-3-vision-4.2b and
+whisper-tiny use:
 RMSNorm, RoPE, grouped-query attention over the whole prefix (``full``) or
 a sliding window (``sliding``), with the optional QKV bias and a
 ``head_dim`` of its own (full-sequence apply with decode-cache building,
@@ -11,8 +12,9 @@ mixers, the mLSTM (chunkwise over 256 positions) and the sLSTM (a loop over
 time). A full sequence's attention is the grouped einsum over fp32 scores
 (``attention_impl`` ``"xla"`` or ``"pallas"``) or, with ``"blocked"``,
 :func:`blocked_attention`: the flash kernel on the card when serving, its
-blockwise twin otherwise. Not ported: the head-parallel branch (it needs a
-mesh), non-causal and cross-attention, and MoE.
+blockwise twin otherwise; non-causal self-attention (whisper's encoder)
+and cross-attention to an encoder's memory, with cached memory K/V in
+decode. Not ported: the head-parallel branch (it needs a mesh) and MoE.
 
 The mixers, ``Attention``, ``RGLRU``, ``MLSTM`` and ``SLSTM``, share one
 interface: ``forward(x, return_state=, cache_len=)`` for a full sequence,
@@ -161,12 +163,15 @@ def _attn_mask(sq: int, skv: int, window: Optional[int], device=None) -> torch.T
     return mask
 
 
-def _masked_probs(scores: torch.Tensor, valid: torch.Tensor, hd: int,
+def _masked_probs(scores: torch.Tensor, valid: Optional[torch.Tensor], hd: int,
                   dt: torch.dtype) -> torch.Tensor:
     """softmax(where(valid, scores / sqrt(hd), NEG_INF)) in float32, cast to
-    ``dt``. ``scores`` is a fresh float32 tensor and is overwritten."""
+    ``dt``; with ``valid=None`` (non-causal, no window: the encoder and
+    cross-attention) nothing is masked. ``scores`` is a fresh float32
+    tensor and is overwritten."""
     scores.div_(math.sqrt(hd))
-    scores.masked_fill_(~valid, NEG_INF)
+    if valid is not None:
+        scores.masked_fill_(~valid, NEG_INF)
     return torch.softmax(scores, dim=-1).to(dt)
 
 
@@ -260,19 +265,34 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 class Attention(nn.Module):
-    """Causal GQA attention with RoPE over every earlier position
-    (``window=None``: a ``full`` layer) or over the last ``window``
-    positions (a ``sliding`` layer), with ``bq``, ``bk``, ``bv`` added to
-    the projections when ``cfg.qkv_bias`` (zeros at init, as in JAX). A
-    full sequence runs :func:`blocked_attention` when
-    ``cfg.attention_impl == "blocked"``, else the grouped einsum; decode is
-    the same for both (the JAX package has no blocked decode)."""
+    """GQA attention with ``bq``, ``bk``, ``bv`` added to the projections
+    when ``cfg.qkv_bias`` (zeros at init, as in JAX), in the three forms
+    the JAX ``attention_apply`` / ``attention_decode`` take:
+
+    - causal self-attention with RoPE (unless ``cfg.rope_theta <= 0``,
+      whisper's sinusoidal positions) over every earlier position
+      (``window=None``: a ``full`` layer) or the last ``window`` positions
+      (a ``sliding`` layer), with a decode cache;
+    - ``causal=False``: self-attention over every position, no mask (the
+      encoder);
+    - ``forward(x, memory=)``: cross-attention, q from ``x`` and k, v from
+      the (B, T, d) ``memory`` (T may differ from S), with no RoPE and no
+      mask; in decode :meth:`cross_decode` against the cached K/V of the
+      memory (:meth:`memory_kv`).
+
+    A full sequence runs :func:`blocked_attention` when
+    ``cfg.attention_impl == "blocked"`` and the attention is causal
+    self-attention, as the JAX ``attention_apply`` routes (the encoder
+    and cross-attention stay on the grouped einsum); decode is the same
+    for both paths (the JAX package has no blocked decode)."""
 
     def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False,
-                 window: Optional[int] = None):
+                 window: Optional[int] = None, causal: bool = True):
         super().__init__()
         self.cfg = cfg
         self.window = window
+        self.causal = causal
+        self.use_rope = cfg.rope_theta > 0
         d, hd = cfg.d_model, cfg.resolved_head_dim
         nq, nkv = cfg.n_heads, cfg.n_kv_heads
         self.dt = dt = compute_dtype(cfg)
@@ -295,37 +315,46 @@ class Attention(nn.Module):
             for b in (self.bq, self.bk, self.bv):
                 b.zero_()
 
-    def _qkv(self, x: torch.Tensor):
+    def _qkv(self, x: torch.Tensor, xkv: Optional[torch.Tensor] = None):
+        """q from ``x``; k, v from ``xkv`` (default ``x``), each reshaped by
+        its own source's length, as the JAX ``_qkv``."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
-        B, S = x.shape[0], x.shape[1]
-        q, k, v = (x @ w.to(self.dt) for w in (self.wq, self.wk, self.wv))
+        xkv = x if xkv is None else xkv
+        B = x.shape[0]
+        q = x @ self.wq.to(self.dt)
+        k, v = (xkv @ w.to(self.dt) for w in (self.wk, self.wv))
         if self.bq is not None:  # added in the compute dtype, as JAX adds them
             q = q + self.bq.to(self.dt)
             k = k + self.bk.to(self.dt)
             v = v + self.bv.to(self.dt)
-        return (q.reshape(B, S, cfg.n_heads, hd), k.reshape(B, S, cfg.n_kv_heads, hd),
-                v.reshape(B, S, cfg.n_kv_heads, hd))
+        T = xkv.shape[1]
+        return (q.reshape(B, x.shape[1], cfg.n_heads, hd),
+                k.reshape(B, T, cfg.n_kv_heads, hd), v.reshape(B, T, cfg.n_kv_heads, hd))
 
-    def forward(self, x: torch.Tensor, *, return_state: bool = False,
-                cache_len: Optional[int] = None):
-        """Full-sequence attention (prefill). With ``return_state`` also
-        returns the decode cache of length ``cache_len`` (default S)."""
+    def forward(self, x: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
+                return_state: bool = False, cache_len: Optional[int] = None):
+        """Full-sequence attention (prefill, training), or cross-attention
+        to ``memory``. With ``return_state`` (self-attention) also returns
+        the decode cache of length ``cache_len`` (default S)."""
         cfg = self.cfg
         dt = x.dtype
         hd = cfg.resolved_head_dim
         B, S, _ = x.shape
-        q, k, v = self._qkv(x)
+        q, k, v = self._qkv(x, memory)
         T = k.shape[1]
-        cos, sin = rope_table(torch.arange(S, device=x.device), hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if cfg.attention_impl == "blocked":
+        if self.use_rope and memory is None:
+            cos, sin = rope_table(torch.arange(S, device=x.device), hd, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        causal = self.causal and memory is None
+        if cfg.attention_impl == "blocked" and causal:
             out = blocked_attention(q, k, v, window=self.window,
                                     block_q=cfg.attention_block_q,
                                     block_kv=cfg.attention_block_kv)
         else:
-            mask = _attn_mask(S, T, self.window, device=x.device)
+            # non-causal attention (the encoder, cross-attention) has no window
+            mask = _attn_mask(S, T, self.window, device=x.device) if causal else None
             probs = _masked_probs(_group_scores(q, k).float(), mask, hd, dt)
             out = _group_out(probs, v)
             del probs
@@ -362,10 +391,11 @@ class Attention(nn.Module):
         B = x.shape[0]
         hd = cfg.resolved_head_dim
         q, k, v = self._qkv(x)
-        cos, sin = rope_table(torch.full((1,), pos, device=x.device), hd,
-                              cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if self.use_rope:
+            cos, sin = rope_table(torch.full((1,), pos, device=x.device), hd,
+                                  cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
         k_cache, v_cache = cache["k"], cache["v"]
         L = k_cache.shape[1]
         idx = torch.arange(L, device=x.device)
@@ -384,6 +414,29 @@ class Attention(nn.Module):
         probs = _masked_probs(_group_scores(q, k_cache).float(), valid, hd, dt)
         out = _group_out(probs, v_cache).reshape(B, 1, cfg.n_heads * hd)
         return out @ self.wo.to(self.dt), cache
+
+    def memory_kv(self, memory: torch.Tensor) -> Cache:
+        """The cross cache of a (B, T, d) ``memory``: ``ck = memory @ wk``
+        and ``cv = memory @ wv`` as (B, T, n_kv_heads, head_dim), without
+        ``bk`` / ``bv``, as the JAX ``_layer_apply`` builds it."""
+        cfg = self.cfg
+        shape = (memory.shape[0], memory.shape[1], cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"ck": (memory @ self.wk.to(self.dt)).reshape(shape),
+                "cv": (memory @ self.wv.to(self.dt)).reshape(shape)}
+
+    def cross_decode(self, x: torch.Tensor, cross: Cache) -> torch.Tensor:
+        """One token ``x`` (B, 1, d) against the cross cache ``cross``
+        (:meth:`memory_kv`): q (plus ``bq``) only, then a softmax over
+        every cached frame, unmasked."""
+        cfg = self.cfg
+        B = x.shape[0]
+        hd = cfg.resolved_head_dim
+        q = (x @ self.wq.to(self.dt)).reshape(B, 1, cfg.n_heads, hd)
+        if self.bq is not None:
+            q = q + self.bq.to(self.dt).reshape(1, 1, cfg.n_heads, hd)
+        probs = _masked_probs(_group_scores(q, cross["ck"]).float(), None, hd, x.dtype)
+        out = _group_out(probs, cross["cv"]).reshape(B, 1, cfg.n_heads * hd)
+        return out @ self.wo.to(self.dt)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 The port of ``repro.models.model`` for the layer kinds ``rglru``,
 ``sliding``, ``full``, ``mlstm`` and ``slstm``, with the ``swiglu`` FFN or
 none (recurrentgemma-2b, qwen2-1.5b, gemma3-4b, yi-9b, phi4-mini-3.8b,
-phi-3-vision-4.2b; xlstm-350m, whose layers have no FFN):
+phi-3-vision-4.2b; xlstm-350m, whose layers have no FFN), and the
+encoder-decoder whisper-tiny:
 
     embed (tokens, or precomputed embeddings) -> pattern units -> tail
     layers -> final RMSNorm -> unembedding (the tied table, or ``head``)
@@ -12,6 +13,13 @@ With ``cfg.input_kind == "embeddings"`` (phi-3-vision's stubbed vision
 frontend) a batch's ``embeds`` (B, S, d) enter the first layer in the
 compute dtype, unscaled; decode still embeds tokens. An untied model
 (``tie_embeddings=False``, yi-9b) has its own ``head`` (d, padded_vocab).
+With ``cfg.rope_theta <= 0`` (whisper) attention has no RoPE and the
+inputs get sinusoidal absolute positions (:func:`sinusoidal`). With
+``cfg.encoder_layers > 0`` (whisper, its audio frontend stubbed) a batch's
+``frames`` (B, T, d) run through the encoder (:func:`_encode`:
+``encoder_layers`` non-causal ``full`` layers, then ``encoder_norm``), and
+every decoder layer cross-attends to its output, the memory, after its
+mixer; a decode cache then also holds each layer's cross cache.
 
 The JAX package stacks each pattern position's params over ``n_units`` and
 runs the units with ``lax.scan``; here the units are a Python loop over one
@@ -24,7 +32,8 @@ Entry points: :func:`init_params` (a ``Model`` with weights drawn from a
 grad), :func:`loss_fn` (the training loss, with :func:`cross_entropy` and
 :func:`_chunked_xent`, and ``cfg.remat`` over each pattern unit),
 :func:`init_cache`, :func:`prefill` and :func:`decode_step`. A cache is
-``{"layers": [per-layer state], "pos": int}``;
+``{"layers": [per-layer state], "pos": int}``, and for an encoder model
+``"cross"``: [per-layer ``{"ck", "cv"}``];
 ``repro_torch.interop.cache_to_jax`` gives it in the JAX package's layout.
 :func:`param_leaves` groups the parameters as the JAX params pytree holds
 them, for the optimizers, the checkpoint and the interop helpers.
@@ -81,10 +90,6 @@ def _check_supported(cfg: ArchConfig) -> None:
         missing.append(f"layer kinds {other}")
     if _ffn_kind(cfg) == "moe":
         missing.append("FFN kind 'moe'")
-    if cfg.encoder_layers:
-        missing.append("the encoder and cross-attention")
-    if cfg.rope_theta <= 0:
-        missing.append("sinusoidal positions")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
@@ -98,12 +103,15 @@ def _check_supported(cfg: ArchConfig) -> None:
 
 class Block(nn.Module):
     """One layer: pre-norm mixer (RG-LRU, mLSTM, sLSTM, or attention over
-    the whole prefix or over ``cfg.window`` positions) and, unless the FFN
-    kind is ``none``, pre-norm SwiGLU, each added to the residual stream.
-    A layer without an FFN has no ``norm2`` and no ``ffn``, as the JAX
-    ``_layer_init`` builds it."""
+    the whole prefix or over ``cfg.window`` positions; ``causal=False``:
+    over every position, the encoder's), with ``cross`` a pre-norm
+    cross-attention to the encoder's memory (``norm_cross``, ``cross``),
+    and, unless the FFN kind is ``none``, pre-norm SwiGLU, each added to
+    the residual stream in that order. A layer without an FFN has no
+    ``norm2`` and no ``ffn``, as the JAX ``_layer_init`` builds it."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, device=None, trainable: bool = False):
+    def __init__(self, cfg: ArchConfig, kind: str, device=None, trainable: bool = False,
+                 cross: bool = False, causal: bool = True):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(kind)
@@ -113,7 +121,13 @@ class Block(nn.Module):
             self.mixer = _MIXERS[kind](cfg, device, trainable)
         else:  # the window as the JAX _layer_apply passes it
             self.mixer = L.Attention(cfg, device, trainable,
-                                     window=cfg.window if kind == "sliding" else None)
+                                     window=cfg.window if kind == "sliding" else None,
+                                     causal=causal)
+        if cross:
+            self.norm_cross = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+            self.cross = L.Attention(cfg, device, trainable, causal=False)
+        else:
+            self.norm_cross = self.cross = None
         if _ffn_kind(cfg) == "swiglu":
             self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
             self.ffn = L.SwiGLU(cfg, device, trainable)
@@ -121,34 +135,45 @@ class Block(nn.Module):
             self.norm2 = self.ffn = None
 
     def init_(self, gen: torch.Generator) -> None:
-        for m in (self.norm1, self.mixer, self.norm2, self.ffn):
+        for m in (self.norm1, self.mixer, self.norm_cross, self.cross, self.norm2, self.ffn):
             if m is not None:
                 m.init_(gen)
 
     def _add_ffn(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.ffn is None else x + self.ffn(self.norm2(x))
 
-    def forward(self, x: torch.Tensor, *, return_state: bool = False,
-                cache_len: Optional[int] = None):
+    def forward(self, x: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
+                return_state: bool = False, cache_len: Optional[int] = None):
         out = self.mixer(self.norm1(x), return_state=return_state, cache_len=cache_len)
         if return_state:
             out, state = out
-        x = self._add_ffn(x + out)
+        x = x + out
+        if self.cross is not None and memory is not None:
+            x = x + self.cross(self.norm_cross(x), memory=memory)
+        x = self._add_ffn(x)
         return (x, state) if return_state else x
 
     def cache_init(self, batch: int, cache_len: int) -> L.Cache:
         return self.mixer.cache_init(batch, cache_len)
 
-    def decode(self, x: torch.Tensor, cache: L.Cache,
-               pos: int) -> Tuple[torch.Tensor, L.Cache]:
+    def decode(self, x: torch.Tensor, cache: L.Cache, pos: int,
+               cross: Optional[L.Cache] = None) -> Tuple[torch.Tensor, L.Cache]:
+        """One token; with ``cross`` (this layer's cross cache) the
+        cross-attention to the cached memory follows the mixer."""
         out, new = self.mixer.decode(self.norm1(x), cache, pos)
-        return self._add_ffn(x + out), new
+        x = x + out
+        if self.cross is not None and cross is not None:
+            x = x + self.cross.cross_decode(self.norm_cross(x), cross)
+        return self._add_ffn(x), new
 
 
 class Model(nn.Module):
     """The model: the embedding, ``n_units`` pattern units then the tail,
-    as ``Block``s in order (``kinds[i]`` is layer i's kind), the final norm
-    and, unless ``cfg.tie_embeddings``, the output ``head``. Weights are
+    as ``Block``s in order (``kinds[i]`` is layer i's kind; each with
+    cross-attention when ``cfg.encoder_layers``), the final norm and,
+    unless ``cfg.tie_embeddings``, the output ``head``; an encoder model
+    also has ``encoder`` (``cfg.encoder_layers`` non-causal ``full``
+    ``Block``s) and ``encoder_norm``. Weights are
     uninitialised; :func:`init_params` or
     ``repro_torch.interop.model_from_jax`` fills them. ``trainable=True``
     holds float32 masters that require grad (training); the default stores
@@ -162,16 +187,27 @@ class Model(nn.Module):
         self.kinds = kinds["pattern"] * cfg.n_units + kinds["tail"]
         self.embed = L.new_param((cfg.padded_vocab, cfg.d_model),
                                  L.compute_dtype(cfg), device, trainable)
-        self.layers = nn.ModuleList(Block(cfg, k, device, trainable) for k in self.kinds)
+        cross = cfg.encoder_layers > 0
+        self.layers = nn.ModuleList(Block(cfg, k, device, trainable, cross=cross)
+                                    for k in self.kinds)
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
         self.head = None if cfg.tie_embeddings else L.new_param(
             (cfg.d_model, cfg.padded_vocab), L.compute_dtype(cfg), device, trainable)
+        if cross:
+            self.encoder = nn.ModuleList(Block(cfg, "full", device, trainable, causal=False)
+                                         for _ in range(cfg.encoder_layers))
+            self.encoder_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+        else:
+            self.encoder = self.encoder_norm = None
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full causal forward: logits (B, S, padded_vocab) at every position."""
+    def forward(self, tokens: torch.Tensor,
+                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full causal forward: logits (B, S, padded_vocab) at every
+        position; an encoder model attends to its ``frames`` (B, T, d)."""
+        memory = _encode(self, frames) if self.encoder is not None else None
         x = _embed_inputs(self, {"tokens": tokens})
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, memory=memory)
         return logits_of(self, x)
 
 
@@ -190,6 +226,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     model.final_norm.init_(generator)
     for layer in model.layers:
         layer.init_(generator)
+    if model.encoder is not None:
+        model.encoder_norm.init_(generator)
+        for layer in model.encoder:
+            layer.init_(generator)
     return model
 
 
@@ -198,14 +238,48 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal absolute positions, float32 (len(positions), d): the JAX
+    ``_sinusoidal`` table's rows at ``positions``, in its operation order,
+    ``pos / 10000 ** (2 * dim / d)`` then sin and cos concatenated; a
+    decode step's row (JAX ``decode_step``) is the same formula at one
+    position."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=positions.device)[None, :]
+    ang = positions.float()[:, None] / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _with_positions(cfg: ArchConfig, x: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """``x`` (B, S, d) plus the sinusoid rows of positions start..start+S-1
+    cast to ``x``'s dtype when ``cfg.rope_theta <= 0``, else ``x``."""
+    if cfg.rope_theta > 0:
+        return x
+    pos = torch.arange(start, start + x.shape[1], device=x.device)
+    return x + sinusoidal(pos, cfg.d_model).to(x.dtype)
+
+
+def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor], start: int = 0) -> torch.Tensor:
     """The first layer's input: ``batch["embeds"]`` cast to the compute
     dtype for an ``embeddings`` model given them, else the tokens' rows of
-    the table times sqrt(d_model)."""
+    the table times sqrt(d_model); then, with sinusoidal positions, the
+    rows from position ``start`` on (0 for a full sequence, ``pos`` for a
+    decode step)."""
     dt = L.compute_dtype(model.cfg)
     if model.cfg.input_kind == "embeddings" and "embeds" in batch:
-        return batch["embeds"].to(dt)
-    return F.embedding(batch["tokens"], model.embed.to(dt)) * math.sqrt(model.cfg.d_model)
+        x = batch["embeds"].to(dt)
+    else:
+        x = F.embedding(batch["tokens"], model.embed.to(dt)) * math.sqrt(model.cfg.d_model)
+    return _with_positions(model.cfg, x, start)
+
+
+def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder's memory (B, T, d) of precomputed ``frames`` (B, T, d):
+    cast to the compute dtype, the sinusoid rows added, the non-causal
+    encoder layers, then ``encoder_norm``, as the JAX ``_encode``."""
+    x = _with_positions(model.cfg, frames.to(L.compute_dtype(model.cfg)))
+    for layer in model.encoder:
+        x = layer(x)
+    return model.encoder_norm(x)
 
 
 def _unembedding(model: Model) -> torch.Tensor:
@@ -225,19 +299,23 @@ def logits_of(model: Model, h: torch.Tensor) -> torch.Tensor:
 
 
 def _unit_body(layers):
-    def body(x: torch.Tensor) -> torch.Tensor:
+    def body(x: torch.Tensor, memory: Optional[torch.Tensor]) -> torch.Tensor:
         for layer in layers:
-            x = layer(x)
+            x = layer(x, memory=memory)
         return x
 
     return body
 
 
-def backbone(model: Model, x: torch.Tensor) -> torch.Tensor:
-    """The pattern units, then the tail. With ``cfg.remat == "full"`` each
-    unit's body runs under ``torch.utils.checkpoint`` (non-reentrant): only
-    its input is kept, and the backward recomputes the unit, as the JAX
-    ``_remat_wrap`` wraps each unit body and not the tail."""
+def backbone(model: Model, x: torch.Tensor,
+             memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The pattern units, then the tail, each layer cross-attending to
+    ``memory`` when given. With ``cfg.remat == "full"`` each unit's body
+    runs under ``torch.utils.checkpoint`` (non-reentrant): only its inputs
+    are kept (``memory`` is one, so its gradient flows back to the
+    encoder), and the backward recomputes the unit and not the encoder, as
+    the JAX ``_remat_wrap`` wraps each unit body and neither the tail nor
+    ``_encode``."""
     cfg = model.cfg
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
@@ -247,11 +325,11 @@ def backbone(model: Model, x: torch.Tensor) -> torch.Tensor:
     for u in range(cfg.n_units):
         body = _unit_body(model.layers[u * P:(u + 1) * P])
         if cfg.remat == "full":
-            x = torch.utils.checkpoint.checkpoint(body, x, use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(body, x, memory, use_reentrant=False)
         else:
-            x = body(x)
+            x = body(x, memory)
     for layer in model.layers[cfg.n_units * P:]:
-        x = layer(x)
+        x = layer(x, memory=memory)
     return x
 
 
@@ -299,12 +377,14 @@ def _chunked_xent(model: Model, h: torch.Tensor, targets: torch.Tensor) -> torch
 
 
 def loss_fn(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The training loss of ``repro.models.loss_fn``: embed, backbone, then
-    the cross-entropy against ``batch["targets"]`` (chunked when
+    """The training loss of ``repro.models.loss_fn``: an encoder model's
+    ``batch["frames"]`` encoded first, embed, backbone, then the
+    cross-entropy against ``batch["targets"]`` (chunked when
     ``cfg.logits_chunk > 0``). The JAX loss adds 0.01 x the MoE aux loss,
     which is zero without MoE layers (the port has none)."""
+    memory = _encode(model, batch["frames"]) if model.encoder is not None else None
     x = _embed_inputs(model, batch)
-    h = backbone(model, x)
+    h = backbone(model, x, memory)
     if model.cfg.logits_chunk > 0:
         return _chunked_xent(model, h, batch["targets"])
     return cross_entropy(model.cfg, logits_of(model, h), batch["targets"])
@@ -317,8 +397,9 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def _jax_path(cfg: ArchConfig, name: str) -> str:
     """A parameter name of the port (``layers.4.mixer.w_a``,
-    ``layers.0.mixer.bq``) as its leaf path in the JAX params pytree
-    (``units/p1/mixer/w_a``, ``units/p0/mixer/bq``)."""
+    ``layers.0.mixer.bq``, ``layers.1.cross.wq``, ``encoder.0.ffn.w_in``)
+    as its leaf path in the JAX params pytree (``units/p1/mixer/w_a``,
+    ``units/p0/mixer/bq``, ``units/p0/cross/wq``, ``encoder/0/ffn/w_in``)."""
     if not name.startswith("layers."):
         return name.replace(".", "/")
     _, i, rest = name.split(".", 2)
@@ -347,36 +428,57 @@ def param_leaves(model: Model) -> Dict[str, List[nn.Parameter]]:
 
 
 def init_cache(model: Model, batch: int, cache_len: int) -> Cache:
-    return {"layers": [layer.cache_init(batch, cache_len) for layer in model.layers],
-            "pos": 0}
+    """An empty decode cache; an encoder model's cross caches hold
+    ``cfg.encoder_seq or cache_len`` frames, as the JAX ``init_cache``."""
+    cache = {"layers": [layer.cache_init(batch, cache_len) for layer in model.layers],
+             "pos": 0}
+    if model.encoder is not None:
+        cfg = model.cfg
+        shape = (batch, cfg.encoder_seq or cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        kw = {"dtype": L.compute_dtype(cfg), "device": model.embed.device}
+        cache["cross"] = [{"ck": torch.zeros(shape, **kw), "cv": torch.zeros(shape, **kw)}
+                          for _ in model.layers]
+    return cache
 
 
 def prefill(model: Model, batch: Dict[str, torch.Tensor],
             cache_len: int) -> Tuple[Cache, torch.Tensor]:
     """Run the full prompt (``tokens`` (B, S), or ``embeds`` (B, S, d) for
-    an ``embeddings`` model), returning (decode cache, last-position logits
+    an ``embeddings`` model; an encoder model's ``frames`` (B, T, d) are
+    encoded first), returning (decode cache, last-position logits
     (B, 1, padded_vocab)); the cache's ``pos`` is S. Every RG-LRU layer's
     scan is one call of ``kernels.ops.rglru_scan``; an xLSTM layer's state
-    is its mixer's after the last position."""
+    is its mixer's after the last position; each decoder layer's cross
+    cache is its ``cross.memory_kv`` of the memory."""
+    memory = _encode(model, batch["frames"]) if model.encoder is not None else None
     x = _embed_inputs(model, batch)
     states = []
     for layer in model.layers:
-        x, st = layer(x, return_state=True, cache_len=cache_len)
+        x, st = layer(x, memory=memory, return_state=True, cache_len=cache_len)
         states.append(st)
     logits = logits_of(model, x[:, -1:])
-    return {"layers": states, "pos": x.shape[1]}, logits
+    cache = {"layers": states, "pos": x.shape[1]}
+    if memory is not None:
+        cache["cross"] = [layer.cross.memory_kv(memory) for layer in model.layers]
+    return cache, logits
 
 
 def decode_step(model: Model, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[Cache, torch.Tensor]:
-    """One decode step: tokens (B, 1) -> (new cache, logits (B, 1, V)). The
-    attention layers' KV caches (prefixes and ring buffers) are updated in
-    place (the JAX package returns new arrays); the RG-LRU and xLSTM
-    states are new tensors."""
+    """One decode step: tokens (B, 1) -> (new cache, logits (B, 1, V)),
+    the token embedded at position ``cache["pos"]`` (its sinusoid row, with
+    sinusoidal positions). The attention layers' KV caches (prefixes and
+    ring buffers) are updated in place (the JAX package returns new
+    arrays); the RG-LRU and xLSTM states are new tensors; the cross caches
+    are carried as they are."""
     pos = cache["pos"]
-    x = _embed_inputs(model, {"tokens": tokens})
+    x = _embed_inputs(model, {"tokens": tokens}, pos)
+    cross = cache.get("cross", [None] * len(model.layers))
     new_layers = []
-    for layer, c in zip(model.layers, cache["layers"]):
-        x, new = layer.decode(x, c, pos)
+    for layer, c, xc in zip(model.layers, cache["layers"], cross):
+        x, new = layer.decode(x, c, pos, xc)
         new_layers.append(new)
-    return {"layers": new_layers, "pos": pos + 1}, logits_of(model, x)
+    new = {"layers": new_layers, "pos": pos + 1}
+    if "cross" in cache:
+        new["cross"] = cache["cross"]
+    return new, logits_of(model, x)

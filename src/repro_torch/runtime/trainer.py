@@ -78,8 +78,9 @@ class Trainer:
     # -- run -----------------------------------------------------------------
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Every array of the batch on the device as it is: int32 tokens and
-        targets, an ``embeddings`` model's float32 ``embeds`` (the model
-        casts them to its compute dtype, as the JAX model does)."""
+        targets, an ``embeddings`` model's float32 ``embeds`` and an encoder
+        model's float32 ``frames`` (the model casts them to its compute
+        dtype, as the JAX model does)."""
         return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
 
     def run(self, n_steps: int, *, fail_at: Optional[int] = None) -> Dict[str, Any]:

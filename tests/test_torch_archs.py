@@ -47,6 +47,9 @@ from repro_torch.models import (Model, costs, decode_step, init_params, loss_fn,
 from repro_torch.models.config import ShapeCell
 from repro_torch.optim import make_optimizer
 from repro_torch.runtime import Trainer, TrainerConfig, TrainState, make_train_step
+from torch_threads import one_thread
+
+one_thread()
 
 ARCHS = ("yi-9b", "phi4-mini-3.8b", "phi-3-vision-4.2b")
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}

@@ -39,6 +39,9 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import decode_step, loss_fn, param_leaves, prefill
 from repro_torch.models import layers as TL
+from torch_threads import one_thread
+
+one_thread()
 
 TWIN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 LOGITS_TOL, LOSS_TOL, GRAD_TOL = 1e-4, 1e-5, 1e-4

@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from torch_threads import one_thread
+
+one_thread()
 
 
 def write(path, text):

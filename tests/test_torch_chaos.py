@@ -41,6 +41,9 @@ from repro_torch.kernels import KernelError
 from repro_torch.service import (ChaosEngine, Event, EventKind, FaultPlan,
                                  OnlineScheduler, standard_plan)
 from repro_torch.service.traces import default_cluster, validate_host_pairing
+from torch_threads import one_thread
+
+one_thread()
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 W2 = np.array([[1.0, 2.0], [1.0, 4.0]])

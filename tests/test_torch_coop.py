@@ -24,6 +24,9 @@ from repro_torch.core import backends, oef, properties, torch_coop
 from repro_torch.core.backends import BackendError
 from repro_torch.kernels import KernelError
 from repro_torch.kernels import envy as tenvy
+from torch_threads import one_thread
+
+one_thread()
 
 TOL = 1e-6          # against the LP, as tests/test_jax_coop.py
 OBJ_REL = 1e-9      # objective against the JAX tier, relative

@@ -57,6 +57,9 @@ from repro_torch.models import (Model, costs, decode_step, init_cache, init_para
 from repro_torch.models.config import SHAPE_CELLS, ShapeCell
 from repro_torch.optim import make_optimizer
 from repro_torch.runtime import Trainer, TrainerConfig, TrainState, make_train_step
+from torch_threads import one_thread
+
+one_thread()
 
 ARCHS = ("qwen2-1.5b", "gemma3-4b")
 LAYER_TOL = {"float32": 1e-5, "bfloat16": 5e-2}

@@ -11,6 +11,9 @@ import pytest
 
 from repro.core import elastic as jelastic
 from repro_torch.core import elastic
+from torch_threads import one_thread
+
+one_thread()
 
 
 def _tenants(mod, spec):

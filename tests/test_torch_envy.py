@@ -17,6 +17,9 @@ import jax.numpy as jnp
 
 from repro.kernels import envy as jenvy
 from repro_torch.kernels import envy as tenvy
+from torch_threads import one_thread
+
+one_thread()
 
 TOL = 1e-12
 

@@ -24,6 +24,9 @@ from repro_torch.kernels import KernelError, _build, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import xent as xe
+from torch_threads import one_thread
+
+one_thread()
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 TOL = {False: 1e-5, True: 2e-2}  # by bf16

@@ -22,6 +22,9 @@ from repro.core import jax_coop, jax_solve
 from repro_torch.core import torch_coop, torch_solve
 from repro_torch.kernels import envy as tenvy
 from repro_torch.kernels import waterfill as twf
+from torch_threads import one_thread
+
+one_thread()
 
 SEGMENT_TOL = 1e-12  # the port's segment vs the JAX segment
 PARITY_TOL = 1e-9    # the port's solve vs the JAX solve

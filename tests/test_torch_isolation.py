@@ -13,6 +13,9 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_thread
+
+one_thread()
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -60,6 +63,7 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "runtime.trainstep", "runtime.trainer", "launch.train",
                  "models.costs", "configs.qwen2_1_5b", "configs.gemma3_4b",
                  "configs.yi_9b", "configs.phi4_mini_3_8b", "configs.phi_3_vision_4_2b",
+                 "configs.whisper_tiny",
                  "core.elastic", "service.faults", "service.journal", "obs.report",
                  "obs.__main__", "examples.cluster_scheduler_e2e",
                  "examples.serve_decode"):

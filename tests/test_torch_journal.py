@@ -37,6 +37,9 @@ from repro_torch.service import (ChaosEngine, EventKind, FaultPlan, Journal,
 from repro_torch.service import journal as tjournal
 from repro_torch.service.__main__ import main as cli_main
 from repro_torch.service.traces import default_cluster
+from torch_threads import one_thread
+
+one_thread()
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 #: tests/test_chaos.py's journal plan: trace-level chaos only (solver faults

@@ -39,6 +39,9 @@ from repro_torch.launch import serve
 from repro_torch.models import Model, decode_step, init_cache, init_params, prefill
 from repro_torch.models.model import backbone
 from repro_torch.models import layers as TL
+from torch_threads import one_thread
+
+one_thread()
 
 ARCH = "recurrentgemma-2b"
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -330,16 +333,20 @@ def test_full_config_has_the_jax_shapes():
 
 
 def test_blocked_attention_and_unported_archs_raise():
-    """What the port still refuses: the whisper-tiny and arctic configs,
-    the encoder and MoE when a model is built, and the ``dots`` remat
-    policy when the backbone runs. The blocked path builds."""
-    for arch in ("whisper-tiny", "arctic-480b"):
+    """What the port still refuses: the arctic and kimi configs, MoE and
+    dense prefix layers (``first_k_dense``) when a model is built, and the
+    ``dots`` remat policy when the backbone runs. The blocked path and,
+    since whisper-tiny was ported, the encoder and sinusoidal positions
+    build."""
+    for arch in ("arctic-480b", "kimi-k2-1t-a32b"):
         with pytest.raises(KeyError, match="ROADMAP"):
             get_smoke(arch)
-    for over in ({"encoder_layers": 2}, {"ffn_kind": "moe", "n_experts": 4, "top_k": 2}):
+    for over in ({"first_k_dense": 1}, {"ffn_kind": "moe", "n_experts": 4, "top_k": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(get_smoke("qwen2-1.5b", **over))
     Model(get_smoke(ARCH, attention_impl="blocked"))
+    Model(get_smoke("whisper-tiny"))
+    Model(get_smoke("qwen2-1.5b", encoder_layers=2, rope_theta=0.0))
     cfg = get_smoke("yi-9b", remat="dots")
     model = init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

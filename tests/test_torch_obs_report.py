@@ -17,6 +17,9 @@ from repro.obs import report as jreport
 from repro.service.__main__ import main as jax_cli
 from repro_torch.obs import report
 from repro_torch.service.__main__ import main as cli_main
+from torch_threads import one_thread
+
+one_thread()
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 

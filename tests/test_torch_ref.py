@@ -15,6 +15,9 @@ import jax.numpy as jnp
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
+from torch_threads import one_thread
+
+one_thread()
 
 F32 = 1e-5
 BF16 = 2e-2

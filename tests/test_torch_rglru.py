@@ -21,6 +21,9 @@ from repro.kernels import ref
 from repro_torch.kernels import KernelError, _build
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rg
+from torch_threads import one_thread
+
+one_thread()
 
 ATOL, RTOL = 1e-5, 1e-4
 

@@ -37,6 +37,9 @@ from repro_torch.configs import get_smoke
 from repro_torch.interop import model_from_jax
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rg
+from torch_threads import one_thread
+
+one_thread()
 
 ATOL, RTOL = 1e-5, 1e-4
 LAYER_TOL = 1e-5

@@ -31,6 +31,9 @@ from repro.models.costs import model_flops as jflops, param_bytes as jbytes
 from repro_torch.examples import cluster_scheduler_e2e, serve_decode
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.launch import train as train_cli
+from torch_threads import one_thread
+
+one_thread()
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DEFAULT = "qwen2-1.5b,gemma3-4b,xlstm-350m"

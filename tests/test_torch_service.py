@@ -29,6 +29,9 @@ from repro_torch.kernels import KernelError
 from repro_torch.kernels import envy as tenvy
 from repro_torch.service import OnlineScheduler
 from repro_torch.service.__main__ import main as cli_main
+from torch_threads import one_thread
+
+one_thread()
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TYPES = ("rtx3070", "rtx3080", "rtx3090")

@@ -22,6 +22,9 @@ from repro_torch.core.torch_solve import (
     bucket, solve_noncoop_fast_batch, solve_noncoop_fast_torch)
 from repro_torch.kernels import KernelError, _build
 from repro_torch.kernels import waterfill as twf
+from torch_threads import one_thread
+
+one_thread()
 
 PARITY_TOL = 1e-9
 

@@ -63,6 +63,9 @@ from repro_torch.optim import (clip_by_global_norm, cosine_schedule, global_norm
                                make_optimizer)
 from repro_torch.runtime import (SimulatedFailure, Trainer, TrainerConfig, TrainState,
                                  make_train_step)
+from torch_threads import one_thread
+
+one_thread()
 
 ARCH = "recurrentgemma-2b"
 GRAD_TOL = {"float32": 1e-5, "bfloat16": 5e-2}

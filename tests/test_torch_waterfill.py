@@ -18,6 +18,9 @@ from repro.core import jax_solve
 from repro.kernels import waterfill as jwf
 from repro_torch.core import torch_solve
 from repro_torch.kernels import waterfill as twf
+from torch_threads import one_thread
+
+one_thread()
 
 TOL = 1e-12
 

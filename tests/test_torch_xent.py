@@ -22,6 +22,9 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import KernelError, _build, ops
 from repro_torch.kernels import xent as xe
+from torch_threads import one_thread
+
+one_thread()
 
 ATOL, RTOL = 1e-4, 1e-5
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))

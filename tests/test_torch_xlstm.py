@@ -46,6 +46,9 @@ from repro_torch.models import (Model, decode_step, init_cache, init_params, los
                                 param_leaves, prefill)
 from repro_torch.optim import make_optimizer
 from repro_torch.runtime import Trainer, TrainerConfig, TrainState, make_train_step
+from torch_threads import one_thread
+
+one_thread()
 
 ARCH = "xlstm-350m"
 DTYPES = ("float32", "bfloat16")
