@@ -122,8 +122,8 @@ raises and the script exits non-zero:
     backward kernels; the tensor-core kernel's SASS holds HGMMA and
     UTMALDG (ptxas's registers and spills printed); then the full-width
     shapes of ``FLASH_FULL`` (the three that phase 30's yi-9b and gemma3-4b
-    blocked prefills give the kernel, recurrentgemma-2b's and gemma3-4b's
-    at S 4096) held to the plain version and to
+    blocked prefills give the kernel, phase 38's arctic-480b one (GQA 7),
+    recurrentgemma-2b's and gemma3-4b's at S 4096) held to the plain version and to
     ``scaled_dot_product_attention``, a second launch identical bit for
     bit, and timed: device time by CUDA-graph replay, op call, TFLOP/s,
     share of the bound, plain version, SDPA; and the float32 path at
@@ -272,7 +272,38 @@ raises and the script exits non-zero:
     off, no kernel launch; the model-FLOP share by ``costs.model_flops``
     and by 6 x ``numel``;
 37. one float32 training step of whisper-tiny card against CPU as phase 21,
-    B 1, 256 frames and tokens: the encoder's gradient leaves included.
+    B 1, 256 frames and tokens: the encoder's gradient leaves included;
+38. serve arctic-480b (128 experts, top-2, a dense SwiGLU residual; the
+    sort-dispatched MoE layer) at full width and 2 of 35 layers as phase
+    18 (``MOE_SERVE``; no launch on the xla path), with the share of
+    (token, slot) assignments the capacity drops and the exact ties at the
+    top-k boundary; then one prefill on ``attention_impl="blocked"`` on the
+    same weights: 2 flash launches, both tensor-core; a second one routed
+    as the xla run (``forced_routes``: the xla path rounds the scores to
+    bf16, the kernel does not, and a near-tie routed another way moves a
+    row by O(1)) within 5e-2 of the xla run's logits and hidden state at
+    every position, its own routing's flips recorded;
+39. arctic-480b card against CPU as phase 19 at one layer with 16 experts
+    (``MOE_CUT``), float32 and bf16, under the routing-flip rule
+    (``card_cpu_routes``): on the card's MoE input the CPU may route a
+    token to another set of experts only where the swapped experts' CPU
+    router logits are within 2 bf16 ulps (float32: 1e-5 relative), on at
+    most 5% of the rows, and a kept flag may move only behind such a flip;
+    the CPU's compared runs take the card's routing, so the logits and the
+    hidden state compare at every position; planted faults (gates not
+    renormalised; the capacity ignored, where the CPU drops assignments)
+    must fail. Then the whole 128-expert layer on the card, bf16 weights
+    held in float32, B 1 x S 256: ``MoE`` against ``moe_plain`` within 1e-5
+    of max |out| (the capacity drops; both faults fail), and again with the
+    router's columns tied in threes, so that every token ties at the top-2
+    boundary: the card's route equal to ``moe_plain``'s (lower index
+    first);
+40. serve kimi-k2-1t-a32b (384 experts, top-8, a shared expert, a dense
+    first layer, head dim 112) at full width and 2 of 61 layers (the dense
+    layer and one MoE layer) as phase 38, xla only;
+41. kimi-k2-1t-a32b card against CPU as phase 39 at its two layers with 32
+    experts (unnormalised gates are gated in float32 only: in bf16 they
+    move the hidden state less than the tolerance, and are recorded).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
@@ -283,6 +314,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -393,6 +425,25 @@ TRAIN_30 = (("phi4-mini-3.8b", None, {}), ("yi-9b", 12, {}),
 WHISPER = "whisper-tiny"
 WHISPER_SERVE = (8, 1500, 32)
 WHISPER_CUT = (300, 256)
+#: phases 38-41, the MoE models at full width: arctic-480b (128 experts,
+#: top-2, a dense residual) and kimi-k2-1t-a32b (384 experts, top-8, a
+#: shared expert, a dense first layer), served at ``MOE_SERVE_LAYERS``
+#: layers (38, 40: 55.4 / 39.2 GB of bf16 weights; at full depth neither
+#: fits one card) on ``MOE_SERVE``, and card against CPU (39, 41) at
+#: (n_layers, n_experts, prompt length) of ``MOE_CUT``, the experts cut so
+#: the float32 host copy stays small (16 arctic experts: 6.7 GB)
+ARCTIC, KIMI = "arctic-480b", "kimi-k2-1t-a32b"
+MOE_SERVE_LAYERS = 2
+MOE_SERVE = SERVE_SHAPE
+MOE_CUT = {ARCTIC: (1, 16, 256), KIMI: (2, 32, 256)}
+#: phase 39's full arctic MoE layer (128 experts) against ``moe_plain`` on
+#: the card, B x S, in float32 (the CPU tests' bound: products summed in
+#: other orders)
+MOE_FULL = (1, 256)
+MOE_PLAIN_TOL = 1e-5
+#: the largest share of a prefill's rows the CPU may route to another set
+#: of experts than the card on the card's MoE input (phases 39, 41)
+FLIP_ROWS_MAX = 0.05
 #: card vs CPU, one float32 training step at cut depth (phase 17): the loss,
 #: relative; each gradient leaf, as a share of its max |g| (float32 products
 #: and reductions summed in other orders on the two devices, through five
@@ -1372,8 +1423,8 @@ def layer_seconds(torch, model, x, train: bool = False) -> dict:
 
 
 def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=None,
-                profile_layers=None, logits_out=None, shape=None) -> int:
-    """Phases 11, 18, 22, 30 and 34: serve ``arch`` at full width through
+                profile_layers=None, logits_out=None, shape=None, after=None) -> int:
+    """Phases 11, 18, 22, 30, 34, 38 and 40: serve ``arch`` at full width through
     ``launch.serve.generate``, ``shape`` (default ``SERVE_SHAPE``) prompts
     and greedy steps (an ``embeddings`` model's prompts, and an encoder
     model's frames of the prompts' length, as ``prompt_batch`` builds them);
@@ -1386,7 +1437,9 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
     the first ``profile_layers`` layers' model (same width and prompts),
     timed untraced for its idle share, with each of its layers timed alone.
     ``logits_out`` receives the main run's prefill logits on the host and
-    its final-normed hidden state at every position on the card."""
+    its final-normed hidden state at every position on the card. ``after``
+    (model, prompts, cache_len) runs last on the served model before it is
+    freed; what it returns is the record's ``after``."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1480,6 +1533,7 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
         decode_kernels = device_kernels(torch, decode_steps)
         t_dec = time.perf_counter() - t_dec
         del cache, batch
+        extra = after(model, prompts, S + steps + 8) if after is not None else None
     del model
     prefill_s = min(rec["prefill_s"], rec2["prefill_s"])
     decode_s = min(rec["decode_s"], rec2["decode_s"])
@@ -1509,7 +1563,7 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
                                     count=k["count"] / DECODE_PROFILE_STEPS)
                                for k in decode_kernels[:10]]},
            "peak_memory_gb": peak_gb, "first_tokens": toks[:, :8].tolist(),
-           "profile_s": {"prefill": t_prof, "decode": t_dec},
+           "profile_s": {"prefill": t_prof, "decode": t_dec}, "after": extra,
            "seconds": time.perf_counter() - t_start}
     detail[f"serve_{run_key(arch, cfg)}"] = out
     launched = {k: n for k, n in want.items() if n} or "none"
@@ -1612,9 +1666,237 @@ def decode_on(model, prompts, toks, cache_len: int, frames=None):
     return logits
 
 
+def moe_layers(model) -> list:
+    """The MoE FFNs of ``model`` (a model, a block or a MoE layer), in order."""
+    from repro_torch.models.layers import MoE
+
+    return [m for m in model.modules() if isinstance(m, MoE)]
+
+
+def routing_of(moe, x, keep_x: bool = False) -> dict:
+    """MoE layer ``moe``'s own routing of its input ``x`` (B, S, d), on the
+    host: the router logits (B, S, E) float32, the expert ids ``idx``
+    (B, S, k), ``kept`` (B, S, k) (in token order: within its expert's
+    capacity), ``cap``, ``ties``, the tokens whose k-th and (k+1)-th
+    probabilities are equal (where the tie order decides the expert), and
+    with ``keep_x`` the input ``x``. The layer's class methods, so under
+    ``forced_routes`` too."""
+    import torch
+
+    from repro_torch.models.layers import MoE
+
+    logits, probs, _, idx = MoE.route(moe, x)
+    order, keep, _, cap = MoE.dispatch(moe, idx, x.shape[1])
+    kept = torch.empty_like(keep).scatter_(1, order, keep).view(idx.shape)
+    k = idx.shape[-1]
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)[0]
+    return {"logits": logits.cpu(), "idx": idx.cpu(), "kept": kept.cpu(), "cap": cap,
+            "ties": int((top[..., k - 1] == top[..., k]).sum()),
+            "x": x.cpu() if keep_x else None}
+
+
+@contextlib.contextmanager
+def tapped_routes(model, keep_x: bool = False):
+    """While open, every forward of a MoE layer of ``model`` appends
+    ``routing_of`` its input to the yielded list."""
+    calls = []
+
+    def hook(moe, args):
+        calls.append(routing_of(moe, args[0], keep_x))
+
+    handles = [m.register_forward_pre_hook(hook) for m in moe_layers(model)]
+    try:
+        yield calls
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def flip_margin(mag, dtype: str):
+    """The router-logit gap under which rounding may order two experts of
+    larger logit magnitude ``mag`` either way: 2 bf16 ulps in bf16 (the
+    router product is rounded to bf16 on each device), 1e-5 relative in
+    float32."""
+    import torch
+
+    if dtype == "bfloat16":
+        return 2.0 * torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    return 1e-5 * mag
+
+
+def route_check(ref_calls, got_calls, dtype: str) -> dict:
+    """One forward's routing on two sides, MoE layer by layer
+    (``tapped_routes`` calls in order; ``ref`` is the side whose logits
+    judge), token by token as sets of experts: the order of a token's k
+    experts changes neither its output nor any expert's queue, so only a
+    token whose set differs flipped. ``tokens`` flipped, ``pairs`` the
+    experts swapped in (counted on one side), of those tokens
+    ``unjustified`` the ones whose swapped experts (in on either side)
+    span more than ``flip_margin`` of the reference logits (a near-tie
+    broken the other way spans less); ``kept_diff``, the (token, expert)
+    assignments on both sides whose kept flag differs, of which
+    ``kept_unexplained`` have no flip into or out of that expert at an
+    earlier token of their batch row (a flip moves the rest of its
+    expert's queue by one); ``reordered``, tokens with the same set in
+    another order; ``rows`` (B, S) bool, the rows whose routing differs at
+    some layer. Every row is judged at every layer, so a later layer's
+    inputs must not follow from an earlier layer's flips: the two sides
+    route the same input, or the same routes (``forced_routes``)."""
+    import torch
+
+    rows, out = None, dict.fromkeys(("tokens", "pairs", "unjustified", "kept_diff",
+                                     "kept_unexplained", "reordered"), 0)
+    for ref, got in zip(ref_calls, got_calls):
+        sa, oa = torch.sort(ref["idx"], dim=-1)
+        sb, ob = torch.sort(got["idx"], dim=-1)
+        ka, kb = torch.gather(ref["kept"], -1, oa), torch.gather(got["kept"], -1, ob)
+        B, S, k = sa.shape
+        rows = torch.zeros((B, S), dtype=torch.bool) if rows is None else rows
+        match = sa[..., :, None] == sb[..., None, :]  # (B, S, k, k)
+        in_a, in_b = match.any(-1), match.any(-2)
+        flipped = ~in_a.all(-1)
+        la, lb = (torch.gather(ref["logits"], -1, i) for i in (sa, sb))
+        inf = torch.tensor(float("inf"))
+        hi = torch.maximum(torch.where(in_a, -inf, la).amax(-1),
+                           torch.where(in_b, -inf, lb).amax(-1))
+        lo = torch.minimum(torch.where(in_a, inf, la).amin(-1),
+                           torch.where(in_b, inf, lb).amin(-1))
+        wide = flipped & ((hi - lo) > flip_margin(torch.maximum(hi.abs(), lo.abs()), dtype))
+        kb_at_a = (match & kb[..., None, :]).any(-1)
+        kd = in_a & (ka != kb_at_a)
+        out["tokens"] += int(flipped.sum())
+        out["pairs"] += int((~in_a).sum())
+        out["unjustified"] += int(wide.sum())
+        out["reordered"] += int((~flipped & (ref["idx"] != got["idx"]).any(-1)).sum())
+        out["kept_diff"] += int(kd.sum())
+        for b, t, j in kd.nonzero().tolist():
+            e = sa[b, t, j]
+            swapped = ((sa[b, :t] == e) & ~in_a[b, :t]) | ((sb[b, :t] == e) & ~in_b[b, :t])
+            out["kept_unexplained"] += not bool(swapped.any())
+        rows = rows | flipped | kd.any(-1)
+    out["n_rows"] = int(rows.sum())
+    out["rows"] = rows
+    return out
+
+
+def card_cpu_routes(cpu_model, cpu_calls, card_calls, dtype: str) -> dict:
+    """The routing-flip rule of phases 39 and 41 for one forward's MoE
+    layers, tapped with their inputs. The router's product is rounded to
+    the compute dtype on each device, so on one input the two devices may
+    order near-tied experts differently: the CPU routes the card's input
+    itself, and every token it sends to another set of experts than the
+    card did must be a near-tie on the CPU's logits (``route_check``:
+    ``unjustified``, ``kept_unexplained``), on at most ``FLIP_ROWS_MAX`` of
+    the rows (``device_rows`` of ``rows_of``). The CPU's routing of its own
+    input, which differs from the card's by the rounding upstream, is
+    recorded (``tokens``, ``pairs``, ``reordered``, ``n_rows``)."""
+    same = [routing_of(m, c["x"]) for m, c in zip(moe_layers(cpu_model), card_calls)]
+    device = route_check(same, card_calls, dtype)
+    own = route_check(cpu_calls, card_calls, dtype)
+    return {"tokens": own["tokens"], "pairs": own["pairs"], "reordered": own["reordered"],
+            "n_rows": own["n_rows"], "device_tokens": device["tokens"],
+            "device_reordered": device["reordered"], "device_rows": device["n_rows"],
+            "rows_of": device["rows"].numel(), "unjustified": device["unjustified"],
+            "kept_diff": device["kept_diff"], "kept_unexplained": device["kept_unexplained"]}
+
+
+@contextlib.contextmanager
+def attention_impl(model, impl: str):
+    """While open, every attention layer of ``model`` runs
+    ``attention_impl=impl`` on the same weights (each reads its config
+    when called)."""
+    import dataclasses
+
+    from repro_torch.models.layers import Attention
+
+    mods = [m for m in model.modules() if isinstance(m, Attention)]
+    saved = [m.cfg for m in mods]
+    for m in mods:
+        m.cfg = dataclasses.replace(m.cfg, attention_impl=impl)
+    try:
+        yield
+    finally:
+        for m, c in zip(mods, saved):
+            m.cfg = c
+
+
+@contextlib.contextmanager
+def forced_routes(model, calls):
+    """While open, the MoE layers of ``model`` route each token to the
+    experts of the ``tapped_routes`` ``calls`` (of one or more forwards,
+    each its MoE layers in order; a layer takes its calls in turn), gated
+    by their own probabilities at those experts, renormalised: the output
+    is then continuous in the input, so two runs that differ by rounding
+    compare at every position."""
+    import torch
+
+    mods = moe_layers(model)
+    for i, m in enumerate(mods):
+        def route(x, real=m.route, todo=iter(calls[i::len(mods)])):
+            logits, probs, _, _ = real(x)
+            idx = next(todo)["idx"].to(x.device)
+            gates = torch.gather(probs, -1, idx)
+            return logits, probs, gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9), idx
+        m.route = route
+    try:
+        yield
+    finally:
+        for m in mods:
+            del m.route
+
+
+@contextlib.contextmanager
+def planted_no_renorm(model):
+    """A planted fault for phases 39 and 41: every MoE layer weights its
+    experts by the raw top-k probabilities, not renormalised to one."""
+    import torch
+
+    mods = moe_layers(model)
+    for m in mods:
+        def route(x, real=m.route):
+            logits, probs, _, idx = real(x)
+            return logits, probs, torch.gather(probs, -1, idx), idx
+        m.route = route
+    try:
+        yield
+    finally:
+        for m in mods:
+            del m.route
+
+
+@contextlib.contextmanager
+def planted_no_capacity(model):
+    """A planted fault for phases 39 and 41: every MoE layer keeps every
+    assignment (a capacity of S * k: no token dropped)."""
+    import dataclasses
+
+    mods = moe_layers(model)
+    saved = [m.cfg for m in mods]
+    for m in mods:
+        m.cfg = dataclasses.replace(m.cfg, capacity_factor=float(m.cfg.n_experts))
+    try:
+        yield
+    finally:
+        for m, c in zip(mods, saved):
+            m.cfg = c
+
+
+#: phases 39 and 41's planted faults by model: (name, fault, gate). The
+#: capacity ignored where the CPU's routing drops an assignment (else it
+#: changes nothing); unnormalised gates in both dtypes for arctic-480b and
+#: in float32 for kimi-k2-1t-a32b, whose top 8 of 32 experts keep most of
+#: the probability beside an always-on shared expert: the fault moves its
+#: hidden state by 4.0e-2 of the max, under bf16's 5e-2 (recorded there)
+_NO_CAPACITY = ("no_capacity", planted_no_capacity,
+                lambda dtype, flips: flips["prefill"]["dropped"] > 0)
+MOE_CONTROLS = {ARCTIC: (("no_renorm", planted_no_renorm, ("float32", "bfloat16")),
+                         _NO_CAPACITY),
+                KIMI: (("no_renorm", planted_no_renorm, ("float32",)), _NO_CAPACITY)}
+
+
 def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev="cuda",
-                  cfg_of=None, controls=(), T=None) -> None:
-    """Phases 12, 19, 23, 31 and 35: ``arch`` on the card against the CPU at
+                  cfg_of=None, controls=(), T=None, routing=False) -> None:
+    """Phases 12, 19, 23, 31, 35, 39 and 41: ``arch`` on the card against the CPU at
     full width and cut depth, B 1, ``S`` prompt tokens and 8 greedy steps
     (an encoder model's prompts beside ``T`` frames of ``audio_frames``,
     drawn on the card and copied to the CPU: T != S, so that a frame axis
@@ -1628,8 +1910,17 @@ def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev
     launch per attention layer on the blocked path (the CPU runs its twin)
     and no other kernel on the card. Each of ``controls`` ((name, planted
     fault as a context manager on the card's model, the dtypes it is gated
-    in)) reruns the card's prefill with the fault planted and holds it to
-    the same every-position check, which it must fail where it is gated."""
+    in, or a predicate of the dtype and its record)) reruns the card's
+    prefill with the fault planted and holds it to the same every-position
+    check, which it must fail where it is gated. With ``routing`` (a MoE
+    model) each side's routing is tapped with its inputs and held by
+    ``card_cpu_routes`` in the prefill and in the last decode step (on the
+    card's input every flip between the devices a near-tie, on at most
+    ``FLIP_ROWS_MAX`` of the rows), and the CPU's compared runs (prefill,
+    and the decode replayed on the card's tokens) take the card's routing
+    (``forced_routes``): a near-tie routed the other way on the CPU's own
+    input moves its row by O(1) (kimi's top 8 of 32 experts: 5% of the rows
+    in bf16), so routed alike the comparison holds every position."""
     import copy
 
     from repro_torch.configs import get_config
@@ -1655,18 +1946,44 @@ def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev
                                       torch.Generator(device=dev).manual_seed(phase))
                 frames_cpu = frames.cpu()
             hidden = {}
+            tap = (functools.partial(tapped_routes, keep_x=True) if routing
+                   else (lambda m: contextlib.nullcontext([])))
             _zero_launches(ws)
-            with prefill_hidden(card_model, hidden, "card"):
+            with prefill_hidden(card_model, hidden, "card"), tap(card_model) as card_routes:
                 toks_card, rec = generate(card_model, prompts.to(dev), steps, frames)
             card_launches = _launches(ws)
-            with prefill_hidden(cpu_model, hidden, "cpu"):
+            with prefill_hidden(cpu_model, hidden, "cpu"), tap(cpu_model) as cpu_routes:
                 toks_cpu, rec_cpu = generate(cpu_model, prompts, steps, frames_cpu)
             same = torch.equal(toks_card.cpu(), toks_cpu)
             # in bf16 a greedy step may pick another token at a near-tie, after
             # which the two sides decode different inputs: the CPU's last
             # logits are then taken on the card's tokens
-            last_cpu = rec_cpu["last_logits"] if same else decode_on(
+            last_cpu = rec_cpu["last_logits"] if same or routing else decode_on(
                 cpu_model, prompts, toks_card.cpu(), S + steps + 8, frames_cpu)
+            flips = {}
+            if routing:
+                # each forward taps its MoE layers in order: the first n calls
+                # are the prefill's, the last n the last decode step's
+                n = len(moe_layers(cpu_model))
+                for when, part in (("prefill", slice(0, n)), ("last_decode", slice(-n, None))):
+                    flips[when] = card_cpu_routes(cpu_model, cpu_routes[part],
+                                                  card_routes[part], dtype)
+                flips["prefill"].update(dropped=sum(int((~c["kept"]).sum())
+                                                    for c in cpu_routes[:n]),
+                                        ties=sum(c["ties"] for c in cpu_routes[:n]))
+                # the CPU's compared runs take the card's routing, so that the
+                # two sides' outputs are continuous in their inputs and
+                # compare at every position
+                hidden.pop("cpu")
+                batch_cpu = prompt_batch(cpu_model, prompts, frames_cpu)
+                with forced_routes(cpu_model, card_routes[:n]), \
+                        prefill_hidden(cpu_model, hidden, "cpu"):
+                    rec_cpu = dict(rec_cpu, logits=prefill(cpu_model, batch_cpu,
+                                                           S + steps + 8)[1])
+                with forced_routes(cpu_model, card_routes):
+                    last_cpu = decode_on(cpu_model, prompts, toks_card.cpu(), S + steps + 8,
+                                         frames_cpu)
+            del card_routes, cpu_routes
             cross = {}
             if cfg.encoder_layers:
                 caches = [prefill(m, prompt_batch(m, p, f), S + steps + 8)[0]["cross"]
@@ -1706,11 +2023,22 @@ def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev
               f"position {err_all:.3e} > {tol:g}")
         check(err_dec <= tol, f"{arch} {dtype}: card vs CPU logits of the last decode "
               f"step {err_dec:.3e} > {tol:g}")
+        for when, f in flips.items():
+            check(f["unjustified"] == 0 and f["kept_unexplained"] == 0,
+                  f"{arch} {dtype}: {when}: on the card's MoE inputs {f['unjustified']} of "
+                  f"{f['device_tokens']} routing flips between the devices are not near-ties, "
+                  f"{f['kept_unexplained']} of {f['kept_diff']} kept flags differ behind no "
+                  f"flip")
+            check(f["device_rows"] <= FLIP_ROWS_MAX * f["rows_of"],
+                  f"{arch} {dtype}: {when}: routing flips between the devices change "
+                  f"{f['device_rows']} of {f['rows_of']} rows (> {FLIP_ROWS_MAX:.0%})")
         err_cross = max(cross.values(), default=0.0)
         check(err_cross <= tol, f"{arch} {dtype}: card vs CPU cross caches {err_cross:.3e} "
               f"> {tol:g} ({cross})")
         for name, _plant, gated in controls:
-            check(dtype not in gated or planted[name]["rel_err_all_positions"] > tol,
+            on = gated(dtype, flips) if callable(gated) else dtype in gated
+            planted[name]["gated"] = on
+            check(not on or planted[name]["rel_err_all_positions"] > tol,
                   f"{arch} {dtype}: the planted fault {name!r} passes the every-position "
                   f"check ({planted[name]['rel_err_all_positions']:.3e} <= {tol:g})")
         if dtype == "float32":
@@ -1719,7 +2047,7 @@ def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev
         out[dtype] = {"rel_err": err, "rel_err_all_positions": err_all,
                       "rel_err_last_decode": err_dec, "planted": planted,
                       "frames": (T or S) if cfg.encoder_layers else None,
-                      "rel_err_cross": cross,
+                      "rel_err_cross": cross, "routing": flips,
                       "tokens_equal": same, "last_decode_on_card_tokens": not same,
                       "launches": n_rglru, "flash_launches": flash,
                       "card_tokens": toks_card.tolist(), "cpu_tokens": toks_cpu.tolist(),
@@ -1732,10 +2060,21 @@ def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev
             + f"greedy tokens {'identical' if same else 'differ: the CPU decoded the card tokens'}"
             f"; kernel launches: RG-LRU {n_rglru}, flash {flash}, no other "
             f"({out[dtype]['seconds']:.1f} s)")
+        for when, f in flips.items():
+            log(f"    routing, {when}: on the card's MoE input the CPU routes "
+                f"{f['device_tokens']} tokens to another set of experts, all within the "
+                f"near-tie margin ({f['device_rows']} of {f['rows_of']} rows; "
+                f"{f['device_reordered']} more in another order), {f['kept_diff']} kept flags "
+                f"moved behind them; on its own input, {f['tokens']} tokens ({f['pairs']} "
+                f"experts swapped, {f['n_rows']} rows; {f['reordered']} reordered); compared "
+                f"routed as the card"
+                + (f"; the CPU dropped {f['dropped']} assignments, {f['ties']} tokens tie "
+                   f"exactly at the top-k boundary" if "dropped" in f else ""))
         for name, ctl in planted.items():
             log(f"    planted fault {name!r} on the card: hidden state at every position "
                 f"{ctl['rel_err_all_positions']:.3e}, last-position logits "
-                f"{ctl['rel_err_last_position']:.3e} (tolerance {tol:g})")
+                f"{ctl['rel_err_last_position']:.3e} (tolerance {tol:g}"
+                f"{'' if ctl['gated'] else '; not gated here'})")
         del cpu_model, card_model
     detail[f"card_vs_cpu_{run_key(arch, cfg)}"] = out
 
@@ -1756,13 +2095,16 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 #: query heads, 4 KV heads of 128), whose times the kernels line reports
 #: and where the float32 path is timed, and gemma3-4b's sliding (window
 #: 1024) and full layers (configs/gemma3_4b.py: 8 query heads, 4 KV heads
-#: of 256). Then recurrentgemma-2b's sliding layer at its serve cell (10
-#: query heads, 1 KV head of 256, window 2048) and gemma3-4b's sliding
-#: layer at B 4, S 4096, which no model path runs (kept as earlier
+#: of 256). Then arctic-480b's layers in phase 38's blocked prefill
+#: (configs/arctic_480b.py: 56 query heads, 8 KV heads of 128, so 7 query
+#: heads a KV head). Then recurrentgemma-2b's sliding layer at its serve
+#: cell (10 query heads, 1 KV head of 256, window 2048) and gemma3-4b's
+#: sliding layer at B 4, S 4096, which no model path runs (kept as earlier
 #: measurements' shapes).
 FLASH_FULL = (("flash_yi9b_b8_s2048", 8, 32, 4, 2048, 128, True, None),
               ("flash_gemma3_4b_b8_s2048_w1024", 8, 8, 4, 2048, 256, True, 1024),
               ("flash_gemma3_4b_b8_s2048_full", 8, 8, 4, 2048, 256, True, None),
+              ("flash_arctic_b8_s2048", 8, 56, 8, 2048, 128, True, None),
               ("flash_rgemma2b_b8_s2048", 8, 10, 1, 2048, 256, True, 2048),
               ("flash_gemma3_4b_b4_s4096_w1024", 4, 8, 4, 4096, 256, True, 1024))
 
@@ -2660,6 +3002,256 @@ def whisper_phases(torch, rg, detail, rg_t, dev="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 38-41: the MoE models
+# ---------------------------------------------------------------------------
+
+
+def moe_serve_extras(torch, model, prompts, cache_len: int, xla=None) -> dict:
+    """Phases 38 and 40, on the served model before it is freed: one more
+    prefill of the prompts with its routing tapped (the share of (token,
+    slot) assignments the capacity drops, the tokens tied exactly at the
+    top-k boundary, per MoE layer); with ``xla`` (the xla run's
+    ``logits_out``) two prefills on ``attention_impl="blocked"`` on the same
+    weights, each one flash launch per attention layer, all on the
+    tensor-core kernel, and no other launch: the first as the model runs,
+    timed; the second with each MoE layer routed as in the xla prefill
+    (``forced_routes``), its logits and hidden state at every position
+    within ``CARD_CPU_BF16`` of the xla run's. The xla path rounds the
+    attention scores to bf16 (as the JAX einsum does) and the flash kernel
+    keeps them in float32, so the MoE inputs of the two paths differ by
+    more than the router's rounding, and a near-tie routed one way moves a
+    row by O(1) and, a layer later, every row that attends to it: routed
+    alike, the comparison holds the attention path at every position. The
+    blocked run's own routing against the xla run's (``route_check`` on
+    each layer's continuous input) is recorded: pairs on another expert,
+    those beyond 2 bf16 ulps, rows."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wrappers
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import prefill
+
+    batch = prompt_batch(model, prompts)
+    with tapped_routes(model) as calls:
+        prefill(model, batch, cache_len)
+    n = sum(c["kept"].numel() for c in calls)
+    out = {"cap": calls[0]["cap"], "assignments": n,
+           "dropped": sum(int((~c["kept"]).sum()) for c in calls),
+           "ties": sum(c["ties"] for c in calls),
+           "by_layer": [{"dropped": int((~c["kept"]).sum()), "ties": c["ties"]}
+                        for c in calls]}
+    out["dropped_share"] = out["dropped"] / n
+    log(f"    routing of the {prompts.shape[0]} x {prompts.shape[1]} prefill: capacity "
+        f"{out['cap']} a row, {out['dropped']} of {n} (token, slot) assignments dropped "
+        f"({out['dropped_share']:.3%}), {out['ties']} tokens tied exactly at the top-k "
+        f"boundary over {len(calls)} MoE layers")
+    if xla is None:
+        return out
+    ws = wrappers()
+    n_attn = sum(kind in ("full", "sliding") for kind in model.kinds)
+    check(_launches(ws) == _want(ws), f"{model.cfg.name} xla prefills launched "
+          f"{_launches(ws)}; want no launch")
+
+    def blocked_prefill(forced: bool):
+        got = {}
+        with attention_impl(model, "blocked"), contextlib.ExitStack() as stack:
+            if forced:
+                stack.enter_context(forced_routes(model, calls))
+                got["calls"] = stack.enter_context(tapped_routes(model))
+                stack.enter_context(prefill_hidden(model, got, "hidden"))
+            torch.cuda.synchronize()
+            _zero_launches(ws)
+            fa.flash_attention.launches_tc = 0
+            t0 = time.perf_counter()
+            _, got["logits"] = prefill(model, batch, cache_len)
+            torch.cuda.synchronize()
+            got["s"] = time.perf_counter() - t0
+        got["launched"], got["tc"] = _launches(ws), fa.flash_attention.launches_tc
+        check(got["launched"] == _want(ws, flash_attention=n_attn) and got["tc"] == n_attn,
+              f"{model.cfg.name} blocked prefill launched {got['launched']} ({got['tc']} "
+              f"on the tensor-core flash kernel); want {n_attn} flash launches, all "
+              f"tensor-core, and no other")
+        check(bool(torch.isfinite(got["logits"]).all()), "blocked prefill logits not finite")
+        return got
+
+    first = blocked_prefill(False)
+    got = blocked_prefill(True)
+    flips = route_check(calls, got["calls"], "bfloat16")
+    flips["rows_of"] = flips.pop("rows").numel()
+    err = rel_err(got["logits"].float().cpu(), xla["prefill"])
+    err_all = rel_err(got["hidden"], xla["hidden"])
+    check(err <= CARD_CPU_BF16,
+          f"blocked vs xla prefill logits {err:.3e} > {CARD_CPU_BF16:g}")
+    check(err_all <= CARD_CPU_BF16, f"blocked vs xla prefill hidden state at every "
+          f"position {err_all:.3e} > {CARD_CPU_BF16:g}")
+    out["blocked"] = {"flash": first["launched"]["flash_attention"], "flash_tc": first["tc"],
+                      "launches": [first["launched"], got["launched"]],
+                      "prefill_s": first["s"], "rel_err": err,
+                      "rel_err_all_positions": err_all, "routing": flips}
+    log(f"    blocked prefills on the same weights: {first['s']:.3f} s, "
+        f"{out['blocked']['flash']} flash launches each ({out['blocked']['flash_tc']} "
+        f"tensor-core) and no other; routed as the xla run, logits within "
+        f"{err:.3e}, hidden state at every position within {err_all:.3e} of the xla "
+        f"run's max; its own routing: {flips['tokens']} token-layers on another set of "
+        f"experts ({flips['unjustified']} beyond 2 bf16 ulps of the xla logits), "
+        f"{flips['reordered']} reordered, {flips['n_rows']} of {flips['rows_of']} rows")
+    return out
+
+
+def moe_layer_phase(torch, detail, dev="cuda", cfg=None) -> dict:
+    """Phase 39's second part: arctic-480b's whole MoE layer (128 experts
+    of d 7168 x f 4864 and its dense residual) on the card, its weights
+    drawn and rounded to bf16 and held in float32 (53.6 GB), on B x S
+    (``MOE_FULL``) standard normal rows: ``layers.MoE`` against
+    ``layers.moe_plain`` (out within ``MOE_PLAIN_TOL`` of max |out|, aux
+    within 1e-6 relative). The capacity (5 a row at S 256) must drop
+    assignments, and both planted faults must fail the comparison. Then
+    the router's columns are tied in threes: at least half the tokens tie
+    exactly at the top-2 boundary, each routed to the lower two experts of
+    its triple (``lax.top_k``'s order; ``torch.topk`` promises none), and
+    ``MoE`` still equals ``moe_plain``. ``cfg`` replaces arctic-480b's
+    float32 config (a rehearsal's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import MoE, moe_plain
+
+    _tf32_off(torch)
+    t0 = time.perf_counter()
+    cfg = cfg or get_config(ARCTIC, n_layers=MOE_CUT[ARCTIC][0], dtype="float32")
+    B, S = MOE_FULL
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev).manual_seed(39)
+        moe = MoE(cfg, device=dev)
+        moe.init_(gen)
+        for w in (moe.w_in, moe.w_out):
+            for e in range(w.shape[0]):
+                w[e].copy_(w[e].to(torch.bfloat16))
+        for w in (moe.dense.w_in, moe.dense.w_out):
+            w.copy_(w.to(torch.bfloat16))
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, aux = moe(x)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ref, ref_aux = moe_plain(moe, x)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        _, _, _, idx = moe.route(x)
+        _, keep, _, cap = moe.dispatch(idx, S)
+        dropped = int((~keep).sum())
+        err = rel_err(out, ref)
+        aux_err = abs(float(aux) - float(ref_aux)) / abs(float(ref_aux))
+        planted = {}
+        for name, plant in (("no_renorm", planted_no_renorm),
+                            ("no_capacity", planted_no_capacity)):
+            with plant(moe):
+                planted[name] = rel_err(moe(x)[0], ref)
+        check(bool(torch.isfinite(out).all()) and tuple(out.shape) == (B, S, cfg.d_model),
+              f"MoE out of shape {tuple(out.shape)} or not finite")
+        # the tie order on the card: router columns tied in threes, so a
+        # token's best three experts tie exactly and lax.top_k keeps the
+        # lower two
+        n3 = cfg.n_experts // 3 * 3
+        for j in (1, 2):
+            moe.router[:, j:n3:3] = moe.router[:, 0:n3:3]
+        _, probs, _, idx = moe.route(x)
+        top = torch.sort(probs, dim=-1, descending=True)[0]
+        tied = (top[..., 0] == top[..., 2]) & (idx[..., 0] < n3)
+        lower = (idx[..., 0] % 3 == 0) & (idx[..., 1] == idx[..., 0] + 1)
+        n_tied, n_lower = int(tied.sum()), int((tied & lower).sum())
+        tie_err = rel_err(moe(x)[0], moe_plain(moe, x)[0])
+        del moe, x, out, ref
+    check(err <= MOE_PLAIN_TOL, f"MoE vs moe_plain at 128 experts: {err:.3e} > "
+          f"{MOE_PLAIN_TOL:g} of max |out|")
+    check(aux_err <= 1e-6, f"MoE vs moe_plain aux {float(aux)} vs {float(ref_aux)}")
+    check(dropped > 0, f"the capacity {cap} dropped no assignment at S {S}")
+    check(n_tied >= B * S // 2 and n_lower == n_tied and tie_err <= MOE_PLAIN_TOL,
+          f"router tied in threes: {n_tied} of {B * S} tokens tie, {n_lower} of them "
+          f"routed to the lower two experts; MoE vs moe_plain {tie_err:.3e}")
+    for name, e in planted.items():
+        check(e > MOE_PLAIN_TOL, f"the planted fault {name!r} passes MoE vs moe_plain "
+              f"({e:.3e} <= {MOE_PLAIN_TOL:g})")
+    rec = {"batch": B, "prompt_len": S, "experts": cfg.n_experts, "cap": cap,
+           "dropped": dropped, "assignments": keep.numel(), "rel_err": err,
+           "aux": float(aux), "aux_rel_err": aux_err, "planted": planted,
+           "tied_tokens": n_tied, "tied_rel_err": tie_err,
+           "moe_s": t2 - t1, "moe_plain_s": t3 - t2, "seconds": time.perf_counter() - t0}
+    detail["moe_layer_vs_plain"] = rec
+    log(f"[39] {cfg.name}'s MoE layer at full width ({cfg.n_experts} experts, float32 "
+        f"holding bf16 weights), {B} x {S}: MoE vs moe_plain {err:.3e} of max |out| "
+        f"(<= {MOE_PLAIN_TOL:g}), aux {float(aux):.6f} ({aux_err:.1e} apart); capacity {cap} "
+        f"dropped {dropped} of {keep.numel()} assignments; planted faults: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in planted.items())
+        + f" (all fail); router tied in threes: {n_tied} of {B * S} tokens tie at the "
+        f"top-2 boundary, all routed to the lower two, MoE vs moe_plain {tie_err:.3e}; "
+        f"first calls MoE {rec['moe_s']:.3f} s, moe_plain {rec['moe_plain_s']:.3f} s")
+    return rec
+
+
+def moe_phases(torch, rg, detail, rg_t, dev="cuda") -> dict:
+    """Phases 38-41: serve arctic-480b (38) and kimi-k2-1t-a32b (40) at
+    full width and ``MOE_SERVE_LAYERS`` layers (the xla path: no launch;
+    arctic's head dim 128 then takes one blocked prefill on the flash
+    kernel), and hold each to the CPU at the cut depth of ``MOE_CUT`` (39,
+    41) with the routing-flip rule and the planted faults, and arctic's
+    whole MoE layer to ``moe_plain`` on the card (39). Returns every
+    wrapper's launches summed over the runs the four phases count (each
+    checked run starts from zeroed counts; flash: the two blocked
+    prefills', each read after its run), the flash launches of the first
+    blocked prefill (all and tensor-core), and each phase's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wrappers
+
+    ws = wrappers()
+    counted = dict.fromkeys(ws, 0)
+    phase_s, t0 = {}, time.perf_counter()
+
+    def tally(phase, runs=None):
+        """Adds the launches of ``runs`` (each a run's counts), or else
+        those on the counters, then zeroes the counters."""
+        for run in runs or (_launches(ws),):
+            for k, n in run.items():
+                counted[k] += n
+        _zero_launches(ws)
+        phase_s[phase] = time.perf_counter() - t0 - sum(phase_s.values())
+
+    _zero_launches(ws)
+    logits = {}
+    serve_phase(torch, rg, detail, rg_t, 38, ARCTIC, dev=dev,
+                cfg=get_config(ARCTIC, n_layers=MOE_SERVE_LAYERS), logits_out=logits,
+                shape=MOE_SERVE,
+                after=lambda m, p, n: moe_serve_extras(torch, m, p, n, xla=logits))
+    del logits
+    blocked = detail[f"serve_{ARCTIC}"]["after"]["blocked"]
+    check(_launches(ws) == blocked["launches"][-1],
+          f"launches {_launches(ws)} after phase 38's last blocked prefill, which "
+          f"counted {blocked['launches'][-1]}")
+    tally(38, blocked["launches"])
+    for phase, arch in ((39, ARCTIC), (41, KIMI)):
+        if phase == 41:
+            serve_phase(torch, rg, detail, rg_t, 40, KIMI, dev=dev,
+                        cfg=get_config(KIMI, n_layers=MOE_SERVE_LAYERS), shape=MOE_SERVE,
+                        after=lambda m, p, n: moe_serve_extras(torch, m, p, n))
+            tally(40)
+        n_layers, n_experts, S = MOE_CUT[arch]
+        devices_phase(torch, rg, detail, phase, arch, n_layers, S, dev=dev,
+                      cfg_of=lambda dt, a=arch, n=n_layers, e=n_experts: get_config(
+                          a, n_layers=n, n_experts=e, dtype=dt),
+                      controls=MOE_CONTROLS[arch], routing=True)
+        if phase == 39:
+            moe_layer_phase(torch, detail, dev)
+        tally(phase)
+    check(counted == _want(ws, flash_attention=blocked["flash"] * len(blocked["launches"])),
+          f"phases 38-41 launched {counted}; want only the blocked prefills' flash launches")
+    detail["phases_38_41_s"] = phase_s
+    detail["moe_launches"] = counted
+    log("    phases 38-41 took " + ", ".join(f"{p}: {v:.1f} s" for p, v in phase_s.items())
+        + "; launches: " + ", ".join(f"{k} {n}" for k, n in counted.items()))
+    return {"launches": counted, "flash": blocked["flash"], "flash_tc": blocked["flash_tc"],
+            "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
 # phases 26-29: scheduled training, the chaos engine and the journal
 # ---------------------------------------------------------------------------
 
@@ -3346,6 +3938,9 @@ def main() -> int:
 
     # -- 34-37. whisper-tiny: the encoder, cross-attention, sinusoids ---------
     whisper_t = whisper_phases(torch, rg, detail, rg_t)
+
+    # -- 38-41. arctic-480b and kimi-k2-1t-a32b: the MoE layer ------------------
+    moe_t = moe_phases(torch, rg, detail, rg_t)
     detail["total_s"] = time.perf_counter() - t_all
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3489,10 +4084,15 @@ def main() -> int:
         "launches_in": "phase 30: the count above is one yi-9b prefill on the blocked "
                        "path (one launch a layer; launches_tc of them on the tensor-core "
                        "kernel); phase 13 held the op to its plain version at the shapes "
-                       "of phase 30's yi-9b and gemma3-4b prefills (max_abs_err: the "
+                       "of phase 30's yi-9b and gemma3-4b prefills and phase 38's "
+                       "arctic-480b prefill (max_abs_err: the "
                        "worst full-width shape) and timed it at yi-9b's (ms, plain_ms, "
                        "bound_ms, library_ms)",
-        "launches_by_phase": {"13": fa_t["launches"], "30": blocked_t["flash"]},
+        "launches_by_phase": {"13": fa_t["launches"], "30": blocked_t["flash"],
+                              "38": {ARCTIC: moe_t["flash"]}},
+        "launches_38_note": "38: one arctic-480b blocked prefill; the phase runs two "
+                            "(38-41 counts both)",
+        "launches_tc_38": moe_t["flash_tc"],
         "launches_tc": blocked_t["flash_tc"]["yi-9b"],
         "shape": list(FLASH_FULL[0][1:]),
         "max_abs_err": fa_t["max_abs_err"],
@@ -3516,11 +4116,13 @@ def main() -> int:
         "bound_by": xe_t["bound_by"],
         "library_ms": xe_t["library_ms"],
     }]
-    # whisper-tiny's phases launch no kernel: each entry records its wrapper's
-    # count there (the TMA and direct routes share one wrapper)
+    # whisper-tiny's phases launch no kernel, the MoE phases only the blocked
+    # prefill's flash: each entry records its wrapper's count there (the TMA
+    # and direct routes share one wrapper)
     for k in kernels:
         k.setdefault("launches_by_phase", {})["34-37"] = whisper_t["launches"][
             k["name"].replace("_tma", "")]
+        k["launches_by_phase"]["38-41"] = moe_t["launches"][k["name"].replace("_tma", "")]
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 A copy of ``repro.configs`` for the architectures the port serves and
 trains: ``get_config(name)`` returns the full config, ``get_smoke(name)``
-the reduced same-family variant for CPU tests. ``ALL_ARCHS`` lists them.
-Any other architecture of the JAX package raises ``KeyError``: its layers
-are not ported yet (ROADMAP.md, Queue A).
+the reduced same-family variant for CPU tests. ``ALL_ARCHS`` lists them:
+every architecture of the JAX package. A name outside them raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ ALL_ARCHS: List[str] = [
     "recurrentgemma_2b",
     "phi_3_vision_4_2b",
     "whisper_tiny",
+    "arctic_480b",
+    "kimi_k2_1t_a32b",
 ]
 
 # canonical dashed ids -> module names
@@ -34,15 +36,15 @@ ALIASES: Dict[str, str] = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "whisper-tiny": "whisper_tiny",
+    "arctic-480b": "arctic_480b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 
 def _module(name: str):
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in ALL_ARCHS:
-        raise KeyError(
-            f"architecture {name!r} is not ported to repro_torch yet (ported: "
-            f"{', '.join(sorted(ALIASES))}); see ROADMAP.md, Queue A")
+        raise KeyError(f"unknown architecture {name!r} (known: {', '.join(sorted(ALIASES))})")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 

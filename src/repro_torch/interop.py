@@ -15,7 +15,7 @@ the JAX package's trace or allocation can hand the same inputs to both:
   - :func:`leaves_to_jax` — its inverse for any per-parameter tree (params,
     grads, optimizer states) held as leaves (``models.param_leaves``): the
     JAX layout as numpy, unit leaves stacked on a leading ``n_units`` axis,
-    ``tail`` a list, the JAX names; :func:`load_leaves` copies such arrays
+    ``prefix`` and ``tail`` lists, the JAX names; :func:`load_leaves` copies such arrays
     back into the port's tensors; and :func:`cache_to_jax` for decode
     caches. Tests compare gradients, optimizer states and caches leaf by
     leaf through these, and the checkpoint writes and reads its arrays
@@ -156,9 +156,11 @@ def model_from_jax(cfg: ArchConfig, params: Dict[str, Any], device=None,
     ``params`` is ``repro.models.init_params``'s pytree as numpy arrays.
     Each pattern position's params carry a leading ``n_units`` axis, which
     is unstacked into one ``Block`` per unit (its ``cross`` and
-    ``norm_cross`` with it); ``tail``, ``embed``, ``final_norm``, an untied
-    model's ``head`` and an encoder model's ``encoder`` layers and
-    ``encoder_norm`` are copied. Names and
+    ``norm_cross`` with it); ``prefix`` (the dense prefix layers), ``tail``,
+    ``embed``, ``final_norm``, an untied model's ``head`` and an encoder
+    model's ``encoder`` layers and ``encoder_norm`` are copied, and a MoE
+    layer's ``ffn/router`` (float32 either way), ``ffn/w_in``,
+    ``ffn/w_out`` and its ``shared`` and ``dense`` SwiGLUs. Names and
     layouts match, so every weight is a copy: into the serving model's
     storage dtype (as the JAX code casts at use), or with ``trainable=True``
     into float32 masters that require grad.
@@ -193,31 +195,37 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def cache_to_jax(model: Model, cache: Cache) -> Dict[str, Any]:
-    """The port's decode cache in the JAX package's layout, as numpy: pattern
-    position ``p``'s states stacked over units under ``units/p{p}/mixer``
-    (and an encoder model's cross caches under ``units/p{p}/cross``), the
-    tail's as a list, ``pos`` an int32 scalar. A layer's state is its
+    """The port's decode cache in the JAX package's layout, as numpy: the
+    dense prefix layers' as the list ``prefix``, pattern position ``p``'s
+    states stacked over units under ``units/p{p}/mixer`` (and an encoder
+    model's cross caches under ``units/p{p}/cross``), the tail's as a list,
+    ``pos`` an int32 scalar. A layer's state is its
     mixer's, named as in JAX: ``k``, ``v`` (attention), ``h`` (RG-LRU),
     ``C``, ``n`` (mLSTM), ``h``, ``c``, ``n``, ``m`` (sLSTM); its cross
     cache ``ck``, ``cv``. bfloat16 leaves come as float32 (numpy has no
     bfloat16)."""
     cfg = model.cfg
-    P = len(cfg.pattern)
-    n = cfg.n_units * P
+    P, n0 = len(cfg.pattern), model.n_prefix
+    n = n0 + cfg.n_units * P
     out: Dict[str, Any] = {}
     parts = {"mixer": cache["layers"]}
     if "cross" in cache:
         parts["cross"] = cache["cross"]
+
+    def layer(i: int) -> Dict[str, Any]:
+        return {part: {k: _to_numpy(v) for k, v in states[i].items()}
+                for part, states in parts.items()}
+
+    if n0:
+        out["prefix"] = [layer(i) for i in range(n0)]
     if cfg.n_units:
         out["units"] = {
-            f"p{p}": {part: {k: np.stack([_to_numpy(states[u * P + p][k])
+            f"p{p}": {part: {k: np.stack([_to_numpy(states[n0 + u * P + p][k])
                                           for u in range(cfg.n_units)])
-                             for k in states[p]}
+                             for k in states[n0 + p]}
                       for part, states in parts.items()}
             for p in range(P)}
     if len(cache["layers"]) > n:
-        out["tail"] = [{part: {k: _to_numpy(v) for k, v in states[i].items()}
-                        for part, states in parts.items()}
-                       for i in range(n, len(cache["layers"]))]
+        out["tail"] = [layer(i) for i in range(n, len(cache["layers"]))]
     out["pos"] = np.int32(cache["pos"])
     return out

@@ -10,6 +10,8 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
         --batch 8 --prompt-len 1500 --decode-steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b \
+        --smoke --device cpu
 
 The port of ``repro.launch.serve``: the same flags and defaults, plus
 ``--device`` (default ``cuda``; it raises when torch sees no GPU).
@@ -19,7 +21,9 @@ phi-3-vision-4.2b (whose prompts enter as embeddings, built from the
 prompt tokens as the JAX launcher builds them; it decodes tokens) or
 whisper-tiny (whose encoder takes ``--prompt-len`` frames of bf16 normals
 beside the prompt tokens, as the JAX launcher draws them: the audio
-frontend is a stub). Weights, prompts and frames come from a
+frontend is a stub), or the MoE models arctic-480b and kimi-k2-1t-a32b
+(at full depth neither fits one card; ``chip_smoke.py`` serves them at
+full width and two layers). Weights, prompts and frames come from a
 ``torch.Generator`` seeded with ``--seed``. A
 first run of the same prefill and decode builds any kernel and warms up,
 and is reported apart; then the timed prefill and decode run. On the card

@@ -33,7 +33,9 @@ The port of ``repro.launch.train``: the same flags and defaults, plus
 its gradients over ``microbatches=2``), xlstm-350m, yi-9b, phi4-mini-3.8b,
 phi-3-vision-4.2b (trained on the pipeline's embeddings) or whisper-tiny
 (on the pipeline's float32 frames, ``--seq-len`` of them beside as many
-tokens), and so is each of ``--tenants``. Weights come from a ``torch.Generator`` seeded with
+tokens), and so is each of ``--tenants``; arctic-480b and kimi-k2-1t-a32b
+(MoE) raise ``NotImplementedError``: they serve, and their training is
+the next slice (ROADMAP.md, Queue A). Weights come from a ``torch.Generator`` seeded with
 the trainer's seed (0), data from the synthetic pipeline. A single job prints
 the parameter count, the steps, the first and last loss, steps/s and
 tokens/s (wall time of ``Trainer.run``, kernel builds and warm-up
@@ -97,9 +99,10 @@ def run_single(args) -> dict:
     from ..configs import get_config, get_smoke
     from ..kernels import launch_counts
     from ..runtime import Trainer, TrainerConfig
-    from ..runtime.trainer import SimulatedFailure
+    from ..runtime.trainer import SimulatedFailure, refuse_moe
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    refuse_moe(cfg)
     ckpt = args.ckpt_dir or tempfile.mkdtemp(prefix=f"oef-train-{cfg.name}-")
     t = Trainer(cfg, TrainerConfig(seq_len=args.seq_len, global_batch=args.batch,
                                    peak_lr=args.lr, total_steps=args.steps,

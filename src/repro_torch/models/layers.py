@@ -2,7 +2,7 @@
 
 The port of ``repro.models.layers`` for what recurrentgemma-2b, qwen2-1.5b,
 gemma3-4b, xlstm-350m, yi-9b, phi4-mini-3.8b, phi-3-vision-4.2b and
-whisper-tiny use:
+whisper-tiny use, and the MoE layer of arctic-480b and kimi-k2-1t-a32b:
 RMSNorm, RoPE, grouped-query attention over the whole prefix (``full``) or
 a sliding window (``sliding``), with the optional QKV bias and a
 ``head_dim`` of its own (full-sequence apply with decode-cache building,
@@ -14,7 +14,9 @@ time). A full sequence's attention is the grouped einsum over fp32 scores
 :func:`blocked_attention`: the flash kernel on the card when serving, its
 blockwise twin otherwise; non-causal self-attention (whisper's encoder)
 and cross-attention to an encoder's memory, with cached memory K/V in
-decode. Not ported: the head-parallel branch (it needs a mesh) and MoE.
+decode; :class:`MoE`, the sort-dispatched top-k experts with shared
+experts and a dense residual, and :func:`moe_plain`, its plain twin. Not
+ported: the head-parallel branch (it needs a mesh).
 
 The mixers, ``Attention``, ``RGLRU``, ``MLSTM`` and ``SLSTM``, share one
 interface: ``forward(x, return_state=, cache_len=)`` for a full sequence,
@@ -39,7 +41,8 @@ decode step does not re-read float32 weights to cast them. In both the
 RG-LRU gate weights ``w_a``, ``w_i`` and ``lam``, the mLSTM gate weights
 ``w_if``, ``b_if``, the sLSTM recurrence ``r`` and bias ``b`` are float32
 (their products are float32 products) and the norm scales are applied in
-float32.
+float32. The MoE ``router`` is float32 in both too, as the JAX leaf is,
+and cast to ``cfg.dtype`` at use.
 """
 from __future__ import annotations
 
@@ -445,10 +448,15 @@ class Attention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
+    """The gated FFN of width ``d_ff`` (default ``cfg.d_ff``), as the JAX
+    ``swiglu_init(cfg, key, d_ff=)``: a MoE layer's shared expert and dense
+    residual take their own width."""
+
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False,
+                 d_ff: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         self.dt = dt = compute_dtype(cfg)
         self.w_in = new_param((d, 2 * f), dt, device, trainable)
         self.w_out = new_param((f, d), dt, device, trainable)
@@ -463,6 +471,169 @@ class SwiGLU(nn.Module):
         act = F.silu(gate.float()).to(x.dtype) * up
         del h, gate, up
         return act @ self.w_out.to(self.dt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity-based sort dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_capacity(cfg: ArchConfig, S: int) -> int:
+    """Each expert's slots in a group (one batch row) of S tokens, as the
+    JAX ``moe_apply`` sizes them: ``max(1, ceil(S * k / E *
+    capacity_factor))``, so a decode step (S 1) gets one."""
+    return max(1, int(math.ceil(S * cfg.top_k / cfg.n_experts * cfg.capacity_factor)))
+
+
+class MoE(nn.Module):
+    """The JAX ``moe_init`` / ``moe_apply``: ``cfg.n_experts`` SwiGLU
+    experts ``w_in`` (E, d, 2f), ``w_out`` (E, f, d) of width
+    ``cfg.resolved_moe_dff``, a ``router`` (d, E) kept in float32 (as the
+    JAX leaf, serving too) and cast to the compute dtype at use, and when
+    the config has them ``shared`` (kimi's always-on experts, a
+    :class:`SwiGLU` of ``n_shared_experts * f``) and ``dense`` (arctic's
+    dense residual, a :class:`SwiGLU` of ``cfg.d_ff``), added to the routed
+    output. ``forward(x)`` returns (out, aux), aux the Switch load-balancing
+    loss.
+
+    Each token picks its top ``k`` experts by router probability (ties to
+    the lower index, as ``lax.top_k``), gates renormalised to sum to one.
+    Each batch row is a group: its S * k assignments are sorted by expert
+    (stable), and each expert keeps its first :func:`moe_capacity` of them;
+    the rest are dropped and add nothing. The kept tokens are laid into one
+    (E, B * cap, d) buffer, the batch folded into the capacity axis, and
+    run through one batched product per projection."""
+
+    def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        d, f, E = cfg.d_model, cfg.resolved_moe_dff, cfg.n_experts
+        self.dt = dt = compute_dtype(cfg)
+        self.router = new_param((d, E), torch.float32, device, trainable)
+        self.w_in = new_param((E, d, 2 * f), dt, device, trainable)
+        self.w_out = new_param((E, f, d), dt, device, trainable)
+        self.shared = (SwiGLU(cfg, device, trainable, d_ff=cfg.n_shared_experts * f)
+                       if cfg.n_shared_experts else None)
+        self.dense = (SwiGLU(cfg, device, trainable, d_ff=cfg.d_ff)
+                      if cfg.moe_dense_residual else None)
+
+    def init_(self, gen: torch.Generator) -> None:
+        """The scales of ``moe_init``. The experts are drawn one at a time,
+        so no float32 temporary outgrows one expert's slice (arctic's whole
+        ``w_in`` in float32 would be 35.7 GB)."""
+        normal_(self.router, gen, 0.02)
+        for w, scale in ((self.w_in, 0.02),
+                         (self.w_out, 0.02 / math.sqrt(2 * self.cfg.n_layers))):
+            for e in range(w.shape[0]):
+                normal_(w[e], gen, scale)
+        for m in (self.shared, self.dense):
+            if m is not None:
+                m.init_(gen)
+
+    def route(self, x: torch.Tensor):
+        """x (B, S, d) -> the router logits (``x @ router`` in the compute
+        dtype, then float32) and their softmax (B, S, E), and the gates and
+        expert ids (B, S, k): a stable descending sort of the probabilities
+        cut to k (``torch.topk`` does not promise ``lax.top_k``'s order on
+        ties), the gates divided by ``max(sum, 1e-9)``."""
+        logits = (x @ self.router.to(self.dt)).float()
+        probs = torch.softmax(logits, dim=-1)
+        k = self.cfg.top_k
+        gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, idx = gates[..., :k], idx[..., :k]
+        return logits, probs, gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9), idx
+
+    def dispatch(self, idx: torch.Tensor, S: int):
+        """The sort dispatch of expert ids ``idx`` (B, S, k), each row a
+        group: ``order`` (B, S * k), the stable argsort of the flat ids;
+        ``keep``, whether the assignment at each sorted place is within its
+        expert's capacity (JAX's ``pos_in_exp < cap``); ``slot``, its row of
+        the (E * B * cap, d) buffer, expert-major then batch row then place
+        (a dropped one clipped to the last place, where it adds zero); and
+        ``cap``."""
+        cfg = self.cfg
+        B, E = idx.shape[0], cfg.n_experts
+        cap = moe_capacity(cfg, S)
+        flat = idx.reshape(B, S * cfg.top_k)
+        sorted_exp, order = torch.sort(flat, dim=-1, stable=True)
+        counts = torch.zeros((B, E), dtype=flat.dtype, device=flat.device).scatter_add_(
+            1, flat, torch.ones_like(flat))
+        starts = torch.cumsum(counts, dim=-1) - counts
+        pos = (torch.arange(flat.shape[1], device=flat.device)[None, :]
+               - torch.gather(starts, 1, sorted_exp))
+        row = torch.arange(B, device=flat.device)[:, None]
+        slot = (sorted_exp * B + row) * cap + torch.clamp(pos, 0, cap - 1)
+        return order, pos < cap, slot, cap
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        dt = x.dtype
+        B, S, d = x.shape
+        E, k = cfg.n_experts, cfg.top_k
+        _, probs, gates, idx = self.route(x)
+        load = torch.bincount(idx.reshape(-1), minlength=E).float() / (B * S * k)
+        aux = E * torch.sum(probs.mean(dim=(0, 1)) * load)
+        order, keep, slot, cap = self.dispatch(idx, S)
+        rows = torch.gather(x, 1, (order // k)[..., None].expand(-1, -1, d))
+        rows = torch.where(keep[..., None], rows, 0)
+        buf = x.new_zeros((E * B * cap, d)).index_add_(0, slot.reshape(-1), rows.reshape(-1, d))
+        del rows
+        h = torch.bmm(buf.view(E, B * cap, d), self.w_in.to(self.dt))
+        del buf
+        gate, up = h.chunk(2, dim=-1)
+        act = F.silu(gate.float()).to(dt) * up
+        del h, gate, up
+        y = torch.bmm(act, self.w_out.to(self.dt)).view(E * B * cap, d)
+        del act
+        picked = torch.where(keep[..., None], y[slot], 0)
+        del y
+        # undo the sort: sorted place j holds flat assignment order[j]
+        picked = torch.empty_like(picked).scatter_(
+            1, order[..., None].expand(-1, -1, d), picked)
+        out = torch.einsum("bskd,bsk->bsd", picked.view(B, S, k, d), gates.to(dt))
+        for m in (self.shared, self.dense):
+            if m is not None:
+                out = out + m(x)
+        return out, aux
+
+
+def moe_plain(moe: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe(x)`` written plainly and apart from :class:`MoE`'s dispatch,
+    for the tests and ``chip_smoke.py`` (no model path calls it): the top
+    k as k rounds of argmax (the first of equal maxima, ``lax.top_k``'s
+    order), each (token, slot)'s place in its expert's queue as the count
+    of earlier assignments to that expert in its row (tokens in order, a
+    token's slots in order; no sort), kept below the capacity, and a loop
+    over experts running each one's SwiGLU on the tokens it keeps."""
+    cfg = moe.cfg
+    dt = x.dtype
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax((x @ moe.router.to(dt)).float(), dim=-1)
+    left, picks = probs.clone(), []
+    for _ in range(k):
+        i = torch.argmax(left, dim=-1)
+        picks.append(i)
+        left.scatter_(-1, i[..., None], float("-inf"))
+    idx = torch.stack(picks, dim=-1)  # (B, S, k)
+    gates = torch.gather(probs, -1, idx)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    load = F.one_hot(idx, E).sum(dim=(0, 1, 2)).float() / (B * S * k)
+    aux = E * torch.sum(probs.mean(dim=(0, 1)) * load)
+    hot = F.one_hot(idx.reshape(B, S * k), E)
+    place = ((torch.cumsum(hot, dim=1) - hot) * hot).sum(-1).reshape(B, S, k)
+    kept = place < moe_capacity(cfg, S)
+    parts = torch.zeros((B, S, k, d), dtype=dt, device=x.device)
+    for e in range(E):
+        b, t, j = torch.nonzero((idx == e) & kept, as_tuple=True)
+        if b.numel():
+            gate, up = (x[b, t] @ moe.w_in[e].to(dt)).chunk(2, dim=-1)
+            parts[b, t, j] = (F.silu(gate.float()).to(dt) * up) @ moe.w_out[e].to(dt)
+    out = torch.einsum("bskd,bsk->bsd", parts, gates.to(dt))
+    for m in (moe.shared, moe.dense):
+        if m is not None:
+            out = out + m(x)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,21 @@
 """Model assembly: the training loss, prefill and greedy decode.
 
 The port of ``repro.models.model`` for the layer kinds ``rglru``,
-``sliding``, ``full``, ``mlstm`` and ``slstm``, with the ``swiglu`` FFN or
-none (recurrentgemma-2b, qwen2-1.5b, gemma3-4b, yi-9b, phi4-mini-3.8b,
-phi-3-vision-4.2b; xlstm-350m, whose layers have no FFN), and the
-encoder-decoder whisper-tiny:
+``sliding``, ``full``, ``mlstm`` and ``slstm``, with the ``swiglu`` FFN,
+``moe`` (arctic-480b, kimi-k2-1t-a32b) or none (recurrentgemma-2b,
+qwen2-1.5b, gemma3-4b, yi-9b, phi4-mini-3.8b, phi-3-vision-4.2b;
+xlstm-350m, whose layers have no FFN), and the encoder-decoder
+whisper-tiny:
 
-    embed (tokens, or precomputed embeddings) -> pattern units -> tail
-    layers -> final RMSNorm -> unembedding (the tied table, or ``head``)
+    embed (tokens, or precomputed embeddings) -> prefix layers -> pattern
+    units -> tail layers -> final RMSNorm -> unembedding (the tied table,
+    or ``head``)
+
+The ``cfg.first_k_dense`` prefix layers (kimi's first) are of the
+pattern's first kind with a dense SwiGLU of ``cfg.d_ff`` in place of the
+config's MoE (:func:`_ffn_kind`'s ``dense_override``, as JAX). A MoE
+layer's FFN returns its load-balancing loss beside its output; the
+training loss adds ``MOE_AUX_WEIGHT`` times their sum over layers.
 
 With ``cfg.input_kind == "embeddings"`` (phi-3-vision's stubbed vision
 frontend) a batch's ``embeds`` (B, S, d) enter the first layer in the
@@ -32,7 +40,8 @@ Entry points: :func:`init_params` (a ``Model`` with weights drawn from a
 grad), :func:`loss_fn` (the training loss, with :func:`cross_entropy` and
 :func:`_chunked_xent`, and ``cfg.remat`` over each pattern unit),
 :func:`init_cache`, :func:`prefill` and :func:`decode_step`. A cache is
-``{"layers": [per-layer state], "pos": int}``, and for an encoder model
+``{"layers": [per-layer state, prefix layers first], "pos": int}``, and
+for an encoder model
 ``"cross"``: [per-layer ``{"ck", "cv"}``];
 ``repro_torch.interop.cache_to_jax`` gives it in the JAX package's layout.
 :func:`param_leaves` groups the parameters as the JAX params pytree holds
@@ -41,7 +50,7 @@ them, for the optimizers, the checkpoint and the interop helpers.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +62,11 @@ from .config import ArchConfig
 
 Cache = Dict[str, Any]
 
-#: layer kinds the port runs; the JAX package's others are not ported yet.
+#: the weight of the MoE load-balancing loss in the training loss (JAX
+#: ``repro.models.model.MOE_AUX_WEIGHT``)
+MOE_AUX_WEIGHT = 0.01
+#: the layer kinds (all of the JAX package's); another raises ``ValueError``
+#: as the JAX ``_layer_init`` does
 KINDS = ("rglru", "sliding", "full", "mlstm", "slstm")
 _MIXERS = {"rglru": L.RGLRU, "mlstm": L.MLSTM, "slstm": L.SLSTM}
 
@@ -69,31 +82,15 @@ def layer_kinds(cfg: ArchConfig) -> Dict[str, List[str]]:
     return {"prefix": prefix, "pattern": list(cfg.pattern), "tail": list(cfg.tail_kinds)}
 
 
-def _ffn_kind(cfg: ArchConfig) -> str:
-    """The FFN of every layer: ``swiglu``, or ``none`` when ``d_ff == 0``
-    (the xLSTM blocks carry their own projections); ``moe`` is refused by
-    ``_check_supported`` (the JAX package's dense-prefix override of it is
-    not ported)."""
-    if cfg.ffn_kind == "moe":
+def _ffn_kind(cfg: ArchConfig, *, dense_override: bool = False) -> str:
+    """A layer's FFN, as the JAX ``_ffn_kind``: ``moe`` for a MoE config
+    unless ``dense_override`` (the prefix layers), ``swiglu``, or ``none``
+    when ``d_ff == 0`` (the xLSTM blocks carry their own projections)."""
+    if cfg.d_ff == 0 and cfg.ffn_kind != "moe":
+        return "none"
+    if cfg.ffn_kind == "moe" and not dense_override:
         return "moe"
     return "swiglu" if cfg.d_ff > 0 else "none"
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    """Refuse what the JAX model has and the port does not run yet."""
-    kinds = layer_kinds(cfg)
-    missing = []
-    if kinds["prefix"]:
-        missing.append("dense prefix layers (first_k_dense)")
-    other = sorted(set(kinds["pattern"] + kinds["tail"]) - set(KINDS))
-    if other:
-        missing.append(f"layer kinds {other}")
-    if _ffn_kind(cfg) == "moe":
-        missing.append("FFN kind 'moe'")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
-            f"(ROADMAP.md, Queue A)")
 
 
 # ---------------------------------------------------------------------------
@@ -106,16 +103,20 @@ class Block(nn.Module):
     the whole prefix or over ``cfg.window`` positions; ``causal=False``:
     over every position, the encoder's), with ``cross`` a pre-norm
     cross-attention to the encoder's memory (``norm_cross``, ``cross``),
-    and, unless the FFN kind is ``none``, pre-norm SwiGLU, each added to
-    the residual stream in that order. A layer without an FFN has no
-    ``norm2`` and no ``ffn``, as the JAX ``_layer_init`` builds it."""
+    and, unless the FFN kind ``ffn`` (default ``_ffn_kind(cfg)``) is
+    ``none``, the pre-norm FFN: SwiGLU, or ``moe`` (:class:`layers.MoE`),
+    each added to the residual stream in that order. A layer without an
+    FFN has no ``norm2`` and no ``ffn``, as the JAX ``_layer_init`` builds
+    it. ``forward(..., return_aux=True)`` also returns the layer's MoE
+    load-balancing loss (None for another FFN)."""
 
     def __init__(self, cfg: ArchConfig, kind: str, device=None, trainable: bool = False,
-                 cross: bool = False, causal: bool = True):
+                 cross: bool = False, causal: bool = True, ffn: Optional[str] = None):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(kind)
         self.kind = kind
+        self.ffn_kind = ffn = ffn or _ffn_kind(cfg)
         self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
         if kind in _MIXERS:
             self.mixer = _MIXERS[kind](cfg, device, trainable)
@@ -128,9 +129,9 @@ class Block(nn.Module):
             self.cross = L.Attention(cfg, device, trainable, causal=False)
         else:
             self.norm_cross = self.cross = None
-        if _ffn_kind(cfg) == "swiglu":
+        if ffn != "none":
             self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
-            self.ffn = L.SwiGLU(cfg, device, trainable)
+            self.ffn = (L.MoE if ffn == "moe" else L.SwiGLU)(cfg, device, trainable)
         else:
             self.norm2 = self.ffn = None
 
@@ -139,19 +140,30 @@ class Block(nn.Module):
             if m is not None:
                 m.init_(gen)
 
-    def _add_ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.ffn is None else x + self.ffn(self.norm2(x))
+    def _add_ffn(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x plus the FFN of norm2(x), and a MoE FFN's aux loss (else None)."""
+        if self.ffn is None:
+            return x, None
+        out = self.ffn(self.norm2(x))
+        if self.ffn_kind == "moe":
+            out, aux = out
+            return x + out, aux
+        return x + out, None
 
     def forward(self, x: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
-                return_state: bool = False, cache_len: Optional[int] = None):
+                return_state: bool = False, cache_len: Optional[int] = None,
+                return_aux: bool = False):
         out = self.mixer(self.norm1(x), return_state=return_state, cache_len=cache_len)
         if return_state:
             out, state = out
         x = x + out
         if self.cross is not None and memory is not None:
             x = x + self.cross(self.norm_cross(x), memory=memory)
-        x = self._add_ffn(x)
-        return (x, state) if return_state else x
+        x, aux = self._add_ffn(x)
+        outs = (x,) + ((state,) if return_state else ())
+        if return_aux:
+            outs += (aux,)
+        return outs if len(outs) > 1 else x
 
     def cache_init(self, batch: int, cache_len: int) -> L.Cache:
         return self.mixer.cache_init(batch, cache_len)
@@ -164,11 +176,12 @@ class Block(nn.Module):
         x = x + out
         if self.cross is not None and cross is not None:
             x = x + self.cross.cross_decode(self.norm_cross(x), cross)
-        return self._add_ffn(x), new
+        return self._add_ffn(x)[0], new
 
 
 class Model(nn.Module):
-    """The model: the embedding, ``n_units`` pattern units then the tail,
+    """The model: the embedding, the ``cfg.first_k_dense`` prefix layers
+    (``n_prefix``; a dense FFN), ``n_units`` pattern units then the tail,
     as ``Block``s in order (``kinds[i]`` is layer i's kind; each with
     cross-attention when ``cfg.encoder_layers``), the final norm and,
     unless ``cfg.tie_embeddings``, the output ``head``; an encoder model
@@ -181,20 +194,24 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         kinds = layer_kinds(cfg)
-        self.kinds = kinds["pattern"] * cfg.n_units + kinds["tail"]
+        self.n_prefix = len(kinds["prefix"])
+        self.kinds = kinds["prefix"] + kinds["pattern"] * cfg.n_units + kinds["tail"]
         self.embed = L.new_param((cfg.padded_vocab, cfg.d_model),
                                  L.compute_dtype(cfg), device, trainable)
         cross = cfg.encoder_layers > 0
-        self.layers = nn.ModuleList(Block(cfg, k, device, trainable, cross=cross)
-                                    for k in self.kinds)
+        dense = _ffn_kind(cfg, dense_override=True)
+        self.layers = nn.ModuleList(
+            Block(cfg, k, device, trainable, cross=cross,
+                  ffn=dense if i < self.n_prefix else None)
+            for i, k in enumerate(self.kinds))
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
         self.head = None if cfg.tie_embeddings else L.new_param(
             (cfg.d_model, cfg.padded_vocab), L.compute_dtype(cfg), device, trainable)
         if cross:
-            self.encoder = nn.ModuleList(Block(cfg, "full", device, trainable, causal=False)
+            self.encoder = nn.ModuleList(Block(cfg, "full", device, trainable, causal=False,
+                                               ffn="swiglu")
                                          for _ in range(cfg.encoder_layers))
             self.encoder_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
         else:
@@ -299,38 +316,44 @@ def logits_of(model: Model, h: torch.Tensor) -> torch.Tensor:
 
 
 def _unit_body(layers):
-    def body(x: torch.Tensor, memory: Optional[torch.Tensor]) -> torch.Tensor:
+    def body(x: torch.Tensor, memory: Optional[torch.Tensor]):
+        aux = 0
         for layer in layers:
-            x = layer(x, memory=memory)
-        return x
+            x, a = layer(x, memory=memory, return_aux=True)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     return body
 
 
-def backbone(model: Model, x: torch.Tensor,
-             memory: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The pattern units, then the tail, each layer cross-attending to
-    ``memory`` when given. With ``cfg.remat == "full"`` each unit's body
-    runs under ``torch.utils.checkpoint`` (non-reentrant): only its inputs
-    are kept (``memory`` is one, so its gradient flows back to the
-    encoder), and the backward recomputes the unit and not the encoder, as
-    the JAX ``_remat_wrap`` wraps each unit body and neither the tail nor
-    ``_encode``."""
+def backbone(model: Model, x: torch.Tensor, memory: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Union[torch.Tensor, int]]:
+    """The prefix layers, the pattern units, then the tail, each layer
+    cross-attending to ``memory`` when given; returns (hidden, the MoE aux
+    losses summed over layers: a float32 tensor, or 0 without a MoE layer,
+    so a dense model does no work for it). With ``cfg.remat == "full"`` each
+    unit's body runs under ``torch.utils.checkpoint`` (non-reentrant): only
+    its inputs are kept (``memory`` is one, so its gradient flows back to
+    the encoder), and the backward recomputes the unit and not the encoder,
+    as the JAX ``_remat_wrap`` wraps each unit body and neither the prefix,
+    the tail nor ``_encode``."""
     cfg = model.cfg
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
             f"remat={cfg.remat!r} (a checkpoint policy) is not ported to "
             f"repro_torch; 'none' and 'full' are (ROADMAP.md, Queue A)")
-    P = len(cfg.pattern)
+    P, n0 = len(cfg.pattern), model.n_prefix
+    x, aux = _unit_body(model.layers[:n0])(x, memory)
     for u in range(cfg.n_units):
-        body = _unit_body(model.layers[u * P:(u + 1) * P])
+        body = _unit_body(model.layers[n0 + u * P:n0 + (u + 1) * P])
         if cfg.remat == "full":
-            x = torch.utils.checkpoint.checkpoint(body, x, memory, use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(body, x, memory, use_reentrant=False)
         else:
-            x = body(x, memory)
-    for layer in model.layers[cfg.n_units * P:]:
-        x = layer(x, memory=memory)
-    return x
+            x, a = body(x, memory)
+        aux = aux + a
+    x, a = _unit_body(model.layers[n0 + cfg.n_units * P:])(x, memory)
+    return x, aux + a
 
 
 def _pad_mask(cfg: ArchConfig, lf: torch.Tensor) -> torch.Tensor:
@@ -380,14 +403,16 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The training loss of ``repro.models.loss_fn``: an encoder model's
     ``batch["frames"]`` encoded first, embed, backbone, then the
     cross-entropy against ``batch["targets"]`` (chunked when
-    ``cfg.logits_chunk > 0``). The JAX loss adds 0.01 x the MoE aux loss,
-    which is zero without MoE layers (the port has none)."""
+    ``cfg.logits_chunk > 0``), plus ``MOE_AUX_WEIGHT`` times the MoE
+    layers' aux losses (none without MoE layers)."""
     memory = _encode(model, batch["frames"]) if model.encoder is not None else None
     x = _embed_inputs(model, batch)
-    h = backbone(model, x, memory)
+    h, aux = backbone(model, x, memory)
     if model.cfg.logits_chunk > 0:
-        return _chunked_xent(model, h, batch["targets"])
-    return cross_entropy(model.cfg, logits_of(model, h), batch["targets"])
+        loss = _chunked_xent(model, h, batch["targets"])
+    else:
+        loss = cross_entropy(model.cfg, logits_of(model, h), batch["targets"])
+    return loss + MOE_AUX_WEIGHT * aux if torch.is_tensor(aux) else loss
 
 
 # ---------------------------------------------------------------------------
@@ -397,17 +422,23 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def _jax_path(cfg: ArchConfig, name: str) -> str:
     """A parameter name of the port (``layers.4.mixer.w_a``,
-    ``layers.0.mixer.bq``, ``layers.1.cross.wq``, ``encoder.0.ffn.w_in``)
-    as its leaf path in the JAX params pytree (``units/p1/mixer/w_a``,
-    ``units/p0/mixer/bq``, ``units/p0/cross/wq``, ``encoder/0/ffn/w_in``)."""
+    ``layers.0.mixer.bq``, ``layers.1.cross.wq``, ``encoder.0.ffn.w_in``,
+    ``layers.1.ffn.shared.w_in``) as its leaf path in the JAX params pytree
+    (``units/p1/mixer/w_a``, ``units/p0/mixer/bq``, ``units/p0/cross/wq``,
+    ``encoder/0/ffn/w_in``, ``units/p0/ffn/shared/w_in``); the
+    ``first_k_dense`` prefix layers are ``prefix/{i}/...`` and the units and
+    the tail count from after them."""
     if not name.startswith("layers."):
         return name.replace(".", "/")
     _, i, rest = name.split(".", 2)
-    unit, p = divmod(int(i), len(cfg.pattern))
     rest = rest.replace(".", "/")
+    i = int(i) - cfg.first_k_dense
+    if i < 0:
+        return f"prefix/{i + cfg.first_k_dense}/{rest}"
+    unit, p = divmod(i, len(cfg.pattern))
     if unit < cfg.n_units:
         return f"units/p{p}/{rest}"
-    return f"tail/{int(i) - cfg.n_units * len(cfg.pattern)}/{rest}"
+    return f"tail/{i - cfg.n_units * len(cfg.pattern)}/{rest}"
 
 
 def _path_key(path: str):
@@ -418,7 +449,7 @@ def _path_key(path: str):
 def param_leaves(model: Model) -> Dict[str, List[nn.Parameter]]:
     """The parameters grouped as the JAX params pytree holds them, in its
     flatten order: a leaf path (``units/p0/mixer/w_gate``, ``tail/0/...``,
-    ``embed``) maps to its parameters, one per unit for a pattern leaf
+    ``prefix/0/...``, ``embed``) maps to its parameters, one per unit for a pattern leaf
     (the JAX leaf stacks them on a leading ``n_units`` axis), else one
     (``embed``, ``final_norm/scale``, ``head``)."""
     out: Dict[str, List[nn.Parameter]] = {}

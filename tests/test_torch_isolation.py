@@ -63,7 +63,7 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "runtime.trainstep", "runtime.trainer", "launch.train",
                  "models.costs", "configs.qwen2_1_5b", "configs.gemma3_4b",
                  "configs.yi_9b", "configs.phi4_mini_3_8b", "configs.phi_3_vision_4_2b",
-                 "configs.whisper_tiny",
+                 "configs.whisper_tiny", "configs.arctic_480b", "configs.kimi_k2_1t_a32b",
                  "core.elastic", "service.faults", "service.journal", "obs.report",
                  "obs.__main__", "examples.cluster_scheduler_e2e",
                  "examples.serve_decode"):

@@ -333,17 +333,9 @@ def test_full_config_has_the_jax_shapes():
 
 
 def test_blocked_attention_and_unported_archs_raise():
-    """What the port still refuses: the arctic and kimi configs, MoE and
-    dense prefix layers (``first_k_dense``) when a model is built, and the
-    ``dots`` remat policy when the backbone runs. The blocked path and,
-    since whisper-tiny was ported, the encoder and sinusoidal positions
-    build."""
-    for arch in ("arctic-480b", "kimi-k2-1t-a32b"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_smoke(arch)
-    for over in ({"first_k_dense": 1}, {"ffn_kind": "moe", "n_experts": 4, "top_k": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(get_smoke("qwen2-1.5b", **over))
+    """What the port still refuses: the ``dots`` remat policy when the
+    backbone runs. The blocked path and, since whisper-tiny was ported, the
+    encoder and sinusoidal positions build."""
     Model(get_smoke(ARCH, attention_impl="blocked"))
     Model(get_smoke("whisper-tiny"))
     Model(get_smoke("qwen2-1.5b", encoder_layers=2, rope_theta=0.0))
