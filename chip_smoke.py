@@ -187,8 +187,10 @@ raises and the script exits non-zero:
     phase 19's cut depths and lengths: the loss within 1e-5 relative,
     every gradient leaf (the QKV biases included) within 1e-4 of its max
     |g|, one AdamW update within 1e-6 of max |p|;
-22. serve xlstm-350m at full width and depth (12 (mLSTM, sLSTM) units, no
-    FFN) as phase 18 serves the others, but profile the prefill of one
+22. serve xlstm-350m at full width and 8 of its 24 layers
+    (``XLSTM_SERVE_LAYERS``: 4 of its 12 (mLSTM, sLSTM) units, no FFN; cut
+    for the time limit) as phase 18 serves the others, but profile the
+    prefill of one
     unit (``XLSTM_PROFILE_LAYERS``) at the same width and prompts, untraced
     for its idle share and each layer timed alone: the sLSTM's eager loop
     over time would put millions of events in a full-depth trace;
@@ -196,8 +198,9 @@ raises and the script exits non-zero:
     ``n_layers=4`` (two units) and S 600 (three mLSTM chunks, the last
     padded);
 24. train xlstm-350m at full width as phase 20, 8 x 2048,
-    ``logits_chunk=512``, at ``XLSTM_TRAIN_LAYERS`` (two units, a cut for
-    the time limit); the model-FLOP share by ``costs.model_flops``
+    ``logits_chunk=512``, at ``XLSTM_TRAIN_LAYERS`` (one unit, the profiled
+    one) for ``XLSTM_TRAIN_STEPS`` steps (cuts for the time limit); the
+    model-FLOP share by ``costs.model_flops``
     and by 6 x the model's real parameter count; one unit's step profiled
     and each of its layers' forward and backward timed alone;
 25. one float32 training step of xlstm-350m on the card against the CPU
@@ -216,7 +219,7 @@ raises and the script exits non-zero:
     the CPU with the engine on the ``torch`` chain (same decisions, same
     fault summary; the CPU run's ladder, LP answers and degraded solves,
     must be the plan's crashes and timeouts), then into phase 4's
-    1024-tenant trace (``until=1200``), traced with metrics: every planned
+    1024-tenant trace (``until=600``), traced with metrics: every planned
     solver fault fires, the ladder is the CPU run's, ``waterfill_solve``
     launches once per torch attempt that got past the wrapper and no other
     kernel runs; ``obs.report`` reads the run's trace and metrics files
@@ -282,7 +285,13 @@ raises and the script exits non-zero:
     as the xla run (``forced_routes``: the xla path rounds the scores to
     bf16, the kernel does not, and a near-tie routed another way moves a
     row by O(1)) within 5e-2 of the xla run's logits and hidden state at
-    every position, its own routing's flips recorded;
+    every position, its own routing's flips recorded; then a third flash
+    prefill on its own routes and one on the twin
+    ``blocked_attention_plain`` on the card (no launch) taking them: the
+    twin's hidden state within 5e-2 of flash's at every position, its own
+    routing's flips against flash's recorded by ``route_check``'s rule
+    (flash rounds the probabilities to bf16 before P.V, the twin does not,
+    so flips beyond 2 bf16 ulps of the router logits occur);
 39. arctic-480b card against CPU as phase 19 at one layer with 16 experts
     (``MOE_CUT``), float32 and bf16, under the routing-flip rule
     (``card_cpu_routes``): on the card's MoE input the CPU may route a
@@ -303,9 +312,40 @@ raises and the script exits non-zero:
     layer and one MoE layer) as phase 38, xla only;
 41. kimi-k2-1t-a32b card against CPU as phase 39 at its two layers with 32
     experts (unnormalised gates are gated in float32 only: in bf16 they
-    move the hidden state less than the tolerance, and are recorded).
+    move the hidden state less than the tolerance, and are recorded);
+42. train arctic-480b at full width and 1 of 35 layers (``MOE_TRAIN``:
+    14.07 B parameters) through ``runtime.Trainer`` with
+    ``TrainerConfig(optimizer="adafactor")``: bf16 masters and compute,
+    ``remat="full"``, full logits (the config has no ``logits_chunk``),
+    seeded Zipf tokens, S 2048, TF32 off, 3 steps at the largest global
+    batch of 4 and 2 whose first step leaves ``FREE_GB`` free. No kernel
+    launch, finite losses, a second run's first loss identical; step time,
+    tokens/s, peak memory, the optimizer updates' share of a step, the
+    model-FLOP share by ``costs.model_flops`` (active parameters) and by
+    6 x ``numel`` (every expert), one profiled step's idle share;
+43. one arctic-480b training step card against CPU at ``MOE_CUT``'s one
+    layer, 16 experts, B 1, S 256, in float32 (loss 1e-5, every gradient
+    1e-4 of its max, one Adafactor update 1e-6 of max |p|) and at the
+    config's bf16 masters and compute (loss one bf16 ulp, gradients
+    ``BF16_GRAD_ULPS`` ulps of their max, Adafactor one ulp of each weight):
+    the CPU takes the card's routes, flips are judged on the card's MoE
+    input as in phase 39, the card's recompute routes as its forward, a
+    second identical card step gives bit-equal gradients, and the planted
+    faults (the aux term left out; the capacity ignored) must fail the
+    gradient check; then arctic's MoE layer at full width with 32 float32
+    experts: the gradients of x, the router, the experts and the dense
+    residual through ``MoE`` against ``moe_plain`` within 1e-5 (the
+    capacity drops assignments);
+44. train kimi-k2-1t-a32b at full width, its dense prefix layer and one MoE
+    layer (top-8, the shared expert, the capacity by the formula), the 384
+    experts cut to the largest of 256, 192 and 128 that leaves
+    ``FREE_GB`` free, B 2, as phase 42 (``logits_chunk`` 512);
+45. kimi-k2-1t-a32b card against CPU as phase 43 at two layers, 32 experts,
+    S 256 (unnormalised gates planted too, gated in float32 only), and its
+    MoE layer's gradients against ``moe_plain`` with 32 float32 experts.
 
-Prints the kernels' JSON line, the card's name and power limit, and last
+Prints each phase's seconds (``seconds by phase``; in ``chip_smoke.json``
+``phase_s``), the kernels' JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Details (flame summary of the second
 full-size replay, per-phase numbers) go to ``chiprun_out/chip_smoke.json``.
 
@@ -382,10 +422,13 @@ XLSTM_PROFILE_LAYERS = 2
 #: a first train step longer than this is a warm-up, and the second run's
 #: first step is the one timed (phase 24)
 LONG_STEP_S = 60.0
-#: xlstm-350m's depth in phase 24's training: two of its 12 units. Its full
-#: depth's host-bound steps (43-79 s each, 3-4 of them) did not leave the
-#: script room for phases 30-33 within its time limit
-XLSTM_TRAIN_LAYERS = 4
+#: xlstm-350m's depth and steps in phase 24's training: one of its 12
+#: units, the profiled one, 2 steps (its full depth's host-bound steps,
+#: 43-79 s each, did not leave the script room for phases 30-33, nor two
+#: units' 3 steps for phases 42-45), and its depth in phase 22's serving: 4
+#: of its 12 units (room for phases 42-45)
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_STEPS = 2, 2
+XLSTM_SERVE_LAYERS = 8
 #: decode steps in the profiled decode of phases 11, 18, 22 and 30 (8 before
 #: phases 30-33: the profiler took 13-25 s to record 8 full-width steps)
 DECODE_PROFILE_STEPS = 2
@@ -1337,15 +1380,25 @@ def rglru_phase(torch, rg, detail, dev="cuda") -> dict:
 
 def device_kernels(torch, fn) -> list:
     """The device kernels of one ``fn()`` call, from ``torch.profiler``:
-    ``{"op", "device_ms", "count"}`` per kernel name, most device time first."""
+    ``{"op", "device_ms", "count"}`` per kernel name (as ``key_averages``
+    names them), most device time first. The trace's device events are
+    summed from its raw events: ``key_averages`` builds a Python object for
+    every event of the trace, host and device, ~100 us each, which took
+    minutes for the xLSTM's traced step (its sLSTM loop launches ~10^5
+    small ops)."""
+    from torch.autograd.profiler_util import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [{"op": e.key, "device_ms": e.self_device_time_total / 1e3, "count": e.count}
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            row = sums.setdefault(_rewrite_name(e.name(), with_wildcard=True), [0, 0])
+            row[0] += e.end_ns() - e.start_ns()
+            row[1] += 1
+    rows = [{"op": k, "device_ms": ns / 1e6, "count": n} for k, (ns, n) in sums.items()]
     return sorted(rows, key=lambda r: -r["device_ms"])
 
 
@@ -1818,6 +1871,21 @@ def attention_impl(model, impl: str):
     finally:
         for m, c in zip(mods, saved):
             m.cfg = c
+
+
+@contextlib.contextmanager
+def twin_attention():
+    """While open, the blocked path runs its twin
+    ``layers.blocked_attention_plain`` on the card too (``_on_kernel``
+    answers no)."""
+    from repro_torch.models import layers
+
+    real = layers._on_kernel
+    layers._on_kernel = lambda q, k, v: False
+    try:
+        yield
+    finally:
+        layers._on_kernel = real
 
 
 @contextlib.contextmanager
@@ -2621,10 +2689,10 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
 
 
 def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
-                profile_layers=None) -> dict:
+                profile_layers=None, steps=3) -> dict:
     """Phases 16, 20, 24, 32 and 36: train ``arch`` at full width through
     ``repro_torch.runtime.Trainer`` (the trainer of ``launch.train``) on its
-    ``TRAIN_CELLS`` batch, 3 AdamW steps of the seeded pipeline's batches
+    ``TRAIN_CELLS`` batch, ``steps`` AdamW steps of the seeded pipeline's batches
     (Zipf tokens; embeddings, or frames and tokens); returns the
     launches and times. Each step launches the RG-LRU forward kernel once a
     layer and once more a unit layer that ``remat="full"`` recomputes, and
@@ -2632,9 +2700,10 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
     kernel wrapper may launch (qwen2-1.5b, gemma3-4b and xlstm-350m launch none). With
     ``profile_layers`` the profiled step is that of the first
     ``profile_layers`` layers' trainer, timed untraced for its idle share,
-    with each of its layers' forward and backward timed alone. A first step
-    over ``LONG_STEP_S`` is a warm-up: the second run's first step, whose
-    loss must equal it, is then the one timed."""
+    with each of its layers' forward and backward timed alone (at the
+    trained depth, the second run's trainer, warm, is the profiled one). A
+    first step over ``LONG_STEP_S`` is a warm-up: the second run's first
+    step, whose loss must equal it, is then the one timed."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2647,7 +2716,6 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
     full = cfg is None
     cfg = get_config(arch) if full else cfg
     B, S = TRAIN_CELLS[arch]
-    steps = 3
     n_unit_rglru, n_rglru = rglru_layers(cfg)
     want_fwd = n_rglru + (n_unit_rglru if cfg.remat == "full" else 0)
     check(not full or arch != ARCH or (want_fwd, n_rglru) == (34, 18),
@@ -2702,13 +2770,13 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
     check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
     prof, prof_s, unit_s, per_layer = again, None, None, None
     if profile_layers:
-        del again
-        torch.cuda.empty_cache()
         unit_s = {}
         for remat in ("none", cfg.remat):  # the unit's step with and without remat
-            prof = Trainer(dataclasses.replace(cfg, n_layers=profile_layers, remat=remat),
-                           tcfg, device=dev)
-            for _ in range(2):  # warm-up, then timed
+            warm = remat == cfg.remat and profile_layers == cfg.n_layers
+            prof = again if warm else Trainer(
+                dataclasses.replace(cfg, n_layers=profile_layers, remat=remat), tcfg,
+                device=dev)
+            for _ in range(1 if warm else 2):  # warm-up, then timed
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 prof.run(1)
@@ -3051,11 +3119,14 @@ def moe_serve_extras(torch, model, prompts, cache_len: int, xla=None) -> dict:
     check(_launches(ws) == _want(ws), f"{model.cfg.name} xla prefills launched "
           f"{_launches(ws)}; want no launch")
 
-    def blocked_prefill(forced: bool):
+    def blocked_prefill(routes=None, tap=False, twin=False):
         got = {}
         with attention_impl(model, "blocked"), contextlib.ExitStack() as stack:
-            if forced:
-                stack.enter_context(forced_routes(model, calls))
+            if twin:
+                stack.enter_context(twin_attention())
+            if routes is not None:
+                stack.enter_context(forced_routes(model, routes))
+            if tap:
                 got["calls"] = stack.enter_context(tapped_routes(model))
                 stack.enter_context(prefill_hidden(model, got, "hidden"))
             torch.cuda.synchronize()
@@ -3066,15 +3137,16 @@ def moe_serve_extras(torch, model, prompts, cache_len: int, xla=None) -> dict:
             torch.cuda.synchronize()
             got["s"] = time.perf_counter() - t0
         got["launched"], got["tc"] = _launches(ws), fa.flash_attention.launches_tc
-        check(got["launched"] == _want(ws, flash_attention=n_attn) and got["tc"] == n_attn,
-              f"{model.cfg.name} blocked prefill launched {got['launched']} ({got['tc']} "
-              f"on the tensor-core flash kernel); want {n_attn} flash launches, all "
-              f"tensor-core, and no other")
+        n = 0 if twin else n_attn
+        check(got["launched"] == _want(ws, flash_attention=n) and got["tc"] == n,
+              f"{model.cfg.name} blocked prefill ({'twin' if twin else 'flash'}) launched "
+              f"{got['launched']} ({got['tc']} on the tensor-core flash kernel); want {n} "
+              f"flash launches, all tensor-core, and no other")
         check(bool(torch.isfinite(got["logits"]).all()), "blocked prefill logits not finite")
         return got
 
-    first = blocked_prefill(False)
-    got = blocked_prefill(True)
+    first = blocked_prefill()
+    got = blocked_prefill(routes=calls, tap=True)
     flips = route_check(calls, got["calls"], "bfloat16")
     flips["rows_of"] = flips.pop("rows").numel()
     err = rel_err(got["logits"].float().cpu(), xla["prefill"])
@@ -3083,10 +3155,26 @@ def moe_serve_extras(torch, model, prompts, cache_len: int, xla=None) -> dict:
           f"blocked vs xla prefill logits {err:.3e} > {CARD_CPU_BF16:g}")
     check(err_all <= CARD_CPU_BF16, f"blocked vs xla prefill hidden state at every "
           f"position {err_all:.3e} > {CARD_CPU_BF16:g}")
+    # flash against the twin blocked_attention_plain (the JAX
+    # _blocked_attention step for step) on the card, both with float32
+    # scores: flash on its own routes, then the twin taking them. Flash
+    # multiplies bf16 probabilities into V, the twin float32 ones, so the
+    # MoE inputs differ by more than the router's rounding: the twin's own
+    # flips are recorded, not gated
+    own = blocked_prefill(tap=True)
+    twin = blocked_prefill(routes=own["calls"], tap=True, twin=True)
+    twin_flips = route_check(own["calls"], twin["calls"], "bfloat16")
+    twin_flips["rows_of"] = twin_flips.pop("rows").numel()
+    twin_err = rel_err(twin["hidden"], own["hidden"])
+    check(twin_err <= CARD_CPU_BF16, f"the twin vs flash on the card, blocked prefill: "
+          f"hidden state at every position {twin_err:.3e} > {CARD_CPU_BF16:g}")
+    runs = (first, got, own)
     out["blocked"] = {"flash": first["launched"]["flash_attention"], "flash_tc": first["tc"],
-                      "launches": [first["launched"], got["launched"]],
-                      "prefill_s": first["s"], "rel_err": err,
-                      "rel_err_all_positions": err_all, "routing": flips}
+                      "launches": [r["launched"] for r in runs],
+                      "twin_launches": twin["launched"],
+                      "prefill_s": first["s"], "twin_prefill_s": twin["s"], "rel_err": err,
+                      "rel_err_all_positions": err_all, "routing": flips,
+                      "twin_rel_err_all_positions": twin_err, "twin_routing": twin_flips}
     log(f"    blocked prefills on the same weights: {first['s']:.3f} s, "
         f"{out['blocked']['flash']} flash launches each ({out['blocked']['flash_tc']} "
         f"tensor-core) and no other; routed as the xla run, logits within "
@@ -3094,6 +3182,13 @@ def moe_serve_extras(torch, model, prompts, cache_len: int, xla=None) -> dict:
         f"run's max; its own routing: {flips['tokens']} token-layers on another set of "
         f"experts ({flips['unjustified']} beyond 2 bf16 ulps of the xla logits), "
         f"{flips['reordered']} reordered, {flips['n_rows']} of {flips['rows_of']} rows")
+    log(f"    the twin blocked_attention_plain on the card ({twin['s']:.3f} s, no launch) "
+        f"taking flash's routes: hidden state at every position within {twin_err:.3e} of "
+        f"flash's max (<= {CARD_CPU_BF16:g}); its own routing against flash's: "
+        f"{twin_flips['tokens']} token-layers on another set of experts "
+        f"({twin_flips['unjustified']} beyond 2 bf16 ulps of flash's logits), "
+        f"{twin_flips['reordered']} reordered, {twin_flips['n_rows']} of "
+        f"{twin_flips['rows_of']} rows")
     return out
 
 
@@ -3223,9 +3318,9 @@ def moe_phases(torch, rg, detail, rg_t, dev="cuda") -> dict:
                 after=lambda m, p, n: moe_serve_extras(torch, m, p, n, xla=logits))
     del logits
     blocked = detail[f"serve_{ARCTIC}"]["after"]["blocked"]
-    check(_launches(ws) == blocked["launches"][-1],
-          f"launches {_launches(ws)} after phase 38's last blocked prefill, which "
-          f"counted {blocked['launches'][-1]}")
+    check(_launches(ws) == blocked["twin_launches"],
+          f"launches {_launches(ws)} after phase 38's last blocked prefill (the twin), "
+          f"which counted {blocked['twin_launches']}")
     tally(38, blocked["launches"])
     for phase, arch in ((39, ARCTIC), (41, KIMI)):
         if phase == 41:
@@ -3252,6 +3347,512 @@ def moe_phases(torch, rg, detail, rg_t, dev="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 42-45: training arctic-480b and kimi-k2-1t-a32b
+# ---------------------------------------------------------------------------
+
+#: phases 42 and 44, MoE training at full width on one card: (layers, expert
+#: counts, global batches), the candidates tried largest first (experts, then
+#: batch); the first whose first step leaves ``FREE_GB`` of the card free is
+#: trained. arctic-480b at 1 of 35 layers (14.07 B parameters: 28.1 GB of
+#: bf16 masters and as much of gradients); kimi-k2-1t-a32b at its dense
+#: prefix layer and one MoE layer with its 384 experts cut (at 384 its
+#: masters and gradients alone are 78.3 GB)
+MOE_TRAIN = {ARCTIC: (1, (128,), (4, 2)), KIMI: (2, (256, 192, 128), (2,))}
+MOE_TRAIN_SEQ = 2048
+FREE_GB = 5.0
+#: phases 43 and 45: a whole MoE layer's gradients, ``MoE`` against
+#: ``moe_plain`` on the card, at full width with this many float32 experts
+#: (arctic: 13.4 GB of weights, two gradient sets beside them), B x S of
+#: ``MOE_FULL``
+MOE_GRAD_EXPERTS = 32
+#: phases 43 and 45 in bf16 (the configs' own dtypes: bf16 masters and
+#: compute): the loss within one bf16 ulp relative (2**-8; the loss is
+#: float32 over bf16 logits), every gradient leaf within ``BF16_GRAD_ULPS``
+#: bf16 ulps of its max |g| (each device rounds the products, the
+#: activations and the gradient itself to bf16 in its own order: the CPU
+#: tests measure ~1e-2 of max |g| against JAX, 1.3-2.7 ulps), and one
+#: Adafactor update on the same gradients within one bf16 ulp of each
+#: updated weight (the two devices sum the float32 statistics in other
+#: orders, which may round a weight to its other neighbour)
+BF16_LOSS_REL, BF16_GRAD_ULPS = 2.0 ** -8, 8
+#: phases 43 and 45: the Adafactor update compared card against CPU on the
+#: MoE layers' leaves and norm scales, each cut along its leading axis to
+#: its first expert or ``OPT_ROWS`` rows (the CPU's float32 elementwise
+#: passes over every leaf would take minutes)
+OPT_ROWS = 1024
+
+
+def bf16_ulp(x):
+    """The bf16 ulp at the magnitude of each of ``x``'s elements (2**-133,
+    bf16's least subnormal step, at 0)."""
+    import torch
+
+    e = torch.frexp(x.float().abs()).exponent
+    return torch.where(x == 0, torch.full_like(x.float(), 2.0 ** -133),
+                       torch.ldexp(torch.ones_like(x.float()), e - 8))
+
+
+def grad_errors(got: dict, want: dict, dtype: str) -> dict:
+    """Per leaf, max |got - want| over max |want| (float32), or in bf16 ulps
+    of max |want| (bfloat16); on the device the tensors share."""
+    out = {}
+    for path, ws in want.items():
+        for g, w in zip(got[path], ws):
+            g, w = g.float(), w.float()
+            top = w.abs().max()
+            scale = top if dtype == "float32" else bf16_ulp(top)
+            out[path] = max(out.get(path, 0.0), float((g - w).abs().max() / scale))
+    return out
+
+
+@contextlib.contextmanager
+def planted_no_aux(model):
+    """A planted fault for phases 43 and 45: the MoE load-balancing term left
+    out of the training loss (it moves the router's gradient)."""
+    from repro_torch.models import model as model_module
+
+    real = model_module.MOE_AUX_WEIGHT
+    model_module.MOE_AUX_WEIGHT = 0.0
+    try:
+        yield
+    finally:
+        model_module.MOE_AUX_WEIGHT = real
+
+
+#: phases 43 and 45's planted faults by model: (name, fault, gate), gated on
+#: the card's gradients against the CPU's. The capacity ignored where the
+#: CPU's step drops an assignment; the aux term left out and kimi-k2-1t-a32b's
+#: unnormalised gates in float32 only, as in phase 41: the router's gradient
+#: comes through its bf16 product, and at full width the aux term moves it
+#: by 2 bf16 ulps of its max (arctic), under the bf16 gate
+_NO_CAPACITY_TRAIN = ("no_capacity", planted_no_capacity,
+                      lambda dtype, rec: rec["dropped"] > 0)
+MOE_TRAIN_CONTROLS = {
+    ARCTIC: (("no_aux", planted_no_aux, ("float32",)), _NO_CAPACITY_TRAIN),
+    KIMI: (("no_aux", planted_no_aux, ("float32",)), _NO_CAPACITY_TRAIN,
+           ("no_renorm", planted_no_renorm, ("float32",)))}
+
+
+def timed_updates(torch, trainer, walls: list) -> None:
+    """Has ``trainer``'s train step append each optimizer update's wall
+    seconds, the device synced before and after, to ``walls``."""
+    import dataclasses
+
+    from repro_torch.runtime import make_train_step
+
+    opt = trainer.optimizer
+
+    def update(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = opt.update(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    trainer._step = make_train_step(trainer.cfg, dataclasses.replace(opt, update=update))
+
+
+def moe_train_phase(torch, detail, phase: int, arch: str, dev="cuda") -> dict:
+    """Phases 42 and 44: train ``arch`` at full width and ``MOE_TRAIN``'s
+    depth through ``runtime.Trainer`` with ``TrainerConfig(optimizer=
+    "adafactor")``: bf16 masters and compute, the config's ``remat`` and
+    ``logits_chunk``, the seeded pipeline's Zipf tokens, S
+    ``MOE_TRAIN_SEQ``, TF32 off, 3 steps on the largest candidate (experts,
+    then batch) whose first step leaves ``FREE_GB`` of the card free (a
+    candidate that runs out of memory, or leaves less, is recorded and
+    freed). No kernel wrapper launches, the losses are finite and a second
+    run's first loss is the first's bit for bit. Reports the step time,
+    tokens/s, peak memory, the optimizer updates' share of the steps, the
+    model-FLOP share by ``costs.model_flops`` (active parameters) and by 6 x
+    ``numel`` (every expert), and one profiled step's device idle share
+    and top kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wrappers
+    from repro_torch.models import costs
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    _tf32_off(torch)
+    t_start = time.perf_counter()
+    n_layers, experts, batches = MOE_TRAIN[arch]
+    S, steps = MOE_TRAIN_SEQ, 3
+    ws = wrappers()
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    tried, trainer = [], None
+    for E in experts:
+        for B in batches:
+            cfg = get_config(arch, n_layers=n_layers, n_experts=E)
+            tcfg = TrainerConfig(seq_len=S, global_batch=B, total_steps=steps,
+                                 optimizer="adafactor")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = Trainer(cfg, tcfg, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            opt_walls, walls, per_step, losses = [], [], [], []
+            timed_updates(torch, trainer, opt_walls)
+            _zero_launches(ws)
+            try:
+                t0 = time.perf_counter()
+                losses.append(trainer.run(1)["losses"][0])
+                walls.append(time.perf_counter() - t0)
+            except torch.cuda.OutOfMemoryError:
+                peak = None
+            else:
+                peak = torch.cuda.max_memory_allocated() / 1e9
+            free = None if peak is None else total_gb - peak
+            tried.append({"experts": E, "batch": B, "peak_gb": peak, "free_gb": free})
+            if free is not None and free >= FREE_GB:
+                break
+            del trainer
+            trainer = None
+            torch.cuda.empty_cache()
+        if trainer is not None:
+            break
+    check(trainer is not None, f"{arch}: no candidate of {tried} leaves {FREE_GB:g} GB free")
+    per_step.append(_launches(ws))
+    while len(walls) < steps:
+        before = _launches(ws)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.run(1)["losses"][0])
+        walls.append(time.perf_counter() - t0)
+        per_step.append({k: n - before[k] for k, n in _launches(ws).items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in trainer.state.model.parameters())
+    masters = {str(p.dtype) for p in trainer.state.model.parameters()}
+    step_s = sum(walls[1:]) / len(walls[1:])
+    opt_s = sum(opt_walls[1:steps]) / len(opt_walls[1:steps])
+    kernels = device_kernels(torch, lambda: trainer.run(1))
+    del trainer
+    torch.cuda.empty_cache()
+    again = Trainer(cfg, tcfg, device=dev)
+    first = again.run(1)["losses"][0]
+    del again
+    torch.cuda.empty_cache()
+    check(first == losses[0], f"{arch}: a second run's first loss {first!r} differs from "
+          f"{losses[0]!r}")
+    check(all(p == _want(ws) for p in per_step), f"{arch}: kernel launches per step "
+          f"{per_step}; want none")
+    check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
+    check(masters == {"torch.bfloat16", "torch.float32"}, f"{arch}: master dtypes {masters}")
+    busy_ms = sum(k["device_ms"] for k in kernels)
+    flops = costs.model_flops(cfg, ShapeCell(f"train_{B}x{S}", "train", S, B))
+    real_flops = 6.0 * n_params * B * S
+    out = {"layers": n_layers, "experts": E, "batch": B, "seq_len": S, "steps": steps,
+           "candidates": tried, "init_s": init_s, "step_s": walls, "losses": losses,
+           "steady_step_s": step_s, "tokens_per_s": B * S / step_s,
+           "optimizer_s": opt_walls[:steps], "optimizer_share": opt_s / step_s,
+           "peak_memory_gb": peak_gb, "free_gb": total_gb - peak_gb,
+           "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+           "numel": n_params, "model_flops_per_step": flops,
+           "model_tflop_s": flops / step_s / 1e12,
+           "bf16_tc_share": flops / step_s / BF16_TC_FLOPS,
+           "numel_flops_per_step": real_flops,
+           "numel_bf16_tc_share": real_flops / step_s / BF16_TC_FLOPS,
+           "launches_per_step": per_step, "second_run_first_loss": first,
+           "profiled_step": {"device_busy_ms": busy_ms,
+                             "idle_share": 1.0 - busy_ms / 1e3 / step_s,
+                             "top_kernels": kernels[:15]},
+           "seconds": time.perf_counter() - t_start}
+    detail[f"train_{arch}"] = out
+    log(f"[{phase}] {cfg.name} ({n_layers} layer{'s' if n_layers > 1 else ''}, {E} experts, "
+        f"top-{cfg.top_k}) training at full width, {B} x {S} tokens a step, bf16 masters, "
+        f"Adafactor, remat {cfg.remat!r} (init {init_s:.2f} s; candidates "
+        + ", ".join(f"{c['experts']} experts x B {c['batch']}: "
+                    + ("out of memory" if c["peak_gb"] is None
+                       else f"{c['free_gb']:.2f} GB free") for c in tried)
+        + f"): steps {', '.join(f'{w:.3f}' for w in walls)} s, {out['tokens_per_s']:.0f} "
+        f"tokens/s (steps 2-{steps}); the optimizer {opt_s:.3f} s a step "
+        f"({out['optimizer_share']:.1%}); model FLOPs (active parameters) "
+        f"{flops / 1e12:.1f} T a step, {out['model_tflop_s']:.1f} TFLOP/s, "
+        f"{out['bf16_tc_share']:.2%} of the bf16 tensor-core peak; losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; no kernel launch; peak {peak_gb:.2f} GB "
+        f"of {total_gb:.2f}; a second run's first loss identical")
+    log(f"    model FLOPs by 6 x numel ({n_params / 1e9:.2f} B, every expert): "
+        f"{real_flops / 1e12:.1f} T a step, {out['numel_bf16_tc_share']:.2%} of the bf16 "
+        f"tensor-core peak; one profiled step: kernels busy {busy_ms:.1f} ms (device idle "
+        f"{out['profiled_step']['idle_share']:.1%} of an untraced step); top: " + "; ".join(
+            f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:5]))
+    return out
+
+
+def moe_grad_phase(torch, detail, phase: int, arch: str, dev="cuda", cfg=None) -> dict:
+    """Phases 43 and 45's last part: one MoE layer of ``arch`` at full width
+    with ``MOE_GRAD_EXPERTS`` float32 experts on the card, B x S of
+    ``MOE_FULL`` rows (standard normal around one shared normal direction):
+    the gradients of ``sum(out * r) +
+    aux`` (``r`` a seeded normal cotangent) through ``layers.MoE`` and
+    through ``layers.moe_plain``, for x, the router, ``w_in``, ``w_out``
+    and the shared expert or dense residual, each within
+    ``MOE_PLAIN_TOL`` of its max; the capacity must drop assignments.
+    ``cfg`` replaces the float32 config (a rehearsal's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import MoE, moe_plain
+
+    _tf32_off(torch)
+    t0 = time.perf_counter()
+    cfg = cfg or get_config(arch, n_layers=1, n_experts=MOE_GRAD_EXPERTS, dtype="float32",
+                            param_dtype="float32")
+    B, S = MOE_FULL
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(phase)
+    moe = MoE(cfg, device=dev, trainable=True)
+    with torch.no_grad():
+        moe.init_(gen)
+    # rows around one shared direction: the router favours some experts, so
+    # the capacity drops assignments at kimi's top-8 too
+    x = (torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+         + torch.randn((cfg.d_model,), generator=gen, device=dev)).requires_grad_()
+    r = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    grads = []
+    for fn in (lambda: moe(x), lambda: moe_plain(moe, x)):
+        moe.zero_grad(set_to_none=True)
+        x.grad = None
+        out, aux = fn()
+        (torch.sum(out * r) + aux).backward()
+        grads.append({"x": x.grad, **{n: p.grad for n, p in moe.named_parameters()}})
+    with torch.no_grad():
+        _, _, _, idx = moe.route(x)
+        _, keep, _, cap = moe.dispatch(idx, S)
+    dropped = int((~keep).sum())
+    errs = {k: rel_err(g, grads[1][k]) for k, g in grads[0].items()}
+    worst = max(errs, key=errs.get)
+    del moe, x, r, grads
+    torch.cuda.empty_cache()
+    check(dropped > 0, f"{arch}: the capacity {cap} dropped no assignment at S {S}")
+    check(errs[worst] <= MOE_PLAIN_TOL, f"{arch}: MoE vs moe_plain gradient of {worst}: "
+          f"{errs[worst]:.3e} of its max > {MOE_PLAIN_TOL:g}")
+    rec = {"experts": cfg.n_experts, "batch": B, "prompt_len": S, "cap": cap,
+           "dropped": dropped, "assignments": keep.numel(), "grad_rel_err": errs,
+           "seconds": time.perf_counter() - t0}
+    detail[f"moe_grad_vs_plain_{arch}"] = rec
+    log(f"[{phase}] {cfg.name}'s MoE layer at full width ({cfg.n_experts} float32 experts), "
+        f"{B} x {S}: gradients through MoE vs moe_plain, worst {worst} {errs[worst]:.3e} "
+        f"of its max (<= {MOE_PLAIN_TOL:g}; " + ", ".join(f"{k} {v:.1e}" for k, v in
+                                                          errs.items())
+        + f"); capacity {cap} dropped {dropped} of {keep.numel()} assignments "
+        f"({rec['seconds']:.1f} s)")
+    return rec
+
+
+def moe_opt_leaves(leaves: dict) -> dict:
+    """The leaves of a model's MoE layers (router, experts, shared expert,
+    dense residual) and their layers' norm scales, each cut along its
+    leading axis to its first expert or ``OPT_ROWS`` rows (views, so an
+    update writes into the model)."""
+    return {path: [p[:1] if p.dim() > 2 else p[:OPT_ROWS] for p in ps]
+            for path, ps in leaves.items()
+            if path.startswith("units/") and ("/ffn/" in path or path.endswith("/scale"))}
+
+
+def moe_train_devices_phase(torch, detail, phase: int, arch: str, dev="cuda",
+                            cfg_of=None) -> dict:
+    """Phases 43 and 45: one training step of ``arch`` on the card against
+    the CPU at full width and ``MOE_CUT``'s depth, experts and length, B 1,
+    the same weights (drawn on the card, copied to the CPU): in float32
+    (masters and compute) and at the config's own dtypes (bf16). The card
+    runs the config's ``remat`` and taps each MoE layer's routing with its
+    input (the recompute must route as the forward); the CPU computes the
+    same function without the recompute (``remat="none"``), routed as the
+    card (``forced_routes``), and routes the card's MoE inputs itself, every
+    flip a near-tie on at most ``FLIP_ROWS_MAX`` of the rows
+    (``card_cpu_routes``). The loss and every gradient leaf within
+    ``TRAIN_LOSS_REL`` / ``TRAIN_GRAD_SHARE`` (float32) or
+    ``BF16_LOSS_REL`` / ``BF16_GRAD_ULPS`` (bf16); a second identical step
+    on the card gives bit-equal gradients; each of ``MOE_TRAIN_CONTROLS``
+    planted on the card must fail the gradient check where it is gated;
+    one Adafactor update of ``moe_opt_leaves`` on the card's gradients,
+    card against CPU: within ``OPT_CARD_CPU`` of max |p| (float32) or one
+    bf16 ulp of each weight. No kernel wrapper launches. Then
+    :func:`moe_grad_phase`."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import wrappers
+    from repro_torch.models import init_params, loss_fn, param_leaves
+    from repro_torch.optim import make_optimizer
+
+    n_layers, n_experts, S = MOE_CUT[arch]
+    cfg_of = cfg_of or (lambda dt: get_config(arch, n_layers=n_layers, n_experts=n_experts,
+                                              dtype=dt, param_dtype=dt))
+    ws = wrappers()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cfg = cfg_of(dtype)
+        card_model = init_params(cfg, torch.Generator(device=dev).manual_seed(phase),
+                                 trainable=True)
+        cpu_model = copy.deepcopy(card_model).cpu()
+        cpu_model.cfg = dataclasses.replace(cfg, remat="none")
+        batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, S, 1, seed=phase).items()}
+        card_batch = {k: v.to(dev) for k, v in batch.items()}
+        n = len(moe_layers(card_model))
+        card_leaves, cpu_leaves = param_leaves(card_model), param_leaves(cpu_model)
+        parts, mark = {}, [t0]
+
+        def lap(name):
+            torch.cuda.synchronize()
+            parts[name] = time.perf_counter() - mark[0]
+            mark[0] = time.perf_counter()
+
+        lap("setup")
+
+        def card_step():
+            card_model.zero_grad(set_to_none=True)
+            loss = loss_fn(card_model, card_batch)
+            loss.backward()
+            return loss.detach(), {k: [p.grad for p in ps] for k, ps in card_leaves.items()}
+
+        _zero_launches(ws)
+        with tapped_routes(card_model, keep_x=True) as card_calls:
+            card_loss, card_grads = card_step()
+        launched = _launches(ws)
+        recompute = card_calls[n:]
+        check(len(recompute) == (n if cfg.remat != "none" else 0) and all(
+            torch.equal(a["idx"], b["idx"]) and torch.equal(a["kept"], b["kept"])
+            for a, b in zip(card_calls[:n], recompute)),
+            f"{arch} {dtype}: the recompute's routes differ from the forward's")
+        card_calls = card_calls[:n]
+        again_loss, again = card_step()
+        same = torch.equal(again_loss, card_loss) and all(
+            torch.equal(a, b) for k, gs in card_grads.items() for a, b in zip(gs, again[k]))
+        del again
+        lap("card_steps")
+        with forced_routes(cpu_model, card_calls), tapped_routes(cpu_model) as cpu_calls:
+            cpu_loss = loss_fn(cpu_model, batch)
+            cpu_loss.backward()
+        cpu_loss = cpu_loss.detach()
+        lap("cpu_step")
+        flips = card_cpu_routes(cpu_model, cpu_calls, card_calls, dtype)
+        flips["dropped"] = sum(int((~c["kept"]).sum()) for c in cpu_calls)
+        # the CPU's gradients on the card, where the comparisons run
+        cpu_grads = {k: [p.grad.to(dev) for p in ps] for k, ps in cpu_leaves.items()}
+        loss_err = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        errs = grad_errors(card_grads, cpu_grads, dtype)
+        worst = max(errs, key=errs.get)
+        tol = TRAIN_GRAD_SHARE if dtype == "float32" else BF16_GRAD_ULPS
+        planted = {}
+        for name, plant, gated in MOE_TRAIN_CONTROLS[arch]:
+            with plant(card_model):
+                _, bad = card_step()
+            e = grad_errors(bad, cpu_grads, dtype)
+            bad_worst = max(e, key=e.get)
+            on = gated(dtype, flips) if callable(gated) else dtype in gated
+            planted[name] = {"err": e[bad_worst], "leaf": bad_worst, "gated": on,
+                             "router": max(v for k, v in e.items() if k.endswith("router"))}
+            del bad
+        lap("planted")
+        # one Adafactor update of the MoE layers' leaves on the card's
+        # gradients, on the card and on the CPU
+        opt = make_optimizer("adafactor", peak_lr=1e-2, warmup=0, total=100)
+        card_p, cpu_p = moe_opt_leaves(card_leaves), moe_opt_leaves(cpu_leaves)
+        g_card = {k: [g[:p.shape[0]] for g, p in zip(card_grads[k], card_p[k])]
+                  for k in card_p}
+        del card_grads
+        cpu_model.zero_grad(set_to_none=True)
+        del cpu_grads
+        g_cpu = {k: [g.cpu() for g in gs] for k, gs in g_card.items()}
+        before = {k: [p.detach().clone() for p in ps] for k, ps in cpu_p.items()}
+        with torch.no_grad():
+            opt.update(g_card, opt.init(card_p), card_p, 0)
+            opt.update(g_cpu, opt.init(cpu_p), cpu_p, 0)
+        if dtype == "float32":
+            opt_err = max(rel_err(q.detach().cpu(), p.detach())
+                          for k, ps in cpu_p.items() for p, q in zip(ps, card_p[k]))
+            opt_ok = opt_err <= OPT_CARD_CPU
+        else:  # in ulps of the larger of each weight before and after
+            opt_err = max(float(((q.detach().cpu().float() - p.detach().float()).abs()
+                                 / bf16_ulp(torch.maximum(p.detach().abs(), b.abs()))).max())
+                          for k, ps in cpu_p.items()
+                          for p, q, b in zip(ps, card_p[k], before[k]))
+            opt_ok = opt_err <= 1.0
+        lap("adafactor")
+        del g_card, g_cpu, card_p, cpu_p, cpu_model, card_model
+        torch.cuda.empty_cache()
+        loss_tol = TRAIN_LOSS_REL if dtype == "float32" else BF16_LOSS_REL
+        unit = "of each leaf's max |g|" if dtype == "float32" else "bf16 ulps of its max |g|"
+        check(math.isfinite(float(card_loss)) and loss_err <= loss_tol,
+              f"{arch} {dtype}: card loss {float(card_loss)!r} vs CPU {float(cpu_loss)!r}: "
+              f"{loss_err:.3e} > {loss_tol:g}")
+        check(errs[worst] <= tol, f"{arch} {dtype}: card vs CPU gradient of {worst}: "
+              f"{errs[worst]:.3e} {unit} > {tol:g}")
+        check(launched == _want(ws), f"{arch} {dtype}: kernel launches {launched}; want none")
+        check(same, f"{arch} {dtype}: a second identical step on the card gives other "
+              f"gradients")
+        check(flips["unjustified"] == 0 and flips["kept_unexplained"] == 0,
+              f"{arch} {dtype}: on the card's MoE inputs {flips['unjustified']} of "
+              f"{flips['device_tokens']} routing flips between the devices are not "
+              f"near-ties, {flips['kept_unexplained']} kept flags differ behind no flip")
+        check(flips["device_rows"] <= FLIP_ROWS_MAX * flips["rows_of"],
+              f"{arch} {dtype}: routing flips change {flips['device_rows']} of "
+              f"{flips['rows_of']} rows (> {FLIP_ROWS_MAX:.0%})")
+        for name, ctl in planted.items():
+            check(not ctl["gated"] or ctl["err"] > tol, f"{arch} {dtype}: the planted fault "
+                  f"{name!r} passes the gradient check ({ctl['err']:.3e} <= {tol:g})")
+        check(opt_ok, f"{arch} {dtype}: Adafactor on the card vs the CPU, same gradients: "
+              f"{opt_err:.3e} " + ("of max |p|" if dtype == "float32" else "bf16 ulps"))
+        out[dtype] = {"loss_card": float(card_loss), "loss_cpu": float(cpu_loss),
+                      "loss_rel_err": loss_err, "grad_err": errs, "worst_grad_leaf": worst,
+                      "bit_equal_repeat": same, "routing": flips,
+                      "planted": planted, "adafactor_err": opt_err, "seconds_by_part": parts,
+                      "seconds": time.perf_counter() - t0}
+        log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers}, {cfg.n_experts} experts, {dtype} "
+            f"masters and compute, 1 x {S}, one step (card remat {cfg.remat!r}, CPU none): "
+            f"card vs CPU loss {loss_err:.3e} (<= {loss_tol:g}), gradients {errs[worst]:.3e} "
+            f"{unit} over {len(errs)} leaves (<= {tol:g}; worst {worst}); a second card step "
+            f"bit-equal; the recompute routed as the forward; Adafactor on the card's "
+            f"gradients (MoE leaves, an expert or {OPT_ROWS} rows each), card vs CPU "
+            f"{opt_err:.3e} "
+            + ("of max |p|" if dtype == "float32" else "bf16 ulps (<= 1)")
+            + f"; no kernel launch ({out[dtype]['seconds']:.1f} s: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+        log(f"    routing: on the card's MoE input the CPU routes {flips['device_tokens']} "
+            f"tokens to another set of experts, all near-ties ({flips['device_rows']} of "
+            f"{flips['rows_of']} rows); on its own input {flips['tokens']} tokens; the CPU "
+            f"dropped {flips['dropped']} assignments")
+        for name, ctl in planted.items():
+            log(f"    planted fault {name!r} on the card: gradients {ctl['err']:.3e} {unit} "
+                f"(worst {ctl['leaf']}; the router {ctl['router']:.3e}; tolerance {tol:g}"
+                f"{'' if ctl['gated'] else '; not gated here'})")
+    detail[f"train_card_vs_cpu_{arch}"] = out
+    out["moe_grad"] = moe_grad_phase(torch, detail, phase, arch, dev)
+    return out
+
+
+def moe_train_phases(torch, detail, dev="cuda") -> dict:
+    """Phases 42-45: train arctic-480b (42) and kimi-k2-1t-a32b (44) at full
+    width on one card, each followed by its training step card against CPU
+    and its MoE layer's gradients against ``moe_plain`` (43, 45). Returns
+    every wrapper's launches summed over the four phases (each checked run
+    starts from zeroed counts) and each phase's seconds."""
+    from repro_torch.kernels import wrappers
+
+    ws = wrappers()
+    counted = dict.fromkeys(ws, 0)
+    phase_s, t0 = {}, time.perf_counter()
+    _zero_launches(ws)
+    for phase, arch in ((42, ARCTIC), (43, ARCTIC), (44, KIMI), (45, KIMI)):
+        if phase in (42, 44):
+            moe_train_phase(torch, detail, phase, arch, dev)
+        else:
+            moe_train_devices_phase(torch, detail, phase, arch, dev)
+        for k, n in _launches(ws).items():
+            counted[k] += n
+        _zero_launches(ws)
+        phase_s[phase] = time.perf_counter() - t0 - sum(phase_s.values())
+    check(counted == _want(ws), f"phases 42-45 launched {counted}; want none")
+    detail["phases_42_45_s"] = phase_s
+    log("    phases 42-45 took " + ", ".join(f"{p}: {v:.1f} s" for p, v in phase_s.items())
+        + "; launches: " + ", ".join(f"{k} {n}" for k, n in counted.items()))
+    return {"launches": counted, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
 # phases 26-29: scheduled training, the chaos engine and the journal
 # ---------------------------------------------------------------------------
 
@@ -3262,9 +3863,10 @@ SCHED_RUNS = (("oef-coop", "qwen2-1.5b,gemma3-4b,xlstm-350m", 3),
 #: phase 26's sequence length and global batch (the JAX launcher's defaults)
 SCHED_SHAPE = (128, 8)
 #: phase 27's cells, (tenants, scale, until) as ``service_trace`` takes
-#: them: phase 4's full-size non-coop replay, and phase 5's 128 tenants,
-#: replayed on the card and on the CPU
-CHAOS_FULL = (1024, 128, 1200.0)
+#: them: phase 4's full-size non-coop replay, cut to its first 600 s (21
+#: solves, every planned solver fault fired on the CPU; 41 at 1200 s), and
+#: phase 5's 128 tenants, replayed on the card and on the CPU
+CHAOS_FULL = (1024, 128, 600.0)
 CHAOS_SMALL = (128, 16, 7200.0)
 #: phases 28-29, (policy, tenants, scale, until): phase 8's coop replay and
 #: phase 5's 128-tenant non-coop one, journaled, killed at the median event
@@ -3687,6 +4289,14 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
     detail = {"card": smi, "torch": torch.__version__}
     t_all = time.perf_counter()
+    clock, mark = {}, [t_all]
+
+    def lap(phase=None, group=None) -> None:
+        """Each phase's seconds in ``clock``: ``phase``'s since the last
+        lap, or a group's own per-phase seconds (``group``)."""
+        now = time.perf_counter()
+        clock.update(group if group is not None else {phase: now - mark[0]})
+        mark[0] = now
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3704,6 +4314,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
     detail["build_s"] = build_s
+    lap(1)
     # the fused solver kernels must not spill: their state is meant to stay
     # in registers and shared memory
     fused_ptxas = {}
@@ -3759,6 +4370,7 @@ def main() -> int:
         f"(graph replay; {kernel_call_ms * 1e3:.2f} us per wrapper call), "
         f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e6:.2f} ns "
         f"({bound_by})")
+    lap(2)
     detail["kernel"] = {"cases": cases, "max_abs_err": max_err,
                         "kernel_ms": kernel_ms, "kernel_call_ms": kernel_call_ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3766,6 +4378,7 @@ def main() -> int:
 
     # -- 3. the fused solve ---------------------------------------------------
     solve_t = solve_phase(torch, np, wf, detail)
+    lap(3)
 
     # -- 4. the service at full size ----------------------------------------
     from repro_torch import obs
@@ -3831,6 +4444,8 @@ def main() -> int:
         "traced_solve_share_of_wall": solve_s / wall2,
         "flame_top": {p: s for p, s in top}}
 
+    lap(4)
+
     # -- 5. 128 tenants: numpy, torch on the card, torch on the CPU ---------------
     reports = {}
     record = []
@@ -3863,32 +4478,45 @@ def main() -> int:
         k: {"n_solves": r.n_solves, "jobs_finished": r.jobs_finished,
             "n_events": r.n_events} for k, r in reports.items()}
     detail["service_128"]["max_diff"] = worst5
+    lap(5)
 
     # -- 6-9. the cooperative tier and its envy-gap kernel ----------------------
     envy_t = envy_phase(torch, np, ev, detail)
     segment_t = segment_phase(torch, np, ev, detail)
+    lap(6)
     coop_tier_phase(np, ev, detail)
+    lap(7)
     segment_launches, envy_launches = coop_service_phase(torch, np, ev, wf, detail)
+    lap(8)
     coop_devices_phase(detail)
+    lap(9)
 
     # -- 10-12. serving recurrentgemma-2b and its RG-LRU scan kernel ------------
     rg_t = rglru_phase(torch, rg, detail)
+    lap(10)
     rg_launches = serve_phase(torch, rg, detail, rg_t)
+    lap(11)
     rg_tma = detail[f"serve_{ARCH}"]["launches_tma"]
     devices_phase(torch, rg, detail)
+    lap(12)
 
     # -- 13-14. the attention and cross-entropy ops -------------------------------
     t0 = time.perf_counter()
     fa_t = flash_phase(torch, fa, detail)
+    lap(13)
     xe_t = xent_phase(torch, xe, detail)
+    lap(14)
     detail["ops_phases_s"] = time.perf_counter() - t0
     log(f"    phases 13-14 took {detail['ops_phases_s']:.1f} s")
 
     # -- 15-17. training recurrentgemma-2b and the RG-LRU backward kernel -------
     t0 = time.perf_counter()
     rgb_t = rglru_backward_phase(torch, rg, detail)
+    lap(15)
     train = train_phase(torch, rg, detail)
+    lap(16)
     train_devices_phase(torch, rg, detail)
+    lap(17)
     detail["train_phases_s"] = time.perf_counter() - t0
     log(f"    phases 15-17 took {detail['train_phases_s']:.1f} s")
 
@@ -3896,12 +4524,16 @@ def main() -> int:
     t0 = time.perf_counter()
     for arch, _, _ in DENSE:
         serve_phase(torch, rg, detail, rg_t, 18, arch)
+    lap(18)
     for arch, n_layers, S in DENSE:
         devices_phase(torch, rg, detail, 19, arch, n_layers, S)
+    lap(19)
     for arch, _, _ in DENSE:
         train_phase(torch, rg, detail, 20, arch)
+    lap(20)
     for arch, n_layers, S in DENSE:
         train_devices_phase(torch, rg, detail, 21, arch, n_layers, S)
+    lap(21)
     detail["dense_phases_s"] = time.perf_counter() - t0
     log(f"    phases 18-21 took {detail['dense_phases_s']:.1f} s")
 
@@ -3910,12 +4542,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     arch, n_layers, S = XLSTM
-    serve_phase(torch, rg, detail, rg_t, 22, arch, profile_layers=XLSTM_PROFILE_LAYERS)
+    serve_phase(torch, rg, detail, rg_t, 22, arch,
+                cfg=get_config(arch, n_layers=XLSTM_SERVE_LAYERS),
+                profile_layers=XLSTM_PROFILE_LAYERS)
+    lap(22)
     devices_phase(torch, rg, detail, 23, arch, n_layers, S)
+    lap(23)
     train_phase(torch, rg, detail, 24, arch,
                 cfg=get_config(arch, logits_chunk=512, n_layers=XLSTM_TRAIN_LAYERS),
-                profile_layers=XLSTM_PROFILE_LAYERS)
+                profile_layers=XLSTM_PROFILE_LAYERS, steps=XLSTM_TRAIN_STEPS)
+    lap(24)
     train_devices_phase(torch, rg, detail, 25, arch, n_layers, S)
+    lap(25)
     detail["xlstm_phases_s"] = time.perf_counter() - t0
     log(f"    phases 22-25 took {detail['xlstm_phases_s']:.1f} s")
 
@@ -3932,20 +4570,30 @@ def main() -> int:
         phase_s[phase] = time.perf_counter() - t0 - sum(phase_s.values())
     detail["phases_26_29_s"] = phase_s
     log("    phases 26-29 took " + ", ".join(f"{p}: {v:.1f} s" for p, v in phase_s.items()))
+    lap(group=phase_s)
 
     # -- 30-33. yi-9b, phi4-mini, phi-3-vision and the blocked path ------------
     blocked_t = blocked_phases(torch, rg, detail, rg_t)
+    lap(group=blocked_t["phase_s"])
 
     # -- 34-37. whisper-tiny: the encoder, cross-attention, sinusoids ---------
     whisper_t = whisper_phases(torch, rg, detail, rg_t)
+    lap(group=whisper_t["phase_s"])
 
     # -- 38-41. arctic-480b and kimi-k2-1t-a32b: the MoE layer ------------------
     moe_t = moe_phases(torch, rg, detail, rg_t)
+    lap(group=moe_t["phase_s"])
+
+    # -- 42-45. training arctic-480b and kimi-k2-1t-a32b -------------------------
+    moe_train_t = moe_train_phases(torch, detail)
+    lap(group=moe_train_t["phase_s"])
     detail["total_s"] = time.perf_counter() - t_all
+    detail["phase_s"] = clock
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, sort_keys=True)
+    log("seconds by phase: " + ", ".join(f"{p}: {v:.1f}" for p, v in clock.items()))
     log(f"total {detail['total_s']:.1f} s")
     kernels = [{
         "name": "waterfill_solve",
@@ -4090,8 +4738,8 @@ def main() -> int:
                        "bound_ms, library_ms)",
         "launches_by_phase": {"13": fa_t["launches"], "30": blocked_t["flash"],
                               "38": {ARCTIC: moe_t["flash"]}},
-        "launches_38_note": "38: one arctic-480b blocked prefill; the phase runs two "
-                            "(38-41 counts both)",
+        "launches_38_note": "38: one arctic-480b blocked prefill; the phase runs three "
+                            "on flash (38-41 counts them) and one on the twin (no launch)",
         "launches_tc_38": moe_t["flash_tc"],
         "launches_tc": blocked_t["flash_tc"]["yi-9b"],
         "shape": list(FLASH_FULL[0][1:]),
@@ -4117,12 +4765,13 @@ def main() -> int:
         "library_ms": xe_t["library_ms"],
     }]
     # whisper-tiny's phases launch no kernel, the MoE phases only the blocked
-    # prefill's flash: each entry records its wrapper's count there (the TMA
-    # and direct routes share one wrapper)
+    # prefill's flash, MoE training none: each entry records its wrapper's
+    # count there (the TMA and direct routes share one wrapper)
     for k in kernels:
-        k.setdefault("launches_by_phase", {})["34-37"] = whisper_t["launches"][
-            k["name"].replace("_tma", "")]
-        k["launches_by_phase"]["38-41"] = moe_t["launches"][k["name"].replace("_tma", "")]
+        wrapper = k["name"].replace("_tma", "")
+        k.setdefault("launches_by_phase", {})["34-37"] = whisper_t["launches"][wrapper]
+        k["launches_by_phase"]["38-41"] = moe_t["launches"][wrapper]
+        k["launches_by_phase"]["42-45"] = moe_train_t["launches"][wrapper]
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ the JAX package's trace or allocation can hand the same inputs to both:
     and ``meta["pd_state"]``, the primal–dual tier's certified saddle;
   - :func:`model_from_jax` — the model from the JAX package's params
     pytree as numpy arrays (``jax.tree.map(np.asarray, params)``), for
-    serving or, with ``trainable=True``, with float32 masters for training;
+    serving or, with ``trainable=True``, with masters for training;
   - :func:`leaves_to_jax` — its inverse for any per-parameter tree (params,
     grads, optimizer states) held as leaves (``models.param_leaves``): the
     JAX layout as numpy, unit leaves stacked on a leading ``n_units`` axis,
@@ -163,7 +163,9 @@ def model_from_jax(cfg: ArchConfig, params: Dict[str, Any], device=None,
     ``ffn/w_out`` and its ``shared`` and ``dense`` SwiGLUs. Names and
     layouts match, so every weight is a copy: into the serving model's
     storage dtype (as the JAX code casts at use), or with ``trainable=True``
-    into float32 masters that require grad.
+    into masters that require grad, in the JAX leaf's dtype (the config's
+    ``param_dtype``, or float32; bfloat16 arrives here as float32 and is
+    copied back exactly).
     Raises if a leaf is missing, left over or of another shape. ``device``
     defaults to ``cuda`` and raises without a GPU (``resolve_device``); pass
     ``device="cpu"`` to build on the CPU.

@@ -31,11 +31,13 @@ The port of ``repro.launch.train``: the same flags and defaults, plus
 ``--device`` (default ``cuda``; it raises when torch sees no GPU).
 ``--arch`` is recurrentgemma-2b, qwen2-1.5b, gemma3-4b (which accumulates
 its gradients over ``microbatches=2``), xlstm-350m, yi-9b, phi4-mini-3.8b,
-phi-3-vision-4.2b (trained on the pipeline's embeddings) or whisper-tiny
+phi-3-vision-4.2b (trained on the pipeline's embeddings), whisper-tiny
 (on the pipeline's float32 frames, ``--seq-len`` of them beside as many
-tokens), and so is each of ``--tenants``; arctic-480b and kimi-k2-1t-a32b
-(MoE) raise ``NotImplementedError``: they serve, and their training is
-the next slice (ROADMAP.md, Queue A). Weights come from a ``torch.Generator`` seeded with
+tokens) or the MoE models arctic-480b and kimi-k2-1t-a32b (bfloat16
+masters; at full width neither fits one card, so on the card run them
+with ``--smoke`` or see ``chip_smoke.py`` phases 42-45), and so is each
+of ``--tenants``. As in the JAX launcher, the optimizer is the trainer's
+default, AdamW. Weights come from a ``torch.Generator`` seeded with
 the trainer's seed (0), data from the synthetic pipeline. A single job prints
 the parameter count, the steps, the first and last loss, steps/s and
 tokens/s (wall time of ``Trainer.run``, kernel builds and warm-up
@@ -99,10 +101,9 @@ def run_single(args) -> dict:
     from ..configs import get_config, get_smoke
     from ..kernels import launch_counts
     from ..runtime import Trainer, TrainerConfig
-    from ..runtime.trainer import SimulatedFailure, refuse_moe
+    from ..runtime.trainer import SimulatedFailure
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    refuse_moe(cfg)
     ckpt = args.ckpt_dir or tempfile.mkdtemp(prefix=f"oef-train-{cfg.name}-")
     t = Trainer(cfg, TrainerConfig(seq_len=args.seq_len, global_batch=args.batch,
                                    peak_lr=args.lr, total_steps=args.steps,

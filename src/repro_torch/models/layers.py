@@ -30,19 +30,22 @@ Conventions, as in the JAX package:
     recurrence-gate math in float32; attention heads grouped for GQA
     without repeating KV.
 
-The JAX code keeps float32 params and casts each weight to ``cfg.dtype``
-at every use (``.astype(dt)`` at every product). A layer built with
-``trainable=True`` does the same: float32 parameters that require grad,
-each matrix weight and bias cast to ``cfg.dtype`` where it is used. A
-serving layer (the default) stores the matrix-product weights and the QKV
-biases in ``cfg.dtype`` once, when the model is built or loaded, with no
-grad: the values are the same, the cast at use is then a no-op, and a
-decode step does not re-read float32 weights to cast them. In both the
-RG-LRU gate weights ``w_a``, ``w_i`` and ``lam``, the mLSTM gate weights
-``w_if``, ``b_if``, the sLSTM recurrence ``r`` and bias ``b`` are float32
-(their products are float32 products) and the norm scales are applied in
-float32. The MoE ``router`` is float32 in both too, as the JAX leaf is,
-and cast to ``cfg.dtype`` at use.
+The JAX code keeps its params in ``cfg.param_dtype`` (``_pdtype``: float32
+by default, bfloat16 for arctic-480b and kimi-k2-1t-a32b) and casts each
+weight to ``cfg.dtype`` at every use (``.astype(dt)`` at every product). A
+layer built with ``trainable=True`` does the same: masters that require
+grad in ``cfg.param_dtype`` (:func:`param_dtype`), each matrix weight and
+bias cast to ``cfg.dtype`` where it is used (a no-op when the two dtypes
+are one). A serving layer (the default) stores the matrix-product weights
+and the QKV biases in ``cfg.dtype`` once, when the model is built or
+loaded, with no grad: the values are the same, the cast at use is then a
+no-op, and a decode step does not re-read float32 weights to cast them.
+Where JAX names float32 for a leaf, it is float32 in both: the RG-LRU gate
+weights ``w_a``, ``w_i`` and ``lam``, the mLSTM gate weights ``w_if``,
+``b_if``, the sLSTM recurrence ``r`` and bias ``b`` (their products are
+float32 products) and the MoE ``router`` (cast to ``cfg.dtype`` at use).
+The norm scales (``_pdtype`` masters in training) are applied in float32,
+and a serving layer stores them in float32.
 """
 from __future__ import annotations
 
@@ -66,10 +69,16 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def new_param(shape, dtype, device, trainable: bool = False) -> nn.Parameter:
-    """An uninitialised parameter: float32 that requires grad when
-    ``trainable`` (a master weight), else ``dtype`` without grad."""
-    return nn.Parameter(torch.empty(shape, dtype=torch.float32 if trainable else dtype,
+def param_dtype(cfg: ArchConfig) -> torch.dtype:
+    """The masters' dtype, ``cfg.param_dtype`` (the JAX ``_pdtype``)."""
+    return getattr(torch, cfg.param_dtype)
+
+
+def new_param(shape, dtype, device, trainable: bool, master: torch.dtype) -> nn.Parameter:
+    """An uninitialised parameter: a ``master`` one that requires grad when
+    ``trainable`` (the dtype JAX stores the leaf in: :func:`param_dtype`,
+    or float32 where JAX names it), else ``dtype`` without grad."""
+    return nn.Parameter(torch.empty(shape, dtype=master if trainable else dtype,
                                     device=device), requires_grad=trainable)
 
 
@@ -87,10 +96,14 @@ def normal_(w: torch.Tensor, gen: torch.Generator, scale: float) -> None:
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, eps: float, device=None, trainable: bool = False):
+    """The scale is float32 when serving, and a ``master`` (the config's
+    :func:`param_dtype`, as the JAX ``rmsnorm_init``) when training."""
+
+    def __init__(self, d: int, eps: float, device=None, trainable: bool = False,
+                 master: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
-        self.scale = new_param((d,), torch.float32, device, trainable)
+        self.scale = new_param((d,), torch.float32, device, trainable, master)
 
     def init_(self, gen: torch.Generator) -> None:
         self.scale.fill_(1.0)
@@ -100,12 +113,12 @@ class RMSNorm(nn.Module):
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMS-normalise ``x`` over its last axis in float32, scale by the
-    float32 ``scale`` and cast back to ``x``'s dtype."""
+    """RMS-normalise ``x`` over its last axis in float32, scale by
+    ``scale`` in float32 and cast back to ``x``'s dtype."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * scale).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -299,14 +312,15 @@ class Attention(nn.Module):
         d, hd = cfg.d_model, cfg.resolved_head_dim
         nq, nkv = cfg.n_heads, cfg.n_kv_heads
         self.dt = dt = compute_dtype(cfg)
-        self.wq = new_param((d, nq * hd), dt, device, trainable)
-        self.wk = new_param((d, nkv * hd), dt, device, trainable)
-        self.wv = new_param((d, nkv * hd), dt, device, trainable)
-        self.wo = new_param((nq * hd, d), dt, device, trainable)
+        pdt = param_dtype(cfg)
+        self.wq = new_param((d, nq * hd), dt, device, trainable, pdt)
+        self.wk = new_param((d, nkv * hd), dt, device, trainable, pdt)
+        self.wv = new_param((d, nkv * hd), dt, device, trainable, pdt)
+        self.wo = new_param((nq * hd, d), dt, device, trainable, pdt)
         if cfg.qkv_bias:
-            self.bq = new_param((nq * hd,), dt, device, trainable)
-            self.bk = new_param((nkv * hd,), dt, device, trainable)
-            self.bv = new_param((nkv * hd,), dt, device, trainable)
+            self.bq = new_param((nq * hd,), dt, device, trainable, pdt)
+            self.bk = new_param((nkv * hd,), dt, device, trainable, pdt)
+            self.bv = new_param((nkv * hd,), dt, device, trainable, pdt)
         else:
             self.bq = self.bk = self.bv = None
 
@@ -458,8 +472,8 @@ class SwiGLU(nn.Module):
         self.cfg = cfg
         d, f = cfg.d_model, d_ff or cfg.d_ff
         self.dt = dt = compute_dtype(cfg)
-        self.w_in = new_param((d, 2 * f), dt, device, trainable)
-        self.w_out = new_param((f, d), dt, device, trainable)
+        self.w_in = new_param((d, 2 * f), dt, device, trainable, param_dtype(cfg))
+        self.w_out = new_param((f, d), dt, device, trainable, param_dtype(cfg))
 
     def init_(self, gen: torch.Generator) -> None:
         normal_(self.w_in, gen, 0.02)
@@ -502,16 +516,18 @@ class MoE(nn.Module):
     (stable), and each expert keeps its first :func:`moe_capacity` of them;
     the rest are dropped and add nothing. The kept tokens are laid into one
     (E, B * cap, d) buffer, the batch folded into the capacity axis, and
-    run through one batched product per projection."""
+    run through one batched product per projection. Every step's backward
+    sums in a fixed order, so two identical training steps give bit-equal
+    gradients on the card too."""
 
     def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         d, f, E = cfg.d_model, cfg.resolved_moe_dff, cfg.n_experts
         self.dt = dt = compute_dtype(cfg)
-        self.router = new_param((d, E), torch.float32, device, trainable)
-        self.w_in = new_param((E, d, 2 * f), dt, device, trainable)
-        self.w_out = new_param((E, f, d), dt, device, trainable)
+        self.router = new_param((d, E), torch.float32, device, trainable, torch.float32)
+        self.w_in = new_param((E, d, 2 * f), dt, device, trainable, param_dtype(cfg))
+        self.w_out = new_param((E, f, d), dt, device, trainable, param_dtype(cfg))
         self.shared = (SwiGLU(cfg, device, trainable, d_ff=cfg.n_shared_experts * f)
                        if cfg.n_shared_experts else None)
         self.dense = (SwiGLU(cfg, device, trainable, d_ff=cfg.d_ff)
@@ -574,7 +590,13 @@ class MoE(nn.Module):
         load = torch.bincount(idx.reshape(-1), minlength=E).float() / (B * S * k)
         aux = E * torch.sum(probs.mean(dim=(0, 1)) * load)
         order, keep, slot, cap = self.dispatch(idx, S)
-        rows = torch.gather(x, 1, (order // k)[..., None].expand(-1, -1, d))
+        # each token's k copies in token order, then permuted into the sorted
+        # order: the backward sums a token's k gradients over this (B, S, k, d)
+        # view in a fixed order, and the permutation adds each gradient once
+        # (a gather by ``order // k`` would scatter-add k copies into each
+        # token, with atomics in no fixed order on the card)
+        rows = x[:, :, None, :].expand(B, S, k, d).reshape(B, S * k, d)
+        rows = torch.gather(rows, 1, order[..., None].expand(-1, -1, d))
         rows = torch.where(keep[..., None], rows, 0)
         buf = x.new_zeros((E * B * cap, d)).index_add_(0, slot.reshape(-1), rows.reshape(-1, d))
         del rows
@@ -656,15 +678,16 @@ class MLSTM(nn.Module):
         d, H = cfg.d_model, cfg.n_heads
         di = 2 * d  # up-projection factor 2 (xLSTM paper)
         self.dt = dt = compute_dtype(cfg)
-        self.w_up = new_param((d, 2 * di), dt, device, trainable)  # u and gate z
-        self.wq = new_param((di, di), dt, device, trainable)
-        self.wk = new_param((di, di), dt, device, trainable)
-        self.wv = new_param((di, di), dt, device, trainable)
-        self.w_if = new_param((d, 2 * H), torch.float32, device, trainable)
-        self.b_if = new_param((2 * H,), torch.float32, device, trainable)
-        self.w_down = new_param((di, d), dt, device, trainable)
+        pdt, f32 = param_dtype(cfg), torch.float32
+        self.w_up = new_param((d, 2 * di), dt, device, trainable, pdt)  # u and gate z
+        self.wq = new_param((di, di), dt, device, trainable, pdt)
+        self.wk = new_param((di, di), dt, device, trainable, pdt)
+        self.wv = new_param((di, di), dt, device, trainable, pdt)
+        self.w_if = new_param((d, 2 * H), f32, device, trainable, f32)
+        self.b_if = new_param((2 * H,), f32, device, trainable, f32)
+        self.w_down = new_param((di, d), dt, device, trainable, pdt)
         # a plain scale, as the JAX leaf ``mixer/norm`` (not ``norm/scale``)
-        self.norm = new_param((di,), torch.float32, device, trainable)
+        self.norm = new_param((di,), f32, device, trainable, pdt)
 
     def init_(self, gen: torch.Generator) -> None:
         for w in (self.w_up, self.wq, self.wk, self.wv, self.w_if):
@@ -811,10 +834,11 @@ class SLSTM(nn.Module):
         d, H = cfg.d_model, cfg.n_heads
         hd = d // H
         self.dt = dt = compute_dtype(cfg)
-        self.w_x = new_param((d, 4 * d), dt, device, trainable)  # i, f, z, o pre-acts
-        self.r = new_param((H, hd, 4 * hd), torch.float32, device, trainable)
-        self.b = new_param((4 * d,), torch.float32, device, trainable)
-        self.w_down = new_param((d, d), dt, device, trainable)
+        pdt, f32 = param_dtype(cfg), torch.float32
+        self.w_x = new_param((d, 4 * d), dt, device, trainable, pdt)  # i, f, z, o pre-acts
+        self.r = new_param((H, hd, 4 * hd), f32, device, trainable, f32)
+        self.b = new_param((4 * d,), f32, device, trainable, f32)
+        self.w_down = new_param((d, d), dt, device, trainable, pdt)
 
     def init_(self, gen: torch.Generator) -> None:
         d = self.cfg.d_model
@@ -891,12 +915,13 @@ class RGLRU(nn.Module):
         d = cfg.d_model
         dr = d  # lru width = d_model (RecurrentGemma-2B)
         self.dt = dt = compute_dtype(cfg)
-        self.w_gate = new_param((d, dr), dt, device, trainable)
-        self.w_rec_in = new_param((d, dr), dt, device, trainable)
-        self.w_a = new_param((dr, dr), torch.float32, device, trainable)
-        self.w_i = new_param((dr, dr), torch.float32, device, trainable)
-        self.lam = new_param((dr,), torch.float32, device, trainable)
-        self.w_down = new_param((dr, d), dt, device, trainable)
+        pdt, f32 = param_dtype(cfg), torch.float32
+        self.w_gate = new_param((d, dr), dt, device, trainable, pdt)
+        self.w_rec_in = new_param((d, dr), dt, device, trainable, pdt)
+        self.w_a = new_param((dr, dr), f32, device, trainable, f32)
+        self.w_i = new_param((dr, dr), f32, device, trainable, f32)
+        self.lam = new_param((dr,), f32, device, trainable, f32)
+        self.w_down = new_param((dr, d), dt, device, trainable, pdt)
 
     def init_(self, gen: torch.Generator) -> None:
         normal_(self.w_gate, gen, 0.02)

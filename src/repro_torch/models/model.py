@@ -36,9 +36,10 @@ through every call; this is one card with no mesh, where every
 ``plan.constrain`` is a no-op, so the plan is dropped.
 
 Entry points: :func:`init_params` (a ``Model`` with weights drawn from a
-``torch.Generator``; ``trainable=True`` for float32 masters that require
-grad), :func:`loss_fn` (the training loss, with :func:`cross_entropy` and
-:func:`_chunked_xent`, and ``cfg.remat`` over each pattern unit),
+``torch.Generator``; ``trainable=True`` for masters in ``cfg.param_dtype``
+that require grad), :func:`loss_fn` (the training loss, with
+:func:`cross_entropy` and :func:`_chunked_xent`, and ``cfg.remat`` over
+each pattern unit: :func:`backbone`),
 :func:`init_cache`, :func:`prefill` and :func:`decode_step`. A cache is
 ``{"layers": [per-layer state, prefix layers first], "pos": int}``, and
 for an encoder model
@@ -56,6 +57,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from . import layers as L
 from .config import ArchConfig
@@ -98,6 +100,10 @@ def _ffn_kind(cfg: ArchConfig, *, dense_override: bool = False) -> str:
 # ---------------------------------------------------------------------------
 
 
+def _direct(part, *inputs):
+    return part(*inputs)
+
+
 class Block(nn.Module):
     """One layer: pre-norm mixer (RG-LRU, mLSTM, sLSTM, or attention over
     the whole prefix or over ``cfg.window`` positions; ``causal=False``:
@@ -117,7 +123,8 @@ class Block(nn.Module):
             raise ValueError(kind)
         self.kind = kind
         self.ffn_kind = ffn = ffn or _ffn_kind(cfg)
-        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+        pdt = L.param_dtype(cfg)
+        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable, pdt)
         if kind in _MIXERS:
             self.mixer = _MIXERS[kind](cfg, device, trainable)
         else:  # the window as the JAX _layer_apply passes it
@@ -125,12 +132,12 @@ class Block(nn.Module):
                                      window=cfg.window if kind == "sliding" else None,
                                      causal=causal)
         if cross:
-            self.norm_cross = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+            self.norm_cross = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable, pdt)
             self.cross = L.Attention(cfg, device, trainable, causal=False)
         else:
             self.norm_cross = self.cross = None
         if ffn != "none":
-            self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+            self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable, pdt)
             self.ffn = (L.MoE if ffn == "moe" else L.SwiGLU)(cfg, device, trainable)
         else:
             self.norm2 = self.ffn = None
@@ -140,26 +147,39 @@ class Block(nn.Module):
             if m is not None:
                 m.init_(gen)
 
-    def _add_ffn(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _mixer_out(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mixer(self.norm1(x))
+
+    def _cross_out(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        return self.cross(self.norm_cross(x), memory=memory)
+
+    def _ffn_out(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The FFN of norm2(x), and a MoE FFN's aux loss (else None)."""
+        out = self.ffn(self.norm2(x))
+        return out if self.ffn_kind == "moe" else (out, None)
+
+    def _add_ffn(self, x: torch.Tensor, call=_direct
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x plus the FFN of norm2(x), and a MoE FFN's aux loss (else None)."""
         if self.ffn is None:
             return x, None
-        out = self.ffn(self.norm2(x))
-        if self.ffn_kind == "moe":
-            out, aux = out
-            return x + out, aux
-        return x + out, None
+        out, aux = call(self._ffn_out, x)
+        return x + out, aux
 
     def forward(self, x: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
                 return_state: bool = False, cache_len: Optional[int] = None,
-                return_aux: bool = False):
-        out = self.mixer(self.norm1(x), return_state=return_state, cache_len=cache_len)
+                return_aux: bool = False, call=_direct):
+        """``call(part, *inputs)`` runs each part that adds to the residual
+        stream (norm and mixer, norm and cross-attention, norm and FFN):
+        directly, or as a checkpointed region under ``remat="names"``."""
         if return_state:
-            out, state = out
+            out, state = self.mixer(self.norm1(x), return_state=True, cache_len=cache_len)
+        else:
+            out = call(self._mixer_out, x)
         x = x + out
         if self.cross is not None and memory is not None:
-            x = x + self.cross(self.norm_cross(x), memory=memory)
-        x, aux = self._add_ffn(x)
+            x = x + call(self._cross_out, x, memory)
+        x, aux = self._add_ffn(x, call)
         outs = (x,) + ((state,) if return_state else ())
         if return_aux:
             outs += (aux,)
@@ -189,8 +209,10 @@ class Model(nn.Module):
     ``Block``s) and ``encoder_norm``. Weights are
     uninitialised; :func:`init_params` or
     ``repro_torch.interop.model_from_jax`` fills them. ``trainable=True``
-    holds float32 masters that require grad (training); the default stores
-    the matrix weights in ``cfg.dtype`` without grad (serving)."""
+    holds masters that require grad (training) in ``cfg.param_dtype``, and
+    float32 where the JAX package names it (``layers.new_param``); the
+    default stores the matrix weights in ``cfg.dtype`` without grad
+    (serving)."""
 
     def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
@@ -198,22 +220,22 @@ class Model(nn.Module):
         kinds = layer_kinds(cfg)
         self.n_prefix = len(kinds["prefix"])
         self.kinds = kinds["prefix"] + kinds["pattern"] * cfg.n_units + kinds["tail"]
-        self.embed = L.new_param((cfg.padded_vocab, cfg.d_model),
-                                 L.compute_dtype(cfg), device, trainable)
+        dt, pdt = L.compute_dtype(cfg), L.param_dtype(cfg)
+        self.embed = L.new_param((cfg.padded_vocab, cfg.d_model), dt, device, trainable, pdt)
         cross = cfg.encoder_layers > 0
         dense = _ffn_kind(cfg, dense_override=True)
         self.layers = nn.ModuleList(
             Block(cfg, k, device, trainable, cross=cross,
                   ffn=dense if i < self.n_prefix else None)
             for i, k in enumerate(self.kinds))
-        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable, pdt)
         self.head = None if cfg.tie_embeddings else L.new_param(
-            (cfg.d_model, cfg.padded_vocab), L.compute_dtype(cfg), device, trainable)
+            (cfg.d_model, cfg.padded_vocab), dt, device, trainable, pdt)
         if cross:
             self.encoder = nn.ModuleList(Block(cfg, "full", device, trainable, causal=False,
                                                ffn="swiglu")
                                          for _ in range(cfg.encoder_layers))
-            self.encoder_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable)
+            self.encoder_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable, pdt)
         else:
             self.encoder = self.encoder_norm = None
 
@@ -315,11 +337,11 @@ def logits_of(model: Model, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _unit_body(layers):
+def _unit_body(layers, call=_direct):
     def body(x: torch.Tensor, memory: Optional[torch.Tensor]):
         aux = 0
         for layer in layers:
-            x, a = layer(x, memory=memory, return_aux=True)
+            x, a = layer(x, memory=memory, return_aux=True, call=call)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -327,30 +349,60 @@ def _unit_body(layers):
     return body
 
 
+def _checkpointed(part, *inputs):
+    return torch.utils.checkpoint.checkpoint(part, *inputs, use_reentrant=False)
+
+
+def _saves_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: keep the outputs of the matrix products without
+    batch dims (``aten.mm`` / ``aten.addmm``: each ``x @ w``), recompute
+    everything else, the batched products (``bmm``: the attention scores,
+    the expert products) too, as JAX's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_saves_products)
+
+
+def _remat_body(cfg: ArchConfig, layers):
+    """A pattern unit's body under ``cfg.remat``, as the JAX ``_remat_wrap``:
+    ``none`` as it is; ``dots`` checkpointed keeping the products of
+    :func:`_saves_products`; ``names`` with each part of each layer (norm and
+    mixer, norm and cross-attention, norm and FFN or MoE) a checkpointed
+    region, so what is kept is their outputs, the tensors JAX tags
+    ``attn_out``, ``ffn_out`` and ``moe_out``, and the residual stream
+    between them; any other value checkpointed whole (``full``): only the
+    unit's inputs are kept. Checkpoints are non-reentrant; ``memory`` is an
+    input, so its gradient flows back to the encoder."""
+    if cfg.remat == "none":
+        return _unit_body(layers)
+    if cfg.remat == "names":
+        return _unit_body(layers, call=_checkpointed)
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = _dots_contexts
+    body = _unit_body(layers)
+    return lambda x, memory: torch.utils.checkpoint.checkpoint(body, x, memory, **kw)
+
+
 def backbone(model: Model, x: torch.Tensor, memory: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Union[torch.Tensor, int]]:
     """The prefix layers, the pattern units, then the tail, each layer
     cross-attending to ``memory`` when given; returns (hidden, the MoE aux
     losses summed over layers: a float32 tensor, or 0 without a MoE layer,
-    so a dense model does no work for it). With ``cfg.remat == "full"`` each
-    unit's body runs under ``torch.utils.checkpoint`` (non-reentrant): only
-    its inputs are kept (``memory`` is one, so its gradient flows back to
-    the encoder), and the backward recomputes the unit and not the encoder,
-    as the JAX ``_remat_wrap`` wraps each unit body and neither the prefix,
-    the tail nor ``_encode``."""
+    so a dense model does no work for it). Each unit's body runs under
+    ``cfg.remat`` (:func:`_remat_body`), and the backward recomputes the
+    unit and not the encoder, as the JAX ``_remat_wrap`` wraps each unit
+    body and neither the prefix, the tail nor ``_encode``."""
     cfg = model.cfg
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} (a checkpoint policy) is not ported to "
-            f"repro_torch; 'none' and 'full' are (ROADMAP.md, Queue A)")
     P, n0 = len(cfg.pattern), model.n_prefix
     x, aux = _unit_body(model.layers[:n0])(x, memory)
     for u in range(cfg.n_units):
-        body = _unit_body(model.layers[n0 + u * P:n0 + (u + 1) * P])
-        if cfg.remat == "full":
-            x, a = torch.utils.checkpoint.checkpoint(body, x, memory, use_reentrant=False)
-        else:
-            x, a = body(x, memory)
+        x, a = _remat_body(cfg, model.layers[n0 + u * P:n0 + (u + 1) * P])(x, memory)
         aux = aux + a
     x, a = _unit_body(model.layers[n0 + cfg.n_units * P:])(x, memory)
     return x, aux + a

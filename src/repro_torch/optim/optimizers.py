@@ -24,6 +24,16 @@ JAX optimizers, but updates both in place: at full width the states are
 (learning rate, bias corrections) are float32 tensors on the parameters'
 device, so every division is a true division as in the JAX code (PyTorch
 on the card divides by a host scalar as a multiply by its reciprocal).
+
+Every float32 temporary is one span of a tensor's leading axis
+(:func:`_spans`): one expert of a MoE leaf, rows of at most ``CHUNK``
+elements of a matrix. Masters and gradients may be bfloat16 (arctic-480b's
+28 GB of masters and as much of gradients leave no room for a float32 copy
+of a whole expert leaf: 35.7 GB for its ``w_in``). The formulas are the
+JAX package's; what spans change is the order of float32 sums only (the
+global norm, Adafactor's column means and its update RMS), and
+Adafactor's RMS stays one value over the whole leaf (two passes: the
+statistics and the sum of u², then the update, u recomputed).
 """
 from __future__ import annotations
 
@@ -65,16 +75,33 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
     return fn
 
 
+#: the most elements of a span of a matrix (:func:`_spans`): 256 MB in float32
+CHUNK = 1 << 26
+
+
 def _device(leaves: Leaves) -> torch.device:
     return next(iter(leaves.values()))[0].device
 
 
+def _spans(t: torch.Tensor) -> list:
+    """Index spans of ``t``'s leading axis, each taken in turn: one slice at
+    a time of a tensor of three or more dims (an expert of a MoE leaf, a
+    head of the sLSTM recurrence), rows of at most ``CHUNK`` elements (at
+    least one) of a matrix, a vector whole."""
+    if t.dim() < 2:
+        return [...]
+    step = 1 if t.dim() > 2 else max(1, CHUNK // t.shape[1])
+    return [slice(i, i + step) for i in range(0, t.shape[0], step)]
+
+
 def global_norm(leaves: Leaves) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in float32, leaf by
-    leaf in order."""
+    leaf in order, each tensor span by span."""
     total = torch.zeros((), dtype=torch.float32, device=_device(leaves))
     for ts in leaves.values():
-        total = total + sum(torch.sum(torch.square(t.float())) for t in ts)
+        for t in ts:
+            for s in _spans(t):
+                total = total + torch.sum(torch.square(t[s].float()))
     return torch.sqrt(total)
 
 
@@ -85,6 +112,8 @@ def _clip_scale(grads: Leaves, max_norm: float, norm=None) -> torch.Tensor:
 
 
 def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``g`` (a span) clipped as the JAX ``clip_by_global_norm`` clips it,
+    rounded to its own dtype, then in float32: a fresh tensor."""
     return (g.float() * scale).to(g.dtype).float()
 
 
@@ -116,16 +145,18 @@ def adamw(lr: Schedule, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         with torch.no_grad():
             for k, ps in params.items():
                 for g, m, v, p in zip(grads[k], state[f"m/{k}"], state[f"v/{k}"], ps):
-                    g = _clipped(g, scale)
-                    mf, vf = m.float(), v.float()  # m, v themselves in float32
-                    mf.mul_(b1).add_((1 - b1) * g)
-                    vf.mul_(b2).add_((1 - b2) * g * g)
-                    u = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
-                    u.add_(weight_decay * p.float())
-                    p.copy_(p.float() - lr_t * u)
-                    if mf is not m:
-                        m.copy_(mf)
-                        v.copy_(vf)
+                    for s in _spans(p):
+                        gs = _clipped(g[s], scale)
+                        ms, vs = m[s], v[s]
+                        mf, vf = ms.float(), vs.float()  # m, v themselves in float32
+                        mf.mul_(b1).add_((1 - b1) * gs)
+                        vf.mul_(b2).add_((1 - b2) * gs * gs)
+                        u = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
+                        u.add_(weight_decay * p[s].float())
+                        p[s].copy_(p[s].float() - lr_t * u)
+                        if mf is not ms:
+                            ms.copy_(mf)
+                            vs.copy_(vf)
         return params, state
 
     return Optimizer("adamw", init, update)
@@ -138,7 +169,15 @@ def adafactor(lr: Schedule, *, eps: float = 1e-30, clip_norm: float = 1.0,
     statistics only. The update's RMS is taken over a unit leaf's units
     together, as the JAX optimizer takes it over the stacked array. (The
     JAX optimizer judges a unit leaf with its ``n_units`` axis, which
-    changes nothing while ``n_units < min_dim_factored``.)"""
+    changes nothing while ``n_units < min_dim_factored``.)
+
+    Each tensor is worked span by span (:func:`_spans`): a first pass
+    updates the statistics and sums u² over the whole leaf, a second
+    recomputes u from the updated statistics and applies
+    ``u / max(1, rms)``. A span of three or more dims holds whole rows of
+    its ``vr`` and ``vc`` (an expert's own); a matrix's column statistic
+    ``vc`` sums over every row span first, so its u follows in a pass of
+    its own."""
 
     def factored(p) -> bool:
         return p.dim() >= 2 and sum(d >= min_dim_factored for d in p.shape) >= 2
@@ -162,30 +201,58 @@ def adafactor(lr: Schedule, *, eps: float = 1e-30, clip_norm: float = 1.0,
         t = _f32(step) + 1.0
         beta = (1.0 - torch.pow(t, -decay)).to(dev)
         lr_t = lr(step).to(dev)
+
+        def u_of(gs, st, s, whole_vc):
+            """The update of span ``s`` from its clipped gradient ``gs`` (in
+            place) and the statistics ``st``."""
+            if len(st) == 1:
+                return gs.mul_(torch.rsqrt(st[0][s] + eps))
+            vr, vc = st
+            rows = vr if whole_vc else vr[s]  # a matrix's row mean spans its rows
+            denom = (vr[s][..., None] * (vc if whole_vc else vc[s])[..., None, :]) / (
+                torch.clamp_min(rows.mean(dim=-1, keepdim=True)[..., None], eps))
+            return gs.mul_(torch.rsqrt(denom.add_(eps)))
+
         with torch.no_grad():
             for k, ps in params.items():
-                us = []
-                for i, g in enumerate(grads[k]):
-                    g = _clipped(g, scale)
-                    g2 = g * g + eps
-                    if f"{k}/vr" in state:
-                        vr, vc = state[f"{k}/vr"][i], state[f"{k}/vc"][i]
-                        vr.copy_(beta * vr + (1 - beta) * g2.mean(dim=-1))
-                        vc.copy_(beta * vc + (1 - beta) * g2.mean(dim=-2))
-                        denom = (vr[..., None] * vc[..., None, :]) / torch.clamp_min(
-                            vr.mean(dim=-1, keepdim=True)[..., None], eps)
-                        us.append(g * torch.rsqrt(denom + eps))
-                    else:
-                        v = state[f"{k}/v"][i]
-                        v.copy_(beta * v + (1 - beta) * g2)
-                        us.append(g * torch.rsqrt(v + eps))
+                st_of = ([(vr, vc) for vr, vc in zip(state[f"{k}/vr"], state[f"{k}/vc"])]
+                         if f"{k}/vr" in state else [(v,) for v in state[f"{k}/v"]])
+                sq = torch.zeros((), dtype=torch.float32, device=dev)
+                n = 0
+                for g, p, st in zip(grads[k], ps, st_of):
+                    n += p.numel()
+                    whole_vc = len(st) == 2 and p.dim() == 2
+                    colsum = 0
+                    for s in _spans(p):
+                        gs = _clipped(g[s], scale)
+                        g2 = gs * gs + eps
+                        if len(st) == 1:
+                            st[0][s] = beta * st[0][s] + (1 - beta) * g2
+                        else:
+                            st[0][s] = beta * st[0][s] + (1 - beta) * g2.mean(dim=-1)
+                            if whole_vc:
+                                colsum = colsum + g2.sum(dim=-2)
+                            else:
+                                st[1][s] = beta * st[1][s] + (1 - beta) * g2.mean(dim=-2)
+                        del g2
+                        if not whole_vc:
+                            u = u_of(gs, st, s, whole_vc)
+                            sq = sq + torch.sum(u * u)
+                    if whole_vc:  # the column mean over every row span
+                        vc = st[1]
+                        vc.copy_(beta * vc + (1 - beta) * (
+                            colsum / torch.full_like(colsum, p.shape[0])))
+                        for s in _spans(p):
+                            u = u_of(_clipped(g[s], scale), st, s, whole_vc)
+                            sq = sq + torch.sum(u * u)
                 # update clipping (RMS <= 1) per Adafactor, over the whole leaf
-                n = sum(u.numel() for u in us)
-                sq = sum(torch.sum(u * u) for u in us)
                 rms = torch.sqrt(sq / torch.full_like(sq, n) + eps)
-                for p, u in zip(ps, us):
-                    u = u / torch.clamp_min(rms, 1.0)
-                    p.copy_(p.float() - lr_t * u)
+                for g, p, st in zip(grads[k], ps, st_of):
+                    whole_vc = len(st) == 2 and p.dim() == 2
+                    for s in _spans(p):
+                        u = u_of(_clipped(g[s], scale), st, s, whole_vc)
+                        u = u / torch.clamp_min(rms, 1.0)
+                        p[s].copy_(p[s].float() - lr_t * u)
         return params, state
 
     return Optimizer("adafactor", init, update)
@@ -202,8 +269,9 @@ def sgdm(lr: Schedule, *, momentum: float = 0.9, clip_norm: float = 1.0) -> Opti
         with torch.no_grad():
             for k, ps in params.items():
                 for g, m, p in zip(grads[k], state[f"m/{k}"], ps):
-                    m.mul_(momentum).add_(_clipped(g, scale))
-                    p.copy_(p.float() - lr_t * m)
+                    for s in _spans(p):
+                        m[s].mul_(momentum).add_(_clipped(g[s], scale))
+                        p[s].copy_(p[s].float() - lr_t * m[s])
         return params, state
 
     return Optimizer("sgdm", init, update)

@@ -8,10 +8,13 @@ The port of ``repro.runtime.trainer`` on one device:
   - simulated failure injection (``run(n, fail_at=)``) and
     ``restore_latest()``, the recovery path.
 
+The masters are in the config's ``param_dtype`` (bfloat16 for arctic-480b
+and kimi-k2-1t-a32b, which train with ``TrainerConfig(optimizer=
+"adafactor")``; float32 for the dense configs), and a checkpoint stores
+bfloat16 as its uint16 bits, as the JAX checkpoint does.
+
 Not ported: the mesh and the elastic ``resize``, which need more than one
-card (ROADMAP.md, Queue A item 8); both raise ``NotImplementedError``. So
-does a MoE config (:func:`refuse_moe`): training arctic-480b and
-kimi-k2-1t-a32b is the next slice of ROADMAP.md's Queue A.
+card (ROADMAP.md, Queue A item 8); both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,19 +36,6 @@ from .trainstep import TrainState, make_train_step
 
 _NO_MESH = ("the port trains on one card: meshes and elastic resizing are not "
             "ported yet (ROADMAP.md, Queue A item 8)")
-
-
-def refuse_moe(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a MoE config: the JAX package holds
-    their masters in ``param_dtype`` bfloat16 (with Adafactor), the port's
-    trainable masters are float32, and one arctic-480b MoE layer's float32
-    masters and gradients alone (107 GB) do not fit one card."""
-    if cfg.ffn_kind == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: training a MoE model is not ported to repro_torch yet "
-            f"(ROADMAP.md, Queue A): the JAX package holds arctic-480b's and "
-            f"kimi-k2-1t-a32b's masters in bfloat16, the port's are float32; MoE "
-            f"models serve")
 
 
 @dataclasses.dataclass
@@ -70,7 +60,6 @@ class Trainer:
                  device=None):
         if mesh is not None:
             raise NotImplementedError(_NO_MESH)
-        refuse_moe(cfg)
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)

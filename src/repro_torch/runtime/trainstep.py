@@ -1,8 +1,9 @@
 """Train, prefill and serve steps: the port of ``repro.runtime.trainstep``.
 
 ``make_train_step`` returns ``(state, batch) -> (state, metrics)``: the loss
-and its gradients (summed in float32 over ``cfg.microbatches`` and divided
-by their number, as the JAX step accumulates), then one optimizer update.
+and its gradients (in the masters' dtype with one microbatch, as
+``jax.grad``'s; summed in float32 over ``cfg.microbatches`` and divided by
+their number, as the JAX step accumulates), then one optimizer update.
 The JAX step is a pure function; here the state is updated in place (the
 parameters, the optimizer's states and ``step``) and returned. The sharding
 specs and ``grad_spec_constraint`` are not ported: one card, no mesh
@@ -46,13 +47,16 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer
         model = state.model
         params = state.params
         model.zero_grad(set_to_none=True)
+        acc = {}
         if mb == 1:
             loss = loss_fn(model, batch)
             loss.backward()
             loss = loss.detach()
         else:
-            # the gradients accumulate in each parameter's float32 .grad:
-            # g_1 + g_2 + ..., in order, then divided by mb, as the JAX sum
+            # the gradients accumulate in float32, g_1 + g_2 + ..., in order,
+            # then divided by mb, as the JAX sum: a float32 master's in its
+            # .grad, another's (bfloat16) in a float32 accumulator its .grad
+            # is added to after each microbatch
             loss = torch.zeros((), dtype=torch.float32, device=model.embed.device)
             for i in range(mb):
                 b_i = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
@@ -60,15 +64,21 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer
                 l_i = loss_fn(model, b_i)
                 l_i.backward()
                 loss = loss + l_i.detach()
+                for ps in params.values():
+                    for p in ps:
+                        if p.dtype != torch.float32:
+                            acc[p] = (p.grad.float() if p not in acc
+                                      else acc[p].add_(p.grad.float()))
+                            p.grad = None
             n = torch.full((), mb, dtype=torch.float32, device=loss.device)
             loss = loss / n
             for ps in params.values():
                 for p in ps:
-                    p.grad.div_(n)
-        grads = {k: [p.grad for p in ps] for k, ps in params.items()}
+                    (acc[p] if p in acc else p.grad).div_(n)
+        grads = {k: [acc.get(p, p.grad) for p in ps] for k, ps in params.items()}
         grad_norm = global_norm(grads)
         optimizer.update(grads, state.opt_state, params, state.step)
-        del grads
+        del grads, acc
         model.zero_grad(set_to_none=True)
         metrics = {"loss": loss, "grad_norm": grad_norm, "step": state.step}
         state.step += 1

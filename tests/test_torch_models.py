@@ -333,16 +333,16 @@ def test_full_config_has_the_jax_shapes():
 
 
 def test_blocked_attention_and_unported_archs_raise():
-    """What the port still refuses: the ``dots`` remat policy when the
-    backbone runs. The blocked path and, since whisper-tiny was ported, the
-    encoder and sinusoidal positions build."""
+    """Nothing here is refused any more (the name is kept): the blocked
+    path, the encoder and sinusoidal positions build, and since the
+    checkpoint policies were ported the ``dots`` backbone runs."""
     Model(get_smoke(ARCH, attention_impl="blocked"))
     Model(get_smoke("whisper-tiny"))
     Model(get_smoke("qwen2-1.5b", encoder_layers=2, rope_theta=0.0))
     cfg = get_smoke("yi-9b", remat="dots")
     model = init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backbone(model, torch.zeros((1, 8, cfg.d_model)))
+    h, aux = backbone(model, torch.zeros((1, 8, cfg.d_model), dtype=getattr(torch, cfg.dtype)))
+    assert h.shape == (1, 8, cfg.d_model) and aux == 0
 
 
 def test_serve_cli_runs_on_the_cpu():

@@ -392,13 +392,23 @@ def test_leaves_round_trip_in_the_jax_layout(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_a_moe_model_is_refused(arch, tmp_path):
-    """The trainer and the train launcher refuse MoE configs (masters are
-    float32 in the port, bfloat16 in the JAX package; ROADMAP Queue A)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(get_smoke(arch), TrainerConfig(ckpt_dir=str(tmp_path)), device="cpu")
-    with pytest.raises(NotImplementedError, match="masters"):
-        train_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1"])
+def test_training_a_moe_model_is_refused(arch, tmp_path, capsys):
+    """Once refused (the name is kept), training a MoE model now runs: the
+    trainer with ``optimizer="adafactor"`` and bf16 masters (the full
+    configs' ``param_dtype``) takes two steps with finite losses, and the
+    train launcher trains the smoke config on the CPU, launching no kernel
+    (``tests/test_torch_moe_train.py`` holds both to the JAX package)."""
+    t = Trainer(get_smoke(arch, param_dtype="bfloat16"),
+                TrainerConfig(seq_len=16, global_batch=2, optimizer="adafactor",
+                              ckpt_dir=str(tmp_path)), device="cpu")
+    assert t.state.model.layers[-1].ffn.w_in.dtype == torch.bfloat16
+    out = t.run(2)
+    assert out["final_step"] == 2 and all(np.isfinite(out["losses"]))
+    train_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                    "--seq-len", "16", "--batch", "2", "--ckpt-dir", str(tmp_path / "cli")])
+    printed = capsys.readouterr().out
+    assert f"training {get_smoke(arch).name} on cpu" in printed and "done: step 2" in printed
+    assert "flash_attention 0" in printed
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -534,7 +544,7 @@ def test_chip_smoke_phases_38_41_rehearse_on_the_cpu(monkeypatch):
     assert set(out["phase_s"]) == {38, 39, 40, 41}
     n_attn = get_smoke(cs.ARCTIC).n_layers
     assert out["flash"] == out["flash_tc"] == n_attn
-    assert out["launches"] == dict(dict.fromkeys(wrappers(), 0), flash_attention=2 * n_attn)
+    assert out["launches"] == dict(dict.fromkeys(wrappers(), 0), flash_attention=3 * n_attn)
     for arch in ARCHS:
         serve_rec = detail[f"serve_{arch}"]
         assert not any(serve_rec["kernel_launches"].values())
@@ -550,8 +560,11 @@ def test_chip_smoke_phases_38_41_rehearse_on_the_cpu(monkeypatch):
         assert detail[f"card_vs_cpu_{arch}"]["float32"]["planted"]["no_renorm"]["gated"]
     blocked = detail[f"serve_{cs.ARCTIC}"]["after"]["blocked"]
     assert blocked["rel_err_all_positions"] <= 5e-2
-    assert blocked["launches"] == 2 * [dict(dict.fromkeys(wrappers(), 0),
+    assert blocked["launches"] == 3 * [dict(dict.fromkeys(wrappers(), 0),
                                             flash_attention=n_attn)]
+    assert blocked["twin_launches"] == dict.fromkeys(wrappers(), 0)
+    assert blocked["twin_rel_err_all_positions"] <= 5e-2
+    assert blocked["twin_routing"]["rows_of"] == 2 * 64
     layer = detail["moe_layer_vs_plain"]
     assert layer["dropped"] > 0 and layer["rel_err"] <= 1e-5 and layer["tied_tokens"] >= 32
     assert min(layer["planted"].values()) > 1e-5

@@ -184,11 +184,29 @@ def test_remat_full_matches_none_and_recomputes_only_the_units(monkeypatch):
 
 
 @pytest.mark.parametrize("remat", ["dots", "names"])
-def test_remat_policies_are_not_ported(remat):
-    c = Case(remat=remat)
-    batch = to_torch(jax_make_batch(c.jcfg, 8, 1, seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(c.model(), batch)
+def test_remat_policies_are_not_ported(remat, monkeypatch):
+    """The checkpoint policies, once refused here, are ported: under
+    ``dots`` (products without batch dims kept) and ``names`` (each layer's
+    mixer and FFN outputs kept) the loss and every gradient equal
+    ``remat="none"``'s bit for bit, and the backward recomputes the scan of
+    each RG-LRU layer of the unit (not of the tail), as ``full`` does: the
+    scan is neither a product nor a tagged output. (The name is kept from
+    when the policies raised.)"""
+    c = Case(n_layers=5, dtype="float32", logits_chunk=16)
+    batch = to_torch(jax_make_batch(c.jcfg, 40, 2, seed=4))
+    out = {}
+    for policy in ("none", remat):
+        calls = _count_scans(monkeypatch)
+        model = c.model(dataclasses.replace(c.cfg, remat=policy))
+        loss = loss_fn(model, batch)
+        loss.backward()
+        out[policy] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+                       dict(calls))
+        monkeypatch.undo()
+    assert torch.equal(out["none"][0], out[remat][0])
+    for name, g in out["none"][1].items():
+        assert torch.equal(g, out[remat][1][name]), name
+    assert out[remat][2] == {"forward": 6, "backward": 4}
 
 
 # ---------------------------------------------------------------------------
