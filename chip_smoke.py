@@ -157,7 +157,8 @@ raises and the script exits non-zero:
     the bf16 tensor-core peak, and the top device operations of one
     profiled step;
 17. one training step on the card against the CPU at full width and cut
-    depth (``n_layers=5``, B 1, S 256, float32, the same weights): the loss
+    depth (``n_layers=5``, B 1, S 128 (``TRAIN_CUT_S``; 256 before PR 27),
+    float32, the same weights): the loss
     within 1e-5 relative, every gradient leaf within 1e-4 of its max |g|,
     and one AdamW update on the card's gradients within 1e-6 of each
     leaf's max |p| on the card and on the CPU;
@@ -184,7 +185,8 @@ raises and the script exits non-zero:
     step and its share of the bf16 tensor-core peak, the top device
     operations of one profiled step;
 21. one float32 training step of each on the card against the CPU at
-    phase 19's cut depths and lengths: the loss within 1e-5 relative,
+    phase 19's cut depths and lengths (qwen2-1.5b at S 128 since PR 27,
+    ``TRAIN_CUT_S``): the loss within 1e-5 relative,
     every gradient leaf (the QKV biases included) within 1e-4 of its max
     |g|, one AdamW update within 1e-6 of max |p|;
 22. serve xlstm-350m at full width and 8 of its 24 layers
@@ -224,7 +226,8 @@ raises and the script exits non-zero:
     launches once per torch attempt that got past the wrapper and no other
     kernel runs; ``obs.report`` reads the run's trace and metrics files
     back and lists the ``resolve;solve`` and ``resolve;placement`` stages;
-28. the journal on the card, ``oef-coop``: phase 8's 256-tenant trace with
+28. the journal on the card, ``oef-coop``: a 128-tenant trace (phase 8's
+    256 before PR 27) with
     ``tests/test_chaos.py``'s trace-level chaos, replayed plain and
     journaled (the same report), killed at the median of its distinct
     event times and resumed by ``resume_scheduler(..., device="cuda")``:
@@ -324,7 +327,7 @@ raises and the script exits non-zero:
     model-FLOP share by ``costs.model_flops`` (active parameters) and by
     6 x ``numel`` (every expert), one profiled step's idle share;
 43. one arctic-480b training step card against CPU at ``MOE_CUT``'s one
-    layer, 16 experts, B 1, S 256, in float32 (loss 1e-5, every gradient
+    layer, 16 experts, B 1, S 128 (half ``MOE_CUT``'s, since PR 27), in float32 (loss 1e-5, every gradient
     1e-4 of its max, one Adafactor update 1e-6 of max |p|) and at the
     config's bf16 masters and compute (loss one bf16 ulp, gradients
     ``BF16_GRAD_ULPS`` ulps of their max, Adafactor one ulp of each weight):
@@ -341,8 +344,31 @@ raises and the script exits non-zero:
     experts cut to the largest of 256, 192 and 128 that leaves
     ``FREE_GB`` free, B 2, as phase 42 (``logits_chunk`` 512);
 45. kimi-k2-1t-a32b card against CPU as phase 43 at two layers, 32 experts,
-    S 256 (unnormalised gates planted too, gated in float32 only), and its
-    MoE layer's gradients against ``moe_plain`` with 32 float32 experts.
+    S 128 (unnormalised gates planted too, gated in float32 only), and its
+    MoE layer's gradients against ``moe_plain`` with 32 float32 experts;
+46. the example twins on the card: ``repro_torch.examples.quickstart``
+    (the paper's 3x2 instance: the LP oracle against the device tiers within
+    1e-9, exactly one fused water-filling launch a non-coop solve, the SP
+    probe's 33 included, and one fused PD-segment launch a segment of the
+    coop solve, nothing else, no fallback, the SP gain <= 1e-9, every
+    property holds) and ``repro_torch.examples.online_service`` (its coop
+    replay on the ``torch`` backend on the card against the same twin on
+    the CPU in this call, decision for decision as phase 5 judges it, and
+    the same last fairness audit; zero fallbacks, zero degraded solves, the
+    replay's PD-segment launches at least its segments and no other kernel;
+    the cross-validation within 1%);
+47. the mesh on one card: a world-1 NCCL group and a 1x1 ``DeviceMesh``;
+    qwen2-1.5b at full width and depth, AdamW, B 2 x 2048 (``MESH_TRAIN``),
+    2 steps through ``Trainer(mesh=)`` (ZeRO-3 storage, parameters gathered
+    at use) against the same 2 steps without a mesh on the card: step 1's
+    loss bit for bit, the masters within 1e-6 of max |p| after step 2; both
+    step walls, peak memory and a profiled step's idle share; ``resize`` to
+    a 1-D mesh from the step-1 checkpoint reproduces step 2 (its loss bit
+    for bit, the masters within 1e-6); ``ef_int8_compress`` of one backward's
+    gradients (every leaf of the first unit and the final norm) on the card
+    bit for bit the CPU's in ``q`` and ``scale``, and ``compressed_psum_tree``
+    over the NCCL group equal to ``ef_int8_decompress``; the group is
+    destroyed at the end.
 
 Prints each phase's seconds (``seconds by phase``; in ``chip_smoke.json``
 ``phase_s``), the kernels' JSON line, the card's name and power limit, and last
@@ -412,6 +438,10 @@ TRAIN_CELLS = {"recurrentgemma-2b": TRAIN_SHAPE[:2], "qwen2-1.5b": (8, 2048),
 #: layers; gemma3-4b: one (5 sliding + 1 full) unit and a two-layer sliding
 #: tail, with S past its 1024 window)
 DENSE = (("qwen2-1.5b", 3, 256), ("gemma3-4b", 8, 1152))
+#: the card-vs-CPU training steps' lengths where they are shorter than the
+#: serving comparisons' (phases 17 and 21; the CPU's full-width float32
+#: step is the cost, and the time limit took it from 256 positions in PR 27)
+TRAIN_CUT_S = {"recurrentgemma-2b": 128, "qwen2-1.5b": 128}
 #: xlstm-350m in phases 22-25: its cut depth (two (mLSTM, sLSTM) units) and
 #: prompt length (three 256-position mLSTM chunks, the last one padded) for
 #: the card-vs-CPU phases 23 and 25, and the depth of the profiled prefill
@@ -3357,6 +3387,10 @@ def moe_phases(torch, rg, detail, rg_t, dev="cuda") -> dict:
 #: bf16 masters and as much of gradients); kimi-k2-1t-a32b at its dense
 #: prefix layer and one MoE layer with its 384 experts cut (at 384 its
 #: masters and gradients alone are 78.3 GB)
+#: phase 47: the mesh trainer's model and batch (one card, a 1x1 mesh)
+MESH_TRAIN = ("qwen2-1.5b", 2, 2048)
+#: phase 47: masters after two steps, mesh against no mesh (of max |p|)
+MESH_MASTER_TOL = 1e-6
 MOE_TRAIN = {ARCTIC: (1, (128,), (4, 2)), KIMI: (2, (256, 192, 128), (2,))}
 MOE_TRAIN_SEQ = 2048
 FREE_GB = 5.0
@@ -3392,16 +3426,25 @@ def bf16_ulp(x):
                        torch.ldexp(torch.ones_like(x.float()), e - 8))
 
 
+#: the most elements ``grad_errors`` takes at once (float32 temporaries of a
+#: whole kimi-k2 embedding gradient are 4.4 GiB each)
+ERR_CHUNK = 1 << 24
+
+
 def grad_errors(got: dict, want: dict, dtype: str) -> dict:
     """Per leaf, max |got - want| over max |want| (float32), or in bf16 ulps
-    of max |want| (bfloat16); on the device the tensors share."""
+    of max |want| (bfloat16); on the device the tensors share, in chunks of
+    ``ERR_CHUNK`` elements (maxima are exact in any order)."""
     out = {}
     for path, ws in want.items():
         for g, w in zip(got[path], ws):
-            g, w = g.float(), w.float()
-            top = w.abs().max()
+            g, w = g.reshape(-1), w.reshape(-1)
+            spans = range(0, w.numel(), ERR_CHUNK)
+            top = max(w[i:i + ERR_CHUNK].float().abs().max() for i in spans)
+            diff = max((g[i:i + ERR_CHUNK].float() - w[i:i + ERR_CHUNK].float()).abs().max()
+                       for i in spans)
             scale = top if dtype == "float32" else bf16_ulp(top)
-            out[path] = max(out.get(path, 0.0), float((g - w).abs().max() / scale))
+            out[path] = max(out.get(path, 0.0), float(diff / scale))
     return out
 
 
@@ -3677,7 +3720,9 @@ def moe_train_devices_phase(torch, detail, phase: int, arch: str, dev="cuda",
     from repro_torch.models import init_params, loss_fn, param_leaves
     from repro_torch.optim import make_optimizer
 
-    n_layers, n_experts, S = MOE_CUT[arch]
+    # half the serving comparison's length since PR 27 (the time limit: the
+    # CPU's full-width steps are the phase's cost)
+    n_layers, n_experts, S = MOE_CUT[arch][:2] + (MOE_CUT[arch][2] // 2,)
     cfg_of = cfg_of or (lambda dt: get_config(arch, n_layers=n_layers, n_experts=n_experts,
                                               dtype=dt, param_dtype=dt))
     ws = wrappers()
@@ -3871,7 +3916,9 @@ CHAOS_SMALL = (128, 16, 7200.0)
 #: phases 28-29, (policy, tenants, scale, until): phase 8's coop replay and
 #: phase 5's 128-tenant non-coop one, journaled, killed at the median event
 #: time and resumed
-JOURNAL_CELLS = {28: ("oef-coop", 256, 32, 7200.0),
+#: phase 28's coop replay at 128 tenants since PR 27 (256 before: the time
+#: limit; phase 8 replays 256 coop tenants on the card)
+JOURNAL_CELLS = {28: ("oef-coop", 128, 16, 7200.0),
                  29: ("oef-noncoop", 128, 16, 7200.0)}
 JOURNAL_SNAPSHOT_EVERY = 50
 
@@ -4259,6 +4306,256 @@ def journal_phase(np, detail, phase: int, dev="cuda") -> dict:
     return out["launches"]
 
 
+def examples_phase(torch, np, detail, dev="cuda") -> dict:
+    """Phase 46: the quickstart and online-service twins on ``dev``; returns
+    the launches by wrapper of each (``quickstart``, ``online_service``)
+    and the phase's numbers."""
+    import io
+
+    from repro_torch.core import torch_coop
+    from repro_torch.examples import online_service, quickstart
+    from repro_torch.kernels import wrappers
+
+    ws = wrappers()
+    seg = torch_coop.SEG_ITERS
+    _zero_launches(ws)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        q = quickstart.main(["--device", str(dev)])
+    quick_s = time.perf_counter() - t0
+    q_launches = _launches(ws)
+    n_noncoop = 1 + q["sp"]["solves"]
+    pd_iters = q["coop"]["pd_iters"]
+    check(q["sp"]["solves"] == quickstart.SP_TRIALS + 1,
+          f"the SP probe solved {q['sp']['solves']} of {quickstart.SP_TRIALS + 1} instances "
+          f"on the device tier")
+    check(q["coop"]["backend"] == "torch" and q["coop"]["fallback_from"] is None,
+          f"the coop solve came from {q['coop']['backend']} "
+          f"(fallback from {q['coop']['fallback_from']})")
+    for what in ("noncoop", "coop"):
+        check(q[what]["max_diff"] <= PARITY,
+              f"quickstart {what}: the device tier is {q[what]['max_diff']:.3e} from the LP")
+    check(q["sp"]["gain"] <= PARITY, f"lying gains {q['sp']['gain']:.3e}")
+    check(all(q["properties"][k] for k in ("envy_free", "sharing_incentive",
+                                           "pareto_efficient")),
+          f"properties {q['properties']}")
+    check(pd_iters % seg == 0, f"{pd_iters} PD iterations, not whole segments of {seg}")
+    want = _want(ws, waterfill_solve=n_noncoop, pd_segment=pd_iters // seg)
+    check(q_launches == want, f"quickstart launches {q_launches}, want {want}")
+    log(f"[46] quickstart on {dev}: {n_noncoop} non-coop solves ({q['sp']['solves']} in the "
+        f"SP probe), {n_noncoop} fused water-filling launches; coop on torch, {pd_iters} PD "
+        f"iterations, {pd_iters // seg} fused PD-segment launches; device tiers vs the LP "
+        f"{q['noncoop']['max_diff']:.3e} / {q['coop']['max_diff']:.3e}; SP gain "
+        f"{q['sp']['gain']:+.3e}; {quick_s:.2f} s")
+    _zero_launches(ws)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        svc = online_service.main(["--device", str(dev)])
+    svc_s = time.perf_counter() - t0
+    svc_launches = _launches(ws)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = online_service.main(["--device", "cpu"])
+    rep, ref = svc["report"], cpu["report"]
+    check(set(rep.solver_backends) == {"torch"} and rep.fallback_count == 0
+          and rep.degraded_solves == 0,
+          f"online service: backends {rep.solver_backends}, {rep.fallback_count} "
+          f"fallbacks, {rep.degraded_solves} degraded")
+    d_tp = same_decisions(rep, ref, "the online-service twin on the card and the CPU")
+    check(rep.n_reused_solves == ref.n_reused_solves
+          and rep.fairness_audits[-1] == ref.fairness_audits[-1],
+          "the online-service twin's reused solves or last audit differ card to CPU")
+    replay_iters = sum(s.pd_iters for s in svc["scheduler"].metrics.solves if not s.reused)
+    check(svc_launches["pd_segment"] * seg >= replay_iters,
+          f"{svc_launches['pd_segment']} PD-segment launches for the replay's "
+          f"{replay_iters} PD iterations")
+    want = _want(ws, pd_segment=svc_launches["pd_segment"])
+    check(svc_launches == want, f"online-service launches {svc_launches}: only pd_segment")
+    check(svc["crossval"]["max_rel_err"] < 0.01, f"cross-validation {svc['crossval']}")
+    log(f"    online service on {dev}: {rep.n_solves} solves ({rep.n_reused_solves} reused), "
+        f"{rep.jobs_finished} jobs, equal to the CPU's decisions (throughput diff "
+        f"{d_tp:.3e}), last audit {rep.fairness_audits[-1]}; {svc_launches['pd_segment']} "
+        f"fused PD-segment launches (the replay's {replay_iters // seg} segments and the "
+        f"cross-validation's); cross-validation {svc['crossval']['max_rel_err']:.2e}; "
+        f"{svc_s:.2f} s")
+    out = {"quickstart": {"launches": q_launches, "noncoop_solves": n_noncoop,
+                          "pd_iters": pd_iters, "max_diff": [q["noncoop"]["max_diff"],
+                                                             q["coop"]["max_diff"]],
+                          "sp_gain": q["sp"]["gain"], "seconds": quick_s},
+           "online_service": {"launches": svc_launches, "n_solves": rep.n_solves,
+                              "reused": rep.n_reused_solves,
+                              "jobs_finished": rep.jobs_finished,
+                              "replay_pd_iters": replay_iters, "throughput_diff": d_tp,
+                              "crossval": svc["crossval"]["max_rel_err"], "seconds": svc_s}}
+    detail["examples"] = out
+    return out
+
+
+def _masters(model) -> dict:
+    """A host copy of every master, by name."""
+    return {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+
+
+def _master_err(got: dict, want: dict) -> float:
+    """The largest |got - want| over every master, over the largest |p|
+    (0 where the two are equal, which is checked first: the float32
+    difference of 1.5 B masters on the host takes seconds)."""
+    scale = max(float(t.abs().max()) for t in want.values())
+    return max(0.0 if got[n].equal(t) else float((got[n] - t).abs().max())
+               for n, t in want.items()) / scale
+
+
+def mesh_phase(torch, detail, dev="cuda", cfg=None, shape=MESH_TRAIN[1:]) -> dict:
+    """Phase 47: ``Trainer(mesh=)`` on a 1x1 mesh of a world-1 process group
+    (NCCL on the card, gloo on the CPU) against the meshless trainer, the
+    resize and the gradient compression; returns the phase's numbers. The
+    group is destroyed on the way out, pass or fail."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wrappers
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.compress import (compressed_psum_tree, ef_int8_compress,
+                                            ef_int8_decompress, init_error_state)
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = get_config(MESH_TRAIN[0]) if cfg is None else cfg
+    B, S = shape
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    ws = wrappers()
+    _zero_launches(ws)
+    out = {"arch": cfg.name, "batch": B, "seq_len": S, "layers": cfg.n_layers, "marks_s": {}}
+    detail["mesh"] = out
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        out["marks_s"][what] = time.perf_counter() - t_phase
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+
+    def timed(tr) -> tuple:
+        sync()
+        t0 = time.perf_counter()
+        loss = tr.run(1)["losses"][0]
+        sync()
+        return loss, time.perf_counter() - t0
+
+    def idle_share(tr) -> float:
+        sync()
+        t0 = time.perf_counter()
+        tr.run(1)
+        sync()
+        untraced = time.perf_counter() - t0
+        if not cuda:
+            return float("nan")
+        busy = sum(k["device_ms"] for k in device_kernels(torch, lambda: tr.run(1)))
+        return 1.0 - busy / 1e3 / untraced
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as d:
+        store = dist.FileStore(os.path.join(d, "store"), 1)
+        dist.init_process_group("nccl" if cuda else "gloo", store=store, rank=0, world_size=1)
+        try:
+            tcfg = TrainerConfig(seq_len=S, global_batch=B, total_steps=10, warmup=2,
+                                 ckpt_dir=os.path.join(d, "ckpt"), ckpt_every=1000)
+            peak_reset()
+            ref = Trainer(cfg, tcfg, device=dev)
+            ref_steps = [timed(ref), timed(ref)]
+            mark("meshless steps")
+            want = _masters(ref.state.model)
+            out["meshless"] = {"losses": [x[0] for x in ref_steps],
+                               "step_s": [x[1] for x in ref_steps],
+                               "peak_memory_gb": peak_gb(), "idle_share": idle_share(ref)}
+            del ref
+            mark("meshless profiled")
+            mesh = make_test_mesh((1, 1), ("data", "model"), device_type=torch.device(dev).type)
+            peak_reset()
+            t = Trainer(cfg, tcfg, mesh=mesh, device=dev)
+            steps = [timed(t)]
+            t0 = time.perf_counter()
+            t.ckpt.maybe_save(t.state_tree(), t.state.step, force=True)
+            t.ckpt.wait()
+            out["checkpoint_s"] = time.perf_counter() - t0
+            steps.append(timed(t))
+            mark("mesh steps")
+            got = _masters(t.state.model)
+            out["mesh"] = {"losses": [x[0] for x in steps], "step_s": [x[1] for x in steps],
+                           "peak_memory_gb": peak_gb(), "idle_share": idle_share(t)}
+            mark("mesh profiled")
+            err = _master_err(got, want)
+            out["masters_vs_meshless"] = err
+            check(steps[0][0] == ref_steps[0][0],
+                  f"mesh step 1 loss {steps[0][0]!r} != meshless {ref_steps[0][0]!r}")
+            check(err <= MESH_MASTER_TOL, f"masters after 2 steps {err:.3e} of max |p| apart")
+            # the gradients of one backward on the mesh's model, compressed
+            batch = t._device_batch(next(t._data))
+            model = t.state.model
+            model.zero_grad(set_to_none=True)
+            (loss_fn(model, batch) * t.zero.split.frac).backward()
+            leaves = {k: [ps[0].grad] for k, ps in t.state.params.items()
+                      if k.startswith("units/") or k == "final_norm/scale"}
+            n_elems, unequal = 0, []
+            for k, gs in leaves.items():
+                for g in gs:
+                    q, s, _ = ef_int8_compress(g, torch.zeros_like(g, dtype=torch.float32))
+                    qc, sc, _ = ef_int8_compress(g.cpu(), torch.zeros(g.shape))
+                    if not (torch.equal(q.cpu(), qc) and s.cpu().item() == sc.item()):
+                        unequal.append((k, int((q.cpu() != qc).sum()), s.item(), sc.item()))
+                    n_elems += g.numel()
+            check(not unequal, f"ef_int8_compress on the card differs from the CPU's in q "
+                  f"or scale (leaf, q elements, scales): {unequal[:4]}")
+            reduced, _ = compressed_psum_tree(leaves, init_error_state(leaves))
+            psum_eq = all(torch.equal(r, ef_int8_decompress(*ef_int8_compress(
+                g, torch.zeros_like(g, dtype=torch.float32))[:2]))
+                for k in leaves for r, g in zip(reduced[k], leaves[k]))
+            check(psum_eq, "compressed_psum_tree over the group != ef_int8_decompress")
+            model.zero_grad(set_to_none=True)
+            out["compress"] = {"elements": n_elems, "tensors": sum(map(len, leaves.values()))}
+            mark("compress")
+            del leaves, reduced
+            # elastic resize to a 1-D mesh from the step-1 checkpoint; the
+            # rebuilt trainer's pipeline starts over, as JAX's does, so step
+            # 2's batch is its second
+            t0 = time.perf_counter()
+            t.resize(make_test_mesh((1,), ("data",), device_type=torch.device(dev).type))
+            resize_s = time.perf_counter() - t0
+            check(t.state.step == 1, f"resize restored step {t.state.step}, want 1")
+            next(t._data)
+            again = t.run(1)["losses"][0]
+            err2 = _master_err(_masters(t.state.model), got)
+            check(again == steps[1][0], f"after the resize step 2's loss {again!r} != "
+                  f"{steps[1][0]!r}")
+            check(err2 <= MESH_MASTER_TOL, f"after the resize masters {err2:.3e} apart")
+            out["resize"] = {"seconds": resize_s, "loss": again, "masters_err": err2}
+            mark("resize")
+            del t, got, want
+        finally:
+            dist.destroy_process_group()
+    out["launches"] = _launches(ws)
+    check(not any(out["launches"].values()), f"the mesh phase launched {out['launches']}")
+    m, n = out["mesh"], out["meshless"]
+    log(f"[47] {cfg.name} ({cfg.n_layers} layers) on a 1x1 mesh of a world-1 "
+        f"{'NCCL' if cuda else 'gloo'} group, B {B} x {S}: step walls "
+        f"{', '.join(f'{w:.3f}' for w in m['step_s'])} s (no mesh "
+        f"{', '.join(f'{w:.3f}' for w in n['step_s'])} s), peak {m['peak_memory_gb']:.2f} GB "
+        f"(no mesh {n['peak_memory_gb']:.2f}), idle {m['idle_share']:.1%} (no mesh "
+        f"{n['idle_share']:.1%}); step 1 loss bit for bit, masters {err:.3e} of max |p|; "
+        f"resize to a 1-D mesh {resize_s:.1f} s, step 2 again bit for bit (masters "
+        f"{err2:.3e}); int8 compression of {n_elems / 1e6:.1f}M gradient elements card == "
+        f"CPU, the {'NCCL' if cuda else 'gloo'} psum == decompress")
+    log("    seconds into the phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["marks_s"].items()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4291,12 +4588,18 @@ def main() -> int:
     t_all = time.perf_counter()
     clock, mark = {}, [t_all]
 
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+
     def lap(phase=None, group=None) -> None:
         """Each phase's seconds in ``clock``: ``phase``'s since the last
-        lap, or a group's own per-phase seconds (``group``)."""
+        lap, or a group's own per-phase seconds (``group``); written to
+        ``chiprun_out/chip_smoke_phase_s.json`` as they come, so a run that
+        fails still tells where its time went."""
         now = time.perf_counter()
         clock.update(group if group is not None else {phase: now - mark[0]})
         mark[0] = now
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_phase_s.json"), "w") as f:
+            json.dump({"phase_s": clock, "elapsed_s": now - t_all}, f)
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4515,7 +4818,7 @@ def main() -> int:
     lap(15)
     train = train_phase(torch, rg, detail)
     lap(16)
-    train_devices_phase(torch, rg, detail)
+    train_devices_phase(torch, rg, detail, S=TRAIN_CUT_S[ARCH])
     lap(17)
     detail["train_phases_s"] = time.perf_counter() - t0
     log(f"    phases 15-17 took {detail['train_phases_s']:.1f} s")
@@ -4532,7 +4835,7 @@ def main() -> int:
         train_phase(torch, rg, detail, 20, arch)
     lap(20)
     for arch, n_layers, S in DENSE:
-        train_devices_phase(torch, rg, detail, 21, arch, n_layers, S)
+        train_devices_phase(torch, rg, detail, 21, arch, n_layers, TRAIN_CUT_S.get(arch, S))
     lap(21)
     detail["dense_phases_s"] = time.perf_counter() - t0
     log(f"    phases 18-21 took {detail['dense_phases_s']:.1f} s")
@@ -4587,6 +4890,12 @@ def main() -> int:
     # -- 42-45. training arctic-480b and kimi-k2-1t-a32b -------------------------
     moe_train_t = moe_train_phases(torch, detail)
     lap(group=moe_train_t["phase_s"])
+
+    # -- 46-47. the example twins, and the mesh on one card -----------------------
+    examples_t = examples_phase(torch, np, detail)
+    lap(46)
+    mesh_t = mesh_phase(torch, detail)
+    lap(47)
     detail["total_s"] = time.perf_counter() - t_all
     detail["phase_s"] = clock
 
@@ -4772,6 +5081,10 @@ def main() -> int:
         k.setdefault("launches_by_phase", {})["34-37"] = whisper_t["launches"][wrapper]
         k["launches_by_phase"]["38-41"] = moe_t["launches"][wrapper]
         k["launches_by_phase"]["42-45"] = moe_train_t["launches"][wrapper]
+        k["launches_by_phase"]["46"] = {
+            twin: examples_t[twin]["launches"][wrapper]
+            for twin in ("quickstart", "online_service")}
+        k["launches_by_phase"]["47"] = mesh_t["launches"][wrapper]
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ JAX flatten order (dict keys sorted, list entries by index), so a
 (``repro_torch.interop.leaves_to_jax``) has the JAX trainer's keys
 (``0::units::p0::mixer::w_gate``, ``1::m::...``, ``2``). bfloat16 is stored
 as its uint16 bits, as the JAX ``_encode`` stores it. A checkpoint of either
-package restores into the other. There is no resharding: the port runs on
-one card.
+package restores into the other. Leaves are always whole: a mesh trainer
+gathers them to write and cuts its blocks out on restore
+(``repro_torch.runtime.trainer``).
 """
 from __future__ import annotations
 

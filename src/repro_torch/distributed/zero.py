@@ -1,0 +1,307 @@
+"""ZeRO-3 storage over a ``DeviceMesh`` in the JAX package's specs.
+
+A mesh trainer (``repro_torch.runtime.trainer``) keeps on each rank only
+its block of every master, gradient and optimizer state, where the JAX
+package's ``state_specs`` place it (:class:`Placed`). A layer's parameters
+are gathered whole at use, one part of a layer at a time (the model's
+``gather`` hook, :meth:`Zero.gather`), and dropped after it; their
+gradients are summed over the ranks that split the batch and land on the
+shards already cut to the spec (:class:`_Gather`'s backward).
+
+The compute is not split over the mesh: every rank runs its rows of the
+global batch (:class:`BatchSplit`) through the whole model, and ranks that
+differ only on axes that do not split the batch compute the same rows.
+Reductions follow from that:
+
+  - a gradient is a ``Partial`` sum over the batch's mesh dims and a
+    ``Replicate`` over the others, redistributed to the parameter's
+    placements: one reduce-scatter where the dim is split, an all-reduce
+    where it is not, a local slice on the other dims;
+  - a sum over a tensor's elements (the global norm, Adafactor's row and
+    column means and its update RMS) is all-reduced over the mesh dims that
+    split that tensor (:meth:`Placed.sum`), never over its replicas;
+  - a tensor no mesh dim of more than one rank splits takes the meshless
+    arithmetic, so a 1x1 mesh trains bit for bit as no mesh.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from .sharding import Spec, axes_of, spec_to_sharding
+
+
+def _strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+def _coordinate(mesh) -> List[int]:
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh {mesh}")
+    return list(coord)
+
+
+def _all_reduce(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """``x`` summed in place over the ranks that differ on mesh ``dims``
+    (one all-reduce a dim, in order)."""
+    for d in dims:
+        dist.all_reduce(x, group=mesh.get_group(d))
+    return x
+
+
+class Placed:
+    """Where one tensor of the state lies: its global ``shape``, its
+    ``spec`` over ``mesh`` (one entry a dim), the DTensor ``placements``,
+    this rank's block (``index``, a slice a dim) and ``split``, the mesh
+    dims of more than one rank that split it. ``batch_dims`` are the mesh
+    dims that split the batch: its gradient is a partial sum over them."""
+
+    def __init__(self, mesh, spec: Spec, shape: Sequence[int],
+                 batch_dims: Sequence[int] = (), one_collective: bool = True):
+        self.mesh = mesh
+        self.shape = tuple(int(n) for n in shape)
+        self.spec = tuple(spec) + (None,) * (len(self.shape) - len(spec))
+        self.placements = spec_to_sharding(mesh, self.spec)
+        names = tuple(mesh.mesh_dim_names)
+        coord = _coordinate(mesh)
+        index, split = [], []
+        for n, entry in zip(self.shape, self.spec):
+            dims = [names.index(a) for a in axes_of(entry)]
+            blocks = math.prod(mesh.size(d) for d in dims)
+            if n % blocks:
+                raise ValueError(f"dim of {n} does not divide over {entry!r} ({blocks})")
+            block = 0
+            for d in dims:
+                block = block * mesh.size(d) + coord[d]
+            step = n // blocks
+            index.append(slice(block * step, (block + 1) * step))
+            split += [d for d in dims if mesh.size(d) > 1]
+        self.index = tuple(index)
+        self.split = tuple(sorted(split))
+        self.local_shape = tuple(s.stop - s.start for s in self.index)
+        from torch.distributed.tensor import Partial, Replicate
+
+        self.batch_dims = tuple(batch_dims)
+        self.grad_placements = tuple(Partial() if d in batch_dims else Replicate()
+                                     for d in range(mesh.ndim))
+        self.one_collective = one_collective
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (a contiguous copy)."""
+        return full[self.index].contiguous().clone()
+
+    def full(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's block (an all-gather over the
+        dims that split it; a copy where none does): a new tensor, never
+        ``local`` itself."""
+        if not self.split:
+            return local.detach().clone()
+        from torch.distributed.tensor import DTensor
+
+        out = DTensor.from_local(local.detach(), self.mesh, self.placements, run_check=False,
+                                 shape=self.shape, stride=_strides(self.shape)).full_tensor()
+        return out.clone() if out.data_ptr() == local.data_ptr() else out
+
+    def reduce(self, g: torch.Tensor) -> torch.Tensor:
+        """A whole gradient of this rank's rows summed over the ranks that
+        split the batch, cut to this rank's block: ``Partial`` to the
+        placements in one redistribution (a reduce-scatter where the dim is
+        split), or, without ``one_collective``, to ``Replicate`` first (an
+        all-reduce) and then a slice; the same numbers either way. Where no
+        rank splits the batch there is nothing to sum: the block is cut
+        out."""
+        if not self.batch_dims:
+            return g[self.index].contiguous() if self.split else g
+        from torch.distributed.tensor import DTensor, Replicate
+
+        dt = DTensor.from_local(g.contiguous(), self.mesh, self.grad_placements,
+                                run_check=False, shape=self.shape,
+                                stride=_strides(self.shape))
+        if not self.one_collective:
+            dt = dt.redistribute(self.mesh, (Replicate(),) * self.mesh.ndim)
+        return dt.redistribute(self.mesh, self.placements).to_local()
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (a partial sum over this rank's block) summed in place over
+        the ranks that hold the other blocks."""
+        return _all_reduce(x, self.mesh, self.split)
+
+
+class _Gather(torch.autograd.Function):
+    """The whole parameter from its shard; the backward reduces the whole
+    gradient into the shard (:meth:`Placed.reduce`)."""
+
+    @staticmethod
+    def forward(ctx, local: torch.Tensor, placed: Placed) -> torch.Tensor:
+        ctx.placed = placed
+        return placed.full(local)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return ctx.placed.reduce(g), None
+
+
+class _BatchSum(torch.autograd.Function):
+    """A sum over the batch's ranks whose backward is the same sum (every
+    rank's loss holds the summed value)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, split: "BatchSplit") -> torch.Tensor:
+        ctx.split = split
+        return split.sum(x.clone())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return ctx.split.sum(g.clone()), None
+
+
+class BatchSplit:
+    """The rows of the global batch this rank trains: ``plan.batch(B)``'s
+    mesh axes split each microbatch's rows into blocks, the first axis
+    major, and this rank takes the block of its coordinate on them (the
+    rows JAX's ``device_put`` gives its device). ``frac`` is the block's
+    share of the rows: each rank's loss is its mean times ``frac``, so the
+    sum over the batch's ranks is the global batch's loss."""
+
+    def __init__(self, mesh, axes: Tuple[str, ...], global_batch: int, microbatches: int):
+        names = tuple(mesh.mesh_dim_names)
+        all_dims = [names.index(a) for a in axes]
+        coord = _coordinate(mesh)
+        self.mesh = mesh
+        self.blocks = math.prod(mesh.size(d) for d in all_dims)
+        self.block = 0
+        for d in all_dims:
+            self.block = self.block * mesh.size(d) + coord[d]
+        self.dims = tuple(d for d in all_dims if mesh.size(d) > 1)
+        self.microbatches = mb = max(1, microbatches)
+        if global_batch % (mb * self.blocks):
+            raise ValueError(
+                f"a global batch of {global_batch} in {mb} microbatches does not "
+                f"split over the {self.blocks} blocks of the batch axes {axes}")
+        self.frac = 1.0 / self.blocks
+
+    def rows(self, x):
+        """This rank's rows of a global batch array (numpy or torch): its
+        block of every microbatch, microbatches in order."""
+        mb = self.microbatches
+        per = x.shape[0] // mb // self.blocks
+        parts = x.reshape((mb, self.blocks, per) + tuple(x.shape[1:]))[:, self.block]
+        return parts.reshape((mb * per,) + tuple(x.shape[1:]))
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed in place over the batch's ranks."""
+        return _all_reduce(x, self.mesh, self.dims)
+
+    def grad_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The differentiable sum over the batch's ranks (the MoE
+        load-balancing loss's statistics)."""
+        return _BatchSum.apply(x, self)
+
+
+class Zero:
+    """A model's parameters as this rank's shards, and the hooks that
+    gather them at use. ``specs(path, shape)`` gives a leaf's per-unit spec
+    (the JAX spec less a stacked leaf's unit dim)."""
+
+    def __init__(self, mesh, split: BatchSplit, specs, one_collective: bool):
+        self.mesh = mesh
+        self.split = split
+        self.specs = specs
+        self.one_collective = one_collective
+        self.placed: Dict[Tuple[int, str], Placed] = {}
+        self._names: Dict[Tuple[int, str], str] = {}
+
+    def placed_for(self, path: str, shape: Sequence[int]) -> Placed:
+        return Placed(self.mesh, self.specs(path, tuple(shape)), shape,
+                      self.split.dims, self.one_collective)
+
+    def placer(self, path_of):
+        """``init_params``'s ``place``: given the (meta) model, records each
+        parameter slot's leaf path (``path_of(name)``; drawing replaces the
+        parameter objects, not the modules) and returns the function that
+        swaps a drawn module's parameters for this rank's shards."""
+
+        def place(model: nn.Module):
+            for mname, mod in model.named_modules():
+                for pname in mod._parameters:
+                    self._names[(id(mod), pname)] = path_of(
+                        f"{mname}.{pname}" if mname else pname)
+            return self._put
+
+        return place
+
+    @torch.no_grad()
+    def _put(self, module: nn.Module, recurse: bool = True) -> None:
+        mods = module.modules() if recurse else [module]
+        for mod in mods:
+            for pname, p in list(mod._parameters.items()):
+                if p is None:
+                    continue
+                pl = self.placed_for(self._names[(id(mod), pname)], p.shape)
+                self.placed[(id(mod), pname)] = pl
+                mod._parameters[pname] = nn.Parameter(pl.local(p), requires_grad=p.requires_grad)
+
+    def attach(self, model: nn.Module) -> None:
+        """Install the hooks: the model's ``gather`` and, where the batch is
+        split, each MoE layer's ``batch_sum``."""
+        model.gather = self.gather
+        if self.split.dims:
+            for mod in model.modules():
+                if hasattr(mod, "batch_sum"):
+                    mod.batch_sum = self.split.grad_sum
+
+    @contextlib.contextmanager
+    def gather(self, modules):
+        """The own parameters of ``modules`` whole for the context: each an
+        all-gather of its shards (a copy where no rank splits it), dropped
+        on exit (autograd keeps what the backward needs)."""
+        swapped = []
+        try:
+            for mod in modules:
+                for pname, p in list(mod._parameters.items()):
+                    if p is None:
+                        continue
+                    swapped.append((mod, pname, p))
+                    mod._parameters[pname] = _Gather.apply(p, self.placed[(id(mod), pname)])
+            yield
+        finally:
+            for mod, pname, p in reversed(swapped):
+                mod._parameters[pname] = p
+
+    def placed_leaves(self, model: nn.Module, leaves) -> Dict[str, List[Placed]]:
+        """The ``Placed`` of every tensor of ``leaves`` (the model's
+        ``param_leaves``), leaf by leaf."""
+        by_param = {}
+        for mod in model.modules():
+            for pname, p in mod._parameters.items():
+                if p is not None:
+                    by_param[id(p)] = self.placed[(id(mod), pname)]
+        return {k: [by_param[id(p)] for p in ps] for k, ps in leaves.items()}
+
+
+def writer(mesh) -> bool:
+    """Whether this rank writes the checkpoints: the one at the mesh's
+    origin (every rank without a mesh)."""
+    return mesh is None or not any(_coordinate(mesh))
+
+
+def barrier(mesh) -> None:
+    """Wait for every rank of ``mesh``: an all-reduce over each dim in turn
+    reaches every rank."""
+    if mesh is not None:
+        _all_reduce(torch.zeros(1, device=mesh.device_type), mesh, range(mesh.ndim))
+
+
+def in_mesh(mesh) -> bool:
+    return mesh is None or mesh.get_coordinate() is not None
+

@@ -2,7 +2,9 @@
 
 Two modes, as ``repro.launch.train``:
 
-1. Single-job training (``--arch``) on one card:
+1. Single-job training (``--arch``) on one card, or with ``--mesh`` on a
+   ``DeviceMesh`` of ranks (ZeRO-3 in the JAX specs,
+   ``repro_torch.runtime.trainer``):
 
        PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
            --batch 2 --seq-len 2048 --steps 3
@@ -14,6 +16,10 @@ Two modes, as ``repro.launch.train``:
            --batch 8 --seq-len 2048 --steps 3
        PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
            --batch 8 --seq-len 1500 --steps 3
+       PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+           --batch 2 --seq-len 2048 --steps 3 --mesh 1x1
+       PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+           --arch qwen2-1.5b --smoke --device cpu --mesh 2x2
 
 2. OEF-scheduled multi-tenant mode (``--scheduler``): the paper's control
    plane drives several training jobs; each round the fair-share evaluator
@@ -43,18 +49,28 @@ the parameter count, the steps, the first and last loss, steps/s and
 tokens/s (wall time of ``Trainer.run``, kernel builds and warm-up
 included), and the launches of every kernel wrapper (the models other
 than recurrentgemma-2b launch none: the blocked attention path trains on
-its twin). The scheduled mode keeps the JAX launcher's simulated TPU fleet
-and analytic profiles, so its allocations are the JAX
-package's exactly (:func:`schedule_rounds`); it prints each round's grants
-and each tenant's steps, loss, wall time and launches. ``--mesh`` is not
-ported yet and raises.
+its twin). ``--mesh AxB`` (or ``A``, ``AxBxC``) names the mesh's shape,
+its axes ``data, model`` (``data``; ``pod, data, model``) as in the JAX
+launcher: under ``torchrun`` the job uses the process group torchrun's
+environment sets up (NCCL on ``cuda``, each rank on its ``LOCAL_RANK``
+card, gloo on ``cpu``), whose size must be the mesh's; without one, a mesh
+of one rank starts a world-1 group of its own (a ``FileStore`` in a
+temporary directory) and a larger mesh raises, naming the ``torchrun``
+line it needs. Only the rank at the mesh's origin prints. The scheduled
+mode keeps the JAX launcher's simulated TPU fleet and analytic profiles,
+so its allocations are the JAX package's exactly (:func:`schedule_rounds`);
+it prints each round's grants and each tenant's steps, loss, wall time and
+launches. It trains each tenant on one device: as in the JAX launcher,
+whose scheduled mode never reads ``--mesh``, it refuses the flag.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import math
 import os
 import tempfile
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -76,7 +92,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a failure at this step, then auto-recover")
-    ap.add_argument("--mesh", type=str, default=None, help="not ported yet")
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="e.g. 2x2: a DeviceMesh of (data, model) ranks (torchrun)")
     # scheduler mode
     ap.add_argument("--scheduler", type=str, default=None,
                     choices=["oef-coop", "oef-noncoop"])
@@ -85,11 +102,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported to repro_torch yet: it trains on one card "
-            "(ROADMAP.md, Queue A item 8)")
     if args.scheduler:
+        if args.mesh:
+            raise NotImplementedError(
+                "--mesh applies to a single job (--arch): the scheduled mode "
+                "trains each tenant on one device, as the JAX launcher's does")
         run_scheduled(args)
         return
     if not args.arch:
@@ -97,34 +114,101 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     run_single(args)
 
 
+def mesh_shape(text: str) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """``--mesh``'s shape and axis names: ``A`` -> data, ``AxB`` -> data,
+    model, ``AxBxC`` -> pod, data, model."""
+    shape = tuple(int(x) for x in text.split("x"))
+    axes = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(shape))
+    if axes is None or min(shape) < 1:
+        raise ValueError(f"--mesh {text!r}: want A, AxB or AxBxC of positive sizes")
+    return shape, axes
+
+
+@contextlib.contextmanager
+def mesh_group(text: str, device):
+    """The mesh ``--mesh text`` names, over the process group ``torchrun``
+    set up (its environment: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``), or
+    over a world-1 group of its own for a mesh of one rank; the group this
+    started is destroyed on exit. Raises when the ranks are not the mesh's."""
+    import torch
+    import torch.distributed as dist
+
+    from .mesh import make_test_mesh
+
+    shape, axes = mesh_shape(text)
+    n = math.prod(shape)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with contextlib.ExitStack() as stack:
+        if not dist.is_initialized():
+            if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+                if device.type == "cuda":
+                    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+                dist.init_process_group(backend, init_method="env://")
+            elif n == 1:
+                store_dir = stack.enter_context(tempfile.TemporaryDirectory(prefix="oef-mesh-"))
+                store = dist.FileStore(os.path.join(store_dir, "store"), 1)
+                dist.init_process_group(backend, store=store, rank=0, world_size=1)
+            else:
+                raise RuntimeError(
+                    f"--mesh {text} needs {n} ranks and this process is alone: run "
+                    f"torchrun --nproc-per-node {n} -m repro_torch.launch.train ... "
+                    f"--mesh {text}")
+            stack.callback(dist.destroy_process_group)
+        world = dist.get_world_size()
+        if world != n:
+            raise RuntimeError(f"--mesh {text} needs {n} ranks, the process group has "
+                               f"{world}: run torchrun --nproc-per-node {n}")
+        yield make_test_mesh(shape, axes, device_type=device.type)
+
+
 def run_single(args) -> dict:
+    from ..core.torch_solve import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.mesh:
+        return _train_single(args, device, None)
+    with mesh_group(args.mesh, device) as mesh:
+        return _train_single(args, device, mesh)
+
+
+def _train_single(args, device, mesh) -> dict:
     from ..configs import get_config, get_smoke
+    from ..distributed.zero import writer
     from ..kernels import launch_counts
     from ..runtime import Trainer, TrainerConfig
     from ..runtime.trainer import SimulatedFailure
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    ckpt = args.ckpt_dir or tempfile.mkdtemp(prefix=f"oef-train-{cfg.name}-")
+    ckpt = [args.ckpt_dir or (tempfile.mkdtemp(prefix=f"oef-train-{cfg.name}-")
+                              if writer(mesh) else None)]
+    if mesh is not None:  # every rank reads the writer's checkpoints
+        import torch.distributed as dist
+
+        dist.broadcast_object_list(ckpt, src=0)
+    ckpt = ckpt[0]
     t = Trainer(cfg, TrainerConfig(seq_len=args.seq_len, global_batch=args.batch,
                                    peak_lr=args.lr, total_steps=args.steps,
                                    ckpt_dir=ckpt, ckpt_every=args.ckpt_every),
-                device=args.device)
-    print(f"training {cfg.name} on {t.device}: {cfg.param_count()/1e6:.1f}M params, "
-          f"{args.steps} steps of {args.batch} x {args.seq_len} tokens, ckpt -> {ckpt}")
+                mesh=mesh, device=device)
+    say = print if writer(mesh) else (lambda *a, **k: None)
+    where = f"{t.device}" + (f", mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                             if mesh is not None else "")
+    say(f"training {cfg.name} on {where}: {cfg.param_count()/1e6:.1f}M params, "
+        f"{args.steps} steps of {args.batch} x {args.seq_len} tokens, ckpt -> {ckpt}")
     before = launch_counts()
     try:
         out = t.run(args.steps, fail_at=args.fail_at)
     except SimulatedFailure as e:
-        print(f"!! {e} — recovering from checkpoint")
+        say(f"!! {e} — recovering from checkpoint")
         step = t.restore_latest()
-        print(f"   restored step {step}; resuming")
+        say(f"   restored step {step}; resuming")
         out = t.run(args.steps - step)
     rate = out["steps"] / max(out["seconds"], 1e-9)
-    print(f"done: step {out['final_step']}, "
-          f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "
-          f"{rate:.2f} steps/s, {rate * args.batch * args.seq_len:.1f} tokens/s")
+    say(f"done: step {out['final_step']}, "
+        f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "
+        f"{rate:.2f} steps/s, {rate * args.batch * args.seq_len:.1f} tokens/s")
     after = launch_counts()
-    print("kernel launches: " + ", ".join(f"{k} {after[k] - before[k]}" for k in after))
+    say("kernel launches: " + ", ".join(f"{k} {after[k] - before[k]}" for k in after))
     return out
 
 

@@ -518,7 +518,13 @@ class MoE(nn.Module):
     (E, B * cap, d) buffer, the batch folded into the capacity axis, and
     run through one batched product per projection. Every step's backward
     sums in a fixed order, so two identical training steps give bit-equal
-    gradients on the card too."""
+    gradients on the card too.
+
+    ``batch_sum`` (None, or a mesh trainer's differentiable sum over the
+    ranks that split the batch) makes the load-balancing loss the global
+    batch's: its mean router probabilities and expert loads are sums over
+    those ranks divided by their token count, as the JAX loss computes
+    them over the whole batch."""
 
     def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
@@ -532,6 +538,7 @@ class MoE(nn.Module):
                        if cfg.n_shared_experts else None)
         self.dense = (SwiGLU(cfg, device, trainable, d_ff=cfg.d_ff)
                       if cfg.moe_dense_residual else None)
+        self.batch_sum = None
 
     def init_(self, gen: torch.Generator) -> None:
         """The scales of ``moe_init``. The experts are drawn one at a time,
@@ -587,8 +594,14 @@ class MoE(nn.Module):
         B, S, d = x.shape
         E, k = cfg.n_experts, cfg.top_k
         _, probs, gates, idx = self.route(x)
-        load = torch.bincount(idx.reshape(-1), minlength=E).float() / (B * S * k)
-        aux = E * torch.sum(probs.mean(dim=(0, 1)) * load)
+        counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+        if self.batch_sum is None:
+            aux = E * torch.sum(probs.mean(dim=(0, 1)) * (counts / (B * S * k)))
+        else:
+            counts = self.batch_sum(counts)
+            n = counts.sum() / k  # the tokens of the global batch
+            aux = E * torch.sum((self.batch_sum(probs.sum(dim=(0, 1))) / n)
+                                * (counts / (n * k)))
         order, keep, slot, cap = self.dispatch(idx, S)
         # each token's k copies in token order, then permuted into the sorted
         # order: the backward sums a token's k gradients over this (B, S, k, d)

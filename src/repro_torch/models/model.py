@@ -32,8 +32,13 @@ mixer; a decode cache then also holds each layer's cross cache.
 The JAX package stacks each pattern position's params over ``n_units`` and
 runs the units with ``lax.scan``; here the units are a Python loop over one
 ``Block`` per layer, in order. The JAX code threads a ``ShardingPlan``
-through every call; this is one card with no mesh, where every
-``plan.constrain`` is a no-op, so the plan is dropped.
+through every call; the port's models drop it and run on whole tensors, or
+on a mesh trainer's rows of the batch (``repro_torch.runtime.trainer``).
+A ``Model`` trained on a mesh holds each rank's shards as its parameters
+and a ``gather`` hook: the training loss then runs every part of a layer
+(and the embedding, head and final norms around them) with its parameters
+gathered whole for that part only (:func:`_whole`, :func:`_caller`), so
+under a checkpointing ``remat`` the recompute gathers them again.
 
 Entry points: :func:`init_params` (a ``Model`` with weights drawn from a
 ``torch.Generator``; ``trainable=True`` for masters in ``cfg.param_dtype``
@@ -50,6 +55,7 @@ them, for the optimizers, the checkpoint and the interop helpers.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -153,6 +159,13 @@ class Block(nn.Module):
     def _cross_out(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         return self.cross(self.norm_cross(x), memory=memory)
 
+    def part_modules(self, part) -> Tuple[nn.Module, ...]:
+        """The modules whose parameters ``part`` (one of ``_mixer_out``,
+        ``_cross_out``, ``_ffn_out``) uses."""
+        return {"_mixer_out": (self.norm1, self.mixer),
+                "_cross_out": (self.norm_cross, self.cross),
+                "_ffn_out": (self.norm2, self.ffn)}[part.__name__]
+
     def _ffn_out(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The FFN of norm2(x), and a MoE FFN's aux loss (else None)."""
         out = self.ffn(self.norm2(x))
@@ -171,7 +184,8 @@ class Block(nn.Module):
                 return_aux: bool = False, call=_direct):
         """``call(part, *inputs)`` runs each part that adds to the residual
         stream (norm and mixer, norm and cross-attention, norm and FFN):
-        directly, or as a checkpointed region under ``remat="names"``."""
+        directly, or as a checkpointed region under ``remat="names"``, and
+        on a mesh with the part's parameters gathered (:func:`_caller`)."""
         if return_state:
             out, state = self.mixer(self.norm1(x), return_state=True, cache_len=cache_len)
         else:
@@ -238,6 +252,9 @@ class Model(nn.Module):
             self.encoder_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable, pdt)
         else:
             self.encoder = self.encoder_norm = None
+        # a mesh trainer's hook: gather(modules) -> a context in which the
+        # modules' own parameters are whole (repro_torch.distributed.zero)
+        self.gather = None
 
     def forward(self, tokens: torch.Tensor,
                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -252,23 +269,42 @@ class Model(nn.Module):
 
 @torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                trainable: bool = False) -> Model:
+                trainable: bool = False, place=None) -> Model:
     """A ``Model`` on the generator's device with the JAX package's shapes,
     scales and init: N(0, 1) * scale drawn in float32 (``head`` at 0.02,
     as the embedding), norms at one, ``lam`` at 2.0. ``jax.random`` and
     ``torch.Generator`` give different numbers for one seed; a seed gives
-    the same draws with or without ``trainable``."""
-    model = Model(cfg, device=generator.device, trainable=trainable)
-    L.normal_(model.embed, generator, 0.02)
-    if model.head is not None:
-        L.normal_(model.head, generator, 0.02)
-    model.final_norm.init_(generator)
+    the same draws with or without ``trainable``.
+
+    With ``place`` (a mesh trainer's) the model is built on the meta
+    device and each module is made whole on the generator's device only
+    while it is drawn: ``place(model)`` gives the function
+    ``put(module, recurse)`` that then swaps the module's parameters (its
+    own, or all with ``recurse``) for this rank's shards. The draws are the
+    same as without, so the shards are slices of the meshless model."""
+    model = Model(cfg, device="meta" if place else generator.device, trainable=trainable)
+    put = place(model) if place is not None else None
+
+    def draw(module: nn.Module, init, recurse: bool = True) -> None:
+        if put is not None:
+            module.to_empty(device=generator.device, recurse=recurse)
+        init(generator)
+        if put is not None:
+            put(module, recurse)
+
+    def tables(gen: torch.Generator) -> None:
+        L.normal_(model.embed, gen, 0.02)
+        if model.head is not None:
+            L.normal_(model.head, gen, 0.02)
+
+    draw(model, tables, recurse=False)
+    draw(model.final_norm, model.final_norm.init_)
     for layer in model.layers:
-        layer.init_(generator)
+        draw(layer, layer.init_)
     if model.encoder is not None:
-        model.encoder_norm.init_(generator)
+        draw(model.encoder_norm, model.encoder_norm.init_)
         for layer in model.encoder:
-            layer.init_(generator)
+            draw(layer, layer.init_)
     return model
 
 
@@ -316,8 +352,9 @@ def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
     cast to the compute dtype, the sinusoid rows added, the non-causal
     encoder layers, then ``encoder_norm``, as the JAX ``_encode``."""
     x = _with_positions(model.cfg, frames.to(L.compute_dtype(model.cfg)))
+    call = _caller(model)
     for layer in model.encoder:
-        x = layer(x)
+        x = layer(x, call=call)
     return model.encoder_norm(x)
 
 
@@ -353,6 +390,38 @@ def _checkpointed(part, *inputs):
     return torch.utils.checkpoint.checkpoint(part, *inputs, use_reentrant=False)
 
 
+def _whole(model: Model, modules) -> contextlib.AbstractContextManager:
+    """A context in which the own parameters of ``modules`` are whole: the
+    model's ``gather`` hook on a mesh, else nothing to do."""
+    return contextlib.nullcontext() if model.gather is None else model.gather(modules)
+
+
+def _top_modules(model: Model) -> list:
+    """The modules whose own parameters the loss uses outside the layers:
+    the model (``embed``, ``head``), ``final_norm`` and ``encoder_norm``."""
+    return [m for m in (model, model.final_norm, model.encoder_norm) if m is not None]
+
+
+def _caller(model: Model, checkpointed: bool = False):
+    """The ``call`` with which a ``Block`` runs its parts: directly (or
+    checkpointed); on a mesh each part runs with its modules' parameters
+    gathered for it alone, inside the checkpointed region, so the
+    recompute gathers them again."""
+    if model.gather is None:
+        return _checkpointed if checkpointed else _direct
+
+    def call(part, *inputs):
+        mods = [m for top in part.__self__.part_modules(part) for m in top.modules()]
+
+        def run(*xs):
+            with model.gather(mods):
+                return part(*xs)
+
+        return _checkpointed(run, *inputs) if checkpointed else run(*inputs)
+
+    return call
+
+
 def _saves_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     """``remat="dots"``: keep the outputs of the matrix products without
     batch dims (``aten.mm`` / ``aten.addmm``: each ``x @ w``), recompute
@@ -368,7 +437,7 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(_saves_products)
 
 
-def _remat_body(cfg: ArchConfig, layers):
+def _remat_body(model: Model, layers):
     """A pattern unit's body under ``cfg.remat``, as the JAX ``_remat_wrap``:
     ``none`` as it is; ``dots`` checkpointed keeping the products of
     :func:`_saves_products`; ``names`` with each part of each layer (norm and
@@ -378,14 +447,15 @@ def _remat_body(cfg: ArchConfig, layers):
     between them; any other value checkpointed whole (``full``): only the
     unit's inputs are kept. Checkpoints are non-reentrant; ``memory`` is an
     input, so its gradient flows back to the encoder."""
+    cfg = model.cfg
     if cfg.remat == "none":
-        return _unit_body(layers)
+        return _unit_body(layers, _caller(model))
     if cfg.remat == "names":
-        return _unit_body(layers, call=_checkpointed)
+        return _unit_body(layers, call=_caller(model, checkpointed=True))
     kw = {"use_reentrant": False}
     if cfg.remat == "dots":
         kw["context_fn"] = _dots_contexts
-    body = _unit_body(layers)
+    body = _unit_body(layers, _caller(model))
     return lambda x, memory: torch.utils.checkpoint.checkpoint(body, x, memory, **kw)
 
 
@@ -400,11 +470,12 @@ def backbone(model: Model, x: torch.Tensor, memory: Optional[torch.Tensor] = Non
     body and neither the prefix, the tail nor ``_encode``."""
     cfg = model.cfg
     P, n0 = len(cfg.pattern), model.n_prefix
-    x, aux = _unit_body(model.layers[:n0])(x, memory)
+    call = _caller(model)
+    x, aux = _unit_body(model.layers[:n0], call)(x, memory)
     for u in range(cfg.n_units):
-        x, a = _remat_body(cfg, model.layers[n0 + u * P:n0 + (u + 1) * P])(x, memory)
+        x, a = _remat_body(model, model.layers[n0 + u * P:n0 + (u + 1) * P])(x, memory)
         aux = aux + a
-    x, a = _unit_body(model.layers[n0 + cfg.n_units * P:])(x, memory)
+    x, a = _unit_body(model.layers[n0 + cfg.n_units * P:], call)(x, memory)
     return x, aux + a
 
 
@@ -456,14 +527,17 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     ``batch["frames"]`` encoded first, embed, backbone, then the
     cross-entropy against ``batch["targets"]`` (chunked when
     ``cfg.logits_chunk > 0``), plus ``MOE_AUX_WEIGHT`` times the MoE
-    layers' aux losses (none without MoE layers)."""
-    memory = _encode(model, batch["frames"]) if model.encoder is not None else None
-    x = _embed_inputs(model, batch)
-    h, aux = backbone(model, x, memory)
-    if model.cfg.logits_chunk > 0:
-        loss = _chunked_xent(model, h, batch["targets"])
-    else:
-        loss = cross_entropy(model.cfg, logits_of(model, h), batch["targets"])
+    layers' aux losses (none without MoE layers). On a mesh the embedding,
+    head and final norms are gathered for the whole loss, each layer's
+    parameters part by part."""
+    with _whole(model, _top_modules(model)):
+        memory = _encode(model, batch["frames"]) if model.encoder is not None else None
+        x = _embed_inputs(model, batch)
+        h, aux = backbone(model, x, memory)
+        if model.cfg.logits_chunk > 0:
+            loss = _chunked_xent(model, h, batch["targets"])
+        else:
+            loss = cross_entropy(model.cfg, logits_of(model, h), batch["targets"])
     return loss + MOE_AUX_WEIGHT * aux if torch.is_tensor(aux) else loss
 
 

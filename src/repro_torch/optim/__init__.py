@@ -1,5 +1,5 @@
-"""Optimizers of the port (``repro.optim`` without the int8 gradient
-compression, which needs a mesh: ROADMAP.md, Queue A item 8)."""
+"""Optimizers of the port and the int8 error-feedback gradient compression
+(``repro.optim``)."""
 from .optimizers import (  # noqa: F401
     Optimizer,
     adafactor,
@@ -10,3 +10,4 @@ from .optimizers import (  # noqa: F401
     make_optimizer,
     sgdm,
 )
+from .compress import ef_int8_compress, ef_int8_decompress  # noqa: F401

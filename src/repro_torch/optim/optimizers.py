@@ -18,8 +18,8 @@ keyed by the JAX state's path: ``m/<path>`` and ``v/<path>`` for AdamW,
 ``<path>/vr`` and ``<path>/vc`` (or ``<path>/v``) for Adafactor, ``m/<path>``
 for SGD-M, so ``repro_torch.interop.leaves_to_jax`` gives the JAX layout.
 
-``update(grads, state, params, step)`` returns ``(params, state)`` like the
-JAX optimizers, but updates both in place: at full width the states are
+``update(grads, state, params, step, placed=None)`` returns ``(params,
+state)`` like the JAX optimizers, but updates both in place: at full width the states are
 21 GB, and a second copy would not fit beside them. The per-step scalars
 (learning rate, bias corrections) are float32 tensors on the parameters'
 device, so every division is a true division as in the JAX code (PyTorch
@@ -34,6 +34,15 @@ JAX package's; what spans change is the order of float32 sums only (the
 global norm, Adafactor's column means and its update RMS), and
 Adafactor's RMS stays one value over the whole leaf (two passes: the
 statistics and the sum of u², then the update, u recomputed).
+
+On a mesh (``placed``: each tensor's ``repro_torch.distributed.zero.Placed``)
+the parameters, gradients and AdamW / SGD-M states are this rank's blocks
+and Adafactor's states are whole on every rank, as the JAX specs place
+them (``vr``, ``vc`` and ``v`` replicated). Every sum over a tensor that a
+mesh dim splits (the global norm, Adafactor's row and column statistics
+and its RMS) is then all-reduced over the dims that split it
+(``Placed.sum``), so the update of the blocks is the meshless update; a
+tensor that no dim splits takes the meshless arithmetic.
 """
 from __future__ import annotations
 
@@ -51,8 +60,9 @@ Schedule = Callable[[Any], torch.Tensor]
 class Optimizer:
     name: str
     init: Callable[[Leaves], Leaves]
-    update: Callable[[Leaves, Leaves, Leaves, Any], Tuple[Leaves, Leaves]]
-    # update(grads, state, params, step) -> (params, state), both in place
+    update: Callable[..., Tuple[Leaves, Leaves]]
+    # update(grads, state, params, step, placed=None) -> (params, state), both
+    # in place
 
 
 def _f32(x) -> torch.Tensor:
@@ -94,19 +104,31 @@ def _spans(t: torch.Tensor) -> list:
     return [slice(i, i + step) for i in range(0, t.shape[0], step)]
 
 
-def global_norm(leaves: Leaves) -> torch.Tensor:
+def _placed(placed, key: str, i: int):
+    """Tensor ``i`` of leaf ``key``'s placement when a mesh dim splits it."""
+    if placed is None:
+        return None
+    pl = placed[key][i]
+    return pl if pl.split else None
+
+
+def global_norm(leaves: Leaves, placed=None) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in float32, leaf by
-    leaf in order, each tensor span by span."""
+    leaf in order, each tensor span by span; a tensor split over a mesh
+    (``placed``) adds its blocks' sum all-reduced over the splitting dims."""
     total = torch.zeros((), dtype=torch.float32, device=_device(leaves))
-    for ts in leaves.values():
-        for t in ts:
+    for k, ts in leaves.items():
+        for i, t in enumerate(ts):
+            pl = _placed(placed, k, i)
+            part = total if pl is None else torch.zeros_like(total)
             for s in _spans(t):
-                total = total + torch.sum(torch.square(t[s].float()))
+                part = part + torch.sum(torch.square(t[s].float()))
+            total = part if pl is None else total + pl.sum(part)
     return torch.sqrt(total)
 
 
-def _clip_scale(grads: Leaves, max_norm: float, norm=None) -> torch.Tensor:
-    norm = global_norm(grads) if norm is None else norm
+def _clip_scale(grads: Leaves, max_norm: float, norm=None, placed=None) -> torch.Tensor:
+    norm = global_norm(grads, placed) if norm is None else norm
     return torch.minimum(torch.ones_like(norm),
                          torch.full_like(norm, max_norm) / torch.clamp_min(norm, 1e-9))
 
@@ -135,8 +157,8 @@ def adamw(lr: Schedule, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return {f"{s}/{k}": [torch.zeros_like(p, dtype=sdt) for p in ps]
                 for s in ("m", "v") for k, ps in params.items()}
 
-    def update(grads, state, params, step):
-        scale = _clip_scale(grads, clip_norm)
+    def update(grads, state, params, step, placed=None):
+        scale = _clip_scale(grads, clip_norm, placed=placed)
         dev = _device(params)
         t = _f32(step) + 1.0
         lr_t = lr(step).to(dev)
@@ -195,8 +217,8 @@ def adafactor(lr: Schedule, *, eps: float = 1e-30, clip_norm: float = 1.0,
                 out[f"{k}/v"] = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
         return out
 
-    def update(grads, state, params, step):
-        scale = _clip_scale(grads, clip_norm)
+    def update(grads, state, params, step, placed=None):
+        scale = _clip_scale(grads, clip_norm, placed=placed)
         dev = _device(params)
         t = _f32(step) + 1.0
         beta = (1.0 - torch.pow(t, -decay)).to(dev)
@@ -217,6 +239,10 @@ def adafactor(lr: Schedule, *, eps: float = 1e-30, clip_norm: float = 1.0,
             for k, ps in params.items():
                 st_of = ([(vr, vc) for vr, vc in zip(state[f"{k}/vr"], state[f"{k}/vc"])]
                          if f"{k}/vr" in state else [(v,) for v in state[f"{k}/v"]])
+                pls = [_placed(placed, k, i) for i in range(len(ps))]
+                if any(pls):
+                    _split_leaf(grads[k], ps, st_of, pls, scale, beta, lr_t, eps)
+                    continue
                 sq = torch.zeros((), dtype=torch.float32, device=dev)
                 n = 0
                 for g, p, st in zip(grads[k], ps, st_of):
@@ -258,13 +284,61 @@ def adafactor(lr: Schedule, *, eps: float = 1e-30, clip_norm: float = 1.0,
     return Optimizer("adafactor", init, update)
 
 
+def _split_leaf(grads, ps, st_of, pls, scale, beta, lr_t, eps) -> None:
+    """Adafactor's update of one leaf whose tensors a mesh splits: ``ps`` and
+    ``grads`` are this rank's blocks (``pls`` their placements), the
+    statistics ``st_of`` whole. Each statistic's sum over this rank's block
+    is laid into a whole-size zero tensor at the block's place and
+    all-reduced over the splitting dims (the other blocks fill their places,
+    the column blocks of one row add up), then divided by the global count,
+    so every rank holds the meshless statistics; the RMS of the update is
+    the all-reduced sum of u² over the whole leaf."""
+
+    def stats_u(g, st, pl):
+        gs = _clipped(g, scale)
+        idx = pl.index
+        if len(st) == 1:
+            return gs.mul_(torch.rsqrt(st[0][idx] + eps))
+        vr, vc = st
+        rows = vr.mean(dim=-1, keepdim=True)[idx[:-2]]
+        denom = (vr[idx[:-1]][..., None] * vc[idx[:-2] + idx[-1:]][..., None, :]) / (
+            torch.clamp_min(rows[..., None], eps))
+        return gs.mul_(torch.rsqrt(denom.add_(eps)))
+
+    sq = torch.zeros((), dtype=torch.float32, device=ps[0].device)
+    for g, st, pl in zip(grads, st_of, pls):
+        gs = _clipped(g, scale)
+        g2 = gs * gs + eps
+        idx = pl.index
+        if len(st) == 1:
+            whole = torch.zeros_like(st[0])
+            whole[idx] = g2
+            st[0].copy_(beta * st[0] + (1 - beta) * pl.sum(whole))
+        else:
+            vr, vc = st
+            rows = torch.zeros_like(vr)
+            rows[idx[:-1]] = g2.sum(dim=-1)
+            cols = torch.zeros_like(vc)
+            cols[idx[:-2] + idx[-1:]] = g2.sum(dim=-2)
+            vr.copy_(beta * vr + (1 - beta) * (pl.sum(rows) / pl.shape[-1]))
+            vc.copy_(beta * vc + (1 - beta) * (pl.sum(cols) / pl.shape[-2]))
+        del g2, gs
+        u = stats_u(g, st, pl)
+        sq = sq + torch.sum(u * u)
+    n = sum(math.prod(pl.shape) for pl in pls)
+    rms = torch.sqrt(pls[0].sum(sq) / torch.full_like(sq, n) + eps)
+    for g, p, st, pl in zip(grads, ps, st_of, pls):
+        u = stats_u(g, st, pl) / torch.clamp_min(rms, 1.0)
+        p.copy_(p.float() - lr_t * u)
+
+
 def sgdm(lr: Schedule, *, momentum: float = 0.9, clip_norm: float = 1.0) -> Optimizer:
     def init(params: Leaves) -> Leaves:
         return {f"m/{k}": [torch.zeros_like(p, dtype=torch.float32) for p in ps]
                 for k, ps in params.items()}
 
-    def update(grads, state, params, step):
-        scale = _clip_scale(grads, clip_norm)
+    def update(grads, state, params, step, placed=None):
+        scale = _clip_scale(grads, clip_norm, placed=placed)
         lr_t = lr(step).to(_device(params))
         with torch.no_grad():
             for k, ps in params.items():

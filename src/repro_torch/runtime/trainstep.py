@@ -1,21 +1,35 @@
-"""Train, prefill and serve steps: the port of ``repro.runtime.trainstep``.
+"""Train, prefill and serve steps and the parameter sharding specs: the
+port of ``repro.runtime.trainstep``.
 
 ``make_train_step`` returns ``(state, batch) -> (state, metrics)``: the loss
 and its gradients (in the masters' dtype with one microbatch, as
 ``jax.grad``'s; summed in float32 over ``cfg.microbatches`` and divided by
 their number, as the JAX step accumulates), then one optimizer update.
 The JAX step is a pure function; here the state is updated in place (the
-parameters, the optimizer's states and ``step``) and returned. The sharding
-specs and ``grad_spec_constraint`` are not ported: one card, no mesh
-(ROADMAP.md, Queue A item 8).
+parameters, the optimizer's states and ``step``) and returned.
+
+:func:`param_specs` and :func:`state_specs` are the JAX rules (FSDP over
+``data``, TP / EP over ``model``) resolved per leaf path of the JAX pytree
+(``models.param_leaves``' keys, the optimizer states' ``m/<path>``,
+``<path>/vr``): a spec is a tuple of axis names, ``None`` or tuples (a
+``PartitionSpec``'s entries), a stacked ``units/...`` leaf's with JAX's
+leading unit dim; :func:`unit_spec` drops it for the port's per-unit
+tensor. On a mesh (``zero``, ``repro_torch.distributed.zero``) the step
+runs on this rank's rows: each microbatch's loss times the rows' share of
+the global batch, the gradients reduced into the shards by the gathers'
+backward (one reduce-scatter with ``cfg.grad_spec_constraint``, else an
+all-reduce and a slice: the same numbers), the reported loss summed over
+the batch's ranks, the norm and the optimizer's sums over the splitting
+mesh dims.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..distributed.sharding import ShardingPlan, Spec
 from ..models.config import ArchConfig
 from ..models.model import Model, decode_step, loss_fn, param_leaves, prefill
 from ..optim.optimizers import Leaves, Optimizer, global_norm
@@ -34,13 +48,110 @@ class TrainState:
         return param_leaves(self.model)
 
 
-def make_train_step(cfg: ArchConfig, optimizer: Optimizer
+# ---------------------------------------------------------------------------
+# Parameter sharding rules (FSDP over "data", TP/EP over "model")
+# ---------------------------------------------------------------------------
+
+
+def _param_spec(plan: ShardingPlan, names: Tuple[str, ...], shape: Tuple[int, ...]) -> Spec:
+    if plan.mesh is None:
+        return ()
+    name = names[-1]
+    # leading stacked-unit dim of the JAX pytree
+    off = 1 if "units" in names else 0
+    body = shape[off:]
+    dims: list = [None] * len(shape)
+
+    def md(size):
+        return plan.model_dim(size)
+
+    def fs(size):
+        return plan.fsdp_dim(size)
+
+    if name in ("vr", "vc"):  # adafactor factored stats: tiny, replicate
+        return tuple(dims)
+    if name == "embed" and len(body) == 2:
+        dims[off:] = [md(body[0]), fs(body[1])]
+    elif name == "head" and len(body) == 2:
+        dims[off:] = [fs(body[0]), md(body[1])]
+    elif name in ("wq", "wk", "wv", "w_in", "w_up", "w_x", "w_gate", "w_rec_in",
+                  "router", "w_a", "w_i") and len(body) == 2:
+        dims[off:] = [fs(body[0]), md(body[1])]
+    elif name in ("wo", "w_out", "w_down") and len(body) == 2:
+        dims[off:] = [md(body[0]), fs(body[1])]
+    elif name == "w_in" and len(body) == 3:  # MoE experts (E, d, 2f)
+        dims[off:] = [md(body[0]), fs(body[1]), None]
+    elif name == "w_out" and len(body) == 3:  # MoE experts (E, f, d)
+        dims[off:] = [md(body[0]), None, fs(body[1])]
+    elif name in ("bq", "bk", "bv", "lam") and len(body) == 1:
+        dims[off] = md(body[0])
+    # norms / scales / small recurrent blocks stay replicated
+    return tuple(dims)
+
+
+def leaf_spec(cfg: ArchConfig, plan: ShardingPlan, path: str, shape: Tuple[int, ...]) -> Spec:
+    """The JAX spec of the leaf at ``path`` of (JAX, stacked) ``shape``."""
+    names = tuple(path.split("/"))
+    if not cfg.fsdp:
+        # replicate everything except the (possibly huge) vocab-dim tensors
+        if names[-1] in ("embed", "head") and plan.mesh is not None:
+            return _param_spec(plan, names, shape)
+        return ()
+    return _param_spec(plan, names, shape)
+
+
+def _stacked(path: str) -> bool:
+    return "units" in path.split("/")
+
+
+def param_specs(cfg: ArchConfig, plan: ShardingPlan, leaves: Leaves) -> Dict[str, Spec]:
+    """The spec of every leaf of ``leaves`` (a leaf path to its tensors, of
+    any device, ``meta`` too), as the JAX ``param_specs`` gives it for the
+    JAX leaf (a ``units/...`` leaf stacks its tensors on a new first dim)."""
+    out = {}
+    for path, ts in leaves.items():
+        shape = tuple(ts[0].shape)
+        out[path] = leaf_spec(cfg, plan, path,
+                              (len(ts),) + shape if _stacked(path) else shape)
+    return out
+
+
+def unit_spec(path: str, spec: Spec) -> Spec:
+    """The spec of one of the port's tensors of leaf ``path``: a stacked
+    leaf's spec less its unit dim."""
+    return tuple(spec[1:]) if _stacked(path) else tuple(spec)
+
+
+@dataclasses.dataclass
+class StateSpecs:
+    params: Dict[str, Spec]
+    opt_state: Dict[str, Spec]
+    step: Spec = ()
+
+
+def state_specs(cfg: ArchConfig, plan: ShardingPlan, state: Any) -> StateSpecs:
+    """The specs of a ``TrainState`` (or anything with ``params`` and
+    ``opt_state`` leaves): the optimizer states inherit their parameters'
+    rules by name (ZeRO), Adafactor's ``vr`` / ``vc`` / ``v`` replicated,
+    as the JAX ``state_specs``."""
+    return StateSpecs(params=param_specs(cfg, plan, state.params),
+                      opt_state=param_specs(cfg, plan, state.opt_state))
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optimizer, zero: Optional[Any] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, object]]]:
     """The train step. ``cfg.microbatches`` sets the gradient accumulation;
     the loss itself follows the model's own config. Metrics: ``loss`` and
     ``grad_norm`` (float32 scalar tensors on the model's device, the norm
-    before clipping) and ``step`` (the step this update was)."""
+    before clipping) and ``step`` (the step this update was). With
+    ``zero`` (a mesh trainer's ``Zero``) the batch is this rank's rows and
+    the model holds this rank's shards."""
     mb = max(1, cfg.microbatches)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -50,7 +161,7 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer
         acc = {}
         if mb == 1:
             loss = loss_fn(model, batch)
-            loss.backward()
+            (loss if zero is None else loss * zero.split.frac).backward()
             loss = loss.detach()
         else:
             # the gradients accumulate in float32, g_1 + g_2 + ..., in order,
@@ -62,7 +173,7 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer
                 b_i = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])[i]
                        for k, v in batch.items()}
                 l_i = loss_fn(model, b_i)
-                l_i.backward()
+                (l_i if zero is None else l_i * zero.split.frac).backward()
                 loss = loss + l_i.detach()
                 for ps in params.values():
                     for p in ps:
@@ -76,8 +187,14 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer
                 for p in ps:
                     (acc[p] if p in acc else p.grad).div_(n)
         grads = {k: [acc.get(p, p.grad) for p in ps] for k, ps in params.items()}
-        grad_norm = global_norm(grads)
-        optimizer.update(grads, state.opt_state, params, state.step)
+        if zero is None:
+            grad_norm = global_norm(grads)
+            optimizer.update(grads, state.opt_state, params, state.step)
+        else:
+            loss = zero.split.sum(loss * zero.split.frac)
+            placed = zero.placed_leaves(model, params)
+            grad_norm = global_norm(grads, placed)
+            optimizer.update(grads, state.opt_state, params, state.step, placed=placed)
         del grads, acc
         model.zero_grad(set_to_none=True)
         metrics = {"loss": loss, "grad_norm": grad_norm, "step": state.step}

@@ -66,7 +66,9 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "configs.whisper_tiny", "configs.arctic_480b", "configs.kimi_k2_1t_a32b",
                  "core.elastic", "service.faults", "service.journal", "obs.report",
                  "obs.__main__", "examples.cluster_scheduler_e2e",
-                 "examples.serve_decode"):
+                 "examples.serve_decode", "examples.quickstart",
+                 "examples.online_service", "optim.compress", "distributed",
+                 "distributed.sharding", "distributed.zero", "launch.mesh"):
         assert f"repro_torch.{name}" in out["modules"]
 
 

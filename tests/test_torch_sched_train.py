@@ -138,7 +138,7 @@ def test_scheduled_mode_without_a_gpu_raises(monkeypatch):
 
 
 def test_scheduled_mode_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="scheduled mode trains each tenant"):
         train_cli.main(["--scheduler", "oef-coop", "--mesh", "2x4", "--device", "cpu"])
 
 

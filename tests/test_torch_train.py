@@ -463,10 +463,17 @@ def test_fail_at_recovery_matches_an_uninterrupted_run(tmp_path):
 
 
 def test_trainer_refuses_a_mesh_and_resize():
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        Trainer(get_smoke(ARCH), TrainerConfig(), mesh=object(), device="cpu")
+    """A mesh whose device type is not the trainer's raises (a cuda mesh is
+    NCCL's, a cpu one gloo's: nothing falls back), and ``resize`` without
+    a checkpoint dir raises, as the JAX trainer's does."""
+
+    class CudaMesh:
+        device_type = "cuda"
+
+    with pytest.raises(ValueError, match="mesh is on 'cuda' devices but the trainer on 'cpu'"):
+        Trainer(get_smoke(ARCH), TrainerConfig(), mesh=CudaMesh(), device="cpu")
     t = Trainer(get_smoke(ARCH), TrainerConfig(seq_len=16, global_batch=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(RuntimeError, match="elastic resize requires checkpointing"):
         t.resize(None)
     with pytest.raises(RuntimeError, match="checkpoint dir"):
         t.restore_latest()
@@ -510,10 +517,21 @@ def test_train_cli_without_a_gpu_raises_by_default(monkeypatch):
         train_cli.main(["--arch", ARCH, "--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2x4"]])
-def test_train_cli_refuses_what_is_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu", *flags])
+@pytest.mark.parametrize("flags", [["--mesh", "2x4"], ["--mesh", "1x1"]])
+def test_train_cli_refuses_what_is_not_ported(flags, tmp_path, capsys):
+    """``--mesh 2x4`` in a process without 8 ranks raises and names the
+    ``torchrun`` line; ``--mesh 1x1`` starts a world-1 gloo group of its own,
+    trains 2 steps on it and destroys the group."""
+    argv = ["--arch", ARCH, "--smoke", "--device", "cpu", *flags]
+    if flags[1] == "2x4":
+        with pytest.raises(RuntimeError, match="needs 8 ranks.*torchrun --nproc-per-node 8"):
+            train_cli.main(argv)
+        return
+    train_cli.main(argv + ["--steps", "2", "--seq-len", "16", "--batch", "2",
+                           "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "mesh {'data': 1, 'model': 1}" in out and "done: step 2, loss" in out
+    assert not torch.distributed.is_initialized()
 
 
 # ---------------------------------------------------------------------------
