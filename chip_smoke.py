@@ -362,17 +362,46 @@ raises and the script exits non-zero:
     2 steps through ``Trainer(mesh=)`` (ZeRO-3 storage, parameters gathered
     at use) against the same 2 steps without a mesh on the card: step 1's
     loss bit for bit, the masters within 1e-6 of max |p| after step 2; both
-    step walls, peak memory and a profiled step's idle share; ``resize`` to
-    a 1-D mesh from the step-1 checkpoint reproduces step 2 (its loss bit
-    for bit, the masters within 1e-6); ``ef_int8_compress`` of one backward's
-    gradients (every leaf of the first unit and the final norm) on the card
-    bit for bit the CPU's in ``q`` and ``scale``, and ``compressed_psum_tree``
-    over the NCCL group equal to ``ef_int8_decompress``; the group is
-    destroyed at the end.
+    step walls, peak memory and a profiled step's idle share;
+    ``ef_int8_compress`` of one backward's gradients (every leaf of the
+    first unit and the final norm) on the card bit for bit the CPU's in
+    ``q`` and ``scale``, and ``compressed_psum_tree`` over the NCCL group
+    equal to ``ef_int8_decompress``; at
+    ``MESH_RESIZE_LAYERS`` (2) layers the step-1 checkpoint written and
+    ``resize`` to a 1-D mesh from it reproducing step 2 (its loss bit for
+    bit, the masters within 1e-6); the group is destroyed at the end;
+48. the compute split over the ``model`` axis on one card
+    (``split_phase``): recurrentgemma-2b at full width and one pattern unit
+    (rglru, rglru, sliding; ``SPLIT_TRAIN``), float32, ``remat="full"``,
+    AdamW, B 2 x 2048, 2 steps, trained by this process without a mesh
+    (and again in two microbatches: its spread under a reordering of its
+    sums) and by two spawned processes that share the card as two gloo
+    ranks of a (1, 2) ``("data", "model")`` mesh (NCCL refuses two ranks on
+    one device): every rank's losses within 1e-5 relative and masters
+    within 1e-6 of max |p| (or twice the reordered run's spread, where that
+    is larger) of the meshless trainer's, every ``Block`` input (2, 1024,
+    2560), each step's RG-LRU launches the meshless step's (4 forward, 2
+    backward), all on the TMA kernels, no plain-version call; each rank's
+    step walls, idle share and peak memory, and its collectives a step by
+    kind and bytes.
+
+The order is not the numbers': the build, then the kernel phases 2, 3, 6,
+10 and 13-15, each alone on the card (their times go into the kernels'
+line); then phases 4, 5, 7-9 and 27-29, the online service's replays
+(host-bound: the card sees a solve now and then), run in a spawned process
+of their own (``SchedulerLane``), which prints its log when this process
+joins it after phase 25, while this process runs phases 11-25 with one CPU
+thread fewer; the CPU half of each training step card against CPU (17, 21,
+25, 33: the CPU's step, the comparisons, the CPU's AdamW update, on host
+copies of the card's gradients and updated weights) runs on a thread of its
+own (``Behind``) beside the card phase that follows, drained before the next
+phase that computes on the CPU (33's two steps go before 30 and 32 for it);
+the rest in order. Each phase says on stderr when it is done.
 
 Prints each phase's seconds (``seconds by phase``; in ``chip_smoke.json``
-``phase_s``), the kernels' JSON line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Details (flame summary of the second
+``phase_s``: this process's, and the lane's own), the kernels' JSON line,
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. Details (flame summary of the second
 full-size replay, per-phase numbers) go to ``chiprun_out/chip_smoke.json``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -380,6 +409,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -2881,14 +2911,17 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
 
 
 def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=256,
-                        dev="cuda", cfg=None) -> None:
-    """Phases 17, 21, 33 and 37: one float32 training step of ``arch`` on
+                        dev="cuda", cfg=None, behind=None) -> None:
+    """Phases 17, 21, 25, 33 and 37: one float32 training step of ``arch`` on
     the card against the CPU at full width and cut depth, B 1, ``S`` tokens
     (or embeddings; an encoder model's ``S`` frames beside them), the same
     weights: the loss, every gradient leaf (QKV biases, an untied ``head``
     and an encoder's leaves included), the kernel launches (the
     blocked path trains on its twin: no flash launch), then one AdamW
-    update on the card's gradients, on the card and on the CPU."""
+    update on the card's gradients, on the card and on the CPU. With
+    ``behind`` (a :class:`Behind`) the CPU half (the CPU's step, the
+    comparisons, the CPU's update) runs on its thread beside the phases
+    that follow, and its checks fail at its drain."""
     import copy
 
     from repro_torch.configs import get_config
@@ -2909,22 +2942,8 @@ def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=25
     card_loss = loss_fn(card_model, {k: v.to(dev) for k, v in batch.items()})
     card_loss.backward()
     card_launches = _launches(ws)
-    cpu_loss = loss_fn(cpu_model, batch)
-    cpu_loss.backward()
-    card_loss, cpu_loss = card_loss.detach(), cpu_loss.detach()
-    loss_err = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
-    check(math.isfinite(float(card_loss)) and loss_err <= TRAIN_LOSS_REL,
-          f"{arch}: card loss {float(card_loss)!r} vs CPU {float(cpu_loss)!r}: "
-          f"{loss_err:.3e}")
+    card_loss = card_loss.detach()
     card_leaves, cpu_leaves = param_leaves(card_model), param_leaves(cpu_model)
-    grad_err, worst = 0.0, ""
-    for path, ps in cpu_leaves.items():
-        for p, q in zip(ps, card_leaves[path]):
-            e = float((q.grad.cpu() - p.grad).abs().max() / p.grad.abs().max())
-            if e > grad_err:
-                grad_err, worst = e, path
-    check(grad_err <= TRAIN_GRAD_SHARE, f"{arch}: card vs CPU gradient of {worst}: "
-          f"{grad_err:.3e} of its max |g| > {TRAIN_GRAD_SHARE:g}")
     n_unit, n_rglru = rglru_layers(cfg)
     launches = (n_rglru + (n_unit if cfg.remat == "full" else 0), n_rglru)
     check(card_launches == _want(ws, rglru_scan=launches[0],
@@ -2936,121 +2955,177 @@ def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=25
     check(("head" in cpu_leaves) != cfg.tie_embeddings, f"{arch}: leaves {list(cpu_leaves)}")
     encoder = [k for k in cpu_leaves if k.startswith("encoder")]
     check(bool(encoder) == bool(cfg.encoder_layers), f"{arch}: encoder leaves {encoder}")
-    # one AdamW update on the card's gradients, on the card and on the CPU
+    # one AdamW update on the card's gradients, on the card now and on the
+    # CPU in the CPU half (the update leaves the gradients as they are); the
+    # card's gradients and updated weights go to the host, and the CPU half
+    # touches no card memory
     opt = make_optimizer("adamw", peak_lr=3e-4, warmup=0, total=100)
-    grads = {k: [p.grad for p in ps] for k, ps in card_leaves.items()}
-    cpu_grads = {k: [g.cpu() for g in gs] for k, gs in grads.items()}
-    opt.update(grads, opt.init(card_leaves), card_leaves, 0)
-    opt.update(cpu_grads, opt.init(cpu_leaves), cpu_leaves, 0)
-    opt_err = 0.0
-    for path, ps in cpu_leaves.items():
-        for p, q in zip(ps, card_leaves[path]):
-            opt_err = max(opt_err, float((q.detach().cpu() - p.detach()).abs().max()
-                                         / p.detach().abs().max()))
-    check(opt_err <= OPT_CARD_CPU, f"{arch}: AdamW on the card vs the CPU, same "
-          f"gradients: {opt_err:.3e} of max |p| > {OPT_CARD_CPU:g}")
-    detail[f"train_card_vs_cpu_{run_key(arch, cfg)}"] = {
-        "loss_card": float(card_loss), "loss_cpu": float(cpu_loss), "loss_rel_err": loss_err,
-        "grad_err": grad_err, "worst_grad_leaf": worst, "leaves": len(cpu_leaves),
-        "bias_leaves": biases, "head": "head" in cpu_leaves, "launches": list(launches),
-        "encoder_leaves": len(encoder),
-        "adamw_err": opt_err, "seconds": time.perf_counter() - t0}
-    log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} ({cfg.attention_impl} attention) "
-        f"float32, {B} x {S}, one step: card "
-        f"vs CPU loss {loss_err:.3e} (<= {TRAIN_LOSS_REL:g}), gradients {grad_err:.3e} of "
-        f"each leaf's max |g| over {len(cpu_leaves)} leaves, {len(biases)} of them QKV "
-        f"biases, {len(encoder)} the encoder's (<= {TRAIN_GRAD_SHARE:g}; worst {worst}); "
-        f"AdamW on the card's gradients, "
-        f"card vs CPU {opt_err:.3e} of max |p| (<= {OPT_CARD_CPU:g}); RG-LRU launches "
-        f"{launches[0]} forward + {launches[1]} backward, no other kernel "
-        f"({time.perf_counter() - t0:.1f} s)")
-    del cpu_model, card_model
+    grads = {k: [p.grad.cpu() for p in ps] for k, ps in card_leaves.items()}
+    opt.update({k: [p.grad for p in ps] for k, ps in card_leaves.items()},
+               opt.init(card_leaves), card_leaves, 0)
+    after = {k: [p.detach().cpu() for p in ps] for k, ps in card_leaves.items()}
+    card_loss = float(card_loss)
+    del card_model, card_leaves
+    card_s = time.perf_counter() - t0
+
+    def cpu_half():
+        t1 = time.perf_counter()
+        cpu_loss = loss_fn(cpu_model, batch)
+        cpu_loss.backward()
+        cpu_loss = cpu_loss.detach()
+        loss_err = abs(card_loss - float(cpu_loss)) / abs(float(cpu_loss))
+        check(math.isfinite(card_loss) and loss_err <= TRAIN_LOSS_REL,
+              f"{arch}: card loss {card_loss!r} vs CPU {float(cpu_loss)!r}: "
+              f"{loss_err:.3e}")
+        grad_err, worst = 0.0, ""
+        for path, ps in cpu_leaves.items():
+            for p, g in zip(ps, grads[path]):
+                e = float((g - p.grad).abs().max() / p.grad.abs().max())
+                if e > grad_err:
+                    grad_err, worst = e, path
+        check(grad_err <= TRAIN_GRAD_SHARE, f"{arch}: card vs CPU gradient of {worst}: "
+              f"{grad_err:.3e} of its max |g| > {TRAIN_GRAD_SHARE:g}")
+        opt.update(grads, opt.init(cpu_leaves), cpu_leaves, 0)
+        opt_err = 0.0
+        for path, ps in cpu_leaves.items():
+            for p, q in zip(ps, after[path]):
+                opt_err = max(opt_err, float((q - p.detach()).abs().max()
+                                             / p.detach().abs().max()))
+        check(opt_err <= OPT_CARD_CPU, f"{arch}: AdamW on the card vs the CPU, same "
+              f"gradients: {opt_err:.3e} of max |p| > {OPT_CARD_CPU:g}")
+        seconds = card_s + time.perf_counter() - t1
+        detail[f"train_card_vs_cpu_{run_key(arch, cfg)}"] = {
+            "loss_card": card_loss, "loss_cpu": float(cpu_loss),
+            "loss_rel_err": loss_err, "grad_err": grad_err, "worst_grad_leaf": worst,
+            "leaves": len(cpu_leaves), "bias_leaves": biases, "head": "head" in cpu_leaves,
+            "launches": list(launches), "encoder_leaves": len(encoder),
+            "adamw_err": opt_err, "seconds": seconds,
+            "cpu_half_beside_later_phases": behind is not None}
+        log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} ({cfg.attention_impl} attention) "
+            f"float32, {B} x {S}, one step: card "
+            f"vs CPU loss {loss_err:.3e} (<= {TRAIN_LOSS_REL:g}), gradients {grad_err:.3e} of "
+            f"each leaf's max |g| over {len(cpu_leaves)} leaves, {len(biases)} of them QKV "
+            f"biases, {len(encoder)} the encoder's (<= {TRAIN_GRAD_SHARE:g}; worst {worst}); "
+            f"AdamW on the card's gradients, "
+            f"card vs CPU {opt_err:.3e} of max |p| (<= {OPT_CARD_CPU:g}); RG-LRU launches "
+            f"{launches[0]} forward + {launches[1]} backward, no other kernel "
+            f"({seconds:.1f} s" + ("; its CPU half beside the next phase)"
+                                   if behind is not None else ")"))
+
+    if behind is None:
+        cpu_half()
+    else:
+        behind.submit(cpu_half)
 
 
-def blocked_phases(torch, rg, detail, rg_t, dev="cuda") -> dict:
+def blocked_phases(torch, rg, detail, rg_t, dev="cuda", behind=None) -> dict:
     """Phases 30-33: serve (30) and train (32) yi-9b, phi4-mini-3.8b and
     phi-3-vision-4.2b at full width, and yi-9b and gemma3-4b on the blocked
     attention path, each also on the card against the CPU at cut depth (31,
-    33). Returns the flash launches of the blocked prefills (phase 30's main
-    runs), all and on the tensor-core kernel, and the seconds of each phase."""
+    33). The two training steps of 33 go first, each one's CPU half on
+    ``behind`` (a :class:`Behind`; one of its own if none is given) beside
+    30's serving or 32's training. Returns the flash launches of the
+    blocked prefills (phase 30's main runs), all and on the tensor-core
+    kernel, and this process's seconds of each phase."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    phase_s, t0 = {}, time.perf_counter()
-    # 30: the default xla path launches no kernel; the blocked path one flash
-    # launch per attention layer a prefill, on the same weights (seed 0)
-    logits = {}
-    for arch in ARCHS_30:
-        serve_phase(torch, rg, detail, rg_t, 30, arch, dev=dev,
-                    logits_out=logits.setdefault(arch, {}))
-    flash, flash_tc = {}, {}
-    for arch in ("yi-9b", "gemma3-4b"):
-        serve_phase(torch, rg, detail, rg_t, 30, arch, dev=dev,
-                    cfg=get_config(arch, attention_impl="blocked"),
-                    logits_out=logits.setdefault(f"{arch}_blocked", {}))
-        run = detail[f"serve_{arch}_blocked"]
-        flash[arch], flash_tc[arch] = (run["kernel_launches"]["flash_attention"],
-                                       run["flash_launches_tc"])
-    xla, blk = logits["yi-9b"], logits["yi-9b_blocked"]
-    err = rel_err(blk["prefill"], xla["prefill"])
-    err_all = rel_err(blk["hidden"], xla["hidden"])
-    check(err <= CARD_CPU_BF16, f"yi-9b blocked vs xla prefill logits {err:.3e} > "
-          f"{CARD_CPU_BF16:g} of max |logits|")
-    check(err_all <= CARD_CPU_BF16, f"yi-9b blocked vs xla prefill hidden state at every "
-          f"position {err_all:.3e} > {CARD_CPU_BF16:g} of its max")
-    del logits, xla, blk
-    pre = {k: min(detail[f"serve_{k}"]["prefill_s"]) for k in ("yi-9b", "yi-9b_blocked")}
-    detail["serve_yi-9b_blocked"]["vs_xla"] = {"rel_err": err, "rel_err_all_positions": err_all,
-                                               "prefill_s": pre}
-    # the window each gemma3-4b layer hands the blocked path (phase 31 holds
-    # the kernel's windowed result to the twin's past 1024 positions)
-    model = Model(get_config("gemma3-4b", attention_impl="blocked"), device="meta")
-    windows = [layer.mixer.window for layer in model.layers]
-    check(windows == [model.cfg.window if k == "sliding" else None for k in model.kinds],
-          f"gemma3-4b windows {windows}")
-    log(f"    yi-9b prefill, xla {pre['yi-9b']:.3f} s vs blocked {pre['yi-9b_blocked']:.3f} s "
-        f"({pre['yi-9b'] / pre['yi-9b_blocked']:.2f}x, this call); blocked logits within "
-        f"{err:.3e} of the xla run's max |logits|, the hidden state at every position "
-        f"within {err_all:.3e} of its max; gemma3-4b's flash launches: "
-        f"{windows.count(model.cfg.window)} with window {model.cfg.window}, "
-        f"{windows.count(None)} full")
-    del model
-    phase_s[30] = time.perf_counter() - t0
-    # 31: card against CPU; the card's blocked path runs the kernel, the CPU's its
-    # twin. On the blocked cases the every-position check must catch a planted
-    # non-causal kernel call, and gemma3-4b's dropped window in float32 (in
-    # bf16 it changes the hidden state less than rounding does; phase 13
-    # holds the tensor-core kernel's window at gemma3-4b's shape)
-    both = ("float32", "bfloat16")
-    planted = {"yi-9b": (("noncausal", planted_noncausal, both),),
-               "gemma3-4b": (("noncausal", planted_noncausal, both),
-                             ("no_window", planted_no_window, ("float32",)))}
-    for arch, n_layers, S, over in CUT_30:
-        devices_phase(torch, rg, detail, 31, arch, n_layers, S, dev=dev,
-                      cfg_of=lambda dt, a=arch, n=n_layers, o=over: get_config(
-                          a, n_layers=n, dtype=dt, **o),
-                      controls=planted[arch] if over.get("attention_impl") == "blocked"
-                      else ())
-    phase_s[31] = time.perf_counter() - t0 - sum(phase_s.values())
-    # 32: training; the blocked path trains on its twin, so no kernel launches
-    for arch, n_layers, over in TRAIN_30:
-        cfg = get_config(arch, logits_chunk=512, **over)
-        if n_layers:
-            cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        train_phase(torch, rg, detail, 32, arch, dev=dev, cfg=cfg)
-    steps = {k: detail[f"train_{k}"]["steady_step_s"] for k in ("yi-9b", "yi-9b_blocked")}
-    log(f"    yi-9b (12 layers) step, xla {steps['yi-9b']:.3f} s vs blocked twin "
-        f"{steps['yi-9b_blocked']:.3f} s ({steps['yi-9b_blocked'] / steps['yi-9b']:.2f}x)")
-    phase_s[32] = time.perf_counter() - t0 - sum(phase_s.values())
-    # 33: one float32 step, card against CPU
-    for arch, n_layers, S, over in TRAIN_CUT_30:
+    def p30():
+        # 30: the default xla path launches no kernel; the blocked path one flash
+        # launch per attention layer a prefill, on the same weights (seed 0)
+        logits = {}
+        for arch in ARCHS_30:
+            serve_phase(torch, rg, detail, rg_t, 30, arch, dev=dev,
+                        logits_out=logits.setdefault(arch, {}))
+        flash, flash_tc = {}, {}
+        for arch in ("yi-9b", "gemma3-4b"):
+            serve_phase(torch, rg, detail, rg_t, 30, arch, dev=dev,
+                        cfg=get_config(arch, attention_impl="blocked"),
+                        logits_out=logits.setdefault(f"{arch}_blocked", {}))
+            run = detail[f"serve_{arch}_blocked"]
+            flash[arch], flash_tc[arch] = (run["kernel_launches"]["flash_attention"],
+                                           run["flash_launches_tc"])
+        xla, blk = logits["yi-9b"], logits["yi-9b_blocked"]
+        err = rel_err(blk["prefill"], xla["prefill"])
+        err_all = rel_err(blk["hidden"], xla["hidden"])
+        check(err <= CARD_CPU_BF16, f"yi-9b blocked vs xla prefill logits {err:.3e} > "
+              f"{CARD_CPU_BF16:g} of max |logits|")
+        check(err_all <= CARD_CPU_BF16, f"yi-9b blocked vs xla prefill hidden state at every "
+              f"position {err_all:.3e} > {CARD_CPU_BF16:g} of its max")
+        del logits, xla, blk
+        pre = {k: min(detail[f"serve_{k}"]["prefill_s"]) for k in ("yi-9b", "yi-9b_blocked")}
+        detail["serve_yi-9b_blocked"]["vs_xla"] = {
+            "rel_err": err, "rel_err_all_positions": err_all, "prefill_s": pre}
+        # the window each gemma3-4b layer hands the blocked path (phase 31 holds
+        # the kernel's windowed result to the twin's past 1024 positions)
+        model = Model(get_config("gemma3-4b", attention_impl="blocked"), device="meta")
+        windows = [layer.mixer.window for layer in model.layers]
+        check(windows == [model.cfg.window if k == "sliding" else None for k in model.kinds],
+              f"gemma3-4b windows {windows}")
+        log(f"    yi-9b prefill, xla {pre['yi-9b']:.3f} s vs blocked {pre['yi-9b_blocked']:.3f} s "
+            f"({pre['yi-9b'] / pre['yi-9b_blocked']:.2f}x, this call); blocked logits within "
+            f"{err:.3e} of the xla run's max |logits|, the hidden state at every position "
+            f"within {err_all:.3e} of its max; gemma3-4b's flash launches: "
+            f"{windows.count(model.cfg.window)} with window {model.cfg.window}, "
+            f"{windows.count(None)} full")
+        del model
+        return flash, flash_tc
+
+    def p31():
+        # 31: card against CPU; the card's blocked path runs the kernel, the CPU's its
+        # twin. On the blocked cases the every-position check must catch a planted
+        # non-causal kernel call, and gemma3-4b's dropped window in float32 (in
+        # bf16 it changes the hidden state less than rounding does; phase 13
+        # holds the tensor-core kernel's window at gemma3-4b's shape)
+        both = ("float32", "bfloat16")
+        planted = {"yi-9b": (("noncausal", planted_noncausal, both),),
+                   "gemma3-4b": (("noncausal", planted_noncausal, both),
+                                 ("no_window", planted_no_window, ("float32",)))}
+        for arch, n_layers, S, over in CUT_30:
+            devices_phase(torch, rg, detail, 31, arch, n_layers, S, dev=dev,
+                          cfg_of=lambda dt, a=arch, n=n_layers, o=over: get_config(
+                              a, n_layers=n, dtype=dt, **o),
+                          controls=planted[arch] if over.get("attention_impl") == "blocked"
+                          else ())
+
+    def p32():
+        # 32: training; the blocked path trains on its twin, so no kernel launches
+        for arch, n_layers, over in TRAIN_30:
+            cfg = get_config(arch, logits_chunk=512, **over)
+            if n_layers:
+                cfg = dataclasses.replace(cfg, n_layers=n_layers)
+            train_phase(torch, rg, detail, 32, arch, dev=dev, cfg=cfg)
+        steps = {k: detail[f"train_{k}"]["steady_step_s"] for k in ("yi-9b", "yi-9b_blocked")}
+        log(f"    yi-9b (12 layers) step, xla {steps['yi-9b']:.3f} s vs blocked twin "
+            f"{steps['yi-9b_blocked']:.3f} s ({steps['yi-9b_blocked'] / steps['yi-9b']:.2f}x)")
+
+    def p33(i):
+        # 33: one float32 step, card against CPU
+        arch, n_layers, S, over = TRAIN_CUT_30[i]
         train_devices_phase(torch, rg, detail, 33, arch, n_layers, S, dev=dev,
-                            cfg=get_config(arch, n_layers=n_layers, dtype="float32", **over))
-    phase_s[33] = time.perf_counter() - t0 - sum(phase_s.values())
+                            cfg=get_config(arch, n_layers=n_layers, dtype="float32", **over),
+                            behind=behind)
+
+    phase_s = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[phase] = phase_s.get(phase, 0.0) + time.perf_counter() - t0
+        return out
+
+    behind = behind or Behind(torch)
+    timed(31, p31)
+    timed(33, p33, 0)
+    flash, flash_tc = timed(30, p30)
+    timed(33, p33, 1)
+    timed(32, p32)
+    timed(33, behind.drain)
     detail["phases_30_33_s"] = phase_s
-    log("    phases 30-33 took " + ", ".join(f"{p}: {v:.1f} s" for p, v in phase_s.items()))
+    log("    phases 30-33 took "
+        + ", ".join(f"{p}: {v:.1f} s" for p, v in sorted(phase_s.items())))
     return {"flash": flash, "flash_tc": flash_tc, "phase_s": phase_s}
 
 
@@ -3387,13 +3462,28 @@ def moe_phases(torch, rg, detail, rg_t, dev="cuda") -> dict:
 #: bf16 masters and as much of gradients); kimi-k2-1t-a32b at its dense
 #: prefix layer and one MoE layer with its 384 experts cut (at 384 its
 #: masters and gradients alone are 78.3 GB)
+MOE_TRAIN = {ARCTIC: (1, (128,), (4, 2)), KIMI: (2, (256, 192, 128), (2,))}
+MOE_TRAIN_SEQ = 2048
+FREE_GB = 5.0
 #: phase 47: the mesh trainer's model and batch (one card, a 1x1 mesh)
 MESH_TRAIN = ("qwen2-1.5b", 2, 2048)
 #: phase 47: masters after two steps, mesh against no mesh (of max |p|)
 MESH_MASTER_TOL = 1e-6
-MOE_TRAIN = {ARCTIC: (1, (128,), (4, 2)), KIMI: (2, (256, 192, 128), (2,))}
-MOE_TRAIN_SEQ = 2048
-FREE_GB = 5.0
+#: phase 47: the checkpoint round trip and the resize run at this depth (the
+#: full model's 18.6 GB checkpoint took 67-84 s to write and read back)
+MESH_RESIZE_LAYERS = 2
+#: phase 48: the model-axis split on one card: the model, its depth (one
+#: pattern unit: rglru, rglru, sliding), B x S and steps, on a (1, 2) mesh of
+#: two gloo ranks; float32 compute, ``remat="full"``, AdamW
+SPLIT_TRAIN = ("recurrentgemma-2b", 3, 2, 2048)
+SPLIT_STEPS = 2
+#: phase 48: each step's loss (relative) and the masters after the last step
+#: (of max |p|), each rank against the meshless trainer
+SPLIT_LOSS_TOL = 1e-5
+SPLIT_MASTER_TOL = 1e-6
+#: phase 48: the seconds the two ranks may take before they are killed
+#: (the whole phase took 59.8-71.2 s on the H100)
+SPLIT_TIMEOUT_S = 240
 #: phases 43 and 45: a whole MoE layer's gradients, ``MoE`` against
 #: ``moe_plain`` on the card, at full width with this many float32 experts
 #: (arctic: 13.4 GB of weights, two gradient sets beside them), B x S of
@@ -4407,8 +4497,9 @@ def _master_err(got: dict, want: dict) -> float:
 def mesh_phase(torch, detail, dev="cuda", cfg=None, shape=MESH_TRAIN[1:]) -> dict:
     """Phase 47: ``Trainer(mesh=)`` on a 1x1 mesh of a world-1 process group
     (NCCL on the card, gloo on the CPU) against the meshless trainer, the
-    resize and the gradient compression; returns the phase's numbers. The
-    group is destroyed on the way out, pass or fail."""
+    gradient compression, and the checkpoint round trip and the resize at
+    ``MESH_RESIZE_LAYERS``; returns the phase's numbers. The group is
+    destroyed on the way out, pass or fail."""
     import tempfile
 
     import torch.distributed as dist
@@ -4479,12 +4570,7 @@ def mesh_phase(torch, detail, dev="cuda", cfg=None, shape=MESH_TRAIN[1:]) -> dic
             mesh = make_test_mesh((1, 1), ("data", "model"), device_type=torch.device(dev).type)
             peak_reset()
             t = Trainer(cfg, tcfg, mesh=mesh, device=dev)
-            steps = [timed(t)]
-            t0 = time.perf_counter()
-            t.ckpt.maybe_save(t.state_tree(), t.state.step, force=True)
-            t.ckpt.wait()
-            out["checkpoint_s"] = time.perf_counter() - t0
-            steps.append(timed(t))
+            steps = [timed(t), timed(t)]
             mark("mesh steps")
             got = _masters(t.state.model)
             out["mesh"] = {"losses": [x[0] for x in steps], "step_s": [x[1] for x in steps],
@@ -4520,10 +4606,23 @@ def mesh_phase(torch, detail, dev="cuda", cfg=None, shape=MESH_TRAIN[1:]) -> dic
             model.zero_grad(set_to_none=True)
             out["compress"] = {"elements": n_elems, "tensors": sum(map(len, leaves.values()))}
             mark("compress")
-            del leaves, reduced
-            # elastic resize to a 1-D mesh from the step-1 checkpoint; the
-            # rebuilt trainer's pipeline starts over, as JAX's does, so step
-            # 2's batch is its second
+            del leaves, reduced, t, model, got, want
+            # the checkpoint round trip and an elastic resize to a 1-D mesh
+            # from the step-1 checkpoint, at MESH_RESIZE_LAYERS; the rebuilt
+            # trainer's pipeline starts over, as JAX's does, so step 2's
+            # batch is its second
+            cut = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, MESH_RESIZE_LAYERS))
+            out["resize_layers"] = cut.n_layers
+            t = Trainer(cut, dataclasses.replace(tcfg, ckpt_dir=os.path.join(d, "ckpt_cut")),
+                        mesh=mesh, device=dev)
+            t.run(1)
+            t0 = time.perf_counter()
+            t.ckpt.maybe_save(t.state_tree(), t.state.step, force=True)
+            t.ckpt.wait()
+            out["checkpoint_s"] = time.perf_counter() - t0
+            loss2 = t.run(1)["losses"][0]
+            got = _masters(t.state.model)
+            mark("checkpoint")
             t0 = time.perf_counter()
             t.resize(make_test_mesh((1,), ("data",), device_type=torch.device(dev).type))
             resize_s = time.perf_counter() - t0
@@ -4531,12 +4630,12 @@ def mesh_phase(torch, detail, dev="cuda", cfg=None, shape=MESH_TRAIN[1:]) -> dic
             next(t._data)
             again = t.run(1)["losses"][0]
             err2 = _master_err(_masters(t.state.model), got)
-            check(again == steps[1][0], f"after the resize step 2's loss {again!r} != "
-                  f"{steps[1][0]!r}")
+            check(again == loss2, f"after the resize step 2's loss {again!r} != {loss2!r}")
             check(err2 <= MESH_MASTER_TOL, f"after the resize masters {err2:.3e} apart")
-            out["resize"] = {"seconds": resize_s, "loss": again, "masters_err": err2}
+            out["resize"] = {"seconds": resize_s, "loss": again, "loss_before": loss2,
+                             "masters_err": err2}
             mark("resize")
-            del t, got, want
+            del t, got
         finally:
             dist.destroy_process_group()
     out["launches"] = _launches(ws)
@@ -4548,12 +4647,546 @@ def mesh_phase(torch, detail, dev="cuda", cfg=None, shape=MESH_TRAIN[1:]) -> dic
         f"{', '.join(f'{w:.3f}' for w in n['step_s'])} s), peak {m['peak_memory_gb']:.2f} GB "
         f"(no mesh {n['peak_memory_gb']:.2f}), idle {m['idle_share']:.1%} (no mesh "
         f"{n['idle_share']:.1%}); step 1 loss bit for bit, masters {err:.3e} of max |p|; "
-        f"resize to a 1-D mesh {resize_s:.1f} s, step 2 again bit for bit (masters "
-        f"{err2:.3e}); int8 compression of {n_elems / 1e6:.1f}M gradient elements card == "
-        f"CPU, the {'NCCL' if cuda else 'gloo'} psum == decompress")
+        f"at {out['resize_layers']} layers the checkpoint written in "
+        f"{out['checkpoint_s']:.1f} s, the resize to a 1-D mesh {resize_s:.1f} s, step 2 "
+        f"again bit for bit (masters {err2:.3e}); int8 compression of "
+        f"{n_elems / 1e6:.1f}M gradient elements card == CPU, the "
+        f"{'NCCL' if cuda else 'gloo'} psum == decompress")
     log("    seconds into the phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in out["marks_s"].items()))
     return out
+
+
+def _rglru_calls(rg) -> list:
+    """The RG-LRU calls of this process so far: [forward launches, backward
+    launches, forward on the TMA kernel, backward on the TMA kernel, forward
+    plain versions, backward plain versions]."""
+    f, b = rg.rglru_scan, rg.rglru_scan_backward
+    return [f.launches, b.launches, f.launches_tma, b.launches_tma,
+            rg.plain_calls[0], rg.plain_calls[1]]
+
+
+def _scans(calls: list) -> list:
+    """Each step's RG-LRU scans [forward, backward] from ``_rglru_calls``
+    differences: kernel launches and plain-version calls alike."""
+    return [[x[0] + x[4], x[1] + x[5]] for x in calls]
+
+
+@contextlib.contextmanager
+def _plain_counted(rg):
+    """Within the context, ``rg.plain_calls`` counts the RG-LRU plain
+    versions' calls [forward, backward] (on the card a call would be a
+    fallback; on the CPU they stand in for the kernels)."""
+    fwd, bwd = rg.rglru_scan_plain, rg.rglru_scan_backward_plain
+    rg.plain_calls = [0, 0]
+
+    def plain(*args):
+        rg.plain_calls[0] += 1
+        return fwd(*args)
+
+    def plain_backward(*args):
+        rg.plain_calls[1] += 1
+        return bwd(*args)
+
+    rg.rglru_scan_plain, rg.rglru_scan_backward_plain = plain, plain_backward
+    try:
+        yield
+    finally:
+        rg.rglru_scan_plain, rg.rglru_scan_backward_plain = fwd, bwd
+        del rg.plain_calls
+
+
+def _split_steps(torch, trainer, steps: int, cuda: bool, rg, trace: bool = True) -> dict:
+    """``steps`` steps of ``trainer``, each timed to a device sync, with its
+    RG-LRU calls and (on the mesh) its collectives by kind; on the card
+    with ``trace`` the last one also traced for the device's busy time."""
+    from repro_torch.distributed import parallel as P
+
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {"losses": [], "step_s": [], "rglru": [], "collectives": []}
+    busy = float("nan")
+    for i in range(steps):
+        before = _rglru_calls(rg)
+        P.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        if cuda and trace and i == steps - 1:
+            holder = {}
+            busy = sum(k["device_ms"] for k in device_kernels(
+                torch, lambda: holder.update(trainer.run(1))))
+            res = holder
+        else:
+            res = trainer.run(1)
+        sync()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(res["losses"][0])
+        out["rglru"].append([x - y for x, y in zip(_rglru_calls(rg), before)])
+        out["collectives"].append({k: list(v) for k, v in P.COUNTS.items()})
+    out["busy_ms"] = busy
+    out["idle_share"] = 1.0 - busy / 1e3 / out["step_s"][-1]
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    return out
+
+
+def _split_child(rank, world, d, cfg, tcfg, dev, steps, parent) -> None:
+    """One rank of phase 48: a gloo group through a ``file://`` rendezvous
+    in ``d``, a (1, ``world``) mesh on ``dev``, the trainer's steps with
+    every ``Block``'s input shape watched in the first, and the masters
+    after the last against the meshless trainer's (``d/ref.pt``, this
+    rank's blocks of them); writes ``d/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime import Trainer
+
+    _die_with_parent(parent)
+    cuda = torch.device(dev).type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        # started and joined beside the meshless runs; the card is touched
+        # once they are done (``d/go``)
+        while not os.path.exists(os.path.join(d, "go")):
+            time.sleep(0.05)
+        if cuda:
+            torch.cuda.set_device(torch.device(dev).index or 0)
+            rg.load()
+        mesh = make_test_mesh((1, world), ("data", "model"), device_type=torch.device(dev).type)
+        t = Trainer(cfg, tcfg, mesh=mesh, device=dev)
+        model = t.state.model
+        blocks = []
+        hooks = [layer.register_forward_pre_hook(
+            lambda mod, args: blocks.append(list(args[0].shape))) for layer in model.layers]
+        with _plain_counted(rg):
+            first = _split_steps(torch, t, 1, cuda, rg, trace=False)
+            for h in hooks:
+                h.remove()
+            rest = _split_steps(torch, t, steps - 1, cuda, rg)
+        ref = torch.load(os.path.join(d, "ref.pt"), mmap=True)
+        scale = max(float(w.abs().max()) for w in ref.values())
+        errs = {}
+        with torch.no_grad():
+            for mname, mod in model.named_modules():
+                for pname, p in mod._parameters.items():
+                    pl = t.zero.placed[(id(mod), pname)]
+                    name = f"{mname}.{pname}" if mname else pname
+                    want = ref[name][pl.index].to(p.device)
+                    errs[name] = float((p.float() - want.float()).abs().max()) / scale
+        err = max(errs.values())
+        out = {"losses": first["losses"] + rest["losses"],
+               "step_s": first["step_s"] + rest["step_s"],
+               "rglru": first["rglru"] + rest["rglru"],
+               "collectives": first["collectives"] + rest["collectives"],
+               "idle_share": rest["idle_share"], "busy_ms": rest["busy_ms"],
+               "peak_memory_gb": rest["peak_memory_gb"], "blocks": blocks,
+               "masters_err": err, "coordinate": mesh.get_coordinate(),
+               "worst_masters": sorted(errs.items(), key=lambda kv: -kv[1])[:6]}
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def split_phase(torch, detail, dev="cuda", cfg=None, shape=SPLIT_TRAIN[2:],
+                steps=SPLIT_STEPS, world=2) -> dict:
+    """Phase 48: the compute split over the ``model`` axis on one card. The
+    meshless trainer runs ``steps`` steps here, and again in two
+    microbatches (its own spread under a reordering of its sums), while
+    ``world`` processes (``torch.multiprocessing`` spawn, this process
+    having built the kernels) start and join a gloo group; then they train
+    the same seed on a (1, ``world``) mesh, each on ``dev``: each step's
+    loss within ``SPLIT_LOSS_TOL`` and
+    the masters within ``SPLIT_MASTER_TOL`` of max |p| of the meshless
+    trainer's on every rank (or within twice the reordered run's spread,
+    where that is larger), every ``Block`` input a (B, S / world, d)
+    block, each step's RG-LRU launches on every rank the meshless step's,
+    all on the TMA kernels, and no plain-version call on the card. Returns
+    the phase's numbers; the ranks are killed after ``SPLIT_TIMEOUT_S``
+    or when this process fails first."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wrappers
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    arch, n_layers, _, _ = SPLIT_TRAIN
+    if cfg is None:
+        cfg = get_config(arch, n_layers=n_layers, remat="full", dtype="float32")
+    B, S = shape
+    cuda = torch.device(dev).type == "cuda"
+    ws = wrappers()
+    _zero_launches(ws)
+    tcfg = TrainerConfig(seq_len=S, global_batch=B, total_steps=10, warmup=2)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq_len": S,
+           "ranks_on_one_card": world, "dtype": cfg.dtype}
+    detail["split"] = out
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    d = tempfile.mkdtemp(prefix="chip-smoke-split-")
+    # the ranks start, import and join their group beside the meshless runs
+    # (they wait for ``d/go`` before they touch the card)
+    ctx = mp.start_processes(_split_child, args=(world, d, cfg, tcfg, dev, steps, os.getpid()),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SPLIT_TIMEOUT_S
+    try:
+        ref = Trainer(cfg, tcfg, device=dev)
+        with _plain_counted(rg):
+            out["meshless"] = _split_steps(torch, ref, steps, cuda, rg)
+        out["meshless"]["launches_per_step"] = _scans(out["meshless"]["rglru"])
+        want = _masters(ref.state.model)
+        torch.save(want, os.path.join(d, "ref.pt"))
+        del ref
+        # the meshless trainer against itself with its gradients summed in
+        # another order (two microbatches of one row): the masters' spread
+        # that reordering alone makes
+        again = Trainer(dataclasses.replace(cfg, microbatches=2), tcfg, device=dev)
+        again.run(steps)
+        scale = max(float(w.abs().max()) for w in want.values())
+        errs = {n: float((p.detach().cpu() - want[n]).abs().max()) / scale
+                for n, p in again.state.model.named_parameters()}
+        out["meshless_reordered"] = {"masters_err": max(errs.values()), "worst_masters": sorted(
+            errs.items(), key=lambda kv: -kv[1])[:6]}
+        del again, want
+        if cuda:
+            torch.cuda.empty_cache()
+        out["meshless_s"] = time.perf_counter() - t_phase
+        open(os.path.join(d, "go"), "w").close()
+        while not ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))):
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"phase 48's ranks outlasted {SPLIT_TIMEOUT_S} s")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(d, ignore_errors=True)
+    out["ranks"] = ranks
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = _launches(ws)
+    m = out["meshless"]
+    want_launches = m["launches_per_step"]
+    for got in ranks:
+        got["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], m["losses"]))
+        got["launches_per_step"] = _scans(got["rglru"])
+    log(f"[48] {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}) split over model on "
+        f"{world} gloo ranks sharing {dev}, B {B} x {S}: each rank's Block inputs "
+        f"({B}, {S // world}, {cfg.d_model}); losses within "
+        f"{max(g['loss_rel'] for g in ranks):.2e} and masters "
+        f"{max(g['masters_err'] for g in ranks):.2e} of max |p| of the meshless trainer's; "
+        f"RG-LRU launches a step {want_launches[-1]} on every rank")
+    log(f"    meshless: step walls {', '.join(f'{w:.3f}' for w in m['step_s'])} s, idle "
+        f"{m['idle_share']:.1%}, peak {m['peak_memory_gb']:.2f} GB; against itself in two "
+        f"microbatches, masters {out['meshless_reordered']['masters_err']:.2e} of max |p| ("
+        + ", ".join(f"{k} {v:.2e}" for k, v in out["meshless_reordered"]["worst_masters"])
+        + ")")
+    for r, g in enumerate(ranks):
+        coll = g["collectives"][-1]
+        log(f"    rank {r}: step walls {', '.join(f'{w:.3f}' for w in g['step_s'])} s, idle "
+            f"{g['idle_share']:.1%}, peak {g['peak_memory_gb']:.2f} GB; collectives in the "
+            f"last step: " + ", ".join(f"{k} {n} ({b / 1e9:.3f} GB)"
+                                       for k, (n, b) in sorted(coll.items())))
+        log("      largest master differences (of max |p|): " + ", ".join(
+            f"{k} {v:.2e}" for k, v in g["worst_masters"]))
+    log(f"    phase {out['seconds']:.1f} s (meshless {out['meshless_s']:.1f} s)")
+    # the masters within SPLIT_MASTER_TOL, or within twice the spread that
+    # reordering the meshless trainer's sums makes where that is larger (at
+    # full width two AdamW steps amplify float32 reassociation past 1e-6 in
+    # the table's few elements whose first moment nearly cancels)
+    master_tol = max(SPLIT_MASTER_TOL, 2 * out["meshless_reordered"]["masters_err"])
+    out["master_tol"] = master_tol
+    for r, got in enumerate(ranks):
+        check(got["loss_rel"] <= SPLIT_LOSS_TOL,
+              f"rank {r}: losses {got['losses']} vs meshless {out['meshless']['losses']}")
+        check(got["masters_err"] <= master_tol,
+              f"rank {r}: masters {got['masters_err']:.3e} of max |p| from the meshless "
+              f"ones, more than {master_tol:.3e}")
+        check(got["blocks"] and all(b == [B, S // world, cfg.d_model] for b in got["blocks"]),
+              f"rank {r}: Block inputs {got['blocks']}, want ({B}, {S // world}, "
+              f"{cfg.d_model})")
+        check(got["launches_per_step"] == want_launches,
+              f"rank {r}: RG-LRU launches a step {got['launches_per_step']}, the meshless "
+              f"step's {want_launches}")
+        if cuda:
+            check(all(x[0] == x[2] and x[1] == x[3] and x[4] == x[5] == 0 for x in got["rglru"]),
+                  f"rank {r}: RG-LRU calls [fwd, bwd, fwd TMA, bwd TMA, fwd plain, bwd "
+                  f"plain] a step {got['rglru']}: every call on the TMA kernels, none plain")
+    if cuda:
+        check(all(x[0] == x[2] and x[1] == x[3] and x[4] == x[5] == 0
+                  for x in out["meshless"]["rglru"]), f"meshless RG-LRU calls "
+              f"{out['meshless']['rglru']}")
+        check(all(n for n in want_launches[0]), f"no RG-LRU launch: {want_launches}")
+    return out
+
+
+def progress(msg: str) -> None:
+    """A line on stderr with the clock time: where a run that is stopped got
+    to shows at the end of its errors."""
+    print(f"chip_smoke {time.strftime('%H:%M:%S')}: {msg}", file=sys.stderr, flush=True)
+
+
+def _die_with_parent(parent: int) -> None:
+    """In a process this script started: exits when ``parent`` is gone (a
+    stopped run leaves no process behind)."""
+    import threading
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def service_phase(torch, np, wf, ev, detail) -> dict:
+    """Phase 4: the online service at full size; returns the fused solve's
+    launches and ``waterfill_masses``'s (which must be 0)."""
+    from repro_torch import obs
+    from repro_torch.core import torch_solve
+
+    torch_solve.prewarm(1024, 3, device="cuda")
+    record = []
+    others = (wf.waterfill_masses, ev.envy_gaps, ev.pd_segment)
+    for w in (wf.waterfill_solve, *others):
+        w.launches = 0
+    sched, report, wall = service_replay(1024, 128, "torch", "cuda", 1200.0,
+                                         record=record)
+    launches = wf.waterfill_solve.launches
+    other_launches = [w.launches for w in others]
+    masses_launches = other_launches[0]
+    check(not any(other_launches), f"the non-coop replay launched waterfill_masses, "
+          f"envy_gaps, pd_segment {other_launches} times")
+    solved = [s for s in sched.metrics.solves if not s.reused]
+    warm = sum(1 for s in solved if s.warm_started)
+    expected = len(solved)
+    anomalies = report.anomalies
+    log(f"[4] 1024 tenants / 3072 devices, until 1200 s: {report.n_solves} solves "
+        f"({len(solved)} solved, {warm} warm), {report.n_events} events, "
+        f"{report.jobs_finished} jobs finished, wall {wall:.1f} s, "
+        f"{launches} fused-solve launches (want {expected}, one a solve)")
+    check(set(report.solver_backends) == {"torch"},
+          f"solver_backends {report.solver_backends}")
+    check(report.fallback_count == 0, f"fallback_count {report.fallback_count}")
+    check(report.degraded_solves == 0, f"degraded_solves {report.degraded_solves}")
+    check("solver_floor" not in anomalies, f"anomalies {anomalies}")
+    check(len(solved) >= 30, f"only {len(solved)} non-reused solves")
+    check(launches == expected, f"{launches} launches, want {expected}")
+    check(all(np.isfinite(list(report.steady_state_estimate.values()))),
+          "non-finite throughput estimate")
+    worst = instances_agree(record, np)
+    lat = [s.latency_s * 1e3 for s in solved]
+    solve_share = sum(s.latency_s for s in sched.metrics.solves) / wall
+    log(f"    resolve_latency_ms mean {report.resolve_latency_ms_mean:.3f} "
+        f"p95 {report.resolve_latency_ms_p95:.3f} (all solves); non-reused mean "
+        f"{float(np.mean(lat)):.3f} p95 {percentile(lat, 95, np):.3f}; "
+        f"solver share of wall {solve_share:.3f}; {len(record)} instances "
+        f"agree with CPU and numpy (largest difference {worst:.3e})")
+    tracer = obs.Tracer()
+    _, report2, wall2 = service_replay(1024, 128, "torch", "cuda", 1200.0,
+                                       tracer=tracer)
+    check(decision_fields(report) == decision_fields(report2),
+          "second full-size replay differs from the first")
+    stats = tracer.flame_stats()
+    top = sorted(stats.items(), key=lambda kv: -kv[1]["total_s"])[:12]
+    solve_s = sum(st["total_s"] for path, st in stats.items()
+                  if path.endswith(";resolve;solve"))
+    log(f"    second replay identical (wall {wall2:.1f} s, traced; resolve;solve "
+        f"{solve_s:.3f} s, {solve_s / wall2:.2%} of wall); the unfused solve "
+        f"before the fused kernel: resolve_latency_ms mean 5.2-8.1, p95 8.7-13.8")
+    detail["service_1024"] = {
+        "n_solves": report.n_solves, "solved": len(solved), "warm": warm,
+        "n_events": report.n_events, "jobs_finished": report.jobs_finished,
+        "wall_s": wall, "traced_wall_s": wall2, "launches": launches,
+        "resolve_latency_ms_mean": report.resolve_latency_ms_mean,
+        "resolve_latency_ms_p95": report.resolve_latency_ms_p95,
+        "solved_latency_ms_mean": float(np.mean(lat)),
+        "solved_latency_ms_p95": percentile(lat, 95, np),
+        "solver_share_of_wall": solve_share, "max_diff": worst,
+        "traced_solve_share_of_wall": solve_s / wall2,
+        "flame_top": {p: s for p, s in top}}
+
+    return {"launches": launches, "masses_launches": masses_launches}
+
+
+def service_128_phase(np, detail) -> None:
+    """Phase 5: 128 tenants: numpy, torch on the card, torch on the CPU."""
+    reports = {}
+    record = []
+    for label, backend, device, rec in (("numpy", "numpy", "cuda", None),
+                                        ("cuda", "torch", "cuda", record),
+                                        ("cpu", "torch", "cpu", None)):
+        _, rep, w = service_replay(128, 16, backend, device, 7200.0, record=rec)
+        reports[label] = rep
+        log(f"[5] 128 tenants / 384 devices, {label:5s}: {rep.n_solves} solves, "
+            f"{rep.jobs_finished} jobs, {rep.n_events} events, wall {w:.1f} s, "
+            f"backends {rep.solver_backends}")
+    a, b = reports["cpu"], reports["cuda"]
+    check(set(b.solver_backends) == {"torch"} and b.fallback_count == 0,
+          f"card replay backends {b.solver_backends}")
+    d_tp = same_decisions(a, b, "card and CPU torch replays")
+    c = reports["numpy"]
+    for what, x, y in (("solves", c.n_solves, b.n_solves),
+                       ("jobs finished", c.jobs_finished, b.jobs_finished),
+                       ("events", c.n_events, b.n_events),
+                       ("total throughput", sum(c.tenant_throughput.values()),
+                        sum(b.tenant_throughput.values()))):
+        check(abs(x - y) <= NUMPY_REL * max(abs(y), 1.0),
+              f"numpy replay's {what} {x} vs the card's {y}: more than "
+              f"{NUMPY_REL:.0%} apart")
+    worst5 = instances_agree(record, np)
+    log(f"    card == CPU replay (throughput diff {d_tp:.3e}), numpy replay "
+        f"within {NUMPY_REL:.0%}; {len(record)} "
+        f"instances agree with CPU and numpy (largest difference {worst5:.3e})")
+    detail["service_128"] = {
+        k: {"n_solves": r.n_solves, "jobs_finished": r.jobs_finished,
+            "n_events": r.n_events} for k, r in reports.items()}
+    detail["service_128"]["max_diff"] = worst5
+
+
+#: the seconds from its start that main waits for the scheduler lane
+LANE_TIMEOUT_S = 900
+
+
+def scheduler_lane(d: str, parent: int) -> None:
+    """The scheduler lane: phases 4, 5, 7-9 and 27-29 (the online service's
+    replays, host-bound: the card sees a solve now and then), in a process
+    of its own that runs beside the model phases. Its log goes to
+    ``d/log.txt``, its numbers to ``d/result.pkl``, a failure's traceback to
+    ``d/error.txt``."""
+    import pickle
+    import traceback
+
+    _die_with_parent(parent)
+    sys.stdout = open(os.path.join(d, "log.txt"), "w", buffering=1)
+    try:
+        import numpy as np
+        import torch
+
+        from repro_torch.kernels import envy as ev
+        from repro_torch.kernels import waterfill as wf
+
+        wf.load()
+        ev.load()
+        detail, phase_s, mark = {}, {}, [time.perf_counter()]
+
+        def lap(phase) -> None:
+            now = time.perf_counter()
+            phase_s[phase] = now - mark[0]
+            mark[0] = now
+            progress(f"phase {phase} done in the scheduler lane")
+
+        out = service_phase(torch, np, wf, ev, detail)
+        lap(4)
+        service_128_phase(np, detail)
+        lap(5)
+        coop_tier_phase(np, ev, detail)
+        lap(7)
+        out["segment_launches"], out["envy_launches"] = coop_service_phase(
+            torch, np, ev, wf, detail)
+        lap(8)
+        coop_devices_phase(detail)
+        lap(9)
+        out["chaos_launches"] = chaos_phase(np, detail)
+        lap(27)
+        out["journal"] = {}
+        for phase in (28, 29):
+            out["journal"][phase] = journal_phase(np, detail, phase)
+            lap(phase)
+        out.update(detail=detail, phase_s=phase_s)
+        with open(os.path.join(d, "result.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(d, "error.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        sys.stdout.flush()
+
+
+class SchedulerLane:
+    """Starts :func:`scheduler_lane` in a spawned process (daemonic: it ends
+    with this one); :meth:`join` prints its log and returns its numbers, and
+    fails where it failed or outlasted ``LANE_TIMEOUT_S``."""
+
+    def __init__(self):
+        import atexit
+        import multiprocessing
+        import shutil
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-lane-")
+        atexit.register(shutil.rmtree, self.dir, True)
+        self.t0 = time.monotonic()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=scheduler_lane, args=(self.dir, os.getpid()), daemon=True)
+        self.proc.start()
+
+    def join(self) -> dict:
+        import pickle
+
+        self.proc.join(max(0.0, self.t0 + LANE_TIMEOUT_S - time.monotonic()))
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(10)
+            raise SmokeFailure(f"the scheduler lane outlasted {LANE_TIMEOUT_S} s")
+        with open(os.path.join(self.dir, "log.txt")) as f:
+            print(f.read(), end="", flush=True)
+        err = os.path.join(self.dir, "error.txt")
+        if os.path.exists(err):
+            with open(err) as f:
+                raise SmokeFailure("the scheduler lane failed:\n" + f.read())
+        check(self.proc.exitcode == 0, f"the scheduler lane exited {self.proc.exitcode}")
+        with open(os.path.join(self.dir, "result.pkl"), "rb") as f:
+            return pickle.load(f)
+
+
+#: the CPU threads a deferred CPU half (:class:`Behind`) computes with: the
+#: card phase beside it and the scheduler lane each want a core of their own
+BEHIND_THREADS = 6
+
+
+class Behind:
+    """The CPU half of a card-against-CPU phase (work on host tensors only)
+    on a thread of its own, beside the card phases that follow it: one at a
+    time (:meth:`submit` first drains the one before). :meth:`drain` waits
+    for it and raises what it raised (a failed check)."""
+
+    def __init__(self, torch):
+        self.torch, self.job, self.err = torch, None, None
+
+    def submit(self, fn) -> None:
+        import threading
+
+        self.drain()
+        torch = self.torch
+
+        def run():
+            try:
+                torch.set_num_threads(min(BEHIND_THREADS, torch.get_num_threads()))
+                fn()
+            except BaseException as e:  # raised again by drain
+                self.err = e
+
+        self.job = threading.Thread(target=run, name="chip-smoke-cpu-half")
+        self.job.start()
+
+    def drain(self) -> None:
+        if self.job is not None:
+            self.job.join()
+            self.job = None
+        if self.err is not None:
+            err, self.err = self.err, None
+            raise err
 
 
 def main() -> int:
@@ -4590,16 +5223,25 @@ def main() -> int:
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
 
-    def lap(phase=None, group=None) -> None:
-        """Each phase's seconds in ``clock``: ``phase``'s since the last
-        lap, or a group's own per-phase seconds (``group``); written to
-        ``chiprun_out/chip_smoke_phase_s.json`` as they come, so a run that
-        fails still tells where its time went."""
-        now = time.perf_counter()
-        clock.update(group if group is not None else {phase: now - mark[0]})
-        mark[0] = now
+    def note(group, now=None) -> None:
+        """Adds ``group``'s seconds by phase to ``clock`` and writes it to
+        ``chiprun_out/chip_smoke_phase_s.json``, so a run that fails still
+        tells where its time went."""
+        now = time.perf_counter() if now is None else now
+        for phase, sec in group.items():
+            clock[phase] = clock.get(phase, 0.0) + sec
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_phase_s.json"), "w") as f:
             json.dump({"phase_s": clock, "elapsed_s": now - t_all}, f)
+
+    def lap(phase=None, group=None) -> None:
+        """This process's seconds since the last lap, to ``phase`` (a phase
+        met again adds to its seconds), or a group's own per-phase seconds
+        (``group``); each lap also says on stderr how far the run is."""
+        now = time.perf_counter()
+        note(group if group is not None else {phase: now - mark[0]}, now)
+        mark[0] = now
+        progress(f"{now - t_all:.0f} s in, phase {phase if group is None else sorted(group)} "
+                 f"done")
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4683,200 +5325,97 @@ def main() -> int:
     solve_t = solve_phase(torch, np, wf, detail)
     lap(3)
 
-    # -- 4. the service at full size ----------------------------------------
-    from repro_torch import obs
-
-    torch_solve.prewarm(1024, 3, device="cuda")
-    record = []
-    others = (wf.waterfill_masses, ev.envy_gaps, ev.pd_segment)
-    for w in (wf.waterfill_solve, *others):
-        w.launches = 0
-    sched, report, wall = service_replay(1024, 128, "torch", "cuda", 1200.0,
-                                         record=record)
-    launches = wf.waterfill_solve.launches
-    other_launches = [w.launches for w in others]
-    masses_launches = other_launches[0]
-    check(not any(other_launches), f"the non-coop replay launched waterfill_masses, "
-          f"envy_gaps, pd_segment {other_launches} times")
-    solved = [s for s in sched.metrics.solves if not s.reused]
-    warm = sum(1 for s in solved if s.warm_started)
-    expected = len(solved)
-    anomalies = report.anomalies
-    log(f"[4] 1024 tenants / 3072 devices, until 1200 s: {report.n_solves} solves "
-        f"({len(solved)} solved, {warm} warm), {report.n_events} events, "
-        f"{report.jobs_finished} jobs finished, wall {wall:.1f} s, "
-        f"{launches} fused-solve launches (want {expected}, one a solve)")
-    check(set(report.solver_backends) == {"torch"},
-          f"solver_backends {report.solver_backends}")
-    check(report.fallback_count == 0, f"fallback_count {report.fallback_count}")
-    check(report.degraded_solves == 0, f"degraded_solves {report.degraded_solves}")
-    check("solver_floor" not in anomalies, f"anomalies {anomalies}")
-    check(len(solved) >= 30, f"only {len(solved)} non-reused solves")
-    check(launches == expected, f"{launches} launches, want {expected}")
-    check(all(np.isfinite(list(report.steady_state_estimate.values()))),
-          "non-finite throughput estimate")
-    worst = instances_agree(record, np)
-    lat = [s.latency_s * 1e3 for s in solved]
-    solve_share = sum(s.latency_s for s in sched.metrics.solves) / wall
-    log(f"    resolve_latency_ms mean {report.resolve_latency_ms_mean:.3f} "
-        f"p95 {report.resolve_latency_ms_p95:.3f} (all solves); non-reused mean "
-        f"{float(np.mean(lat)):.3f} p95 {percentile(lat, 95, np):.3f}; "
-        f"solver share of wall {solve_share:.3f}; {len(record)} instances "
-        f"agree with CPU and numpy (largest difference {worst:.3e})")
-    tracer = obs.Tracer()
-    _, report2, wall2 = service_replay(1024, 128, "torch", "cuda", 1200.0,
-                                       tracer=tracer)
-    check(decision_fields(report) == decision_fields(report2),
-          "second full-size replay differs from the first")
-    stats = tracer.flame_stats()
-    top = sorted(stats.items(), key=lambda kv: -kv[1]["total_s"])[:12]
-    solve_s = sum(st["total_s"] for path, st in stats.items()
-                  if path.endswith(";resolve;solve"))
-    log(f"    second replay identical (wall {wall2:.1f} s, traced; resolve;solve "
-        f"{solve_s:.3f} s, {solve_s / wall2:.2%} of wall); the unfused solve "
-        f"before the fused kernel: resolve_latency_ms mean 5.2-8.1, p95 8.7-13.8")
-    detail["service_1024"] = {
-        "n_solves": report.n_solves, "solved": len(solved), "warm": warm,
-        "n_events": report.n_events, "jobs_finished": report.jobs_finished,
-        "wall_s": wall, "traced_wall_s": wall2, "launches": launches,
-        "resolve_latency_ms_mean": report.resolve_latency_ms_mean,
-        "resolve_latency_ms_p95": report.resolve_latency_ms_p95,
-        "solved_latency_ms_mean": float(np.mean(lat)),
-        "solved_latency_ms_p95": percentile(lat, 95, np),
-        "solver_share_of_wall": solve_share, "max_diff": worst,
-        "traced_solve_share_of_wall": solve_s / wall2,
-        "flame_top": {p: s for p, s in top}}
-
-    lap(4)
-
-    # -- 5. 128 tenants: numpy, torch on the card, torch on the CPU ---------------
-    reports = {}
-    record = []
-    for label, backend, device, rec in (("numpy", "numpy", "cuda", None),
-                                        ("cuda", "torch", "cuda", record),
-                                        ("cpu", "torch", "cpu", None)):
-        _, rep, w = service_replay(128, 16, backend, device, 7200.0, record=rec)
-        reports[label] = rep
-        log(f"[5] 128 tenants / 384 devices, {label:5s}: {rep.n_solves} solves, "
-            f"{rep.jobs_finished} jobs, {rep.n_events} events, wall {w:.1f} s, "
-            f"backends {rep.solver_backends}")
-    a, b = reports["cpu"], reports["cuda"]
-    check(set(b.solver_backends) == {"torch"} and b.fallback_count == 0,
-          f"card replay backends {b.solver_backends}")
-    d_tp = same_decisions(a, b, "card and CPU torch replays")
-    c = reports["numpy"]
-    for what, x, y in (("solves", c.n_solves, b.n_solves),
-                       ("jobs finished", c.jobs_finished, b.jobs_finished),
-                       ("events", c.n_events, b.n_events),
-                       ("total throughput", sum(c.tenant_throughput.values()),
-                        sum(b.tenant_throughput.values()))):
-        check(abs(x - y) <= NUMPY_REL * max(abs(y), 1.0),
-              f"numpy replay's {what} {x} vs the card's {y}: more than "
-              f"{NUMPY_REL:.0%} apart")
-    worst5 = instances_agree(record, np)
-    log(f"    card == CPU replay (throughput diff {d_tp:.3e}), numpy replay "
-        f"within {NUMPY_REL:.0%}; {len(record)} "
-        f"instances agree with CPU and numpy (largest difference {worst5:.3e})")
-    detail["service_128"] = {
-        k: {"n_solves": r.n_solves, "jobs_finished": r.jobs_finished,
-            "n_events": r.n_events} for k, r in reports.items()}
-    detail["service_128"]["max_diff"] = worst5
-    lap(5)
-
-    # -- 6-9. the cooperative tier and its envy-gap kernel ----------------------
+    # -- 6. the envy-gap kernel and the fused PD segment ------------------------
     envy_t = envy_phase(torch, np, ev, detail)
     segment_t = segment_phase(torch, np, ev, detail)
     lap(6)
-    coop_tier_phase(np, ev, detail)
-    lap(7)
-    segment_launches, envy_launches = coop_service_phase(torch, np, ev, wf, detail)
-    lap(8)
-    coop_devices_phase(detail)
-    lap(9)
 
-    # -- 10-12. serving recurrentgemma-2b and its RG-LRU scan kernel ------------
+    # -- 10, 13-15. the RG-LRU, attention and cross-entropy kernels, timed
+    # before another process shares the card --------------------------------------
     rg_t = rglru_phase(torch, rg, detail)
     lap(10)
+    fa_t = flash_phase(torch, fa, detail)
+    lap(13)
+    xe_t = xent_phase(torch, xe, detail)
+    lap(14)
+    rgb_t = rglru_backward_phase(torch, rg, detail)
+    lap(15)
+
+    # -- 4, 5, 7-9, 27-29. the online service's replays, in a process of their
+    # own beside phases 11-25 ---------------------------------------------------------
+    main_threads = torch.get_num_threads()
+    lane = SchedulerLane()
+    torch.set_num_threads(max(1, main_threads - 1))
+    behind = Behind(torch)
+
+    # -- 11-12, 16-17. serving and training recurrentgemma-2b --------------------
     rg_launches = serve_phase(torch, rg, detail, rg_t)
     lap(11)
     rg_tma = detail[f"serve_{ARCH}"]["launches_tma"]
     devices_phase(torch, rg, detail)
     lap(12)
-
-    # -- 13-14. the attention and cross-entropy ops -------------------------------
-    t0 = time.perf_counter()
-    fa_t = flash_phase(torch, fa, detail)
-    lap(13)
-    xe_t = xent_phase(torch, xe, detail)
-    lap(14)
-    detail["ops_phases_s"] = time.perf_counter() - t0
-    log(f"    phases 13-14 took {detail['ops_phases_s']:.1f} s")
-
-    # -- 15-17. training recurrentgemma-2b and the RG-LRU backward kernel -------
-    t0 = time.perf_counter()
-    rgb_t = rglru_backward_phase(torch, rg, detail)
-    lap(15)
     train = train_phase(torch, rg, detail)
     lap(16)
-    train_devices_phase(torch, rg, detail, S=TRAIN_CUT_S[ARCH])
+    train_devices_phase(torch, rg, detail, S=TRAIN_CUT_S[ARCH], behind=behind)
     lap(17)
-    detail["train_phases_s"] = time.perf_counter() - t0
-    log(f"    phases 15-17 took {detail['train_phases_s']:.1f} s")
 
-    # -- 18-21. serving and training qwen2-1.5b and gemma3-4b --------------------
-    t0 = time.perf_counter()
+    # -- 18-25. qwen2-1.5b, gemma3-4b and xlstm-350m: the CPU half of each
+    # training step card against CPU (17, 21, 25) runs beside the card phase
+    # after it ---------------------------------------------------------------------
+    from repro_torch.configs import get_config
+
     for arch, _, _ in DENSE:
         serve_phase(torch, rg, detail, rg_t, 18, arch)
     lap(18)
+    behind.drain()
+    lap(17)
     for arch, n_layers, S in DENSE:
         devices_phase(torch, rg, detail, 19, arch, n_layers, S)
     lap(19)
     for arch, _, _ in DENSE:
         train_phase(torch, rg, detail, 20, arch)
     lap(20)
-    for arch, n_layers, S in DENSE:
-        train_devices_phase(torch, rg, detail, 21, arch, n_layers, TRAIN_CUT_S.get(arch, S))
+    (qwen, qwen_layers, qwen_s), (gemma, gemma_layers, gemma_s) = DENSE
+    train_devices_phase(torch, rg, detail, 21, qwen, qwen_layers,
+                        TRAIN_CUT_S.get(qwen, qwen_s), behind=behind)
     lap(21)
-    detail["dense_phases_s"] = time.perf_counter() - t0
-    log(f"    phases 18-21 took {detail['dense_phases_s']:.1f} s")
-
-    # -- 22-25. serving and training xlstm-350m ----------------------------------
-    from repro_torch.configs import get_config
-
-    t0 = time.perf_counter()
     arch, n_layers, S = XLSTM
     serve_phase(torch, rg, detail, rg_t, 22, arch,
                 cfg=get_config(arch, n_layers=XLSTM_SERVE_LAYERS),
                 profile_layers=XLSTM_PROFILE_LAYERS)
     lap(22)
-    devices_phase(torch, rg, detail, 23, arch, n_layers, S)
-    lap(23)
+    train_devices_phase(torch, rg, detail, 21, gemma, gemma_layers,
+                        TRAIN_CUT_S.get(gemma, gemma_s), behind=behind)
+    lap(21)
     train_phase(torch, rg, detail, 24, arch,
                 cfg=get_config(arch, logits_chunk=512, n_layers=XLSTM_TRAIN_LAYERS),
                 profile_layers=XLSTM_PROFILE_LAYERS, steps=XLSTM_TRAIN_STEPS)
     lap(24)
-    train_devices_phase(torch, rg, detail, 25, arch, n_layers, S)
+    behind.drain()
+    lap(21)
+    devices_phase(torch, rg, detail, 23, arch, n_layers, S)
+    lap(23)
+    train_devices_phase(torch, rg, detail, 25, arch, n_layers, S, behind=behind)
     lap(25)
-    detail["xlstm_phases_s"] = time.perf_counter() - t0
-    log(f"    phases 22-25 took {detail['xlstm_phases_s']:.1f} s")
+    t_wait = time.perf_counter()
+    lane_t = lane.join()
+    mark[0] = time.perf_counter()  # the wait is no phase's
+    detail["lane_wait_s"] = mark[0] - t_wait
+    torch.set_num_threads(main_threads)
+    note(lane_t["phase_s"])
+    detail.update(lane_t["detail"])
+    launches, masses_launches = lane_t["launches"], lane_t["masses_launches"]
+    segment_launches, envy_launches = lane_t["segment_launches"], lane_t["envy_launches"]
+    chaos_launches, journal_t = lane_t["chaos_launches"], lane_t["journal"]
 
-    # -- 26-29. scheduled training, the chaos engine, the journal ---------------
-    phase_s = {}
-    t0 = time.perf_counter()
+    # -- 26. scheduled training ------------------------------------------------------
     sched_t = sched_train_phase(torch, np, detail)
-    phase_s[26] = time.perf_counter() - t0
-    chaos_launches = chaos_phase(np, detail)
-    phase_s[27] = time.perf_counter() - t0 - sum(phase_s.values())
-    journal_t = {}
-    for phase in (28, 29):
-        journal_t[phase] = journal_phase(np, detail, phase)
-        phase_s[phase] = time.perf_counter() - t0 - sum(phase_s.values())
-    detail["phases_26_29_s"] = phase_s
-    log("    phases 26-29 took " + ", ".join(f"{p}: {v:.1f} s" for p, v in phase_s.items()))
-    lap(group=phase_s)
+    lap(26)
+    behind.drain()
+    lap(25)
 
     # -- 30-33. yi-9b, phi4-mini, phi-3-vision and the blocked path ------------
-    blocked_t = blocked_phases(torch, rg, detail, rg_t)
+    blocked_t = blocked_phases(torch, rg, detail, rg_t, behind=behind)
     lap(group=blocked_t["phase_s"])
 
     # -- 34-37. whisper-tiny: the encoder, cross-attention, sinusoids ---------
@@ -4896,13 +5435,21 @@ def main() -> int:
     lap(46)
     mesh_t = mesh_phase(torch, detail)
     lap(47)
+
+    # -- 48. the compute split over the model axis, two ranks on one card ---------
+    split_t = split_phase(torch, detail)
+    lap(48)
     detail["total_s"] = time.perf_counter() - t_all
     detail["phase_s"] = clock
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1, sort_keys=True)
-    log("seconds by phase: " + ", ".join(f"{p}: {v:.1f}" for p, v in clock.items()))
+    log("seconds by phase: " + ", ".join(f"{p}: {v:.1f}" for p, v in sorted(clock.items())))
+    log(f"    phases {', '.join(map(str, sorted(lane_t['phase_s'])))} ran in the scheduler "
+        f"lane beside 11-25 ({sum(lane_t['phase_s'].values()):.1f} s; main waited "
+        f"{detail['lane_wait_s']:.1f} s at its join); the CPU halves of 17, 21, 25 and 33 "
+        f"beside the card phases after them (their own seconds in their log lines)")
     log(f"total {detail['total_s']:.1f} s")
     kernels = [{
         "name": "waterfill_solve",
@@ -5085,6 +5632,19 @@ def main() -> int:
             twin: examples_t[twin]["launches"][wrapper]
             for twin in ("quickstart", "online_service")}
         k["launches_by_phase"]["47"] = mesh_t["launches"][wrapper]
+        k["launches_by_phase"]["48"] = split_t["launches"][wrapper]
+    # phase 48 counts the RG-LRU launches of each step by route, the meshless
+    # trainer's here and each rank's in a process of its own: those of its
+    # two steps (``_rglru_calls``: forward, backward, their TMA routes)
+    of_route = {"rglru_scan_tma": lambda x: x[2], "rglru_scan": lambda x: x[0] - x[2],
+                "rglru_scan_backward_tma": lambda x: x[3],
+                "rglru_scan_backward": lambda x: x[1] - x[3]}
+    for k in kernels:
+        count = of_route.get(k["name"])
+        if count is not None:
+            k["launches_by_phase"]["48"] = {
+                "meshless": sum(map(count, split_t["meshless"]["rglru"])),
+                "ranks": [sum(map(count, r["rglru"])) for r in split_t["ranks"]]}
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

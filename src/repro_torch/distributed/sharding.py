@@ -22,9 +22,11 @@ stands where JAX has a ``PartitionSpec``. :func:`spec_to_sharding` turns
 it into the DTensor placements of that spec over the mesh.
 
 ``ShardingPlan.constrain`` is a no-op without a mesh and on a plain tensor.
-The port's models do not call it: they run on whole or batch-split tensors
-(``repro_torch.runtime.trainer``), and the compute split over the
-``model`` axis is not ported (ROADMAP.md).
+The port's models do not call it: where JAX constrains an activation, a
+mesh trainer's model asks :class:`RankView` (the plan at one rank's
+coordinate) which block of the sequence, heads, ``d_ff`` or experts is this
+rank's, and runs that block (``repro_torch.distributed.parallel``, the
+layers of ``repro_torch.models``).
 """
 from __future__ import annotations
 
@@ -179,6 +181,83 @@ def make_plan(mesh: Any, *, n_heads: int, n_kv_heads: int,
                         kv_heads_sharded=kv_ok and attn_mode == "head_tp",
                         heads_sharded=heads_ok and attn_mode == "head_tp",
                         ddp_seq_over_model=seq_over_model)
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """A rank's block ``start:stop`` of a dim split in equal blocks."""
+
+    start: int
+    stop: int
+
+    @property
+    def size(self) -> int:
+        return self.stop - self.start
+
+
+class RankView:
+    """What of the compute is this rank's under ``plan``: the blocks of a
+    dim that the ``model`` axis splits, at this rank's coordinate on it
+    (``index`` of ``parts``). Each answer follows the plan's own rules, and
+    is None where the dim is not split (also when the axis has one rank):
+
+      - :meth:`seq`: the sequence, where ``plan.seq(S)`` names the axis
+        (``seq_tp``, ``head_tp``, and ``ddp`` with ``ddp_seq_over_model``);
+      - :meth:`heads`: the attention heads, under ``head_tp`` where
+        ``plan.heads(n)`` names it;
+      - :meth:`ffn`: the columns of a SwiGLU of width ``f`` (the gate's and
+        the up-projection's alike), under ``head_tp`` where
+        ``plan.model_dim(2 f)`` names it and ``f`` divides too (JAX's
+        split of the concatenated ``2 f`` pairs each gate with its up
+        column only when it does);
+      - :meth:`experts`: the MoE experts, where ``plan.model_dim(E)``
+        names it.
+
+    ``mesh`` (a ``DeviceMesh``, or anything with ``get_group``) gives the
+    model axis's process ``group``, taken when first asked."""
+
+    def __init__(self, plan: ShardingPlan, mesh: Any, coordinate):
+        names = tuple(mesh.mesh_dim_names)
+        self.plan = plan
+        self.mesh = mesh
+        self.dim = names.index(plan.shape.model_axis)
+        self.parts = plan.shape.model_size
+        self.index = int(list(coordinate)[self.dim])
+        self._group = None
+
+    @property
+    def group(self):
+        if self._group is None:
+            self._group = self.mesh.get_group(self.dim)
+        return self._group
+
+    def _block(self, n: int, axis: AxisSpec) -> Optional[Block]:
+        if axis is None or self.parts == 1:
+            return None
+        step = n // self.parts
+        return Block(self.index * step, (self.index + 1) * step)
+
+    def seq(self, S: int) -> Optional[Block]:
+        return self._block(S, self.plan.seq(S))
+
+    def heads(self, n: int) -> Optional[Block]:
+        return self._block(n, self.plan.heads(n))
+
+    def ffn(self, f: int) -> Optional[Block]:
+        if self.plan.attn_mode != "head_tp" or f % self.parts:
+            return None
+        return self._block(f, self.plan.model_dim(2 * f))
+
+    def experts(self, E: int) -> Optional[Block]:
+        return self._block(E, self.plan.model_dim(E))
+
+
+def rank_view(plan: ShardingPlan, mesh: Any) -> Optional[RankView]:
+    """This rank's :class:`RankView` of ``plan`` on ``mesh``; None without
+    a mesh."""
+    if mesh is None or plan.shape is None:
+        return None
+    return RankView(plan, mesh, mesh.get_coordinate())
 
 
 def axes_of(entry: AxisSpec) -> Tuple[str, ...]:

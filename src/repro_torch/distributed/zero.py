@@ -5,23 +5,34 @@ its block of every master, gradient and optimizer state, where the JAX
 package's ``state_specs`` place it (:class:`Placed`). A layer's parameters
 are gathered whole at use, one part of a layer at a time (the model's
 ``gather`` hook, :meth:`Zero.gather`), and dropped after it; their
-gradients are summed over the ranks that split the batch and land on the
-shards already cut to the spec (:class:`_Gather`'s backward).
+gradients land on the shards already cut to the spec (:class:`_Gather`'s
+backward).
 
-The compute is not split over the mesh: every rank runs its rows of the
-global batch (:class:`BatchSplit`) through the whole model, and ranks that
-differ only on axes that do not split the batch compute the same rows.
-Reductions follow from that:
+The compute is split over the mesh (:class:`MeshSplit`): the batch over its
+mesh dims (``plan.batch``; each rank trains its rows), and the rest over
+the ``model`` axis, where the model runs this rank's block of the
+sequence, heads, ``d_ff`` or experts (``sharding.RankView``,
+``repro_torch.distributed.parallel``); where ``model`` splits nothing
+(a sequence that does not divide over it, and no heads, experts or
+``d_ff`` to split) its ranks compute the same rows alike. Reductions
+follow from that:
 
-  - a gradient is a ``Partial`` sum over the batch's mesh dims and a
-    ``Replicate`` over the others, redistributed to the parameter's
-    placements: one reduce-scatter where the dim is split, an all-reduce
-    where it is not, a local slice on the other dims;
+  - a gradient is a ``Partial`` sum over the split's mesh dims (the
+    batch's and ``model``, unless ``model`` splits the batch or has one
+    rank) and a ``Replicate`` over the others, redistributed to the
+    parameter's spec: one reduce-scatter where the dim is split, an
+    all-reduce where it is not, a local slice on the other dims;
+  - each rank's loss is weighted by ``1 / `` the split's ranks, so the
+    ranks' sum is the global batch's loss whether a rank holds rows of
+    its own or rows that ``model`` ranks share;
   - a sum over a tensor's elements (the global norm, Adafactor's row and
     column means and its update RMS) is all-reduced over the mesh dims that
     split that tensor (:meth:`Placed.sum`), never over its replicas;
   - a tensor no mesh dim of more than one rank splits takes the meshless
     arithmetic, so a 1x1 mesh trains bit for bit as no mesh.
+
+Every collective is a ``torch.distributed`` call of ``parallel`` on one
+mesh dim's group (no DTensor), so a mesh of gloo ranks runs on the card too.
 """
 from __future__ import annotations
 
@@ -33,15 +44,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from .sharding import Spec, axes_of, spec_to_sharding
-
-
-def _strides(shape: Sequence[int]) -> Tuple[int, ...]:
-    out, acc = [], 1
-    for n in reversed(tuple(shape)):
-        out.append(acc)
-        acc *= n
-    return tuple(reversed(out))
+from . import parallel as P
+from .sharding import Spec, axes_of
 
 
 def _coordinate(mesh) -> List[int]:
@@ -55,45 +59,46 @@ def _all_reduce(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
     """``x`` summed in place over the ranks that differ on mesh ``dims``
     (one all-reduce a dim, in order)."""
     for d in dims:
-        dist.all_reduce(x, group=mesh.get_group(d))
+        P.all_reduce_(x, mesh.get_group(d))
     return x
 
 
 class Placed:
     """Where one tensor of the state lies: its global ``shape``, its
-    ``spec`` over ``mesh`` (one entry a dim), the DTensor ``placements``,
-    this rank's block (``index``, a slice a dim) and ``split``, the mesh
-    dims of more than one rank that split it. ``batch_dims`` are the mesh
-    dims that split the batch: its gradient is a partial sum over them."""
+    ``spec`` over ``mesh`` (one entry a dim), this rank's block (``index``,
+    a slice a dim) and ``split``, the mesh dims of more than one rank that
+    split it. ``sum_dims`` are the mesh dims that split the compute: its
+    gradient is a partial sum over them."""
 
     def __init__(self, mesh, spec: Spec, shape: Sequence[int],
-                 batch_dims: Sequence[int] = (), one_collective: bool = True):
+                 sum_dims: Sequence[int] = (), one_collective: bool = True):
         self.mesh = mesh
         self.shape = tuple(int(n) for n in shape)
         self.spec = tuple(spec) + (None,) * (len(self.shape) - len(spec))
-        self.placements = spec_to_sharding(mesh, self.spec)
         names = tuple(mesh.mesh_dim_names)
         coord = _coordinate(mesh)
-        index, split = [], []
-        for n, entry in zip(self.shape, self.spec):
+        index, split, tensor_dim = [], [], {}
+        for i, (n, entry) in enumerate(zip(self.shape, self.spec)):
             dims = [names.index(a) for a in axes_of(entry)]
+            if dims != sorted(dims):
+                raise ValueError(f"spec entry {entry!r} is not in the mesh's axis order {names}")
             blocks = math.prod(mesh.size(d) for d in dims)
             if n % blocks:
                 raise ValueError(f"dim of {n} does not divide over {entry!r} ({blocks})")
             block = 0
             for d in dims:
                 block = block * mesh.size(d) + coord[d]
+                if mesh.size(d) > 1:
+                    tensor_dim[d] = i
             step = n // blocks
             index.append(slice(block * step, (block + 1) * step))
             split += [d for d in dims if mesh.size(d) > 1]
         self.index = tuple(index)
         self.split = tuple(sorted(split))
+        #: the tensor dim each mesh dim of ``split`` cuts
+        self.tensor_dim = tensor_dim
         self.local_shape = tuple(s.stop - s.start for s in self.index)
-        from torch.distributed.tensor import Partial, Replicate
-
-        self.batch_dims = tuple(batch_dims)
-        self.grad_placements = tuple(Partial() if d in batch_dims else Replicate()
-                                     for d in range(mesh.ndim))
+        self.sum_dims = tuple(sum_dims)
         self.one_collective = one_collective
 
     def local(self, full: torch.Tensor) -> torch.Tensor:
@@ -101,35 +106,46 @@ class Placed:
         return full[self.index].contiguous().clone()
 
     def full(self, local: torch.Tensor) -> torch.Tensor:
-        """The whole tensor from every rank's block (an all-gather over the
-        dims that split it; a copy where none does): a new tensor, never
-        ``local`` itself."""
-        if not self.split:
-            return local.detach().clone()
-        from torch.distributed.tensor import DTensor
-
-        out = DTensor.from_local(local.detach(), self.mesh, self.placements, run_check=False,
-                                 shape=self.shape, stride=_strides(self.shape)).full_tensor()
+        """The whole tensor from every rank's block (an all-gather over each
+        mesh dim that splits it, the minor one first; a copy where none
+        does): a new tensor, never ``local`` itself."""
+        out = local.detach()
+        for d in reversed(self.split):
+            out = P.all_gather(out, self.tensor_dim[d], self.mesh.get_group(d))
         return out.clone() if out.data_ptr() == local.data_ptr() else out
 
-    def reduce(self, g: torch.Tensor) -> torch.Tensor:
-        """A whole gradient of this rank's rows summed over the ranks that
-        split the batch, cut to this rank's block: ``Partial`` to the
-        placements in one redistribution (a reduce-scatter where the dim is
-        split), or, without ``one_collective``, to ``Replicate`` first (an
-        all-reduce) and then a slice; the same numbers either way. Where no
-        rank splits the batch there is nothing to sum: the block is cut
-        out."""
-        if not self.batch_dims:
-            return g[self.index].contiguous() if self.split else g
-        from torch.distributed.tensor import DTensor, Replicate
+    def _slice(self, g: torch.Tensor, d: int) -> torch.Tensor:
+        """``g``'s block on mesh dim ``d`` along the tensor dim it cuts."""
+        i = self.tensor_dim[d]
+        step = g.shape[i] // self.mesh.size(d)
+        c = _coordinate(self.mesh)[d]
+        return g.narrow(i, c * step, step)
 
-        dt = DTensor.from_local(g.contiguous(), self.mesh, self.grad_placements,
-                                run_check=False, shape=self.shape,
-                                stride=_strides(self.shape))
-        if not self.one_collective:
-            dt = dt.redistribute(self.mesh, (Replicate(),) * self.mesh.ndim)
-        return dt.redistribute(self.mesh, self.placements).to_local()
+    def reduce(self, g: torch.Tensor) -> torch.Tensor:
+        """A whole gradient of this rank's share of the compute summed over
+        the split's ranks and cut to this rank's block, mesh dim by mesh dim
+        in order: a reduce-scatter where the dim is summed and cuts the
+        tensor (without ``one_collective``: an all-reduce and a slice), an
+        all-reduce where it is summed only, a slice where it cuts only. The
+        same numbers either way (each element summed over the same dims in
+        the same order)."""
+        if not self.sum_dims:
+            for d in self.split:
+                g = self._slice(g, d)
+            return g.contiguous()
+        for d in range(self.mesh.ndim):
+            if self.mesh.size(d) == 1:
+                continue
+            cuts, summed = d in self.split, d in self.sum_dims
+            if summed and cuts and self.one_collective:
+                g = P.reduce_scatter(g, self.tensor_dim[d], self.mesh.get_group(d))
+            elif summed:
+                g = P.all_reduce_(g.contiguous().clone(), self.mesh.get_group(d))
+                if cuts:
+                    g = self._slice(g, d)
+            elif cuts:
+                g = self._slice(g, d)
+        return g.contiguous()
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (a partial sum over this rank's block) summed in place over
@@ -156,24 +172,30 @@ class _BatchSum(torch.autograd.Function):
     rank's loss holds the summed value)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, split: "BatchSplit") -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, split: "MeshSplit") -> torch.Tensor:
         ctx.split = split
-        return split.sum(x.clone())
+        return _all_reduce(x.clone(), split.mesh, split.batch_dims)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return ctx.split.sum(g.clone()), None
+        return _all_reduce(g.clone(), ctx.split.mesh, ctx.split.batch_dims), None
 
 
-class BatchSplit:
-    """The rows of the global batch this rank trains: ``plan.batch(B)``'s
-    mesh axes split each microbatch's rows into blocks, the first axis
-    major, and this rank takes the block of its coordinate on them (the
-    rows JAX's ``device_put`` gives its device). ``frac`` is the block's
-    share of the rows: each rank's loss is its mean times ``frac``, so the
-    sum over the batch's ranks is the global batch's loss."""
+class MeshSplit:
+    """How the mesh splits the compute. The rows of the global batch this
+    rank trains: ``plan.batch(B)``'s mesh axes split each microbatch's rows
+    into blocks, the first axis major, and this rank takes the block of its
+    coordinate on them (the rows JAX's ``device_put`` gives its device);
+    ``batch_dims`` are those axes' dims of more than one rank. The model
+    axis ``model_axis``, unless it splits the batch or has one rank, splits
+    the rest of the compute (``model``, its dim; else None). ``dims`` are
+    both: every gradient is a partial sum over them, and ``frac`` is one
+    rank's share of them: each rank's loss is its mean over its own rows
+    and positions times ``frac``, so the sum over ``dims`` is the global
+    batch's loss."""
 
-    def __init__(self, mesh, axes: Tuple[str, ...], global_batch: int, microbatches: int):
+    def __init__(self, mesh, axes: Tuple[str, ...], global_batch: int, microbatches: int,
+                 model_axis=None):
         names = tuple(mesh.mesh_dim_names)
         all_dims = [names.index(a) for a in axes]
         coord = _coordinate(mesh)
@@ -182,13 +204,16 @@ class BatchSplit:
         self.block = 0
         for d in all_dims:
             self.block = self.block * mesh.size(d) + coord[d]
-        self.dims = tuple(d for d in all_dims if mesh.size(d) > 1)
+        self.batch_dims = tuple(d for d in all_dims if mesh.size(d) > 1)
+        m = names.index(model_axis) if model_axis in names else None
+        self.model = m if m is not None and mesh.size(m) > 1 and m not in all_dims else None
+        self.dims = tuple(sorted(self.batch_dims + (() if self.model is None else (m,))))
         self.microbatches = mb = max(1, microbatches)
         if global_batch % (mb * self.blocks):
             raise ValueError(
                 f"a global batch of {global_batch} in {mb} microbatches does not "
                 f"split over the {self.blocks} blocks of the batch axes {axes}")
-        self.frac = 1.0 / self.blocks
+        self.frac = 1.0 / (self.blocks * (1 if self.model is None else mesh.size(m)))
 
     def rows(self, x):
         """This rank's rows of a global batch array (numpy or torch): its
@@ -199,12 +224,13 @@ class BatchSplit:
         return parts.reshape((mb * per,) + tuple(x.shape[1:]))
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed in place over the batch's ranks."""
+        """``x`` summed in place over the split's ranks (``dims``)."""
         return _all_reduce(x, self.mesh, self.dims)
 
     def grad_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The differentiable sum over the batch's ranks (the MoE
-        load-balancing loss's statistics)."""
+        load-balancing loss's statistics: the model axis's ranks route
+        the same whole rows)."""
         return _BatchSum.apply(x, self)
 
 
@@ -213,7 +239,7 @@ class Zero:
     gather them at use. ``specs(path, shape)`` gives a leaf's per-unit spec
     (the JAX spec less a stacked leaf's unit dim)."""
 
-    def __init__(self, mesh, split: BatchSplit, specs, one_collective: bool):
+    def __init__(self, mesh, split: MeshSplit, specs, one_collective: bool):
         self.mesh = mesh
         self.split = split
         self.specs = specs
@@ -255,7 +281,7 @@ class Zero:
         """Install the hooks: the model's ``gather`` and, where the batch is
         split, each MoE layer's ``batch_sum``."""
         model.gather = self.gather
-        if self.split.dims:
+        if self.split.batch_dims:
             for mod in model.modules():
                 if hasattr(mod, "batch_sum"):
                     mod.batch_sum = self.split.grad_sum

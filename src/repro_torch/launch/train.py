@@ -3,8 +3,9 @@
 Two modes, as ``repro.launch.train``:
 
 1. Single-job training (``--arch``) on one card, or with ``--mesh`` on a
-   ``DeviceMesh`` of ranks (ZeRO-3 in the JAX specs,
-   ``repro_torch.runtime.trainer``):
+   ``DeviceMesh`` of ranks (ZeRO-3 in the JAX specs, the batch over the
+   data axes and the rest of the compute over ``model`` as the config's
+   ``attn_parallelism`` picks, ``repro_torch.runtime.trainer``):
 
        PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \
            --batch 2 --seq-len 2048 --steps 3

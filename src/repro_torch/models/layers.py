@@ -15,12 +15,34 @@ time). A full sequence's attention is the grouped einsum over fp32 scores
 blockwise twin otherwise; non-causal self-attention (whisper's encoder)
 and cross-attention to an encoder's memory, with cached memory K/V in
 decode; :class:`MoE`, the sort-dispatched top-k experts with shared
-experts and a dense residual, and :func:`moe_plain`, its plain twin. Not
-ported: the head-parallel branch (it needs a mesh).
+experts and a dense residual, and :func:`moe_plain`, its plain twin.
 
 The mixers, ``Attention``, ``RGLRU``, ``MLSTM`` and ``SLSTM``, share one
-interface: ``forward(x, return_state=, cache_len=)`` for a full sequence,
-``cache_init(batch, max_len)`` and ``decode(x, cache, pos)`` for one token.
+interface: ``forward(x, return_state=, cache_len=, split=)`` for a full
+sequence, ``cache_init(batch, max_len)`` and ``decode(x, cache, pos)`` for
+one token.
+
+A mesh trainer's model passes ``split`` (``distributed.parallel.Split``,
+the rank's view of the plan at the call's sequence length) to every layer
+of the training loss, where JAX's ``plan.constrain`` calls shard the
+compute over the ``model`` axis; ``x`` is then this rank's block of the
+sequence when ``split.seq`` is set (else the whole rows), and so is the
+output:
+
+  - ``Attention``: Q, K, V of the block, RoPE and the causal or window
+    mask at the block's global positions, K/V gathered over the sequence;
+    under head TP (``split.heads``) the whole rows' Q of this rank's heads
+    against K/V repeated to them (JAX's ``jnp.repeat``), the partial
+    ``wo`` product reduce-scattered onto the blocks; cross-attention
+    against the whole memory;
+  - ``SwiGLU``: the block's rows, or under head TP this rank's ``d_ff``
+    columns of the whole rows, reduce-scattered;
+  - ``MoE``: the whole rows routed (the capacity, the sort and the aux
+    statistics see every token of a row), this rank's experts
+    (``split.experts``) run, their gate-weighted partial output
+    reduce-scattered; ``shared`` and ``dense`` on the block's rows;
+  - ``RGLRU``, ``MLSTM``, ``SLSTM``: the whole sequence gathered and run,
+    this rank's block kept (JAX's scans are unconstrained).
 
 Conventions, as in the JAX package:
   - weights keep the JAX layout, ``x @ w`` with ``w`` of shape
@@ -56,6 +78,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import parallel as P
 from ..kernels import ops as kops
 from .config import ArchConfig
 
@@ -168,10 +191,11 @@ def _group_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, Hkv * G, out.shape[-1])
 
 
-def _attn_mask(sq: int, skv: int, window: Optional[int], device=None) -> torch.Tensor:
-    """Causal mask: query i sees keys j <= i, and with a ``window`` only
-    i - window < j."""
-    diff = (torch.arange(sq, device=device)[:, None]
+def _attn_mask(sq: int, skv: int, window: Optional[int], device=None,
+               offset: int = 0) -> torch.Tensor:
+    """Causal mask: query i (at position ``offset + i``) sees keys
+    j <= offset + i, and with a ``window`` only offset + i - window < j."""
+    diff = (torch.arange(offset, offset + sq, device=device)[:, None]
             - torch.arange(skv, device=device)[None, :])
     mask = diff >= 0
     if window is not None:
@@ -204,16 +228,18 @@ def _blocked_tiles(S: int, T: int, block_q: int, block_kv: int) -> Tuple[int, in
 
 
 def blocked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                            window: Optional[int], bq: int, bkv: int) -> torch.Tensor:
+                            window: Optional[int], bq: int, bkv: int,
+                            q_offset: int = 0) -> torch.Tensor:
     """The JAX ``_blocked_attention``, step for step: causal GQA attention
     of q (B, S, Hq, D) on k, v (B, T, Hkv, D) (query head h on KV head
     h // (Hq // Hkv)) as a Python loop over query tiles of ``bq`` and KV
     tiles of ``bkv`` (tiles that divide S and T, as :func:`_blocked_tiles`
-    gives them), never building the (S, T) scores. Tile pairs above the
-    causal diagonal or wholly outside the ``window`` are skipped; each
-    pair's scores are float32, scaled by 1/sqrt(D), masked to ``NEG_INF``
-    and folded into the online max ``m``, sum ``l`` and float32 ``acc``
-    (``p @ v`` on float32 V). Returns (B, S, Hq, D) in q's dtype."""
+    gives them), never building the (S, T) scores. Query i is at position
+    ``q_offset + i`` (a sequence block's start), key j at j. Tile pairs
+    above the causal diagonal or wholly outside the ``window`` are skipped;
+    each pair's scores are float32, scaled by 1/sqrt(D), masked to
+    ``NEG_INF`` and folded into the online max ``m``, sum ``l`` and float32
+    ``acc`` (``p @ v`` on float32 V). Returns (B, S, Hq, D) in q's dtype."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -225,7 +251,7 @@ def blocked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
         m = torch.full((B, Hkv, G, bq), NEG_INF, **f32)
         l = torch.zeros((B, Hkv, G, bq), **f32)
         acc = torch.zeros((B, Hkv, G, bq, D), **f32)
-        q_lo, q_hi = qi * bq, (qi + 1) * bq - 1
+        q_lo, q_hi = q_offset + qi * bq, q_offset + (qi + 1) * bq - 1
         for ki in range(T // bkv):
             k_lo, k_hi = ki * bkv, (ki + 1) * bkv - 1
             if k_lo > q_hi:
@@ -261,19 +287,22 @@ def _on_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: Optional[int], block_q: int, block_kv: int) -> torch.Tensor:
+                      window: Optional[int], block_q: int, block_kv: int,
+                      q_offset: int = 0) -> torch.Tensor:
     """``attention_impl="blocked"``: q (B, S, Hq, D), k, v (B, T, Hkv, D)
-    -> (B, S, Hq, D) in q's dtype. When :func:`_on_kernel`, one launch of
-    ``kernels.ops.flash_attention_gqa`` on heads-first copies (a failed
-    build or launch raises ``KernelError``); else
-    :func:`blocked_attention_plain`, which autograd differentiates (the
-    JAX model differentiates its jnp loop, and the kernel has no
+    -> (B, S, Hq, D) in q's dtype. When :func:`_on_kernel` and the queries
+    start at position 0, one launch of ``kernels.ops.flash_attention_gqa``
+    on heads-first copies (a failed build or launch raises
+    ``KernelError``); else :func:`blocked_attention_plain` (queries from
+    ``q_offset`` on: a sequence block's), which autograd differentiates
+    (the JAX model differentiates its jnp loop, and the kernel has no
     backward). Either way tiles that do not divide S, T raise the JAX
     ``ValueError``."""
     S, T = q.shape[1], k.shape[1]
     bq, bkv = _blocked_tiles(S, T, block_q, block_kv)
-    if not _on_kernel(q, k, v):
-        return blocked_attention_plain(q, k, v, window=window, bq=bq, bkv=bkv)
+    if q_offset or not _on_kernel(q, k, v):
+        return blocked_attention_plain(q, k, v, window=window, bq=bq, bkv=bkv,
+                                       q_offset=q_offset)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     out = kops.flash_attention_gqa(qh, kh, vh, causal=True, window=window,
                                    block_q=bq, block_k=bkv)
@@ -336,26 +365,49 @@ class Attention(nn.Module):
         """q from ``x``; k, v from ``xkv`` (default ``x``), each reshaped by
         its own source's length, as the JAX ``_qkv``."""
         cfg = self.cfg
-        hd = cfg.resolved_head_dim
-        xkv = x if xkv is None else xkv
-        B = x.shape[0]
         q = x @ self.wq.to(self.dt)
-        k, v = (xkv @ w.to(self.dt) for w in (self.wk, self.wv))
         if self.bq is not None:  # added in the compute dtype, as JAX adds them
             q = q + self.bq.to(self.dt)
+        return (q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.resolved_head_dim),
+                *self._kv(x if xkv is None else xkv))
+
+    def _kv(self, xkv: torch.Tensor):
+        """k, v (B, T, n_kv_heads, head_dim) of ``xkv`` (B, T, d)."""
+        cfg = self.cfg
+        shape = xkv.shape[:2] + (cfg.n_kv_heads, cfg.resolved_head_dim)
+        k, v = (xkv @ w.to(self.dt) for w in (self.wk, self.wv))
+        if self.bk is not None:
             k = k + self.bk.to(self.dt)
             v = v + self.bv.to(self.dt)
-        T = xkv.shape[1]
-        return (q.reshape(B, x.shape[1], cfg.n_heads, hd),
-                k.reshape(B, T, cfg.n_kv_heads, hd), v.reshape(B, T, cfg.n_kv_heads, hd))
+        return k.reshape(shape), v.reshape(shape)
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                offset: int = 0) -> torch.Tensor:
+        """q (B, S, Hq, D) against k, v (B, T, Hkv, D) -> (B, S, Hq, D): the
+        blocked path for causal self-attention when the config names it,
+        else the grouped einsum over float32 scores, masked when ``causal``
+        (query i at position ``offset + i``)."""
+        cfg = self.cfg
+        S, T = q.shape[1], k.shape[1]
+        if cfg.attention_impl == "blocked" and causal:
+            return blocked_attention(q, k, v, window=self.window,
+                                     block_q=cfg.attention_block_q,
+                                     block_kv=cfg.attention_block_kv, q_offset=offset)
+        # non-causal attention (the encoder, cross-attention) has no window
+        mask = _attn_mask(S, T, self.window, q.device, offset) if causal else None
+        probs = _masked_probs(_group_scores(q, k).float(), mask, cfg.resolved_head_dim, q.dtype)
+        return _group_out(probs, v)
 
     def forward(self, x: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
-                return_state: bool = False, cache_len: Optional[int] = None):
+                return_state: bool = False, cache_len: Optional[int] = None,
+                split: Optional[P.Split] = None):
         """Full-sequence attention (prefill, training), or cross-attention
         to ``memory``. With ``return_state`` (self-attention) also returns
-        the decode cache of length ``cache_len`` (default S)."""
+        the decode cache of length ``cache_len`` (default S). With ``split``
+        (training on a mesh) this rank's share (:meth:`_split_forward`)."""
+        if split is not None:
+            return self._split_forward(x, memory, split)
         cfg = self.cfg
-        dt = x.dtype
         hd = cfg.resolved_head_dim
         B, S, _ = x.shape
         q, k, v = self._qkv(x, memory)
@@ -364,17 +416,7 @@ class Attention(nn.Module):
             cos, sin = rope_table(torch.arange(S, device=x.device), hd, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
-        causal = self.causal and memory is None
-        if cfg.attention_impl == "blocked" and causal:
-            out = blocked_attention(q, k, v, window=self.window,
-                                    block_q=cfg.attention_block_q,
-                                    block_kv=cfg.attention_block_kv)
-        else:
-            # non-causal attention (the encoder, cross-attention) has no window
-            mask = _attn_mask(S, T, self.window, device=x.device) if causal else None
-            probs = _masked_probs(_group_scores(q, k).float(), mask, hd, dt)
-            out = _group_out(probs, v)
-            del probs
+        out = self._attend(q, k, v, self.causal and memory is None)
         y = out.reshape(B, S, cfg.n_heads * hd) @ self.wo.to(self.dt)
         if not return_state:
             return y
@@ -389,6 +431,51 @@ class Attention(nn.Module):
         else:
             k_c, v_c = k[:, :L], v[:, :L]
         return y, {"k": k_c.contiguous(), "v": v_c.contiguous()}
+
+    def _split_forward(self, x: torch.Tensor, memory: Optional[torch.Tensor],
+                       sp: P.Split) -> torch.Tensor:
+        """This rank's share of the attention of ``x`` (its sequence block
+        when ``sp.seq``, else the whole rows). Under head TP
+        (``sp.heads``): the whole rows' Q of this rank's heads, K/V of every
+        KV head repeated to them, the partial ``wo`` product summed onto
+        the blocks. Else Q, K, V of the block at its global positions, K/V
+        gathered over the sequence (one all-gather of both), the mask
+        offset by the block's start; cross-attention takes K/V from the
+        whole ``memory``."""
+        cfg = self.cfg
+        hd, nq = cfg.resolved_head_dim, cfg.n_heads
+        causal = self.causal and memory is None
+        heads = sp.heads(nq)
+        if heads is not None:
+            xs = P.gather_seq(x, sp)
+            B, S, _ = xs.shape
+            cols = slice(heads.start * hd, heads.stop * hd)
+            q = xs @ self.wq[:, cols].to(self.dt)
+            if self.bq is not None:
+                q = q + self.bq[cols].to(self.dt)
+            q = q.reshape(B, S, heads.size, hd)
+            k, v = self._kv(xs if memory is None else memory)
+            if self.use_rope and memory is None:
+                cos, sin = rope_table(torch.arange(S, device=x.device), hd, cfg.rope_theta)
+                q = apply_rope(q, cos, sin)
+                k = apply_rope(k, cos, sin)
+            kv = torch.arange(heads.start, heads.stop, device=x.device) // (nq // cfg.n_kv_heads)
+            k, v = k.index_select(2, kv), v.index_select(2, kv)
+            out = self._attend(q, k, v, causal)
+            y = out.reshape(B, S, heads.size * hd) @ self.wo[cols].to(self.dt)
+            return P.scatter_sum(y, sp)
+        B, n, _ = x.shape
+        start = sp.seq.start if sp.seq is not None else 0
+        q, k, v = self._qkv(x, memory)
+        if self.use_rope and memory is None:
+            cos, sin = rope_table(torch.arange(start, start + n, device=x.device), hd,
+                                  cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        if memory is None and sp.seq is not None:
+            k, v = P.gather_seq(torch.cat([k, v], dim=-1), sp).chunk(2, dim=-1)
+        out = self._attend(q, k, v, causal, start)
+        return out.reshape(B, n, nq * hd) @ self.wo.to(self.dt)
 
     def cache_init(self, batch: int, max_len: int) -> Cache:
         """KV cache: ``max_len`` slots for full attention, a ring buffer of
@@ -479,12 +566,26 @@ class SwiGLU(nn.Module):
         normal_(self.w_in, gen, 0.02)
         normal_(self.w_out, gen, 0.02 / math.sqrt(2 * self.cfg.n_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x @ self.w_in.to(self.dt)
+    def forward(self, x: torch.Tensor, split: Optional[P.Split] = None) -> torch.Tensor:
+        """With ``split`` under head TP (``split.ffn``): this rank's ``d_ff``
+        columns of the gate and the up-projection (and rows of ``w_out``)
+        on the whole rows, the partial product summed onto the blocks;
+        else ``x``'s own rows."""
+        cols = split.ffn(self.w_out.shape[0]) if split is not None else None
+        if cols is None:
+            return self._product(x, self.w_in, self.w_out)
+        f = self.w_out.shape[0]
+        w_in = torch.cat([self.w_in[:, cols.start:cols.stop],
+                          self.w_in[:, f + cols.start:f + cols.stop]], dim=1)
+        out = self._product(P.gather_seq(x, split), w_in, self.w_out[cols.start:cols.stop])
+        return P.scatter_sum(out, split)
+
+    def _product(self, x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+        h = x @ w_in.to(self.dt)
         gate, up = h.chunk(2, dim=-1)
         act = F.silu(gate.float()).to(x.dtype) * up
         del h, gate, up
-        return act @ self.w_out.to(self.dt)
+        return act @ w_out.to(self.dt)
 
 
 # ---------------------------------------------------------------------------
@@ -588,7 +689,15 @@ class MoE(nn.Module):
         slot = (sorted_exp * B + row) * cap + torch.clamp(pos, 0, cap - 1)
         return order, pos < cap, slot, cap
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, split: Optional[P.Split] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(out, aux)``. With ``split`` the whole rows are gathered and
+        routed, this rank runs its experts only (``split.experts``; all of
+        them where they are not split) and the gate-weighted partial output
+        is summed onto the sequence blocks (or, all experts run, the block
+        kept); ``shared`` and ``dense`` take ``x``'s own rows."""
+        x_in = x
+        x = P.gather_seq(x, split)
         cfg = self.cfg
         dt = x.dtype
         B, S, d = x.shape
@@ -613,12 +722,20 @@ class MoE(nn.Module):
         rows = torch.where(keep[..., None], rows, 0)
         buf = x.new_zeros((E * B * cap, d)).index_add_(0, slot.reshape(-1), rows.reshape(-1, d))
         del rows
-        h = torch.bmm(buf.view(E, B * cap, d), self.w_in.to(self.dt))
+        n = B * cap  # one expert's rows of the buffer
+        buf, w_in, w_out = buf.view(E, n, d), self.w_in, self.w_out
+        mine = split.experts(E) if split is not None else None
+        if mine is not None:  # this rank's experts and the assignments to them
+            lo, hi = mine.start * n, mine.stop * n
+            buf, w_in, w_out = (t[mine.start:mine.stop] for t in (buf, w_in, w_out))
+            keep = keep & (slot >= lo) & (slot < hi)
+            slot = torch.clamp(slot - lo, 0, hi - lo - 1)
+        h = torch.bmm(buf, w_in.to(self.dt))
         del buf
         gate, up = h.chunk(2, dim=-1)
         act = F.silu(gate.float()).to(dt) * up
         del h, gate, up
-        y = torch.bmm(act, self.w_out.to(self.dt)).view(E * B * cap, d)
+        y = torch.bmm(act, w_out.to(self.dt)).view(-1, d)
         del act
         picked = torch.where(keep[..., None], y[slot], 0)
         del y
@@ -626,9 +743,10 @@ class MoE(nn.Module):
         picked = torch.empty_like(picked).scatter_(
             1, order[..., None].expand(-1, -1, d), picked)
         out = torch.einsum("bskd,bsk->bsd", picked.view(B, S, k, d), gates.to(dt))
+        out = P.scatter_sum(out, split) if mine is not None else P.keep_seq(out, split)
         for m in (self.shared, self.dense):
             if m is not None:
-                out = out + m(x)
+                out = out + m(x_in, split)
         return out, aux
 
 
@@ -731,10 +849,13 @@ class MLSTM(nn.Module):
         return h @ self.w_down.to(self.dt)
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False,
-                cache_len: Optional[int] = None, chunk: int = 256):
+                cache_len: Optional[int] = None, chunk: int = 256,
+                split: Optional[P.Split] = None):
         """Full sequence from a zero state, ``chunk`` positions at a time.
         The state ``{"C", "n"}`` after the last position does not depend on
-        ``cache_len``."""
+        ``cache_len``. With ``split``, the whole sequence gathered and run,
+        this rank's block kept."""
+        x = P.gather_seq(x, split)
         dt = self.dt
         B, S, _ = x.shape
         H = self.cfg.n_heads
@@ -763,7 +884,7 @@ class MLSTM(nn.Module):
         y = self._out(h, z)
         if return_state:
             return y, {"C": Cst, "n": nst}
-        return y
+        return P.keep_seq(y, split)
 
     def cache_init(self, batch: int, max_len: int) -> Cache:
         H = self.cfg.n_heads
@@ -883,10 +1004,12 @@ class SLSTM(nn.Module):
         return h_new, c_new, n_new, m_new
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False,
-                cache_len: Optional[int] = None):
+                cache_len: Optional[int] = None, split: Optional[P.Split] = None):
         """Full sequence from the initial state: one ``_cell`` step per
         position, a loop in Python (the JAX ``lax.scan``); h stays float32
-        until the down-projection."""
+        until the down-projection. With ``split``, the whole sequence
+        gathered and run, this rank's block kept."""
+        x = P.gather_seq(x, split)
         xwb = (x @ self.w_x.to(self.dt)).float() + self.b  # (B, S, 4d)
         state = self._state(x.shape[0])
         hs = []
@@ -898,7 +1021,7 @@ class SLSTM(nn.Module):
         y = torch.stack(hs, dim=1).to(self.dt) @ self.w_down.to(self.dt)
         if return_state:
             return y, dict(zip("hcnm", state))
-        return y
+        return P.keep_seq(y, split)
 
     def _state(self, batch: int) -> Tuple[torch.Tensor, ...]:
         h, c, n = (torch.zeros((batch, self.cfg.d_model), dtype=torch.float32,
@@ -962,11 +1085,13 @@ class RGLRU(nn.Module):
         return gate, u
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False,
-                cache_len: Optional[int] = None):
+                cache_len: Optional[int] = None, split: Optional[P.Split] = None):
         """Full sequence: the scan is ``kernels.ops.rglru_scan`` from a zero
         state, the CUDA kernel on the card (its plain version on the CPU),
         differentiable through its backward kernel. The state is one vector
-        per row, whatever ``cache_len``."""
+        per row, whatever ``cache_len``. With ``split``, the whole sequence
+        gathered and scanned, this rank's block kept."""
+        x = P.gather_seq(x, split)
         B = x.shape[0]
         gate, u = self._gate_and_input(x)
         a, b = self._coeffs(u)
@@ -977,7 +1102,7 @@ class RGLRU(nn.Module):
         y = (h * gate).to(x.dtype) @ self.w_down.to(self.dt)
         if return_state:
             return y, {"h": h[:, -1].contiguous()}
-        return y
+        return P.keep_seq(y, split)
 
     def cache_init(self, batch: int, max_len: int) -> Cache:
         return {"h": torch.zeros((batch, self.cfg.d_model), dtype=torch.float32,

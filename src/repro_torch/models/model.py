@@ -32,13 +32,18 @@ mixer; a decode cache then also holds each layer's cross cache.
 The JAX package stacks each pattern position's params over ``n_units`` and
 runs the units with ``lax.scan``; here the units are a Python loop over one
 ``Block`` per layer, in order. The JAX code threads a ``ShardingPlan``
-through every call; the port's models drop it and run on whole tensors, or
-on a mesh trainer's rows of the batch (``repro_torch.runtime.trainer``).
-A ``Model`` trained on a mesh holds each rank's shards as its parameters
-and a ``gather`` hook: the training loss then runs every part of a layer
-(and the embedding, head and final norms around them) with its parameters
-gathered whole for that part only (:func:`_whole`, :func:`_caller`), so
-under a checkpointing ``remat`` the recompute gathers them again.
+through every call; here a ``Model`` trained on a mesh holds the plan at
+its rank's coordinate (``view``, a ``distributed.sharding.RankView``), and
+the training loss passes it, at the batch's sequence length, to every
+layer (``split``): the residual stream is this rank's sequence block
+between layers, and each layer runs this rank's share of the sequence,
+heads, ``d_ff`` or experts (``repro_torch.models.layers``). Such a model
+also holds each rank's shards as its parameters and a ``gather`` hook:
+the training loss then runs every part of a layer (and the embedding,
+head and final norms around them) with its parameters gathered whole for
+that part only (:func:`_whole`, :func:`_caller`), so under a checkpointing
+``remat`` the recompute gathers them again. Serving (``prefill``,
+``decode_step``) runs whole tensors.
 
 Entry points: :func:`init_params` (a ``Model`` with weights drawn from a
 ``torch.Generator``; ``trainable=True`` for masters in ``cfg.param_dtype``
@@ -65,6 +70,7 @@ import torch.utils.checkpoint
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
+from ..distributed import parallel as P
 from . import layers as L
 from .config import ArchConfig
 
@@ -153,11 +159,12 @@ class Block(nn.Module):
             if m is not None:
                 m.init_(gen)
 
-    def _mixer_out(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mixer(self.norm1(x))
+    def _mixer_out(self, x: torch.Tensor, split: Optional[P.Split] = None) -> torch.Tensor:
+        return self.mixer(self.norm1(x), split=split)
 
-    def _cross_out(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        return self.cross(self.norm_cross(x), memory=memory)
+    def _cross_out(self, x: torch.Tensor, memory: torch.Tensor,
+                   split: Optional[P.Split] = None) -> torch.Tensor:
+        return self.cross(self.norm_cross(x), memory=memory, split=split)
 
     def part_modules(self, part) -> Tuple[nn.Module, ...]:
         """The modules whose parameters ``part`` (one of ``_mixer_out``,
@@ -166,34 +173,38 @@ class Block(nn.Module):
                 "_cross_out": (self.norm_cross, self.cross),
                 "_ffn_out": (self.norm2, self.ffn)}[part.__name__]
 
-    def _ffn_out(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _ffn_out(self, x: torch.Tensor, split: Optional[P.Split] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The FFN of norm2(x), and a MoE FFN's aux loss (else None)."""
-        out = self.ffn(self.norm2(x))
+        out = self.ffn(self.norm2(x), split)
         return out if self.ffn_kind == "moe" else (out, None)
 
-    def _add_ffn(self, x: torch.Tensor, call=_direct
+    def _add_ffn(self, x: torch.Tensor, call=_direct, split: Optional[P.Split] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x plus the FFN of norm2(x), and a MoE FFN's aux loss (else None)."""
         if self.ffn is None:
             return x, None
-        out, aux = call(self._ffn_out, x)
+        out, aux = call(self._ffn_out, x, split)
         return x + out, aux
 
     def forward(self, x: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
                 return_state: bool = False, cache_len: Optional[int] = None,
-                return_aux: bool = False, call=_direct):
+                return_aux: bool = False, call=_direct, split: Optional[P.Split] = None):
         """``call(part, *inputs)`` runs each part that adds to the residual
         stream (norm and mixer, norm and cross-attention, norm and FFN):
         directly, or as a checkpointed region under ``remat="names"``, and
-        on a mesh with the part's parameters gathered (:func:`_caller`)."""
+        on a mesh with the part's parameters gathered (:func:`_caller`).
+        With ``split`` (training on a mesh) ``x`` is this rank's block of
+        the residual stream and each part runs its share
+        (``repro_torch.models.layers``)."""
         if return_state:
             out, state = self.mixer(self.norm1(x), return_state=True, cache_len=cache_len)
         else:
-            out = call(self._mixer_out, x)
+            out = call(self._mixer_out, x, split)
         x = x + out
         if self.cross is not None and memory is not None:
-            x = x + call(self._cross_out, x, memory)
-        x, aux = self._add_ffn(x, call)
+            x = x + call(self._cross_out, x, memory, split)
+        x, aux = self._add_ffn(x, call, split)
         outs = (x,) + ((state,) if return_state else ())
         if return_aux:
             outs += (aux,)
@@ -252,9 +263,11 @@ class Model(nn.Module):
             self.encoder_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable, pdt)
         else:
             self.encoder = self.encoder_norm = None
-        # a mesh trainer's hook: gather(modules) -> a context in which the
-        # modules' own parameters are whole (repro_torch.distributed.zero)
+        # a mesh trainer's hooks: gather(modules) -> a context in which the
+        # modules' own parameters are whole (repro_torch.distributed.zero),
+        # and view, the plan at this rank's coordinate (sharding.RankView)
         self.gather = None
+        self.view = None
 
     def forward(self, tokens: torch.Tensor,
                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -333,12 +346,19 @@ def _with_positions(cfg: ArchConfig, x: torch.Tensor, start: int = 0) -> torch.T
     return x + sinusoidal(pos, cfg.d_model).to(x.dtype)
 
 
-def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor], start: int = 0) -> torch.Tensor:
+def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor], start: int = 0,
+                  split: Optional[P.Split] = None) -> torch.Tensor:
     """The first layer's input: ``batch["embeds"]`` cast to the compute
     dtype for an ``embeddings`` model given them, else the tokens' rows of
     the table times sqrt(d_model); then, with sinusoidal positions, the
     rows from position ``start`` on (0 for a full sequence, ``pos`` for a
-    decode step)."""
+    decode step). With ``split`` splitting the sequence, this rank's
+    block of it: its positions' rows, the same rows the whole sequence's
+    input holds there."""
+    if split is not None and split.seq is not None:
+        batch = {k: P.keep_seq(v, split) for k, v in batch.items()
+                 if k in ("tokens", "embeds")}
+        start += split.seq.start
     dt = L.compute_dtype(model.cfg)
     if model.cfg.input_kind == "embeddings" and "embeds" in batch:
         x = batch["embeds"].to(dt)
@@ -347,15 +367,21 @@ def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor], start: int = 0) 
     return _with_positions(model.cfg, x, start)
 
 
-def _encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
+def _encode(model: Model, frames: torch.Tensor, split: Optional[P.Split] = None
+            ) -> torch.Tensor:
     """The encoder's memory (B, T, d) of precomputed ``frames`` (B, T, d):
     cast to the compute dtype, the sinusoid rows added, the non-causal
-    encoder layers, then ``encoder_norm``, as the JAX ``_encode``."""
-    x = _with_positions(model.cfg, frames.to(L.compute_dtype(model.cfg)))
+    encoder layers, then ``encoder_norm``, as the JAX ``_encode``. With
+    ``split`` (at T) splitting the frames, each rank runs its block of them
+    and the memory is gathered whole at the end."""
+    start = 0
+    if split is not None and split.seq is not None:
+        frames, start = P.keep_seq(frames, split), split.seq.start
+    x = _with_positions(model.cfg, frames.to(L.compute_dtype(model.cfg)), start)
     call = _caller(model)
     for layer in model.encoder:
-        x = layer(x, call=call)
-    return model.encoder_norm(x)
+        x = layer(x, call=call, split=split)
+    return P.gather_seq(model.encoder_norm(x), split)
 
 
 def _unembedding(model: Model) -> torch.Tensor:
@@ -374,11 +400,11 @@ def logits_of(model: Model, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _unit_body(layers, call=_direct):
+def _unit_body(layers, call=_direct, split: Optional[P.Split] = None):
     def body(x: torch.Tensor, memory: Optional[torch.Tensor]):
         aux = 0
         for layer in layers:
-            x, a = layer(x, memory=memory, return_aux=True, call=call)
+            x, a = layer(x, memory=memory, return_aux=True, call=call, split=split)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -437,7 +463,7 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(_saves_products)
 
 
-def _remat_body(model: Model, layers):
+def _remat_body(model: Model, layers, split: Optional[P.Split] = None):
     """A pattern unit's body under ``cfg.remat``, as the JAX ``_remat_wrap``:
     ``none`` as it is; ``dots`` checkpointed keeping the products of
     :func:`_saves_products`; ``names`` with each part of each layer (norm and
@@ -446,20 +472,22 @@ def _remat_body(model: Model, layers):
     ``attn_out``, ``ffn_out`` and ``moe_out``, and the residual stream
     between them; any other value checkpointed whole (``full``): only the
     unit's inputs are kept. Checkpoints are non-reentrant; ``memory`` is an
-    input, so its gradient flows back to the encoder."""
+    input, so its gradient flows back to the encoder. On a mesh the
+    recompute runs the same collectives again, on every rank alike."""
     cfg = model.cfg
     if cfg.remat == "none":
-        return _unit_body(layers, _caller(model))
+        return _unit_body(layers, _caller(model), split)
     if cfg.remat == "names":
-        return _unit_body(layers, call=_caller(model, checkpointed=True))
+        return _unit_body(layers, _caller(model, checkpointed=True), split)
     kw = {"use_reentrant": False}
     if cfg.remat == "dots":
         kw["context_fn"] = _dots_contexts
-    body = _unit_body(layers, _caller(model))
+    body = _unit_body(layers, _caller(model), split)
     return lambda x, memory: torch.utils.checkpoint.checkpoint(body, x, memory, **kw)
 
 
-def backbone(model: Model, x: torch.Tensor, memory: Optional[torch.Tensor] = None
+def backbone(model: Model, x: torch.Tensor, memory: Optional[torch.Tensor] = None,
+             split: Optional[P.Split] = None
              ) -> Tuple[torch.Tensor, Union[torch.Tensor, int]]:
     """The prefix layers, the pattern units, then the tail, each layer
     cross-attending to ``memory`` when given; returns (hidden, the MoE aux
@@ -467,15 +495,17 @@ def backbone(model: Model, x: torch.Tensor, memory: Optional[torch.Tensor] = Non
     so a dense model does no work for it). Each unit's body runs under
     ``cfg.remat`` (:func:`_remat_body`), and the backward recomputes the
     unit and not the encoder, as the JAX ``_remat_wrap`` wraps each unit
-    body and neither the prefix, the tail nor ``_encode``."""
+    body and neither the prefix, the tail nor ``_encode``. ``split``: a
+    mesh trainer's (``x`` its sequence block), passed to every layer."""
     cfg = model.cfg
-    P, n0 = len(cfg.pattern), model.n_prefix
+    n_pat, n0 = len(cfg.pattern), model.n_prefix
     call = _caller(model)
-    x, aux = _unit_body(model.layers[:n0], call)(x, memory)
+    x, aux = _unit_body(model.layers[:n0], call, split)(x, memory)
     for u in range(cfg.n_units):
-        x, a = _remat_body(model, model.layers[n0 + u * P:n0 + (u + 1) * P])(x, memory)
+        unit = model.layers[n0 + u * n_pat:n0 + (u + 1) * n_pat]
+        x, a = _remat_body(model, unit, split)(x, memory)
         aux = aux + a
-    x, a = _unit_body(model.layers[n0 + cfg.n_units * P:], call)(x, memory)
+    x, a = _unit_body(model.layers[n0 + cfg.n_units * n_pat:], call, split)(x, memory)
     return x, aux + a
 
 
@@ -529,15 +559,25 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     ``cfg.logits_chunk > 0``), plus ``MOE_AUX_WEIGHT`` times the MoE
     layers' aux losses (none without MoE layers). On a mesh the embedding,
     head and final norms are gathered for the whole loss, each layer's
-    parameters part by part."""
+    parameters part by part, and with the model's ``view`` every layer runs
+    this rank's share: the residual stream, the loss too, in this rank's
+    sequence block where the plan splits the sequence, so the loss is the
+    mean over the block's positions (the trainer weights each rank's)."""
+    view = model.view
+    targets = batch["targets"]
+    split = P.split_at(view, targets.shape[1])
     with _whole(model, _top_modules(model)):
-        memory = _encode(model, batch["frames"]) if model.encoder is not None else None
-        x = _embed_inputs(model, batch)
-        h, aux = backbone(model, x, memory)
+        memory = None
+        if model.encoder is not None:
+            frames = batch["frames"]
+            memory = _encode(model, frames, P.split_at(view, frames.shape[1]))
+        x = _embed_inputs(model, batch, split=split)
+        h, aux = backbone(model, x, memory, split)
+        targets = P.keep_seq(targets, split)
         if model.cfg.logits_chunk > 0:
-            loss = _chunked_xent(model, h, batch["targets"])
+            loss = _chunked_xent(model, h, targets)
         else:
-            loss = cross_entropy(model.cfg, logits_of(model, h), batch["targets"])
+            loss = cross_entropy(model.cfg, logits_of(model, h), targets)
     return loss + MOE_AUX_WEIGHT * aux if torch.is_tensor(aux) else loss
 
 

@@ -12,27 +12,32 @@ The port of ``repro.runtime.trainer``:
     the elastic ``resize(new_mesh)``.
 
 On a mesh the plan is ``make_plan(mesh, prefer=cfg.attn_parallelism,
-global_batch=tcfg.global_batch)``, as JAX's. Every rank stores only its
-block of each master, gradient and optimizer state where ``state_specs``
-places it (``repro_torch.distributed.zero``): a layer's parameters are
-gathered at use, part by part, and dropped after it; under a checkpointing
-``remat`` the backward gathers them again, while under ``remat="none"``
-autograd keeps what each part saved for its backward, its gathered
-weights (or their casts) too, until that backward runs. Every rank draws the same
-global batch from the seeded pipeline and keeps the rows
-``plan.batch(global_batch)`` gives its coordinate (JAX's ``device_put``);
-the loss is the global batch's (each rank's mean times its share of the
-rows, summed), each gradient is summed over the batch's mesh dims into its
-spec, and the norm and Adafactor's statistics are summed over the dims
-that split each tensor, so a step on a mesh is the meshless step up to the
-order of float sums (bit for bit on a 1x1 mesh). The compute is not split
-over the ``model`` axis: ranks that differ only on axes that do not split
-the batch compute the same rows (sequence- and head-parallel activations
-are left out; ROADMAP.md). Checkpoints stay in the JAX layout: leaves are
+global_batch=tcfg.global_batch)``, as JAX's, and the model gets the plan
+at this rank's coordinate (``sharding.rank_view``, the model's ``view``).
+Every rank stores only its block of each master, gradient and optimizer
+state where ``state_specs`` places it (``repro_torch.distributed.zero``):
+a layer's parameters are gathered at use, part by part, and dropped after
+it; under a checkpointing ``remat`` the backward gathers them again, while
+under ``remat="none"`` autograd keeps what each part saved for its
+backward, its gathered weights (or their casts) too, until that backward
+runs. Every rank draws the same global batch from the seeded pipeline and
+keeps the rows ``plan.batch(global_batch)`` gives its coordinate (JAX's
+``device_put``); the ``model`` axis splits the rest of the compute as
+JAX's constraints do (``seq_tp``: the residual stream in sequence blocks,
+K/V gathered; ``head_tp``: heads and ``d_ff`` columns; experts; ``ddp``:
+the sequence where the batch leaves ``model`` free;
+``repro_torch.distributed.parallel``). The loss is the global batch's
+(each rank's mean over its rows and positions times its share of the
+split, summed), each gradient is summed over the split's mesh dims into
+its spec, and the norm and Adafactor's statistics are summed over the
+dims that split each tensor, so a step on a mesh is the meshless step up
+to the order of float sums (bit for bit on a 1x1 mesh). Checkpoints stay
+in the JAX layout: leaves are
 gathered and written by the rank at the mesh's origin, and every rank
 reads the whole leaves back and keeps its blocks, so a checkpoint crosses
 meshes, no mesh and the JAX trainer both ways. The mesh's device type
-must be the trainer's device's (``cuda``: NCCL, ``cpu``: gloo).
+must be the trainer's device's (``cuda``: NCCL, or gloo, which also runs
+two ranks on one card; ``cpu``: gloo).
 
 The masters are in the config's ``param_dtype`` (bfloat16 for arctic-480b
 and kimi-k2-1t-a32b, which train with ``TrainerConfig(optimizer=
@@ -52,7 +57,7 @@ from ..checkpoint import CheckpointManager, from_numpy, to_numpy
 from ..core.torch_solve import resolve_device
 from ..data import batch_iterator
 from ..distributed import zero as Z
-from ..distributed.sharding import make_plan
+from ..distributed.sharding import make_plan, rank_view
 from ..interop import leaves_to_jax, load_leaves
 from ..models import init_params
 from ..models.config import ArchConfig
@@ -102,8 +107,8 @@ class Trainer:
         if mesh is not None and mesh.device_type != self.device.type:
             raise ValueError(
                 f"the mesh is on {mesh.device_type!r} devices but the trainer on "
-                f"{self.device.type!r}: a cuda mesh (NCCL) trains on cuda, a cpu "
-                f"mesh (gloo) on the cpu")
+                f"{self.device.type!r}: a cuda mesh (NCCL, or gloo) trains on cuda, "
+                f"a cpu mesh (gloo) on the cpu")
         cfg = self.cfg
         self.mesh = mesh
         self.plan = make_plan(mesh, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -130,8 +135,8 @@ class Trainer:
         and the optimizer's states where their specs place them (zeros of
         this rank's block; Adafactor's whole)."""
         cfg, mesh, plan = self.cfg, self.mesh, self.plan
-        split = Z.BatchSplit(mesh, plan.batch(self.tcfg.global_batch) or (),
-                             self.tcfg.global_batch, cfg.microbatches)
+        split = Z.MeshSplit(mesh, plan.batch(self.tcfg.global_batch) or (),
+                            self.tcfg.global_batch, cfg.microbatches, plan.shape.model_axis)
 
         def specs(path, shape):
             stacked = (cfg.n_units,) + tuple(shape) if "units" in path.split("/") else shape
@@ -141,6 +146,7 @@ class Trainer:
         model = init_params(cfg, gen, trainable=True,
                             place=zero.placer(lambda name: _jax_path(cfg, name)))
         zero.attach(model)
+        model.view = rank_view(plan, mesh)
         # the optimizer's states from the global shapes, then placed
         whole = param_leaves(Model(cfg, device="meta", trainable=True))
         meta_state = self.optimizer.init(whole)

@@ -15,12 +15,13 @@ parameters, the optimizer's states and ``step``) and returned.
 ``PartitionSpec``'s entries), a stacked ``units/...`` leaf's with JAX's
 leading unit dim; :func:`unit_spec` drops it for the port's per-unit
 tensor. On a mesh (``zero``, ``repro_torch.distributed.zero``) the step
-runs on this rank's rows: each microbatch's loss times the rows' share of
-the global batch, the gradients reduced into the shards by the gathers'
-backward (one reduce-scatter with ``cfg.grad_spec_constraint``, else an
-all-reduce and a slice: the same numbers), the reported loss summed over
-the batch's ranks, the norm and the optimizer's sums over the splitting
-mesh dims.
+runs this rank's share of the compute (its rows, and its block of the
+sequence, heads or experts where the model's view splits them): each
+microbatch's loss times the rank's share of the split (``frac``), the
+gradients reduced into the shards by the gathers' backward (one
+reduce-scatter with ``cfg.grad_spec_constraint``, else an all-reduce and
+a slice: the same numbers), the reported loss summed over the split's
+ranks, the norm and the optimizer's sums over the splitting mesh dims.
 """
 from __future__ import annotations
 
@@ -150,8 +151,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, zero: Optional[Any] =
     the loss itself follows the model's own config. Metrics: ``loss`` and
     ``grad_norm`` (float32 scalar tensors on the model's device, the norm
     before clipping) and ``step`` (the step this update was). With
-    ``zero`` (a mesh trainer's ``Zero``) the batch is this rank's rows and
-    the model holds this rank's shards."""
+    ``zero`` (a mesh trainer's ``Zero``) the batch is this rank's rows,
+    the model holds this rank's shards and runs its share."""
     mb = max(1, cfg.microbatches)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):

@@ -68,7 +68,8 @@ print(json.dumps({"modules": names, "bad": bad}))
                  "obs.__main__", "examples.cluster_scheduler_e2e",
                  "examples.serve_decode", "examples.quickstart",
                  "examples.online_service", "optim.compress", "distributed",
-                 "distributed.sharding", "distributed.zero", "launch.mesh"):
+                 "distributed.sharding", "distributed.zero", "distributed.parallel",
+                 "launch.mesh"):
         assert f"repro_torch.{name}" in out["modules"]
 
 

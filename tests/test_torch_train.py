@@ -539,6 +539,22 @@ def test_train_cli_refuses_what_is_not_ported(flags, tmp_path, capsys):
 # ---------------------------------------------------------------------------
 
 
+def test_chip_smoke_cpu_half_fails_at_its_drain(monkeypatch):
+    """``chip_smoke.Behind``: a check that fails on the CPU half's thread
+    raises at the drain, once, and the next half runs."""
+    monkeypatch.syspath_prepend(os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
+    import chip_smoke as cs
+
+    behind, ran = cs.Behind(torch), []
+    behind.submit(lambda: cs.check(False, "planted"))
+    with pytest.raises(cs.SmokeFailure, match="planted"):
+        behind.drain()
+    behind.submit(lambda: ran.append(1))
+    behind.drain()
+    behind.drain()
+    assert ran == [1]
+
+
 def test_chip_smoke_train_phases_rehearse_on_the_cpu(monkeypatch):
     """``chip_smoke.py``'s phases 15-17 on the CPU at cut shapes: the RG-LRU
     plain forward and backward stand in for the kernels and count as their
@@ -594,3 +610,13 @@ def test_chip_smoke_train_phases_rehearse_on_the_cpu(monkeypatch):
                            cfg=get_smoke(ARCH, n_layers=5, dtype="float32", remat="full"))
     rec = detail[f"train_card_vs_cpu_{ARCH}"]
     assert rec["launches"] == [6, 4] and rec["grad_err"] == 0.0 and rec["adamw_err"] == 0.0
+    # the CPU half on a thread of its own, as the script runs it beside the
+    # next card phase: the same numbers once drained
+    behind = cs.Behind(torch)
+    cs.train_devices_phase(torch, rg, detail, dev="cpu", behind=behind,
+                           cfg=get_smoke(ARCH, n_layers=5, dtype="float32", remat="full"))
+    behind.drain()
+    again = detail[f"train_card_vs_cpu_{ARCH}"]
+    assert again["cpu_half_beside_later_phases"]
+    assert {k: again[k] for k in ("launches", "grad_err", "adamw_err", "loss_cpu")} == {
+        k: rec[k] for k in ("launches", "grad_err", "adamw_err", "loss_cpu")}

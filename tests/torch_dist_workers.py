@@ -113,14 +113,16 @@ def mesh_train(rank, world, out_dir, runs):
     return out
 
 
-def mesh_resize(rank, world, out_dir, arch, tcfg, first, steps_before, second, steps_after):
-    """Train on mesh ``first`` with checkpoints, ``resize`` to ``second``
-    (a mesh of fewer ranks: the others drop out), train on. Returns the
-    losses before and after, the step the resize restored and the state
-    tree after (on the ranks that stay)."""
+def mesh_resize(rank, world, out_dir, arch, over, tcfg, first, steps_before, second,
+                steps_after):
+    """Train ``arch`` (its smoke config with ``over``) on mesh ``first``
+    with checkpoints, ``resize`` to ``second`` (a mesh of fewer ranks: the
+    others drop out), train on. Returns the losses before and after, the
+    step the resize restored and the state tree after (on the ranks that
+    stay)."""
     from repro_torch.runtime import Trainer, TrainerConfig
 
-    t = Trainer(_cfg(arch, {}), TrainerConfig(**tcfg), mesh=_mesh(*first), device="cpu")
+    t = Trainer(_cfg(arch, over), TrainerConfig(**tcfg), mesh=_mesh(*first), device="cpu")
     before = t.run(steps_before)["losses"]
     t.resize(_mesh(*second))
     if t.state is None:
@@ -129,3 +131,101 @@ def mesh_resize(rank, world, out_dir, arch, tcfg, first, steps_before, second, s
     after = t.run(steps_after)["losses"]
     return {"in_new_mesh": True, "before": before, "restored": restored, "after": after,
             "tree": t.state_tree()}
+
+
+# ---------------------------------------------------------------------------
+# the compute split over the model axis
+# ---------------------------------------------------------------------------
+
+
+class _Shapes(torch.overrides.TorchFunctionMode):
+    """Records the shapes the split's computations run at: each attention
+    score einsum's query heads (the grouped einsum's KV heads times group)
+    and each ``torch.bmm``'s operands (the MoE experts' products)."""
+
+    def __init__(self):
+        super().__init__()
+        self.heads, self.bmm = [], []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.einsum and args[0] == "bskgd,btkd->bkgst":
+            self.heads.append(int(args[1].shape[2] * args[1].shape[3]))
+        elif func is torch.bmm:
+            self.bmm.append(tuple(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+def split_train(rank, world, out_dir, runs):
+    """``mesh_train``'s runs, each with its first step watched: every
+    ``Block``'s input shape (forward pre-hooks, encoder and decoder), the
+    query heads of every attention score product and the operand shapes of
+    every ``torch.bmm`` (:class:`_Shapes`)."""
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    out = {}
+    for name, arch, over, tcfg, shape, axes, steps, ckpt in runs:
+        if ckpt:
+            tcfg = {**tcfg, "ckpt_dir": ckpt}
+        t = Trainer(_cfg(arch, over), TrainerConfig(**tcfg), mesh=_mesh(shape, axes),
+                    device="cpu")
+        if ckpt:
+            t.restore_latest()
+        model = t.state.model
+        blocks = []
+        hooks = [m.register_forward_pre_hook(lambda mod, args: blocks.append(
+            tuple(args[0].shape))) for m in model.modules() if type(m).__name__ == "Block"]
+        with _Shapes() as seen:
+            first = t.run(1)["losses"]
+        for h in hooks:
+            h.remove()
+        res = t.run(steps - 1)
+        out[name] = {"losses": first + res["losses"], "tree": t.state_tree(),
+                     "blocks": blocks, "heads": seen.heads, "bmm": seen.bmm,
+                     "coordinate": t.mesh.get_coordinate()}
+    return out
+
+
+def collectives(rank, world, out_dir):
+    """Every collective of ``repro_torch.distributed.parallel`` on the world
+    (float64, seeded per rank), forward and backward, and on a group of
+    this rank alone; returns the inputs, outputs and gradients by name for
+    the test to hold against their definitions."""
+    from repro_torch.distributed import parallel as P
+    from repro_torch.distributed.sharding import Block
+
+    class View:  # the model axis as the whole world
+        group = dist.group.WORLD
+
+    sp = P.Split(View(), Block(4 * rank, 4 * rank + 4))
+    whole = P.Split(View(), None)  # the sequence not split
+    g = torch.Generator().manual_seed(rank)
+    f64 = {"dtype": torch.float64, "generator": g}
+    out = {}
+    for name, fn, split, shape in (("gather_seq", P.gather_seq, sp, (2, 4, 3)),
+                                   ("keep_seq", P.keep_seq, sp, (2, 4 * world, 3)),
+                                   ("scatter_sum", P.scatter_sum, sp, (2, 4 * world, 3)),
+                                   ("sum_all", P.scatter_sum, whole, (2, 4 * world, 3))):
+        x = torch.randn(shape, **f64).requires_grad_()
+        y = fn(x, split)
+        dy = torch.randn(y.shape, **f64)
+        y.backward(dy)
+        out[name] = {"x": x.detach(), "y": y.detach(), "dy": dy, "dx": x.grad}
+    # the primitives along other dims
+    x = torch.randn((3, 2 * world, 5), **f64)
+    out["all_gather_dims"] = {"x": x, "y": [P.all_gather(x, d, dist.group.WORLD)
+                                            for d in range(3)]}
+    z = torch.randn((world * 2, world * 2, world * 2), **f64)
+    out["reduce_scatter_dims"] = {"x": z, "y": [P.reduce_scatter(z, d, dist.group.WORLD)
+                                                for d in range(3)]}
+    # each rank alone: every collective the identity
+    alone = [dist.new_group([r]) for r in range(world)][rank]
+
+    class Alone:
+        group = alone
+
+    one = P.Split(Alone(), Block(0, 4))
+    x = torch.randn((2, 4, 3), **f64)
+    out["alone"] = {"x": x, "ys": [P.all_gather(x, 1, alone), P.reduce_scatter(x, 1, alone),
+                                   P.all_reduce_(x.clone(), alone), P.gather_seq(x, one),
+                                   P.scatter_sum(x, one)]}
+    return out
