@@ -2237,6 +2237,30 @@ FLASH_FULL = (("flash_yi9b_b8_s2048", 8, 32, 4, 2048, 128, True, None),
               ("flash_gemma3_4b_b4_s4096_w1024", 4, 8, 4, 4096, 256, True, 1024))
 
 
+#: phase 13's offset shapes, the kernel at a query offset as phase 49's
+#: prefill split over two ranks calls it: rank 1's block of 8 prompts of
+#: 2048 (its 1024 query rows at positions 1024-2047, every key), (label, B,
+#: Hq, Hkv, Sq, Sk, D, window, q_offset), causal: gemma3-4b's sliding layer
+#: (window 1024) and yi-9b's layers
+FLASH_OFFSET = (("flash_gemma3_4b_rank1_w1024", 8, 8, 4, 1024, 2048, 256, 1024, 1024),
+                ("flash_yi9b_rank1", 8, 32, 4, 1024, 2048, 128, None, 1024))
+#: small offset cases of phase 13 beside them (B, Hq, Hkv, Sq, Sk, D, window,
+#: q_offset): ragged tiles, a window edge inside a tile, rows that see no
+#: key, an offset that is no multiple of a tile
+FLASH_OFFSET_CASES = ((1, 2, 2, 200, 456, 64, 100, 256), (2, 4, 2, 128, 384, 128, None, 256),
+                      (1, 2, 1, 96, 160, 256, 32, 64), (1, 2, 2, 64, 64, 64, 16, 200))
+
+
+def offset_pairs(Sq: int, Sk: int, window, q_offset: int) -> int:
+    """The causal (query, key) pairs, per head, of query rows at positions
+    q_offset .. q_offset + Sq - 1 against keys 0 .. Sk - 1."""
+    n = 0
+    for q in range(q_offset, q_offset + Sq):
+        lo = 0 if window is None else max(0, q - window + 1)
+        n += max(0, min(Sk, q + 1) - lo)
+    return n
+
+
 def kernel_report(name: str) -> dict:
     """Per kernel function of the built library ``csrc/<name>.cu``: ptxas's
     registers and spill line (when this process built it) and the count of
@@ -2514,14 +2538,88 @@ def flash_phase(torch, fa, detail, dev="cuda") -> dict:
         f"({fp32['tflops']:.1f} TFLOP/s), max |diff| vs plain {fp32['max_abs_err']:.3e}")
     del q, k, v, got, ref
 
+    # the kernels at a query offset (a sequence block's rows): small cases,
+    # then rank 1's blocks of phase 49's gemma3-4b and of yi-9b, both kernels
+    # held to the plain version, the tensor-core one timed beside SDPA on
+    # the same boolean mask
+    offset_worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_offset = 0
+    for B, Hq, Hkv, Sq, Sk, D, window, off in FLASH_OFFSET_CASES:
+        for dtype in (f32, bf16):
+            q, k, v = operands(B, Hq, Hkv, Sq, Sk, D, dtype)
+            tc = dtype == bf16 and D % 8 == 0
+            got = op_call(q, k, v, tc, causal=True, window=window, block_q=math.gcd(Sq, 16),
+                          block_k=math.gcd(Sk, 16), q_offset=off)
+            ref = fa.flash_attention_plain(q, k, v, causal=True, window=window, q_offset=off)
+            key = str(dtype).split(".")[1]
+            torch.testing.assert_close(got, ref, atol=FLASH_TOL[key], rtol=FLASH_TOL[key],
+                                       msg=lambda m: f"flash {(B, Hq, Hkv, Sq, Sk, D)} "
+                                       f"{dtype} window={window} q_offset={off}: {m}")
+            offset_worst[key] = max(offset_worst[key], float((got.float() - ref.float())
+                                                             .abs().max()))
+            n_offset += 1
+            del q, k, v, got, ref
+    offset = {}
+    for olabel, B, Hq, Hkv, Sq, Sk, D, window, off in FLASH_OFFSET:
+        t = {"q_offset": off, "shape": [B, Hq, Hkv, Sq, Sk, D], "window": window}
+        for dtype in (bf16, f32):
+            key = str(dtype).split(".")[1]
+            q, k, v = operands(B, Hq, Hkv, Sq, Sk, D, dtype)
+            got = op_call(q, k, v, dtype == bf16, causal=True, window=window, q_offset=off,
+                          block_q=math.gcd(Sq, 16), block_k=math.gcd(Sk, 16))
+            ref = fa.flash_attention_plain(q, k, v, causal=True, window=window, q_offset=off)
+            torch.testing.assert_close(got, ref, atol=FLASH_TOL[key], rtol=FLASH_TOL[key],
+                                       msg=lambda m: f"{olabel} {key}: {m}")
+            t[f"max_abs_err_{key}"] = float((got.float() - ref.float()).abs().max())
+            offset_worst[key] = max(offset_worst[key], t[f"max_abs_err_{key}"])
+            del ref
+            if dtype == f32:
+                t["fp32_kernel_ms"] = graph_ms(torch, lambda: fa._launch(
+                    q, k, v, True, window, off), reps=3, rounds=2)
+                del q, k, v, got
+                continue
+            mask = attention_mask(Sq, Sk, True, window, dev, off)
+
+            def library():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=True)
+
+            torch.testing.assert_close(library(), got, atol=FLASH_TOL["bfloat16"],
+                                       rtol=FLASH_TOL["bfloat16"])
+            t["kernel_ms"] = graph_ms(torch, lambda: fa._launch(q, k, v, True, window, off),
+                                      reps=10, rounds=3)
+            t["plain_ms"] = graph_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, window=window, q_offset=off), reps=1, rounds=2)
+            t["library_ms"] = graph_ms(torch, library, reps=10, rounds=3)
+            pairs = offset_pairs(Sq, Sk, window, off) * B * Hq
+            n_bytes = 2 * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
+            t["gflop"] = 4 * D * pairs / 1e9
+            t["tflops"] = t["gflop"] / t["kernel_ms"]
+            t["bound_ms"], t["bound_by"] = bound(n_bytes, 4 * D * pairs, BF16_TC_FLOPS)
+            t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+            del q, k, v, got, mask
+        t["fp32_tflops"] = t["gflop"] / t["fp32_kernel_ms"]
+        offset[olabel] = t
+        log(f"    {olabel} (q_offset {off}): tensor-core kernel {t['kernel_ms']:.4f} ms "
+            f"(graph replay), {t['tflops']:.1f} TFLOP/s, {t['bound_share']:.1%} of the bound; "
+            f"CUDA-core kernel (float32) {t['fp32_kernel_ms']:.3f} ms "
+            f"({t['fp32_tflops']:.1f} TFLOP/s); plain {t['plain_ms']:.3f} ms, SDPA (the same "
+            f"boolean mask) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}, {t['gflop']:.1f} GFLOP); max |diff| vs plain bf16 "
+            f"{t['max_abs_err_bfloat16']:.3e}, fp32 {t['max_abs_err_float32']:.3e}")
+    log(f"    at a query offset: both kernels == plain on {n_offset} small cases and the "
+        f"{len(FLASH_OFFSET)} rank-1 blocks; max |diff| fp32 {offset_worst['float32']:.3e}, "
+        f"bf16 {offset_worst['bfloat16']:.3e}")
+
     detail["flash_kernel"] = {"cases": len(cases), "tensor_core_cases": n_tc,
                               "max_abs_err": worst, "launches": launches,
                               "launches_tc": launches_tc, "full_width": full,
-                              "float32_" + label: fp32}
+                              "float32_" + label: fp32, "offset": offset,
+                              "offset_cases": n_offset, "offset_max_abs_err": offset_worst}
     return {**full[label], "launches": launches, "launches_tc": launches_tc,
             "fp32_ms": fp32["kernel_ms"],
             "max_abs_err": max(t["max_abs_err"] for t in full.values()),
-            "max_abs_err_cases": max(worst.values())}
+            "max_abs_err_cases": max(worst.values()), "offset": offset}
 
 
 #: full-width cross-entropy shapes of phase 14: (label, N, V). One chunk of
@@ -3484,6 +3582,21 @@ SPLIT_MASTER_TOL = 1e-6
 #: phase 48: the seconds the two ranks may take before they are killed
 #: (the whole phase took 59.8-71.2 s on the H100)
 SPLIT_TIMEOUT_S = 240
+#: phase 49, serving on a (1, 2) mesh: gemma3-4b at full width, one
+#: pattern unit (5 sliding layers of window 1024, 1 full layer) on the
+#: blocked path with the config's tiles of 512 / 1024 (each rank's 1024
+#: query rows are two tiles), bf16; (arch, layers, (B, S, decode steps)),
+#: the weights' seed, and the seconds the ranks may take
+MESH_SERVE = ("gemma3-4b", 6, (8, 2048, 8))
+MESH_SERVE_CFG = {"attention_impl": "blocked", "attention_block_q": 512,
+                  "attention_block_kv": 1024}
+MESH_SERVE_SEED = 49
+MESH_SERVE_TIMEOUT_S = 300
+#: phase 49: decode steps of each planted fault's run (its prefill and these
+#: steps are gated, the caches only after every step; with one step the
+#: global-slot fault's attention outputs failed by only 6.5e-2 against the
+#: 5e-2 gate on the H100: PERF.md, PR 29)
+MESH_SERVE_PLANT_STEPS = 2
 #: phases 43 and 45: a whole MoE layer's gradients, ``MoE`` against
 #: ``moe_plain`` on the card, at full width with this many float32 experts
 #: (arctic: 13.4 GB of weights, two gradient sets beside them), B x S of
@@ -4929,6 +5042,412 @@ def split_phase(torch, detail, dev="cuda", cfg=None, shape=SPLIT_TRAIN[2:],
     return out
 
 
+@contextlib.contextmanager
+def _serve_taps(cuda: bool):
+    """Within the context: each ``ops.flash_attention_gqa`` call's
+    ``q_offset`` (``offsets``), the blocked path's twin's calls
+    (``plain``) and each ``Attention.decode``'s output in float32
+    (``attn``, in call order). On the CPU (a rehearsal) the blocked path's
+    rule is widened to CPU tensors, so the flash op's plain version stands
+    in for the kernel there."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as TL
+
+    seen = {"offsets": [], "plain": 0, "attn": []}
+    real_op, real_twin, real_decode, real_rule = (
+        ops.flash_attention_gqa, TL.blocked_attention_plain, TL.Attention.decode, TL._on_kernel)
+
+    def op(q, k, v, **kw):
+        seen["offsets"].append(kw.get("q_offset", 0))
+        return real_op(q, k, v, **kw)
+
+    def twin(*args, **kw):
+        seen["plain"] += 1
+        return real_twin(*args, **kw)
+
+    def decode(self, *args, **kw):
+        out, cache = real_decode(self, *args, **kw)
+        seen["attn"].append(out.float())
+        return out, cache
+
+    ops.flash_attention_gqa, TL.blocked_attention_plain, TL.Attention.decode = op, twin, decode
+    if not cuda:
+        TL._on_kernel = lambda q, k, v: not (q.requires_grad or k.requires_grad
+                                             or v.requires_grad)
+    try:
+        yield seen
+    finally:
+        ops.flash_attention_gqa, TL.blocked_attention_plain, TL.Attention.decode = (
+            real_op, real_twin, real_decode)
+        TL._on_kernel = real_rule
+
+
+def _serve_tapped(torch, model, prompts, steps: int, cuda: bool, feed=None,
+                  trace: bool = False, cache_len=None) -> dict:
+    """``model``'s prefill of ``prompts`` with a cache of ``cache_len``
+    (default S + steps + 8, as ``generate`` sizes it) and ``steps`` decode
+    steps fed ``feed`` (B, steps + 1) teacher-forced (the
+    meshless tokens, as ``decode_on`` feeds them), or greedy without:
+    the final-normed hidden state at every position of this rank's block,
+    the logits of the prefill's last position and of every step, every
+    attention layer's decode output, the tokens (each logits' argmax), the
+    cache gathered whole, the flash calls (their offsets, in prefill and in
+    decode), the twin's calls, the walls, the last step's collectives by
+    kind and, with ``trace`` (on the card), the device's busy time in a
+    profiled step after them."""
+    from repro_torch.distributed import parallel as P
+    from repro_torch.interop import gather_cache
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decode_step, prefill
+
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    B, S = prompts.shape
+    vocab = model.cfg.vocab
+    out = {"logits": [], "step_s": []}
+    hidden = {}
+    with torch.inference_mode(), _serve_taps(cuda) as seen:
+        sync()
+        f0, t0 = fa.flash_attention.launches_tc, time.perf_counter()
+        with prefill_hidden(model, hidden, "h"):
+            cache, logits = prefill(model, {"tokens": prompts}, cache_len or S + steps + 8)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        n_pre = len(seen["offsets"])
+        out["flash"] = {"prefill": n_pre, "offsets": list(seen["offsets"]),
+                        "prefill_tc": fa.flash_attention.launches_tc - f0}
+        toks = [torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None]]
+        out["logits"].append(logits)
+        for i in range(steps):
+            tok = toks[-1] if feed is None else feed[:, i:i + 1]
+            P.reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            cache, logits = decode_step(model, cache, tok)
+            sync()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["logits"].append(logits)
+            toks.append(torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None])
+        out["collectives"] = {k: list(v) for k, v in P.COUNTS.items()}
+        out["flash"]["decode"] = len(seen["offsets"]) - n_pre
+        out["plain_blocked"] = seen["plain"]
+        out["attn"] = seen["attn"]
+        out["hidden"] = hidden["h"]
+        out["tokens"] = torch.cat(toks, dim=1)
+        out["cache"] = gather_cache(model, cache)
+        if trace:
+            step_cache = {**cache, "pos": cache["pos"] - 1}  # writes slot pos - 1 again
+            holder = {}
+            sync()
+            t0 = time.perf_counter()
+            busy = sum(k["device_ms"] for k in device_kernels(
+                torch, lambda: holder.update(r=decode_step(model, step_cache, tok))))
+            wall_s = time.perf_counter() - t0
+            out.update(traced_step_s=wall_s, busy_ms=busy, idle_share=1.0 - busy / 1e3 / wall_s)
+    return out
+
+
+def _serve_errors(torch, got: dict, ref: dict, block) -> dict:
+    """The gates of phase 49 (``rel_err``: max |diff| / max |ref|): the
+    prefill's last-position logits, the hidden state at every position of
+    the rank's sequence block ``block`` (a slice), every decode step's
+    logits, every attention layer's decode output at every step, and the
+    cache at every slot (where ``got`` ran every step of ``ref``), each the
+    worst of its kind; and the steps whose
+    argmax differs from the reference's tokens, each with its gap on the
+    reference's logits (``gap``) against twice the two sides' largest
+    difference on that row (``within``: a near-tie)."""
+    dev = got["logits"][0].device
+    errs = {"logits": rel_err(got["logits"][0], ref["logits"][0].to(dev)),
+            "hidden": rel_err(got["hidden"], ref["hidden"][:, block].to(dev)),
+            "decode_logits": max(rel_err(a, b.to(dev)) for a, b in
+                                 zip(got["logits"][1:], ref["logits"][1:])),
+            "decode_attention": max(rel_err(a, b.to(dev)) for a, b in
+                                    zip(got["attn"], ref["attn"]))}
+    if len(got["logits"]) == len(ref["logits"]):
+        errs["cache"] = max(rel_err(t, ref["cache"][i][k].to(dev))
+                            for i, c in enumerate(got["cache"]["layers"]) for k, t in c.items())
+    flips = []
+    want = ref["tokens"].to(dev)
+    for i, logits in enumerate(got["logits"]):
+        mine = torch.argmax(logits[:, -1], dim=-1)
+        r = ref["logits"][i].to(dev)[:, -1].float()
+        for b in torch.nonzero(mine != want[:, i]).flatten().tolist():
+            gap = float(r[b, want[b, i]] - r[b, mine[b]])
+            diff = float((logits[b, -1].float() - r[b]).abs().max())
+            flips.append({"step": i, "row": b, "gap": gap, "within": gap <= 2 * diff})
+    return {"errors": errs, "flips": flips}
+
+
+@contextlib.contextmanager
+def planted_no_global_max():
+    """A planted fault for phase 49: the decode combine scales each rank's
+    exponentials by its own max of the scores, never the global one."""
+    import torch
+
+    from repro_torch.distributed import parallel as P
+
+    real = P.softmax_combine
+
+    def combine(scores, v, group, dtype):
+        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        probs = (p / P.all_reduce_(p.sum(dim=-1, keepdim=True), group)).to(dtype).float()
+        out = P.all_reduce_(torch.einsum("bkgst,btkd->bskgd", probs, v.float()), group)
+        B, Hkv, G, S, _ = scores.shape
+        return out.reshape(B, S, Hkv * G, v.shape[-1]).to(dtype)
+
+    P.softmax_combine = combine
+    try:
+        yield
+    finally:
+        P.softmax_combine = real
+
+
+@contextlib.contextmanager
+def planted_global_slot():
+    """A planted fault for phase 49: a decode token's K/V written at its
+    global slot index in every rank's block that has one (the owner's own
+    offset ignored)."""
+    from repro_torch.models import layers as TL
+
+    real = TL.local_slot
+    TL.local_slot = lambda slot, block: slot if slot < block.size else None
+    try:
+        yield
+    finally:
+        TL.local_slot = real
+
+
+@contextlib.contextmanager
+def planted_no_offset():
+    """A planted fault for phase 49: the flash calls of the blocked path
+    made without their query offset (rank 1's block attends as if it were
+    the sequence's start)."""
+    from repro_torch.kernels import ops
+
+    real = ops.flash_attention_gqa
+    ops.flash_attention_gqa = lambda q, k, v, **kw: real(q, k, v, **dict(kw, q_offset=0))
+    try:
+        yield
+    finally:
+        ops.flash_attention_gqa = real
+
+
+MESH_SERVE_PLANTED = (("no_global_max", planted_no_global_max),
+                      ("global_slot", planted_global_slot),
+                      ("no_offset", planted_no_offset))
+
+
+def _mesh_serve_child(rank, world, d, cfg, shape, dev, parent) -> None:
+    """One rank of phase 49: a gloo group through a ``file://`` rendezvous
+    in ``d``, a (1, ``world``) mesh on ``dev``, the model drawn as the
+    meshless one (the same seed) and placed on it; the teacher-forced serve
+    of ``_serve_tapped`` against the meshless reference ``d/ref.pt``
+    (``_serve_errors``), traced, then each planted fault's; writes
+    ``d/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_params
+    from repro_torch.runtime import place_on_mesh
+
+    _die_with_parent(parent)
+    cuda = torch.device(dev).type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        while not os.path.exists(os.path.join(d, "go")):
+            time.sleep(0.05)
+        if cuda:
+            torch.cuda.set_device(torch.device(dev).index or 0)
+            fa.load()
+            torch.cuda.reset_peak_memory_stats()
+        B, S, steps = shape
+        t0 = time.perf_counter()
+        mesh = make_test_mesh((1, world), ("data", "model"), device_type=torch.device(dev).type)
+        with torch.inference_mode():
+            model = place_on_mesh(init_params(cfg, torch.Generator(device=dev).manual_seed(
+                MESH_SERVE_SEED)), mesh, B)
+        build_s = time.perf_counter() - t0
+        ref = torch.load(os.path.join(d, "ref.pt"), mmap=True)
+        prompts, feed = ref["prompts"].to(dev), ref["tokens"].to(dev)
+        blk = model.view.seq(S)
+        block = slice(blk.start, blk.stop) if blk is not None else slice(0, S)
+        got = _serve_tapped(torch, model, prompts, steps, cuda, feed=feed, trace=cuda)
+        res = {k: got[k] for k in ("prefill_s", "step_s", "flash", "plain_blocked",
+                                   "collectives", "traced_step_s", "busy_ms", "idle_share")
+               if k in got}
+        res.update(_serve_errors(torch, got, ref, block), build_s=build_s,
+                   block=[block.start, block.stop], coordinate=mesh.get_coordinate())
+        del got
+        res["planted"] = {}
+        for name, plant in MESH_SERVE_PLANTED:
+            with plant():  # the reference's cache, fewer steps
+                bad = _serve_tapped(torch, model, prompts, min(steps, MESH_SERVE_PLANT_STEPS),
+                                    cuda, feed=feed, cache_len=S + steps + 8)
+            res["planted"][name] = _serve_errors(torch, bad, ref, block)["errors"]
+            del bad
+        res["peak_memory_gb"] = (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                                 else float("nan"))
+        torch.save(res, os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_serve_phase(torch, detail, dev="cuda", cfg=None, shape=MESH_SERVE[2],
+                     world=2) -> dict:
+    """Phase 49: serving on a (1, ``world``) ``("data", "model")`` mesh,
+    ``world`` gloo ranks sharing one card (NCCL refuses two ranks on one
+    device). This process serves the model meshless (greedy, B x S prompts
+    and ``steps`` decode steps; the reference) while the ranks (spawned,
+    this process having built the kernels) start and join their group;
+    then each rank draws the same weights, places them on the mesh
+    (``runtime.place_on_mesh``: its blocks in the JAX specs, the vocab's
+    too) and serves the same prompts, the decode teacher-forced on the
+    reference's tokens. Gates, each at the bf16 serve gate
+    ``CARD_CPU_BF16`` (float32: ``CARD_CPU_F32``) of max |reference|: the
+    prefill's last-position logits, the final-normed hidden state at every
+    position of each rank's sequence block, every step's logits, every
+    attention layer's decode output at every step, and the KV caches
+    gathered whole at every slot; a greedy token may differ only at a
+    near-tie. Counts: one flash call per attention layer a prefill on each
+    rank at its block's offset, all on the tensor-core kernel, none in
+    decode, no call of the twin; the decode combine once an attention
+    layer a step. Each planted fault of ``MESH_SERVE_PLANTED``, served with
+    ``MESH_SERVE_PLANT_STEPS`` decode steps, must fail a gate. Returns the phase's numbers;
+    the ranks are killed after ``MESH_SERVE_TIMEOUT_S`` or when this
+    process fails first."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wrappers
+    from repro_torch.models import init_params
+
+    arch, n_layers, _ = MESH_SERVE
+    if cfg is None:
+        cfg = get_config(arch, n_layers=n_layers, **MESH_SERVE_CFG)
+    B, S, steps = shape
+    cuda = torch.device(dev).type == "cuda"
+    tol = CARD_CPU_BF16 if cfg.dtype == "bfloat16" else CARD_CPU_F32
+    ws = wrappers()
+    _zero_launches(ws)
+    n_attn = sum(k in ("full", "sliding") for k in layer_kinds_of(cfg))
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "prompt_len": S,
+           "decode_steps": steps, "ranks_on_one_card": world, "dtype": cfg.dtype,
+           "attention": [cfg.attention_impl, cfg.attention_block_q, cfg.attention_block_kv],
+           "tol": tol}
+    detail["mesh_serve"] = out
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    d = tempfile.mkdtemp(prefix="chip-smoke-mesh-serve-")
+    ctx = mp.start_processes(_mesh_serve_child,
+                             args=(world, d, cfg, shape, dev, os.getpid()),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_SERVE_TIMEOUT_S
+    try:
+        with torch.inference_mode():
+            model = init_params(cfg, torch.Generator(device=dev).manual_seed(MESH_SERVE_SEED))
+            prompts = torch.randint(2, cfg.vocab, (B, S), device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+        ref = _serve_tapped(torch, model, prompts, steps, cuda, trace=cuda)
+        out["meshless"] = {k: ref[k] for k in ("prefill_s", "step_s", "flash", "plain_blocked",
+                                               "traced_step_s", "busy_ms", "idle_share")
+                           if k in ref}
+        out["meshless"]["peak_memory_gb"] = (torch.cuda.max_memory_allocated() / 1e9 if cuda
+                                             else float("nan"))
+        torch.save({"prompts": prompts.cpu(), "tokens": ref["tokens"].cpu(),
+                    "hidden": ref["hidden"].cpu(), "attn": [a.cpu() for a in ref["attn"]],
+                    "logits": [x.cpu() for x in ref["logits"]],
+                    "cache": [{k: t.cpu() for k, t in c.items()}
+                              for c in ref["cache"]["layers"]]}, os.path.join(d, "ref.pt"))
+        del model, ref
+        if cuda:
+            torch.cuda.empty_cache()
+        out["meshless_s"] = time.perf_counter() - t_phase
+        open(os.path.join(d, "go"), "w").close()
+        while not ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))):
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"phase 49's ranks outlasted {MESH_SERVE_TIMEOUT_S} s")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(d, ignore_errors=True)
+    out["ranks"] = ranks
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = _launches(ws)
+    out["errors"] = {g: max(r["errors"][g] for r in ranks) for g in ranks[0]["errors"]}
+    out["planted"] = {name: {"errors": {g: max(r["planted"][name][g] for r in ranks)
+                                        for g in ranks[0]["planted"][name]}}
+                      for name, _ in MESH_SERVE_PLANTED}
+    for p in out["planted"].values():
+        p["failed"] = sorted(g for g, e in p["errors"].items() if e > tol)
+    m = out["meshless"]
+    log(f"[49] {cfg.name} ({cfg.n_layers} layers, {cfg.attention_impl} "
+        f"{cfg.attention_block_q}/{cfg.attention_block_kv}, {cfg.dtype}) served on a (1, "
+        f"{world}) mesh of gloo ranks sharing {dev}, B {B} x {S} + {steps} steps teacher-"
+        f"forced: vs the meshless port " + ", ".join(f"{g} {e:.3e}" for g, e in
+                                                  out["errors"].items())
+        + f" (<= {tol:g} of max |ref|); flash calls a prefill "
+        + ", ".join(f"rank {r}: {g['flash']['prefill']} at offsets "
+                    f"{sorted(set(g['flash']['offsets']))} ({g['flash']['prefill_tc']} "
+                    f"tensor-core), {g['flash']['decode']} in decode" for r, g in enumerate(ranks)))
+    log(f"    meshless: prefill {m['prefill_s']:.3f} s, decode "
+        f"{sum(m['step_s']) / len(m['step_s']):.4f} s/step, idle "
+        f"{m.get('idle_share', float('nan')):.1%} (a traced step), peak "
+        f"{m['peak_memory_gb']:.2f} GB")
+    for r, g in enumerate(ranks):
+        coll = g["collectives"]
+        log(f"    rank {r} (block {g['block']}): prefill {g['prefill_s']:.3f} s, decode "
+            f"{sum(g['step_s']) / len(g['step_s']):.4f} s/step, idle "
+            f"{g.get('idle_share', float('nan')):.1%} (a traced step), peak "
+            f"{g['peak_memory_gb']:.2f} GB; collectives a step: "
+            + ", ".join(f"{k} {n} ({b / 1e9:.3f} GB)" for k, (n, b) in sorted(coll.items()))
+            + f"; greedy flips {len(g['flips'])} (near-ties "
+            f"{sum(f['within'] for f in g['flips'])})")
+    for name, p in out["planted"].items():
+        log(f"    planted fault {name!r}: " + ", ".join(f"{g} {e:.3e}" for g, e in
+                                                    p["errors"].items())
+            + f"; fails {p['failed'] or 'no gate'}")
+    log(f"    phase {out['seconds']:.1f} s (meshless {out['meshless_s']:.1f} s)")
+    check(m["flash"]["prefill"] == n_attn and m["flash"]["decode"] == 0
+          and m["plain_blocked"] == 0,
+          f"meshless flash calls {m['flash']}, twin calls {m['plain_blocked']}")
+    for gate, err in out["errors"].items():
+        check(err <= tol, f"mesh vs meshless {gate}: {err:.3e} > {tol:g}")
+    for r, g in enumerate(ranks):
+        want = [g["block"][0]] * n_attn
+        check(g["flash"]["prefill"] == n_attn and g["flash"]["offsets"] == want
+              and g["flash"]["decode"] == 0 and g["plain_blocked"] == 0,
+              f"rank {r}: flash calls {g['flash']} (want {n_attn} a prefill at offset "
+              f"{g['block'][0]}, none in decode), twin calls {g['plain_blocked']}")
+        if cuda:
+            check(g["flash"]["prefill_tc"] == n_attn,
+                  f"rank {r}: {g['flash']['prefill_tc']} tensor-core launches of {n_attn}")
+        check(g["collectives"].get("all_reduce_max", [0])[0] == n_attn,
+              f"rank {r}: the decode combine ran {g['collectives'].get('all_reduce_max')} "
+              f"times in a step, want once an attention layer ({n_attn}): the cache of "
+              f"{S + steps + 8} slots must split over the ranks")
+        check(all(f["within"] for f in g["flips"]),
+              f"rank {r}: greedy tokens differ beyond a near-tie: {g['flips']}")
+    if cuda:
+        check(m["flash"]["prefill_tc"] == n_attn, f"meshless tensor-core launches {m['flash']}")
+    for name, p in out["planted"].items():
+        check(bool(p["failed"]), f"the planted fault {name!r} passes every gate: {p['errors']}")
+    return out
+
+
 def progress(msg: str) -> None:
     """A line on stderr with the clock time: where a run that is stopped got
     to shows at the end of its errors."""
@@ -5439,6 +5958,10 @@ def main() -> int:
     # -- 48. the compute split over the model axis, two ranks on one card ---------
     split_t = split_phase(torch, detail)
     lap(48)
+
+    # -- 49. serving on a mesh, the KV cache split, two ranks on one card ----------
+    mesh_serve_t = mesh_serve_phase(torch, detail)
+    lap(49)
     detail["total_s"] = time.perf_counter() - t_all
     detail["phase_s"] = clock
 
@@ -5607,6 +6130,12 @@ def main() -> int:
         "bound_by": fa_t["bound_by"],
         "library_ms": fa_t["library_ms"],
         "fp32_ms": fa_t["fp32_ms"],
+        "at_an_offset": {label: {k: t[k] for k in (
+            "q_offset", "shape", "window", "max_abs_err_bfloat16", "max_abs_err_float32",
+            "kernel_ms", "tflops", "fp32_kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for label, t in fa_t["offset"].items()},
+        "launches_49": {"meshless": mesh_serve_t["meshless"]["flash"],
+                        "ranks": [r["flash"] for r in mesh_serve_t["ranks"]]},
     }, {
         "name": "softmax_xent",
         "route": "cuda",
@@ -5633,6 +6162,9 @@ def main() -> int:
             for twin in ("quickstart", "online_service")}
         k["launches_by_phase"]["47"] = mesh_t["launches"][wrapper]
         k["launches_by_phase"]["48"] = split_t["launches"][wrapper]
+        # phase 49: this process's count (the meshless serve's), each rank's
+        # in the flash entry's ``launches_49``
+        k["launches_by_phase"]["49"] = mesh_serve_t["launches"][wrapper]
     # phase 48 counts the RG-LRU launches of each step by route, the meshless
     # trainer's here and each rank's in a process of its own: those of its
     # two steps (``_rglru_calls``: forward, backward, their TMA routes)

@@ -32,13 +32,20 @@ count a whole-sequence mixer's weight gradients once on every rank), and
 an all-reduce's backward sums the partial gradients where Megatron's
 passes the replicated one on.
 
-The primitives :func:`all_gather`, :func:`reduce_scatter` and
-:func:`all_reduce_` (also the ZeRO gathers and reductions of
-``zero.Placed``) call ``torch.distributed`` directly, never DTensor (whose
-``full_tensor`` of a CUDA tensor over gloo ends the process), and never
-move a tensor off its device themselves (gloo stages a CUDA tensor
-through the host on its own). Every call adds its input's bytes to
-:data:`COUNTS` by kind.
+Serving on a mesh adds collectives with no backward: :func:`all_reduce_max_`,
+and :func:`softmax_combine`, a decode step's attention over a KV cache whose
+slots are split over the model axis (the global max of the scores, the
+global sum of their exponentials, the ranks' partial ``probs @ v`` summed),
+so each rank reads only its block of the cache; :func:`all_gather` gathers
+along any dim (the logits' vocab blocks, the cache's blocks).
+
+The primitives :func:`all_gather`, :func:`reduce_scatter`,
+:func:`all_reduce_` and :func:`all_reduce_max_` (also the ZeRO gathers and
+reductions of ``zero.Placed``) call ``torch.distributed`` directly, never
+DTensor (whose ``full_tensor`` of a CUDA tensor over gloo ends the
+process), and never move a tensor off its device themselves (gloo stages a
+CUDA tensor through the host on its own). Every call adds its input's
+bytes to :data:`COUNTS` by kind.
 """
 from __future__ import annotations
 
@@ -69,11 +76,13 @@ def _size(group) -> int:
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The blocks of ``x`` along ``dim`` from every rank of ``group``,
-    concatenated in rank order (``x`` itself on a group of one)."""
+    """The blocks of ``x`` along ``dim`` (negative counts from the last)
+    from every rank of ``group``, concatenated in rank order (``x`` itself
+    on a group of one)."""
     w = _size(group)
     if w == 1:
         return x
+    dim = dim % x.dim()
     x = x.contiguous()
     out = x.new_empty((w * x.shape[0],) + tuple(x.shape[1:]))
     fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -108,6 +117,36 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
         dist.all_reduce(x, group=group)
         _count("all_reduce", x)
     return x
+
+
+def all_reduce_max_(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` replaced in place by its elementwise max over ``group``."""
+    if _size(group) > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+        _count("all_reduce_max", x)
+    return x
+
+
+def softmax_combine(scores: torch.Tensor, v: torch.Tensor, group,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Grouped attention whose keys are split over ``group``: ``scores``
+    (B, Hkv, G, S, T) float32, scaled and masked (to ``NEG_INF``), over this
+    rank's T keys, and ``v`` (B, T, Hkv, D) their values; returns the output
+    (B, S, Hkv * G, D) in ``dtype`` over every rank's keys, the same on
+    every rank. The local max, then the global max ``m``; ``exp(s - m)``
+    and its sum over every rank's keys ``l``; the probabilities ``p / l``
+    rounded to ``dtype`` (as the meshless softmax's are) and this rank's
+    ``probs @ v`` in float32 (or ``dtype``, if wider), summed over the
+    ranks and rounded once. A rank whose keys are all masked adds
+    nothing."""
+    acc = torch.promote_types(dtype, torch.float32)
+    m = all_reduce_max_(scores.amax(dim=-1, keepdim=True), group)
+    p = torch.exp(scores - m)
+    l = all_reduce_(p.sum(dim=-1, keepdim=True), group)
+    probs = (p / l).to(dtype).to(acc)
+    out = all_reduce_(torch.einsum("bkgst,btkd->bskgd", probs, v.to(acc)), group)
+    B, Hkv, G, S, _ = scores.shape
+    return out.reshape(B, S, Hkv * G, v.shape[-1]).to(dtype)
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -163,6 +202,9 @@ class Split:
 
     def experts(self, E: int) -> Optional[Block]:
         return self.view.experts(E)
+
+    def cache(self, L: int) -> Optional[Block]:
+        return self.view.cache(L)
 
 
 def split_at(view: Optional[RankView], S: int) -> Optional[Split]:

@@ -23,19 +23,35 @@ it into the DTensor placements of that spec over the mesh.
 
 ``ShardingPlan.constrain`` is a no-op without a mesh and on a plain tensor.
 The port's models do not call it: where JAX constrains an activation, a
-mesh trainer's model asks :class:`RankView` (the plan at one rank's
-coordinate) which block of the sequence, heads, ``d_ff`` or experts is this
-rank's, and runs that block (``repro_torch.distributed.parallel``, the
-layers of ``repro_torch.models``).
+model on a mesh (a trainer's, or one placed for serving) asks
+:class:`RankView` (the plan at one rank's coordinate) which block of the
+sequence, heads, ``d_ff``, experts, vocab or KV cache is this rank's, and
+runs that block (``repro_torch.distributed.parallel``, the layers of
+``repro_torch.models``).
+
+:func:`cache_leaf_spec`, :func:`cache_specs` and :func:`input_specs` are
+the JAX package's (``repro.models.model``) line for line: the specs of a
+decode cache's leaves, keyed by their shapes as JAX keys them, and of the
+abstract inputs of a train or prefill step, each leaf a :class:`LeafSpec`
+(shape, dtype name, spec; no spec without a mesh), nothing allocated.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 AxisSpec = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisSpec, ...]
+
+
+class LeafSpec(NamedTuple):
+    """An abstract array (JAX's ``ShapeDtypeStruct``): its shape, dtype
+    name (``"bfloat16"``, ``"int32"``, ...) and spec (None: no sharding)."""
+
+    shape: Tuple[int, ...]
+    dtype: str
+    spec: Optional[Spec] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +227,13 @@ class RankView:
         split of the concatenated ``2 f`` pairs each gate with its up
         column only when it does);
       - :meth:`experts`: the MoE experts, where ``plan.model_dim(E)``
-        names it.
+        names it;
+      - :meth:`vocab`: the rows of the embedding table and the columns of
+        the unembedding (``padded_vocab``), where ``plan.model_dim(V)``
+        names the axis, as ``param_specs`` splits ``embed`` and ``head``;
+      - :meth:`cache`: the sequence of a KV cache of ``L`` slots (a
+        self-attention layer's or a cross cache's frames), where
+        ``plan.seq(L)`` names it, as :func:`cache_leaf_spec` splits it.
 
     ``mesh`` (a ``DeviceMesh``, or anything with ``get_group``) gives the
     model axis's process ``group``, taken when first asked."""
@@ -251,6 +273,12 @@ class RankView:
     def experts(self, E: int) -> Optional[Block]:
         return self._block(E, self.plan.model_dim(E))
 
+    def vocab(self, V: int) -> Optional[Block]:
+        return self._block(V, self.plan.model_dim(V))
+
+    def cache(self, L: int) -> Optional[Block]:
+        return self._block(L, self.plan.seq(L))
+
 
 def rank_view(plan: ShardingPlan, mesh: Any) -> Optional[RankView]:
     """This rank's :class:`RankView` of ``plan`` on ``mesh``; None without
@@ -287,3 +315,73 @@ def spec_to_sharding(mesh: Any, spec: Spec):
         for d in dims:
             out[d] = Shard(i)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Input and cache specs (the JAX ``input_specs`` / ``cache_specs``)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg, seq_len: int, global_batch: int, kind: str,
+                plan: Optional[ShardingPlan] = None) -> Dict[str, LeafSpec]:
+    """Abstract inputs for ``kind`` in {train, prefill}; decode uses
+    ``cache_specs`` + a (B, 1) token. Specs attached when a plan is given."""
+
+    def sds(shape, dtype, *dims):
+        if plan is not None and plan.mesh is not None:
+            return LeafSpec(shape, dtype, plan.spec(*dims))
+        return LeafSpec(shape, dtype)
+
+    B, S = global_batch, seq_len
+    batch: Dict[str, LeafSpec] = {}
+    bspec = plan.batch(B) if plan is not None else None
+    if cfg.encoder_layers:
+        batch["frames"] = sds((B, S, cfg.d_model), "bfloat16", bspec, None, None)
+        batch["tokens"] = sds((B, S), "int32", bspec, None)
+    elif cfg.input_kind == "embeddings":
+        batch["embeds"] = sds((B, S, cfg.d_model), "bfloat16", bspec, None, None)
+    else:
+        batch["tokens"] = sds((B, S), "int32", bspec, None)
+    if kind == "train":
+        batch["targets"] = sds((B, S), "int32", bspec, None)
+    return batch
+
+
+def cache_specs(cfg, plan: Optional[ShardingPlan], batch: int, cache_len: int) -> Any:
+    """:class:`LeafSpec` tree matching ``init_cache`` in the JAX layout
+    (``repro_torch.interop.cache_to_jax``), with specs on a mesh. The cache
+    is built on the meta device: nothing is allocated."""
+    from ..interop import cache_layout
+    from ..models.model import Model, init_cache
+
+    model = Model(cfg, device="meta")
+    cache = init_cache(model, batch, cache_len)
+
+    def leaf(shape: Tuple[int, ...], dtype: str) -> LeafSpec:
+        if plan is None or plan.mesh is None:
+            return LeafSpec(shape, dtype)
+        return LeafSpec(shape, dtype, cache_leaf_spec(cfg, plan, shape))
+
+    def name(t) -> str:
+        return str(t.dtype).split(".")[-1]
+
+    return cache_layout(model, cache, lambda t: leaf(tuple(t.shape), name(t)),
+                        lambda ts: leaf((len(ts),) + tuple(ts[0].shape), name(ts[0])),
+                        lambda _pos: leaf((), "int32"))
+
+
+def cache_leaf_spec(cfg, plan: ShardingPlan, shape: Tuple[int, ...]) -> Spec:
+    """Sharding for a cache leaf, keyed by rank/shape structure."""
+    nd = len(shape)
+    if nd == 0:
+        return ()
+    # leading scan-units dim?
+    off = 1 if (cfg.n_units > 0 and shape[0] == cfg.n_units and nd >= 2) else 0
+    dims: List[Any] = [None] * nd
+    body = shape[off:]
+    if len(body) == 4:  # (B, L, H, D) KV cache
+        dims[off + 0] = plan.batch(body[0])
+        dims[off + 1] = plan.seq(body[1])
+    elif len(body) >= 1:
+        dims[off + 0] = plan.batch(body[0])
+    return tuple(dims)

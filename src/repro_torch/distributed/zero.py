@@ -33,6 +33,12 @@ follow from that:
 
 Every collective is a ``torch.distributed`` call of ``parallel`` on one
 mesh dim's group (no DTensor), so a mesh of gloo ranks runs on the card too.
+
+Serving takes the same storage without gradients (``Zero.place`` cuts a
+whole model's parameters to this rank's blocks; ``repro_torch.runtime.
+place_on_mesh``): its gathers run under no grad, and ``gather(modules,
+keep=axis)`` leaves a parameter split along the tensor dim that ``axis``
+cuts (the embedding table's and the unembedding's vocab blocks).
 """
 from __future__ import annotations
 
@@ -105,12 +111,15 @@ class Placed:
         """This rank's block of ``full`` (a contiguous copy)."""
         return full[self.index].contiguous().clone()
 
-    def full(self, local: torch.Tensor) -> torch.Tensor:
+    def full(self, local: torch.Tensor, keep: Sequence[int] = ()) -> torch.Tensor:
         """The whole tensor from every rank's block (an all-gather over each
         mesh dim that splits it, the minor one first; a copy where none
-        does): a new tensor, never ``local`` itself."""
+        does): a new tensor, never ``local`` itself. Along the mesh dims
+        ``keep`` it stays this rank's block."""
         out = local.detach()
         for d in reversed(self.split):
+            if d in keep:
+                continue
             out = P.all_gather(out, self.tensor_dim[d], self.mesh.get_group(d))
         return out.clone() if out.data_ptr() == local.data_ptr() else out
 
@@ -227,6 +236,14 @@ class MeshSplit:
         """``x`` summed in place over the split's ranks (``dims``)."""
         return _all_reduce(x, self.mesh, self.dims)
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch's rows of ``x`` from every rank's rows
+        (:meth:`rows` with one microbatch): an all-gather along dim 0 over
+        each of ``batch_dims``, the minor one first."""
+        for d in reversed(self.batch_dims):
+            x = P.all_gather(x, 0, self.mesh.get_group(d))
+        return x
+
     def grad_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The differentiable sum over the batch's ranks (the MoE
         load-balancing loss's statistics: the model axis's ranks route
@@ -266,6 +283,13 @@ class Zero:
 
         return place
 
+    def place(self, model: nn.Module, path_of) -> None:
+        """Cut every parameter of a whole ``model`` to this rank's block
+        (``path_of(name)``: a parameter's leaf path), as drawing through
+        :meth:`placer` would."""
+        self.placer(path_of)(model)
+        self._put(model)
+
     @torch.no_grad()
     def _put(self, module: nn.Module, recurse: bool = True) -> None:
         mods = module.modules() if recurse else [module]
@@ -287,18 +311,23 @@ class Zero:
                     mod.batch_sum = self.split.grad_sum
 
     @contextlib.contextmanager
-    def gather(self, modules):
+    def gather(self, modules, keep=None):
         """The own parameters of ``modules`` whole for the context: each an
         all-gather of its shards (a copy where no rank splits it), dropped
-        on exit (autograd keeps what the backward needs)."""
+        on exit (autograd keeps what the backward needs). With ``keep`` (a
+        mesh axis name) each stays this rank's block along the tensor dim
+        that axis splits, with no backward (serving)."""
         swapped = []
+        kept = () if keep is None else (tuple(self.mesh.mesh_dim_names).index(keep),)
         try:
             for mod in modules:
                 for pname, p in list(mod._parameters.items()):
                     if p is None:
                         continue
                     swapped.append((mod, pname, p))
-                    mod._parameters[pname] = _Gather.apply(p, self.placed[(id(mod), pname)])
+                    placed = self.placed[(id(mod), pname)]
+                    mod._parameters[pname] = (placed.full(p, kept) if kept
+                                              else _Gather.apply(p, placed))
             yield
         finally:
             for mod, pname, p in reversed(swapped):

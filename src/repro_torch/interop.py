@@ -19,8 +19,10 @@ the JAX package's trace or allocation can hand the same inputs to both:
     back into the port's tensors; and :func:`cache_to_jax` for decode
     caches. Tests compare gradients, optimizer states and caches leaf by
     leaf through these, and the checkpoint writes and reads its arrays
-    through them. They import torch and the model stack when called, so the
-    service's data helpers above load neither.
+    through them; :func:`gather_cache` gathers a cache served on a mesh
+    (every rank's rows and blocks) into the whole cache first. They import
+    torch and the model stack when called, so the service's data helpers
+    above load neither.
 """
 from __future__ import annotations
 
@@ -205,7 +207,17 @@ def cache_to_jax(model: Model, cache: Cache) -> Dict[str, Any]:
     mixer's, named as in JAX: ``k``, ``v`` (attention), ``h`` (RG-LRU),
     ``C``, ``n`` (mLSTM), ``h``, ``c``, ``n``, ``m`` (sLSTM); its cross
     cache ``ck``, ``cv``. bfloat16 leaves come as float32 (numpy has no
-    bfloat16)."""
+    bfloat16). A cache served on a mesh goes through :func:`gather_cache`
+    first."""
+    return cache_layout(model, cache, _to_numpy, lambda ts: np.stack([_to_numpy(t) for t in ts]),
+                        np.int32)
+
+
+def cache_layout(model: Model, cache: Cache, one: Callable, stack: Callable,
+                 pos: Callable) -> Dict[str, Any]:
+    """The JAX package's layout of ``cache`` (:func:`cache_to_jax`) with
+    each leaf ``one(tensor)``, a stacked pattern leaf ``stack(tensors)`` (a
+    unit's tensor each) and ``pos`` as ``pos(cache["pos"])``."""
     cfg = model.cfg
     P, n0 = len(cfg.pattern), model.n_prefix
     n = n0 + cfg.n_units * P
@@ -215,19 +227,47 @@ def cache_to_jax(model: Model, cache: Cache) -> Dict[str, Any]:
         parts["cross"] = cache["cross"]
 
     def layer(i: int) -> Dict[str, Any]:
-        return {part: {k: _to_numpy(v) for k, v in states[i].items()}
+        return {part: {k: one(v) for k, v in states[i].items()}
                 for part, states in parts.items()}
 
     if n0:
         out["prefix"] = [layer(i) for i in range(n0)]
     if cfg.n_units:
         out["units"] = {
-            f"p{p}": {part: {k: np.stack([_to_numpy(states[n0 + u * P + p][k])
-                                          for u in range(cfg.n_units)])
+            f"p{p}": {part: {k: stack([states[n0 + u * P + p][k] for u in range(cfg.n_units)])
                              for k in states[n0 + p]}
                       for part, states in parts.items()}
             for p in range(P)}
     if len(cache["layers"]) > n:
         out["tail"] = [layer(i) for i in range(n, len(cache["layers"]))]
-    out["pos"] = np.int32(cache["pos"])
+    out["pos"] = pos(cache["pos"])
+    return out
+
+
+def gather_cache(model: Model, cache: Cache) -> Cache:
+    """The whole decode cache of a model served on a mesh
+    (``repro_torch.runtime.place_on_mesh``) from every rank's: each
+    attention cache's and cross cache's blocks of slots all-gathered over
+    the model axis where the plan splits them (``kv_len``, ``cross_len``),
+    then every leaf's rows over the batch's mesh dims. Every rank of the
+    mesh calls it and gets the same cache; without a mesh, ``cache``."""
+    from .distributed import parallel as P
+
+    view, rows = model.view, model.rows
+    if rows is None:
+        return cache
+
+    def whole(t, length):
+        if length is not None and view.cache(length) is not None:
+            t = P.all_gather(t, 1, view.group)
+        return rows.gather(t.contiguous())
+
+    n = len(cache["layers"])
+    lens = cache.get("kv_len", [None] * n)
+    out = {"layers": [{k: whole(t, length if k in ("k", "v") else None) for k, t in c.items()}
+                      for c, length in zip(cache["layers"], lens)],
+           "pos": cache["pos"]}
+    if "cross" in cache:
+        out["cross"] = [{k: whole(t, cache["cross_len"]) for k, t in c.items()}
+                        for c in cache["cross"]]
     return out

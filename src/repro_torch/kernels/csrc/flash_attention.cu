@@ -10,7 +10,11 @@
 // with float32 scores, running max, running sum and accumulator, and the
 // output `acc / max(l, 1e-20)` stored in the inputs' dtype. Key k is hidden
 // from query q when `causal` and q - k < 0, or when a window is given and
-// q - k >= window (positions counted from 0 for both, also when Sq != Sk).
+// q - k >= window. Key k sits at position k and query row i at position
+// q_offset + i (0 for a whole sequence; a sequence block's start when the
+// rows are one rank's block of a longer sequence and k, v the whole of it),
+// also when Sq != Sk; the offset moves only the masks and the tile bounds,
+// never an address.
 // KV tiles that hide every key from every row of the query tile are not
 // visited, as the TPU kernel skips them. A row that sees no key at all gets
 // the mean of V over all Sk keys, which is what the oracle `attention_ref`
@@ -155,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
              int Sq, int Sk, int D, int causal, int has_window, int window,
-             float sm_scale) {
+             int q_offset, float sm_scale) {
   using TL = Tile<kD>;
   constexpr int kBK = TL::kBK, kLd = TL::kLd, kPld = TL::kPld;
   constexpr int kCols = TL::kCols, kW = TL::kW, kG = TL::kG;
@@ -174,10 +178,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vp = v + (size_t)(b * Hkv + hk) * Sk * D;
   T* op = out + (size_t)bh * Sq * D;
 
-  // keys any row of this tile can see: [k_lo, k_hi)
-  const int q_last = min(q0 + kBQ, Sq) - 1;
+  // keys any row of this tile can see: [k_lo, k_hi), from the rows'
+  // positions (q_offset on)
+  const int q_last = q_offset + min(q0 + kBQ, Sq) - 1;
   const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_lo = has_window ? max(0, q0 - window + 1) : 0;
+  const int k_lo = has_window ? max(0, q_offset + q0 - window + 1) : 0;
 
   stage<T, kD>(Qs, qp, q0, kBQ, Sq, D, sm_scale);
 
@@ -221,7 +226,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty * kRows + i;
+      const int qpos = q_offset + q0 + ty * kRows + i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
@@ -348,7 +353,7 @@ cudaError_t allow_smem(const void* kernel, size_t bytes, bool (&ready)[kMaxDevic
 template <typename T, int kD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Hq, int Hkv, int Sq, int Sk, int D, int causal, int has_window,
-           int window, float sm_scale, cudaStream_t st) {
+           int window, int q_offset, float sm_scale, cudaStream_t st) {
   static bool ready[kMaxDevices] = {};
   const cudaError_t err =
       allow_smem((const void*)flash_kernel<T, kD>, Tile<kD>::kSmem, ready);
@@ -356,25 +361,26 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBQ - 1) / kBQ));
   flash_kernel<T, kD><<<grid, kThreads, Tile<kD>::kSmem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, Hq, Hkv, Sq, Sk, D,
-      causal, has_window, window, sm_scale);
+      causal, has_window, window, q_offset, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B,
              int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-             int has_window, int window, float sm_scale, cudaStream_t st) {
+             int has_window, int window, int q_offset, float sm_scale,
+             cudaStream_t st) {
   if (D <= 32)
     return launch<T, 32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                         has_window, window, sm_scale, st);
+                         has_window, window, q_offset, sm_scale, st);
   if (D <= 64)
     return launch<T, 64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                         has_window, window, sm_scale, st);
+                         has_window, window, q_offset, sm_scale, st);
   if (D <= 128)
     return launch<T, 128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                          has_window, window, sm_scale, st);
+                          has_window, window, q_offset, sm_scale, st);
   return launch<T, 256>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                        has_window, window, sm_scale, st);
+                        has_window, window, q_offset, sm_scale, st);
 }
 
 
@@ -414,7 +420,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // A consumer thread's two query rows and the masking rule.
 struct Rows {
-  int q;        // the first row's position; the second is q + 8
+  int q;        // the first row's position (q_offset on); the second is q + 8
   int col0;     // the thread's first key column in a tile (then + 1, + 8 j)
   int Sk, causal, has_window, window;
   float scale_log2;  // 1/sqrt(D) * log2 e
@@ -484,7 +490,7 @@ __device__ __forceinline__ void fence_ops(float (&o)[kC][32], uint32_t (&p)[16])
 __device__ __forceinline__ void softmax_step(float (&s)[32], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], const Rows& r, int kt,
                                              int qb) {
-  // the warpgroup's rows are [qb - 63, qb]
+  // the warpgroup's rows are at positions [qb - 63, qb]
   const bool edge = (r.causal && kt + kTcBK - 1 > qb - 63) ||
                     (r.has_window && kt <= qb - r.window) || kt + kTcBK > r.Sk;
 #pragma unroll
@@ -545,7 +551,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_v,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                 int Hq, int Hkv, int Sq, int Sk, int D, int causal, int has_window,
-                int window, float scale_log2) {
+                int window, int q_offset, float scale_log2) {
   using TL = TcTile<kD>;
   constexpr int kC = TL::kC, kStages = TL::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -562,10 +568,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = bh / Hq, h = bh - b * Hq;
   const int bh_kv = b * Hkv + h / (Hq / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;  // heaviest tiles first
-  // keys any row of this tile can see: [k_lo, k_hi), in key tiles from kt0
-  const int q_last = min(q0 + kTcBQ, Sq) - 1;
+  // keys any row of this tile can see: [k_lo, k_hi), in key tiles from kt0,
+  // from the rows' positions (q_offset on)
+  const int q_last = q_offset + min(q0 + kTcBQ, Sq) - 1;
   const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_lo = has_window ? max(0, q0 - window + 1) : 0;
+  const int k_lo = has_window ? max(0, q_offset + q0 - window + 1) : 0;
   const int kt0 = (k_lo / kTcBK) * kTcBK;
   const int n_tiles = k_hi > kt0 ? (k_hi - kt0 + kTcBK - 1) / kTcBK : 0;
 
@@ -611,14 +618,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int t = threadIdx.x & 127;
     const int row0 = 16 * (t >> 5) + ((t & 31) >> 2);  // and row0 + 8
     const int col0 = 2 * (t & 3);                       // + 8 j (+ 1)
-    const int qa = q0 + 64 * wg, qb = qa + 63;          // this warpgroup's rows
+    const int qa = q0 + 64 * wg;                        // this warpgroup's rows
+    const int pa = q_offset + qa, pb = pa + 63;         // and their positions
     // keys these rows can see: [wk_lo, wk_hi); the key tiles [j_lo, j_hi)
     // that hold any of them (a run: the causal and window edges are lines)
-    const int wk_hi = causal ? min(Sk, qb + 1) : Sk;
-    const int wk_lo = has_window ? max(0, qa - window + 1) : 0;
+    const int wk_hi = causal ? min(Sk, pb + 1) : Sk;
+    const int wk_lo = has_window ? max(0, pa - window + 1) : 0;
     const int j_lo = (wk_lo - kt0) / kTcBK;
     const int j_hi = min(n_tiles, wk_hi > kt0 ? (wk_hi - kt0 + kTcBK - 1) / kTcBK : 0);
-    const Rows rows{qa + row0, col0, Sk, causal, has_window, window, scale_log2};
+    const Rows rows{pa + row0, col0, Sk, causal, has_window, window, scale_log2};
     const uint32_t q_addr = hopper::smem_u32(sQ) + 64 * 128 * wg;
     const uint32_t k_addr = hopper::smem_u32(sK), v_addr = hopper::smem_u32(sV);
 
@@ -669,7 +677,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         hopper::wgmma_wait<0>();
 #pragma unroll
         for (int i = 0; i < 32; ++i) hopper::fence_reg(s[i]);
-        softmax_step(s, m, l, corr, rows, kt0 + j_lo * kTcBK, qb);  // O is 0
+        softmax_step(s, m, l, corr, rows, kt0 + j_lo * kTcBK, pb);  // O is 0
         pack_p(s, p);
       }
       for (int j = j_lo; j < j_hi - 1; ++j) {
@@ -684,7 +692,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         hopper::wgmma_wait<1>();  // S of tile j + 1; P V of tile j runs on
 #pragma unroll
         for (int i = 0; i < 32; ++i) hopper::fence_reg(s[i]);
-        softmax_step(s, m, l, corr, rows, kt0 + (j + 1) * kTcBK, qb);
+        softmax_step(s, m, l, corr, rows, kt0 + (j + 1) * kTcBK, pb);
         hopper::wgmma_wait<0>();
 #pragma unroll
         for (int c = 0; c < kC; ++c)
@@ -771,7 +779,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int kD>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int Hq,
               int Hkv, int Sq, int Sk, int D, int causal, int has_window, int window,
-              float sm_scale, cudaStream_t st) {
+              int q_offset, float sm_scale, cudaStream_t st) {
   static bool ready[kMaxDevices] = {};
   const cudaError_t err =
       allow_smem((const void*)flash_tc_kernel<kD>, TcTile<kD>::kSmem, ready);
@@ -786,7 +794,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kTcBQ - 1) / kTcBQ));
   flash_tc_kernel<kD><<<grid, kTcThreads, TcTile<kD>::kSmem, st>>>(
       tm_q, tm_k, tm_v, (const __nv_bfloat16*)v, (__nv_bfloat16*)out, Hq, Hkv, Sq, Sk,
-      D, causal, has_window, window, sm_scale * kLog2e);
+      D, causal, has_window, window, q_offset, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -795,47 +803,52 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out). `window` is read only
-// when has_window is 1. Launches the kernel on `stream` and returns
+// when has_window is 1; `q_offset` >= 0 is query row 0's position, with
+// q_offset + Sq < 2^31. Launches the kernel on `stream` and returns
 // cudaGetLastError() as an int (0 = launched). Nothing is synchronised and
 // nothing is allocated here.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-                    int has_window, int window, float sm_scale, int dtype,
-                    void* stream) {
+                    int has_window, int window, int q_offset, float sm_scale,
+                    int dtype, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Sk < 1 || D < 1 ||
       D > 256 || (long long)B * Hq > 0x7fffffffLL ||
-      ((long long)Sq + kBQ - 1) / kBQ > 65535 || (dtype != 0 && dtype != 1))
+      ((long long)Sq + kBQ - 1) / kBQ > 65535 || (dtype != 0 && dtype != 1) ||
+      q_offset < 0 || (long long)q_offset + Sq > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_d<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                           has_window, window, sm_scale, st);
+                           has_window, window, q_offset, sm_scale, st);
   return launch_d<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                          has_window, window, sm_scale, st);
+                          has_window, window, q_offset, sm_scale, st);
 }
 
 // The tensor-core kernel: q, k, v and out bfloat16, D % 8 == 0, every
-// pointer 16-byte aligned (what TMA needs); otherwise cudaErrorInvalidValue.
+// pointer 16-byte aligned (what TMA needs), `q_offset` as above; otherwise
+// cudaErrorInvalidValue.
 // Builds the three tensor maps on the host, launches on `stream` and returns
 // cudaGetLastError() as an int, or kTmapError + the CUresult when a map
 // cannot be encoded.
 int flash_attention_tc(const void* q, const void* k, const void* v, void* out,
                        int B, int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-                       int has_window, int window, float sm_scale, void* stream) {
+                       int has_window, int window, int q_offset, float sm_scale,
+                       void* stream) {
   const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || Sq < 1 || Sk < 1 || D < 8 ||
       D > 256 || D % 8 || !aligned || (long long)B * Hq > 0x7fffffffLL ||
-      ((long long)Sq + kTcBQ - 1) / kTcBQ > 65535)
+      ((long long)Sq + kTcBQ - 1) / kTcBQ > 65535 || q_offset < 0 ||
+      (long long)q_offset + Sq > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (D <= 64)
     return launch_tc<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, has_window,
-                         window, sm_scale, st);
+                         window, q_offset, sm_scale, st);
   if (D <= 128)
     return launch_tc<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, has_window,
-                          window, sm_scale, st);
+                          window, q_offset, sm_scale, st);
   return launch_tc<256>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, has_window,
-                        window, sm_scale, st);
+                        window, q_offset, sm_scale, st);
 }
 
 const char* flash_error_string(int code) {

@@ -6,9 +6,12 @@ bfloat16, with float32 scores and accumulation and the output in q's dtype:
     out = softmax(q k^T / sqrt(D), masked to -1e30) v
 
 where key ``k`` is hidden from query ``q`` when ``causal`` and ``q < k``, or
-when a ``window`` is given and ``q - k >= window`` (positions counted from 0
-for both, also when Sq != Sk). A query that sees no key at all gets the mean
-of V over all keys, as the oracle ``ref.attention_ref`` gives it.
+when a ``window`` is given and ``q - k >= window``. Key ``k`` is at position
+``k`` and query row ``i`` at ``q_offset + i`` (default 0; a sequence block's
+start where the queries are one rank's block of a sequence whose keys are
+all given, as a prefill split over the ``model`` axis calls it), also when
+Sq != Sk. A query that sees no key at all gets the mean of V over all keys,
+as the oracle ``ref.attention_ref`` gives it.
 
 :func:`flash_attention` (equal heads) and :func:`flash_attention_gqa`
 (``Hq`` a multiple of ``Hkv``) take the JAX package's signatures
@@ -67,14 +70,15 @@ def _path_for(dtype, D: int, ptrs) -> str:
     return CUDA_CORE
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0):
     """Plain torch version: ``ref.attention_ref`` on KV heads repeated to
-    q's head count. Returns (B, Hq, Sq, D) in q's dtype."""
+    q's head count, query row i at position ``q_offset + i``. Returns
+    (B, Hq, Sq, D) in q's dtype."""
     rep = q.shape[1] // k.shape[1]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    return attention_ref(q, k, v, causal=causal, window=window)
+    return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 _LIB = None
@@ -87,10 +91,10 @@ def load() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("flash_attention")
-        lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        lib.flash_attention.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attention.restype = ctypes.c_int
-        lib.flash_attention_tc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        lib.flash_attention_tc.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                                            + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_tc.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
@@ -99,20 +103,21 @@ def load() -> ctypes.CDLL:
     return _LIB
 
 
-def _launch(q, k, v, causal: bool, window) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, window, q_offset: int = 0) -> torch.Tensor:
     """Launch the kernel :func:`_path_for` picks on checked operands;
     returns (B, Hq, Sq, D) in q's dtype."""
     _build.refuse_grad("flash_attention", q=q, k=k, v=v)
     lib = load()
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    # a window at or past Sq hides nothing, one at or below -Sk hides all
-    w = 0 if window is None else max(min(int(window), Sq), -Sk)
+    # a window at or past the last row's position + 1 hides nothing, one at
+    # or below -Sk hides all
+    w = 0 if window is None else max(min(int(window), q_offset + Sq), -Sk)
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     tc = _path_for(q.dtype, D, ptrs) == TENSOR_CORE
     args = (*ptrs, B, Hq, Hkv, Sq, Sk, D, int(bool(causal)), int(window is not None), w,
-            1.0 / math.sqrt(D))
+            int(q_offset), 1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if tc:
@@ -158,8 +163,11 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _route(q, k, v, causal: bool, window) -> torch.Tensor:
+def _route(q, k, v, causal: bool, window, q_offset: int) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q_offset < 0 or q_offset + q.shape[2] > 2**31 - 1:
+        raise ValueError(f"q_offset must be >= 0 with q_offset + Sq < 2**31, got "
+                         f"{q_offset} and Sq {q.shape[2]}")
     dev = q.device
     if dev.type == "cuda":
         for name, t in (("q", q), ("k", k), ("v", v)):
@@ -171,35 +179,38 @@ def _route(q, k, v, causal: bool, window) -> torch.Tensor:
         if B * Hq > 2**31 - 1 or -(-Sq // BLOCK_Q) > 65535 or k.shape[2] > 2**31 - 1:
             raise ValueError(f"the flash_attention kernel takes B * Hq < 2**31 and "
                              f"Sq <= {65535 * BLOCK_Q}, got {tuple(q.shape)}")
-        return _launch(q, k, v, causal, window)
+        return _launch(q, k, v, causal, window, q_offset)
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
     raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+                    block_q: int = 128, block_k: int = 128, q_offset: int = 0) -> torch.Tensor:
     """(B, H, S, D) flash attention. GQA: repeat KV heads in the caller or
     use :func:`flash_attention_gqa`. ``block_q`` / ``block_k`` only refuse
-    the sequence lengths the JAX op refuses."""
+    the sequence lengths the JAX op refuses; ``q_offset`` is query row 0's
+    position."""
     _check(q, k, v)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"q has {q.shape[1]} heads and k {k.shape[1]}; use "
                          f"flash_attention_gqa for grouped KV heads")
     _check_blocks(q.shape[2], k.shape[2], block_q, block_k)
-    return _route(q, k, v, causal, window)
+    return _route(q, k, v, causal, window, q_offset)
 
 
 def flash_attention_gqa(q, k, v, *, causal: bool = True, window=None,
-                        block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+                        block_q: int = 128, block_k: int = 128, q_offset: int = 0
+                        ) -> torch.Tensor:
     """q: (B, Hq, S, D); k/v: (B, Hkv, S, D) with Hq % Hkv == 0. Query head
-    h attends with KV head h // (Hq // Hkv)."""
+    h attends with KV head h // (Hq // Hkv); query row i sits at position
+    ``q_offset + i``."""
     _check(q, k, v)
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"q's {q.shape[1]} heads are not a multiple of k's "
                          f"{k.shape[1]}")
     _check_blocks(q.shape[2], k.shape[2], block_q, block_k)
-    return _route(q, k, v, causal, window)
+    return _route(q, k, v, causal, window, q_offset)
 
 
 #: launches of either CUDA kernel in this process, from either wrapper

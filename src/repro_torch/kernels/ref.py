@@ -15,11 +15,13 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_mask(Sq: int, Sk: int, causal: bool, window, device) -> torch.Tensor:
+def attention_mask(Sq: int, Sk: int, causal: bool, window, device,
+                   q_offset: int = 0) -> torch.Tensor:
     """(Sq, Sk) bool, True where query ``q`` sees key ``k``: ``diff = q - k``
-    counted from position 0 for both (top-left alignment), ``diff >= 0``
-    when causal, ``diff < window`` when a window is given."""
-    diff = (torch.arange(Sq, device=device)[:, None]
+    counted from position 0 for both (top-left alignment), query row i at
+    position ``q_offset + i`` (default 0), ``diff >= 0`` when causal,
+    ``diff < window`` when a window is given."""
+    diff = (torch.arange(q_offset, q_offset + Sq, device=device)[:, None]
             - torch.arange(Sk, device=device)[None, :])
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
@@ -29,14 +31,16 @@ def attention_mask(Sq: int, Sk: int, causal: bool, window, device) -> torch.Tens
     return mask
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window=None):
+def attention_ref(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0):
     """Naive softmax attention. q, k, v: (B, H, S, D) -> (B, H, Sq, D).
 
     Scores in float32, masked entries set to ``-1e30`` (so a row with no
-    visible key averages all of V), output in q's dtype."""
+    visible key averages all of V), output in q's dtype. Query row i is at
+    position ``q_offset + i`` (the JAX oracle's is 0: its rows
+    ``q_offset:q_offset + Sq`` of the whole sequence's queries)."""
     D = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
-    mask = attention_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    mask = attention_mask(q.shape[2], k.shape[2], causal, window, q.device, q_offset)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

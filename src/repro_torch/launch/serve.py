@@ -34,6 +34,12 @@ xLSTM mixers plain torch, as the JAX model's; whisper's encoder and
 cross-attention never take the blocked path); a config with
 ``attention_impl="blocked"`` launches the flash kernel once per attention
 layer a prefill. The launches of every kernel wrapper are printed.
+
+Serving on a mesh: ``repro_torch.runtime.place_on_mesh(model, mesh,
+global_batch)`` on every rank of a ``DeviceMesh`` (as JAX's launcher, this
+one takes no mesh flag), then :func:`generate` with the global batch's
+prompts on every rank: each rank serves its rows and its share of the
+model, and every rank gets the whole batch's tokens.
 """
 from __future__ import annotations
 
@@ -44,8 +50,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import parallel as P
 from ..kernels import launch_counts
-from ..models.model import Model
+from ..models.model import Model, _whole
 from ..obs.clock import wall
 from ..runtime import make_prefill_step, make_serve_step
 
@@ -82,7 +89,8 @@ def prompt_batch(model: Model, prompts: torch.Tensor,
         return {"frames": frames, "tokens": prompts}
     if cfg.input_kind != "embeddings":
         return {"tokens": prompts}
-    rows = F.embedding(prompts, model.embed.to(torch.bfloat16))
+    with _whole(model, [model]):  # the whole table on a mesh
+        rows = F.embedding(prompts, model.embed.to(torch.bfloat16))
     return {"embeds": rows.float() * math.sqrt(cfg.d_model)}
 
 
@@ -99,18 +107,35 @@ def generate(model: Model, prompts: torch.Tensor, steps: int,
     wrapper (``prefill_kernel_launches``, ``decode_kernel_launches``, by
     wrapper name), the prefill's last-position logits and the last decode
     step's logits.
+
+    On a mesh (a model placed by ``runtime.place_on_mesh``) ``prompts`` and
+    ``frames`` are the global batch's: each rank serves its rows, and the
+    tokens and both logits are gathered over the batch's mesh dims, so
+    every rank returns the whole batch's. The record then also holds the
+    collectives of the prefill and of the decode loop by kind
+    (``prefill_collectives``, ``decode_collectives``: [calls, bytes of this
+    rank's inputs], ``distributed.parallel.COUNTS``) and ``rows``, this
+    rank's slice of the batch.
     """
+    rows = model.rows
+    B = prompts.shape[0]
+    if rows is not None:
+        prompts = rows.rows(prompts)
+        frames = rows.rows(frames) if frames is not None else None
     prefill_step = make_prefill_step(model, prompts.shape[1] + steps + 8)
     serve_step = make_serve_step(model)
     vocab = model.cfg.vocab
     dev = prompts.device
     batch = prompt_batch(model, prompts, frames)
     _sync(dev)
+    P.reset_counts()
     k0, t0 = launch_counts(), wall()
     cache, logits = prefill_step(batch)
     tok = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None]
     _sync(dev)
     k1, t1 = launch_counts(), wall()
+    c1 = {k: list(v) for k, v in P.COUNTS.items()}
+    P.reset_counts()
     outs = [tok]
     last_logits = logits
     for _ in range(steps):
@@ -118,13 +143,21 @@ def generate(model: Model, prompts: torch.Tensor, steps: int,
         outs.append(tok)
     _sync(dev)
     k2, t2 = launch_counts(), wall()
+    c2 = {k: list(v) for k, v in P.COUNTS.items()}
     pre = {k: k1[k] - k0[k] for k in k0}
     dec = {k: k2[k] - k1[k] for k in k0}
-    return torch.cat(outs, dim=1), {
-        "prefill_s": t1 - t0, "decode_s": t2 - t1,
-        "prefill_launches": pre["rglru_scan"], "decode_launches": dec["rglru_scan"],
-        "prefill_kernel_launches": pre, "decode_kernel_launches": dec,
-        "logits": logits, "last_logits": last_logits}
+    toks = torch.cat(outs, dim=1)
+    rec = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+           "prefill_launches": pre["rglru_scan"], "decode_launches": dec["rglru_scan"],
+           "prefill_kernel_launches": pre, "decode_kernel_launches": dec,
+           "logits": logits, "last_logits": last_logits}
+    if rows is not None:
+        toks, rec["logits"], rec["last_logits"] = (
+            rows.gather(t.contiguous()) for t in (toks, logits, last_logits))
+        per = B // rows.blocks
+        rec.update(prefill_collectives=c1, decode_collectives=c2,
+                   rows=(rows.block * per, (rows.block + 1) * per))
+    return toks, rec
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

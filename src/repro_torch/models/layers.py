@@ -20,14 +20,14 @@ experts and a dense residual, and :func:`moe_plain`, its plain twin.
 The mixers, ``Attention``, ``RGLRU``, ``MLSTM`` and ``SLSTM``, share one
 interface: ``forward(x, return_state=, cache_len=, split=)`` for a full
 sequence, ``cache_init(batch, max_len)`` and ``decode(x, cache, pos)`` for
-one token.
+one token (``Attention.decode`` also takes ``split=`` and ``length=``).
 
-A mesh trainer's model passes ``split`` (``distributed.parallel.Split``,
-the rank's view of the plan at the call's sequence length) to every layer
-of the training loss, where JAX's ``plan.constrain`` calls shard the
-compute over the ``model`` axis; ``x`` is then this rank's block of the
-sequence when ``split.seq`` is set (else the whole rows), and so is the
-output:
+A model on a mesh passes ``split`` (``distributed.parallel.Split``, the
+rank's view of the plan at the call's sequence length) to every layer of
+the training loss and of a prefill, where JAX's ``plan.constrain`` calls
+shard the compute over the ``model`` axis; ``x`` is then this rank's block
+of the sequence when ``split.seq`` is set (else the whole rows), and so is
+the output:
 
   - ``Attention``: Q, K, V of the block, RoPE and the causal or window
     mask at the block's global positions, K/V gathered over the sequence;
@@ -43,6 +43,18 @@ output:
     reduce-scattered; ``shared`` and ``dense`` on the block's rows;
   - ``RGLRU``, ``MLSTM``, ``SLSTM``: the whole sequence gathered and run,
     this rank's block kept (JAX's scans are unconstrained).
+
+A prefill's attention cache is built from the whole K/V as the meshless
+code builds it, then cut to this rank's block of its slots
+(``split.cache(L)``, where the plan splits a cache of ``L`` slots). A
+decode step (``split`` at S = 1: nothing of the sequence is split) runs
+every head on this rank's block of the cache, its softmax combined over the
+model axis (``parallel.softmax_combine``; the token's K/V written by the
+rank that owns its slot), and cross-attention the same over its block of
+the memory's frames; SwiGLU and MoE take their split forwards at S = 1
+(``d_ff`` columns under head TP, experts, each ending in an all-reduce);
+the recurrent mixers' decode steps are whole on every rank, their states
+held by batch rows.
 
 Conventions, as in the JAX package:
   - weights keep the JAX layout, ``x @ w`` with ``w`` of shape
@@ -290,23 +302,28 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       window: Optional[int], block_q: int, block_kv: int,
                       q_offset: int = 0) -> torch.Tensor:
     """``attention_impl="blocked"``: q (B, S, Hq, D), k, v (B, T, Hkv, D)
-    -> (B, S, Hq, D) in q's dtype. When :func:`_on_kernel` and the queries
-    start at position 0, one launch of ``kernels.ops.flash_attention_gqa``
-    on heads-first copies (a failed build or launch raises
-    ``KernelError``); else :func:`blocked_attention_plain` (queries from
-    ``q_offset`` on: a sequence block's), which autograd differentiates
-    (the JAX model differentiates its jnp loop, and the kernel has no
-    backward). Either way tiles that do not divide S, T raise the JAX
-    ``ValueError``."""
+    -> (B, S, Hq, D) in q's dtype, query i at position ``q_offset + i`` (a
+    sequence block's start). When :func:`_on_kernel`, one launch of
+    ``kernels.ops.flash_attention_gqa`` on heads-first copies at that
+    offset (a failed build or launch raises ``KernelError``); else
+    :func:`blocked_attention_plain`, which autograd differentiates (the JAX
+    model differentiates its jnp loop, and the kernel has no backward).
+    Either way tiles that do not divide S, T raise the JAX ``ValueError``."""
     S, T = q.shape[1], k.shape[1]
     bq, bkv = _blocked_tiles(S, T, block_q, block_kv)
-    if q_offset or not _on_kernel(q, k, v):
+    if not _on_kernel(q, k, v):
         return blocked_attention_plain(q, k, v, window=window, bq=bq, bkv=bkv,
                                        q_offset=q_offset)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     out = kops.flash_attention_gqa(qh, kh, vh, causal=True, window=window,
-                                   block_q=bq, block_k=bkv)
+                                   block_q=bq, block_k=bkv, q_offset=q_offset)
     return out.transpose(1, 2)
+
+
+def local_slot(slot: int, block) -> Optional[int]:
+    """The index in a rank's ``block`` (``sharding.Block``) of a cache's
+    global ``slot``, or None where another rank's block holds it."""
+    return slot - block.start if block.start <= slot < block.stop else None
 
 
 class Attention(nn.Module):
@@ -404,9 +421,9 @@ class Attention(nn.Module):
         """Full-sequence attention (prefill, training), or cross-attention
         to ``memory``. With ``return_state`` (self-attention) also returns
         the decode cache of length ``cache_len`` (default S). With ``split``
-        (training on a mesh) this rank's share (:meth:`_split_forward`)."""
+        (on a mesh) this rank's share (:meth:`_split_forward`)."""
         if split is not None:
-            return self._split_forward(x, memory, split)
+            return self._split_forward(x, memory, split, return_state, cache_len)
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         B, S, _ = x.shape
@@ -420,8 +437,15 @@ class Attention(nn.Module):
         y = out.reshape(B, S, cfg.n_heads * hd) @ self.wo.to(self.dt)
         if not return_state:
             return y
-        # a decode-ready KV cache from the prefill K/V, as the JAX package
-        # builds it: its length is cache_len even for a sliding layer
+        return y, self._cache_of(k, v, cache_len)
+
+    def _cache_of(self, k: torch.Tensor, v: torch.Tensor, cache_len: Optional[int],
+                  sp: Optional[P.Split] = None) -> Cache:
+        """A decode-ready KV cache from the prefill's whole K/V (B, T, Hkv,
+        D), as the JAX package builds it: its length is ``cache_len``
+        (default T) even for a sliding layer. With ``sp``, this rank's block
+        of its slots where the plan splits them (``sp.cache(L)``)."""
+        T = k.shape[1]
         L = cache_len if cache_len is not None else T
         if L > T:
             k_c, v_c = (F.pad(t, (0, 0, 0, 0, 0, L - T)) for t in (k, v))
@@ -430,10 +454,14 @@ class Attention(nn.Module):
             k_c, v_c = k[:, -L:], v[:, -L:]
         else:
             k_c, v_c = k[:, :L], v[:, :L]
-        return y, {"k": k_c.contiguous(), "v": v_c.contiguous()}
+        blk = sp.cache(L) if sp is not None else None
+        if blk is not None:
+            k_c, v_c = k_c[:, blk.start:blk.stop], v_c[:, blk.start:blk.stop]
+        return {"k": k_c.contiguous(), "v": v_c.contiguous()}
 
     def _split_forward(self, x: torch.Tensor, memory: Optional[torch.Tensor],
-                       sp: P.Split) -> torch.Tensor:
+                       sp: P.Split, return_state: bool = False,
+                       cache_len: Optional[int] = None):
         """This rank's share of the attention of ``x`` (its sequence block
         when ``sp.seq``, else the whole rows). Under head TP
         (``sp.heads``): the whole rows' Q of this rank's heads, K/V of every
@@ -441,7 +469,9 @@ class Attention(nn.Module):
         the blocks. Else Q, K, V of the block at its global positions, K/V
         gathered over the sequence (one all-gather of both), the mask
         offset by the block's start; cross-attention takes K/V from the
-        whole ``memory``."""
+        whole ``memory``. With ``return_state``, also this rank's block of
+        the decode cache, from the whole K/V of every KV head
+        (:meth:`_cache_of`)."""
         cfg = self.cfg
         hd, nq = cfg.resolved_head_dim, cfg.n_heads
         causal = self.causal and memory is None
@@ -459,11 +489,13 @@ class Attention(nn.Module):
                 cos, sin = rope_table(torch.arange(S, device=x.device), hd, cfg.rope_theta)
                 q = apply_rope(q, cos, sin)
                 k = apply_rope(k, cos, sin)
+            state = self._cache_of(k, v, cache_len, sp) if return_state else None
             kv = torch.arange(heads.start, heads.stop, device=x.device) // (nq // cfg.n_kv_heads)
             k, v = k.index_select(2, kv), v.index_select(2, kv)
             out = self._attend(q, k, v, causal)
             y = out.reshape(B, S, heads.size * hd) @ self.wo[cols].to(self.dt)
-            return P.scatter_sum(y, sp)
+            y = P.scatter_sum(y, sp)
+            return (y, state) if return_state else y
         B, n, _ = x.shape
         start = sp.seq.start if sp.seq is not None else 0
         q, k, v = self._qkv(x, memory)
@@ -475,25 +507,46 @@ class Attention(nn.Module):
         if memory is None and sp.seq is not None:
             k, v = P.gather_seq(torch.cat([k, v], dim=-1), sp).chunk(2, dim=-1)
         out = self._attend(q, k, v, causal, start)
-        return out.reshape(B, n, nq * hd) @ self.wo.to(self.dt)
+        y = out.reshape(B, n, nq * hd) @ self.wo.to(self.dt)
+        return (y, self._cache_of(k, v, cache_len, sp)) if return_state else y
 
     def cache_init(self, batch: int, max_len: int) -> Cache:
         """KV cache: ``max_len`` slots for full attention, a ring buffer of
         ``min(window, max_len)`` for a sliding layer."""
         cfg = self.cfg
-        length = max_len if self.window is None else min(self.window, max_len)
+        length = self.cache_length(max_len)
         shape = (batch, length, cfg.n_kv_heads, cfg.resolved_head_dim)
         kw = {"dtype": self.dt, "device": self.wq.device}
         return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
-    def decode(self, x: torch.Tensor, cache: Cache,
-               pos: int) -> Tuple[torch.Tensor, Cache]:
+    def cache_length(self, max_len: int) -> int:
+        """The slots of :meth:`cache_init`'s cache (a prefill's cache has
+        ``cache_len`` slots whatever the window, as in JAX)."""
+        return max_len if self.window is None else min(self.window, max_len)
+
+    def decode(self, x: torch.Tensor, cache: Cache, pos: int,
+               split: Optional[P.Split] = None,
+               length: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
         """One token ``x`` (B, 1, d) at absolute position ``pos``. Writes its
-        K/V into the cache in place and returns (out, cache)."""
+        K/V into the cache in place and returns (out, cache). With ``split``
+        (on a mesh) and ``length``, the cache's global slots: where the plan
+        splits them (``split.cache(length)``) ``cache`` is this rank's block
+        of them; slot validity is taken at the global slots, only the rank
+        that owns the token's slot writes it, and the softmax is combined
+        over the model axis (``parallel.softmax_combine``). Under head TP
+        with KV heads that divide the model axis it raises ``ValueError``
+        there, where the JAX ``attention_decode``'s cache constraint names
+        the axis twice."""
         cfg = self.cfg
         dt = x.dtype
         B = x.shape[0]
         hd = cfg.resolved_head_dim
+        blk = split.cache(length) if split is not None and length is not None else None
+        if blk is not None and split.view.plan.kv_heads_sharded:
+            raise ValueError(
+                f"decode under head TP with {cfg.n_kv_heads} KV heads on a model axis of "
+                f"{split.view.parts}: the cache's slots and its KV heads would both be split "
+                f"over it (the JAX attention_decode raises DuplicateSpecError here)")
         q, k, v = self._qkv(x)
         if self.use_rope:
             cos, sin = rope_table(torch.full((1,), pos, device=x.device), hd,
@@ -501,8 +554,9 @@ class Attention(nn.Module):
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
         k_cache, v_cache = cache["k"], cache["v"]
-        L = k_cache.shape[1]
-        idx = torch.arange(L, device=x.device)
+        n = k_cache.shape[1]
+        L, start = (length, blk.start) if blk is not None else (n, 0)
+        idx = torch.arange(start, start + n, device=x.device)
         if self.window is None:
             # a prefix: past its end the last slot is overwritten, as in JAX
             slot = min(pos, L - 1)
@@ -513,11 +567,17 @@ class Attention(nn.Module):
             # p where p % L == i and p <= pos (floored remainder: pos - i < 0)
             abs_pos = pos - torch.remainder(pos - idx, L)
             valid = (abs_pos >= 0) & (abs_pos >= pos - self.window + 1) & (abs_pos <= pos)
-        k_cache[:, slot] = k[:, 0]
-        v_cache[:, slot] = v[:, 0]
-        probs = _masked_probs(_group_scores(q, k_cache).float(), valid, hd, dt)
-        out = _group_out(probs, v_cache).reshape(B, 1, cfg.n_heads * hd)
-        return out @ self.wo.to(self.dt), cache
+        mine = local_slot(slot, blk) if blk is not None else slot
+        if mine is not None:
+            k_cache[:, mine] = k[:, 0]
+            v_cache[:, mine] = v[:, 0]
+        scores = _group_scores(q, k_cache).float()
+        if blk is None:
+            out = _group_out(_masked_probs(scores, valid, hd, dt), v_cache)
+        else:
+            scores.div_(math.sqrt(hd)).masked_fill_(~valid, NEG_INF)
+            out = P.softmax_combine(scores, v_cache, split.group, dt)
+        return out.reshape(B, 1, cfg.n_heads * hd) @ self.wo.to(self.dt), cache
 
     def memory_kv(self, memory: torch.Tensor) -> Cache:
         """The cross cache of a (B, T, d) ``memory``: ``ck = memory @ wk``
@@ -528,19 +588,27 @@ class Attention(nn.Module):
         return {"ck": (memory @ self.wk.to(self.dt)).reshape(shape),
                 "cv": (memory @ self.wv.to(self.dt)).reshape(shape)}
 
-    def cross_decode(self, x: torch.Tensor, cross: Cache) -> torch.Tensor:
+    def cross_decode(self, x: torch.Tensor, cross: Cache, split: Optional[P.Split] = None,
+                     length: Optional[int] = None) -> torch.Tensor:
         """One token ``x`` (B, 1, d) against the cross cache ``cross``
         (:meth:`memory_kv`): q (plus ``bq``) only, then a softmax over
-        every cached frame, unmasked."""
+        every cached frame, unmasked. With ``split`` and ``length`` (the
+        frames' global count) where the plan splits the frames, ``cross``
+        is this rank's block of them and the softmax is combined over the
+        model axis."""
         cfg = self.cfg
         B = x.shape[0]
         hd = cfg.resolved_head_dim
         q = (x @ self.wq.to(self.dt)).reshape(B, 1, cfg.n_heads, hd)
         if self.bq is not None:
             q = q + self.bq.to(self.dt).reshape(1, 1, cfg.n_heads, hd)
-        probs = _masked_probs(_group_scores(q, cross["ck"]).float(), None, hd, x.dtype)
-        out = _group_out(probs, cross["cv"]).reshape(B, 1, cfg.n_heads * hd)
-        return out @ self.wo.to(self.dt)
+        scores = _group_scores(q, cross["ck"]).float()
+        if split is None or length is None or split.cache(length) is None:
+            out = _group_out(_masked_probs(scores, None, hd, x.dtype), cross["cv"])
+        else:
+            out = P.softmax_combine(scores.div_(math.sqrt(hd)), cross["cv"], split.group,
+                                    x.dtype)
+        return out.reshape(B, 1, cfg.n_heads * hd) @ self.wo.to(self.dt)
 
 
 # ---------------------------------------------------------------------------
@@ -881,10 +949,8 @@ class MLSTM(nn.Module):
             Cst, nst, h = _mlstm_chunk(Cst, nst, qc, kc, vc, ic, fc, tri)
             hs.append(h.to(dt))
         h = torch.cat(hs, dim=2).transpose(1, 2).reshape(B, n_chunks * C, di)[:, :S]
-        y = self._out(h, z)
-        if return_state:
-            return y, {"C": Cst, "n": nst}
-        return P.keep_seq(y, split)
+        y = P.keep_seq(self._out(h, z), split)
+        return (y, {"C": Cst, "n": nst}) if return_state else y
 
     def cache_init(self, batch: int, max_len: int) -> Cache:
         H = self.cfg.n_heads
@@ -1018,10 +1084,8 @@ class SLSTM(nn.Module):
         for xt in xwb.unbind(1):
             state = self._cell(xt, state)
             hs.append(state[0])
-        y = torch.stack(hs, dim=1).to(self.dt) @ self.w_down.to(self.dt)
-        if return_state:
-            return y, dict(zip("hcnm", state))
-        return P.keep_seq(y, split)
+        y = P.keep_seq(torch.stack(hs, dim=1).to(self.dt) @ self.w_down.to(self.dt), split)
+        return (y, dict(zip("hcnm", state))) if return_state else y
 
     def _state(self, batch: int) -> Tuple[torch.Tensor, ...]:
         h, c, n = (torch.zeros((batch, self.cfg.d_model), dtype=torch.float32,
@@ -1099,10 +1163,8 @@ class RGLRU(nn.Module):
         h = kops.rglru_scan(a, b, torch.zeros((B, a.shape[-1]), dtype=torch.float32,
                                               device=x.device))
         del a, b
-        y = (h * gate).to(x.dtype) @ self.w_down.to(self.dt)
-        if return_state:
-            return y, {"h": h[:, -1].contiguous()}
-        return P.keep_seq(y, split)
+        y = P.keep_seq((h * gate).to(x.dtype) @ self.w_down.to(self.dt), split)
+        return (y, {"h": h[:, -1].contiguous()}) if return_state else y
 
     def cache_init(self, batch: int, max_len: int) -> Cache:
         return {"h": torch.zeros((batch, self.cfg.d_model), dtype=torch.float32,

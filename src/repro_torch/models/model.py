@@ -32,18 +32,30 @@ mixer; a decode cache then also holds each layer's cross cache.
 The JAX package stacks each pattern position's params over ``n_units`` and
 runs the units with ``lax.scan``; here the units are a Python loop over one
 ``Block`` per layer, in order. The JAX code threads a ``ShardingPlan``
-through every call; here a ``Model`` trained on a mesh holds the plan at
-its rank's coordinate (``view``, a ``distributed.sharding.RankView``), and
-the training loss passes it, at the batch's sequence length, to every
-layer (``split``): the residual stream is this rank's sequence block
+through every call; here a ``Model`` on a mesh (a trainer's, or one placed
+for serving by ``repro_torch.runtime.place_on_mesh``) holds the plan at its
+rank's coordinate (``view``, a ``distributed.sharding.RankView``), and the
+training loss and a prefill pass it, at the batch's sequence length, to
+every layer (``split``): the residual stream is this rank's sequence block
 between layers, and each layer runs this rank's share of the sequence,
 heads, ``d_ff`` or experts (``repro_torch.models.layers``). Such a model
 also holds each rank's shards as its parameters and a ``gather`` hook:
-the training loss then runs every part of a layer (and the embedding,
-head and final norms around them) with its parameters gathered whole for
-that part only (:func:`_whole`, :func:`_caller`), so under a checkpointing
-``remat`` the recompute gathers them again. Serving (``prefill``,
-``decode_step``) runs whole tensors.
+every part of a layer (and the embedding, head and final norms around
+them) runs with its parameters gathered whole for that part only
+(:func:`_whole`, :func:`_caller`), so under a checkpointing ``remat`` the
+recompute gathers them again.
+
+Serving on a mesh (``rows``, the ``distributed.zero.MeshSplit`` of the
+batch, set): ``prefill``, ``init_cache`` and ``decode_step`` take this
+rank's rows of the batch. The cache holds this rank's block of each
+attention cache's slots and of the cross caches' frames where the plan
+splits them (``RankView.cache``; the global lengths in ``kv_len`` and
+``cross_len``), the recurrent states whole; a decode step passes
+``parallel.split_at(view, 1)`` to every layer. The embedding table and
+the unembedding stay this rank's block of the vocab where ``param_specs``
+splits it (gathered over the other mesh dims only): the lookup is a masked
+lookup of the block summed over the model axis (exact: one rank holds each
+row) and the logits are the blocks' products all-gathered.
 
 Entry points: :func:`init_params` (a ``Model`` with weights drawn from a
 ``torch.Generator``; ``trainable=True`` for masters in ``cfg.param_dtype``
@@ -53,7 +65,9 @@ each pattern unit: :func:`backbone`),
 :func:`init_cache`, :func:`prefill` and :func:`decode_step`. A cache is
 ``{"layers": [per-layer state, prefix layers first], "pos": int}``, and
 for an encoder model
-``"cross"``: [per-layer ``{"ck", "cv"}``];
+``"cross"``: [per-layer ``{"ck", "cv"}``]; on a mesh also ``"kv_len"``
+(each layer's global KV slots, None for a recurrent state) and, with
+``"cross"``, ``"cross_len"``;
 ``repro_torch.interop.cache_to_jax`` gives it in the JAX package's layout.
 :func:`param_leaves` groups the parameters as the JAX params pytree holds
 them, for the optimizers, the checkpoint and the interop helpers.
@@ -162,16 +176,33 @@ class Block(nn.Module):
     def _mixer_out(self, x: torch.Tensor, split: Optional[P.Split] = None) -> torch.Tensor:
         return self.mixer(self.norm1(x), split=split)
 
+    def _mixer_state(self, x: torch.Tensor, cache_len: Optional[int],
+                     split: Optional[P.Split] = None):
+        return self.mixer(self.norm1(x), return_state=True, cache_len=cache_len, split=split)
+
+    def _mixer_step(self, x: torch.Tensor, cache: L.Cache, pos: int,
+                    split: Optional[P.Split] = None, length: Optional[int] = None):
+        kw = {"split": split, "length": length} if isinstance(self.mixer, L.Attention) else {}
+        return self.mixer.decode(self.norm1(x), cache, pos, **kw)
+
     def _cross_out(self, x: torch.Tensor, memory: torch.Tensor,
                    split: Optional[P.Split] = None) -> torch.Tensor:
         return self.cross(self.norm_cross(x), memory=memory, split=split)
 
+    def _cross_step(self, x: torch.Tensor, cross: L.Cache, split: Optional[P.Split] = None,
+                    length: Optional[int] = None) -> torch.Tensor:
+        return self.cross.cross_decode(self.norm_cross(x), cross, split, length)
+
     def part_modules(self, part) -> Tuple[nn.Module, ...]:
         """The modules whose parameters ``part`` (one of ``_mixer_out``,
-        ``_cross_out``, ``_ffn_out``) uses."""
-        return {"_mixer_out": (self.norm1, self.mixer),
-                "_cross_out": (self.norm_cross, self.cross),
-                "_ffn_out": (self.norm2, self.ffn)}[part.__name__]
+        ``_mixer_state``, ``_mixer_step``, ``_cross_out``, ``_cross_step``,
+        ``_ffn_out``) uses."""
+        name = part.__name__
+        if name.startswith("_mixer"):
+            return self.norm1, self.mixer
+        if name.startswith("_cross"):
+            return self.norm_cross, self.cross
+        return self.norm2, self.ffn
 
     def _ffn_out(self, x: torch.Tensor, split: Optional[P.Split] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -194,11 +225,12 @@ class Block(nn.Module):
         stream (norm and mixer, norm and cross-attention, norm and FFN):
         directly, or as a checkpointed region under ``remat="names"``, and
         on a mesh with the part's parameters gathered (:func:`_caller`).
-        With ``split`` (training on a mesh) ``x`` is this rank's block of
-        the residual stream and each part runs its share
-        (``repro_torch.models.layers``)."""
+        With ``split`` (on a mesh) ``x`` is this rank's block of the
+        residual stream and each part runs its share
+        (``repro_torch.models.layers``); with ``return_state`` the mixer's
+        state is this rank's (its block of an attention cache)."""
         if return_state:
-            out, state = self.mixer(self.norm1(x), return_state=True, cache_len=cache_len)
+            out, state = call(self._mixer_state, x, cache_len, split)
         else:
             out = call(self._mixer_out, x, split)
         x = x + out
@@ -214,14 +246,20 @@ class Block(nn.Module):
         return self.mixer.cache_init(batch, cache_len)
 
     def decode(self, x: torch.Tensor, cache: L.Cache, pos: int,
-               cross: Optional[L.Cache] = None) -> Tuple[torch.Tensor, L.Cache]:
+               cross: Optional[L.Cache] = None, call=_direct,
+               split: Optional[P.Split] = None, length: Optional[int] = None,
+               cross_len: Optional[int] = None) -> Tuple[torch.Tensor, L.Cache]:
         """One token; with ``cross`` (this layer's cross cache) the
-        cross-attention to the cached memory follows the mixer."""
-        out, new = self.mixer.decode(self.norm1(x), cache, pos)
+        cross-attention to the cached memory follows the mixer. ``call``
+        runs each part as in :meth:`forward`; on a mesh ``split`` (at S = 1)
+        and the global lengths of the attention cache (``length``) and of
+        the cross cache (``cross_len``) say which block of them this rank
+        holds."""
+        out, new = call(self._mixer_step, x, cache, pos, split, length)
         x = x + out
         if self.cross is not None and cross is not None:
-            x = x + self.cross.cross_decode(self.norm_cross(x), cross)
-        return self._add_ffn(x)[0], new
+            x = x + call(self._cross_step, x, cross, split, cross_len)
+        return self._add_ffn(x, call, split)[0], new
 
 
 class Model(nn.Module):
@@ -263,11 +301,13 @@ class Model(nn.Module):
             self.encoder_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device, trainable, pdt)
         else:
             self.encoder = self.encoder_norm = None
-        # a mesh trainer's hooks: gather(modules) -> a context in which the
+        # a mesh's hooks: gather(modules, keep=) -> a context in which the
         # modules' own parameters are whole (repro_torch.distributed.zero),
-        # and view, the plan at this rank's coordinate (sharding.RankView)
+        # view, the plan at this rank's coordinate (sharding.RankView), and
+        # for serving rows, the batch's split over the mesh (zero.MeshSplit)
         self.gather = None
         self.view = None
+        self.rows = None
 
     def forward(self, tokens: torch.Tensor,
                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -354,17 +394,26 @@ def _embed_inputs(model: Model, batch: Dict[str, torch.Tensor], start: int = 0,
     rows from position ``start`` on (0 for a full sequence, ``pos`` for a
     decode step). With ``split`` splitting the sequence, this rank's
     block of it: its positions' rows, the same rows the whole sequence's
-    input holds there."""
+    input holds there. Where the table in hand is this rank's block of the
+    vocab (serving on a mesh), each rank looks up the whole rows' tokens
+    that fall in its block, zeros elsewhere, and the sum over the model
+    axis (reduce-scattered onto the sequence blocks) is the lookup."""
+    cfg = model.cfg
     if split is not None and split.seq is not None:
-        batch = {k: P.keep_seq(v, split) for k, v in batch.items()
-                 if k in ("tokens", "embeds")}
         start += split.seq.start
-    dt = L.compute_dtype(model.cfg)
-    if model.cfg.input_kind == "embeddings" and "embeds" in batch:
-        x = batch["embeds"].to(dt)
+    dt = L.compute_dtype(cfg)
+    scale = math.sqrt(cfg.d_model)
+    if cfg.input_kind == "embeddings" and "embeds" in batch:
+        x = P.keep_seq(batch["embeds"], split).to(dt)
+    elif model.embed.shape[0] == cfg.padded_vocab:
+        x = F.embedding(P.keep_seq(batch["tokens"], split), model.embed.to(dt)) * scale
     else:
-        x = F.embedding(batch["tokens"], model.embed.to(dt)) * math.sqrt(model.cfg.d_model)
-    return _with_positions(model.cfg, x, start)
+        vocab = split.view.vocab(cfg.padded_vocab)
+        local = batch["tokens"] - vocab.start
+        inside = (local >= 0) & (local < vocab.size)
+        rows = F.embedding(local.clamp(0, vocab.size - 1), model.embed.to(dt))
+        x = P.scatter_sum(torch.where(inside[..., None], rows, 0) * scale, split)
+    return _with_positions(cfg, x, start)
 
 
 def _encode(model: Model, frames: torch.Tensor, split: Optional[P.Split] = None
@@ -391,8 +440,17 @@ def _unembedding(model: Model) -> torch.Tensor:
     return W.to(L.compute_dtype(model.cfg))
 
 
-def logits_of(model: Model, h: torch.Tensor) -> torch.Tensor:
-    return model.final_norm(h) @ _unembedding(model)
+def logits_of(model: Model, h: torch.Tensor, split: Optional[P.Split] = None
+              ) -> torch.Tensor:
+    """The final norm of ``h`` times the unembedding: (..., padded_vocab).
+    Where the unembedding in hand is this rank's vocab block (serving on a
+    mesh), each rank's block of the logits, all-gathered over the model
+    axis."""
+    W = _unembedding(model)
+    logits = model.final_norm(h) @ W
+    if W.shape[1] != model.cfg.padded_vocab:
+        logits = P.all_gather(logits, -1, split.group)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -416,10 +474,24 @@ def _checkpointed(part, *inputs):
     return torch.utils.checkpoint.checkpoint(part, *inputs, use_reentrant=False)
 
 
-def _whole(model: Model, modules) -> contextlib.AbstractContextManager:
-    """A context in which the own parameters of ``modules`` are whole: the
-    model's ``gather`` hook on a mesh, else nothing to do."""
-    return contextlib.nullcontext() if model.gather is None else model.gather(modules)
+def _whole(model: Model, modules, keep=None) -> contextlib.AbstractContextManager:
+    """A context in which the own parameters of ``modules`` are whole (on
+    a mesh axis named ``keep``, this rank's block along it): the model's
+    ``gather`` hook on a mesh, else nothing to do."""
+    return contextlib.nullcontext() if model.gather is None else model.gather(modules, keep=keep)
+
+
+@contextlib.contextmanager
+def _serving_tops(model: Model, split: Optional[P.Split]):
+    """The modules of :func:`_top_modules` gathered for serving: the
+    norms whole; the embedding table and the unembedding whole where the
+    vocab is not split (no mesh, or a plan that keeps it whole), else this
+    rank's block of the vocab gathered over the other mesh dims."""
+    keep = None
+    if split is not None and split.view.vocab(model.cfg.padded_vocab) is not None:
+        keep = split.view.plan.shape.model_axis
+    with _whole(model, _top_modules(model)[1:]), _whole(model, [model], keep):
+        yield
 
 
 def _top_modules(model: Model) -> list:
@@ -624,17 +696,45 @@ def param_leaves(model: Model) -> Dict[str, List[nn.Parameter]]:
     return {k: out[k] for k in sorted(out, key=_path_key)}
 
 
+def _cut(view, t: torch.Tensor, length: int) -> torch.Tensor:
+    """This rank's block of a cache tensor's slots (dim 1) of ``length``
+    where the plan splits them, else ``t``."""
+    blk = view.cache(length) if view is not None else None
+    return t if blk is None else t[:, blk.start:blk.stop].contiguous()
+
+
+def _kv_lens(model: Model, cache_len: int, prefilled: bool) -> List[Optional[int]]:
+    """Each layer's KV slots (None for a recurrent state): ``cache_len``
+    after a prefill, :meth:`layers.Attention.cache_length` in an empty
+    cache."""
+    return [None if not isinstance(layer.mixer, L.Attention)
+            else cache_len if prefilled else layer.mixer.cache_length(cache_len)
+            for layer in model.layers]
+
+
 def init_cache(model: Model, batch: int, cache_len: int) -> Cache:
     """An empty decode cache; an encoder model's cross caches hold
-    ``cfg.encoder_seq or cache_len`` frames, as the JAX ``init_cache``."""
-    cache = {"layers": [layer.cache_init(batch, cache_len) for layer in model.layers],
-             "pos": 0}
+    ``cfg.encoder_seq or cache_len`` frames, as the JAX ``init_cache``. On a
+    mesh ``batch`` is this rank's rows and each cache holds this rank's
+    block of its slots."""
+    view = model.view
+    cfg = model.cfg
+    lens = _kv_lens(model, cache_len, prefilled=False)
+    layers = []
+    for layer, n in zip(model.layers, lens):
+        c = layer.cache_init(batch, cache_len)
+        layers.append(c if n is None else {k: _cut(view, t, n) for k, t in c.items()})
+    cache = {"layers": layers, "pos": 0}
+    T = cfg.encoder_seq or cache_len
     if model.encoder is not None:
-        cfg = model.cfg
-        shape = (batch, cfg.encoder_seq or cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (batch, T, cfg.n_kv_heads, cfg.resolved_head_dim)
         kw = {"dtype": L.compute_dtype(cfg), "device": model.embed.device}
-        cache["cross"] = [{"ck": torch.zeros(shape, **kw), "cv": torch.zeros(shape, **kw)}
+        cache["cross"] = [{k: _cut(view, torch.zeros(shape, **kw), T) for k in ("ck", "cv")}
                           for _ in model.layers]
+    if view is not None:
+        cache["kv_len"] = lens
+        if model.encoder is not None:
+            cache["cross_len"] = T
     return cache
 
 
@@ -646,17 +746,45 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
     (B, 1, padded_vocab)); the cache's ``pos`` is S. Every RG-LRU layer's
     scan is one call of ``kernels.ops.rglru_scan``; an xLSTM layer's state
     is its mixer's after the last position; each decoder layer's cross
-    cache is its ``cross.memory_kv`` of the memory."""
-    memory = _encode(model, batch["frames"]) if model.encoder is not None else None
-    x = _embed_inputs(model, batch)
-    states = []
-    for layer in model.layers:
-        x, st = layer(x, memory=memory, return_state=True, cache_len=cache_len)
-        states.append(st)
-    logits = logits_of(model, x[:, -1:])
-    cache = {"layers": states, "pos": x.shape[1]}
+    cache is its ``cross.memory_kv`` of the memory.
+
+    On a mesh (``model.view``) the batch is this rank's rows and the
+    prefill runs as the training loss does: each layer's parameters
+    gathered a part at a time, this rank's share of every layer, the
+    residual stream in sequence blocks where the plan splits S; the last
+    position's hidden state comes from the rank that holds it, and the
+    cache holds this rank's blocks (:func:`init_cache`)."""
+    view = model.view
+    S = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
+    split = P.split_at(view, S)
+    call = _caller(model)
+    with _serving_tops(model, split):
+        memory = None
+        if model.encoder is not None:
+            frames = batch["frames"]
+            memory = _encode(model, frames, P.split_at(view, frames.shape[1]))
+        x = _embed_inputs(model, batch, split=split)
+        states = []
+        for layer in model.layers:
+            x, st = layer(x, memory=memory, return_state=True, cache_len=cache_len,
+                          call=call, split=split)
+            states.append(st)
+        last = x[:, -1:]
+        if split is not None and split.seq is not None:
+            last = P.all_gather(last.contiguous(), 1, split.group)[:, -1:]
+        logits = logits_of(model, last, split)
+    cache = {"layers": states, "pos": S}
+    if view is not None:
+        cache["kv_len"] = _kv_lens(model, cache_len, prefilled=True)
     if memory is not None:
-        cache["cross"] = [layer.cross.memory_kv(memory) for layer in model.layers]
+        T = memory.shape[1]
+        cache["cross"] = []
+        for layer in model.layers:
+            with _whole(model, [layer.cross]):
+                kv = layer.cross.memory_kv(memory)
+            cache["cross"].append({k: _cut(view, t, T) for k, t in kv.items()})
+        if view is not None:
+            cache["cross_len"] = T
     return cache, logits
 
 
@@ -667,15 +795,21 @@ def decode_step(model: Model, cache: Cache,
     sinusoidal positions). The attention layers' KV caches (prefixes and
     ring buffers) are updated in place (the JAX package returns new
     arrays); the RG-LRU and xLSTM states are new tensors; the cross caches
-    are carried as they are."""
+    are carried as they are. On a mesh ``tokens`` are this rank's rows,
+    every layer takes ``parallel.split_at(view, 1)`` and its parameters
+    gathered a part at a time (:func:`prefill`), and its cache's blocks."""
     pos = cache["pos"]
-    x = _embed_inputs(model, {"tokens": tokens}, pos)
-    cross = cache.get("cross", [None] * len(model.layers))
-    new_layers = []
-    for layer, c, xc in zip(model.layers, cache["layers"], cross):
-        x, new = layer.decode(x, c, pos, xc)
-        new_layers.append(new)
-    new = {"layers": new_layers, "pos": pos + 1}
-    if "cross" in cache:
-        new["cross"] = cache["cross"]
-    return new, logits_of(model, x)
+    split = P.split_at(model.view, 1)
+    call = _caller(model)
+    n = len(model.layers)
+    cross = cache.get("cross", [None] * n)
+    lens = cache.get("kv_len", [None] * n)
+    with _serving_tops(model, split):
+        x = _embed_inputs(model, {"tokens": tokens}, pos, split)
+        new_layers = []
+        for layer, c, xc, length in zip(model.layers, cache["layers"], cross, lens):
+            x, new = layer.decode(x, c, pos, xc, call, split, length, cache.get("cross_len"))
+            new_layers.append(new)
+        logits = logits_of(model, x, split)
+    new = dict(cache, layers=new_layers, pos=pos + 1)
+    return new, logits

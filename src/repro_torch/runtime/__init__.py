@@ -4,5 +4,6 @@ from .trainstep import (  # noqa: F401
     make_prefill_step,
     make_serve_step,
     make_train_step,
+    place_on_mesh,
 )
 from .trainer import SimulatedFailure, Trainer, TrainerConfig  # noqa: F401

@@ -64,7 +64,7 @@ from ..models.config import ArchConfig
 from ..models.model import Model, _jax_path, param_leaves
 from ..obs.clock import wall
 from ..optim import make_optimizer
-from .trainstep import TrainState, leaf_spec, make_train_step, state_specs, unit_spec
+from .trainstep import TrainState, make_train_step, state_specs, tensor_specs, unit_spec
 
 
 @dataclasses.dataclass
@@ -138,11 +138,7 @@ class Trainer:
         split = Z.MeshSplit(mesh, plan.batch(self.tcfg.global_batch) or (),
                             self.tcfg.global_batch, cfg.microbatches, plan.shape.model_axis)
 
-        def specs(path, shape):
-            stacked = (cfg.n_units,) + tuple(shape) if "units" in path.split("/") else shape
-            return unit_spec(path, leaf_spec(cfg, plan, path, stacked))
-
-        self.zero = zero = Z.Zero(mesh, split, specs, cfg.grad_spec_constraint)
+        self.zero = zero = Z.Zero(mesh, split, tensor_specs(cfg, plan), cfg.grad_spec_constraint)
         model = init_params(cfg, gen, trainable=True,
                             place=zero.placer(lambda name: _jax_path(cfg, name)))
         zero.attach(model)

@@ -22,6 +22,13 @@ gradients reduced into the shards by the gathers' backward (one
 reduce-scatter with ``cfg.grad_spec_constraint``, else an all-reduce and
 a slice: the same numbers), the reported loss summed over the split's
 ranks, the norm and the optimizer's sums over the splitting mesh dims.
+
+:func:`place_on_mesh` places a serving model (drawn meshless, or carried
+from the JAX package by ``repro_torch.interop.model_from_jax``) on a mesh:
+this rank's blocks of its parameters in :func:`param_specs`, the ``gather``
+hook, the ``view`` and the batch's ``rows``, the trainer's ZeRO-3 storage
+without gradients. ``make_prefill_step`` and ``make_serve_step`` then run
+it unchanged, on this rank's rows.
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..distributed.sharding import ShardingPlan, Spec
+from ..distributed import zero as Z
+from ..distributed.sharding import ShardingPlan, Spec, make_plan, rank_view
 from ..models.config import ArchConfig
-from ..models.model import Model, decode_step, loss_fn, param_leaves, prefill
+from ..models.model import Model, _jax_path, decode_step, loss_fn, param_leaves, prefill
 from ..optim.optimizers import Leaves, Optimizer, global_norm
 
 
@@ -123,6 +131,46 @@ def unit_spec(path: str, spec: Spec) -> Spec:
     return tuple(spec[1:]) if _stacked(path) else tuple(spec)
 
 
+def tensor_specs(cfg: ArchConfig, plan: ShardingPlan):
+    """``specs(path, shape)``: the spec of one of the port's tensors of
+    leaf ``path`` and per-unit ``shape`` (:func:`leaf_spec` of the stacked
+    JAX leaf, less its unit dim)."""
+    def specs(path: str, shape: Tuple[int, ...]) -> Spec:
+        stacked = (cfg.n_units,) + tuple(shape) if _stacked(path) else tuple(shape)
+        return unit_spec(path, leaf_spec(cfg, plan, path, stacked))
+
+    return specs
+
+
+def place_on_mesh(model: Model, mesh: Any, global_batch: int) -> Model:
+    """``model`` (whole, serving, on its device) placed on ``mesh`` for
+    serving a global batch of ``global_batch`` rows, in place: the plan of
+    ``cfg.attn_parallelism`` (as the trainer makes it), each parameter cut
+    to this rank's block of its :func:`param_specs` spec, the ``gather``
+    hook, the ``view`` at this rank's coordinate and the batch's ``rows``
+    (``zero.MeshSplit``). Every rank of the mesh calls it with the same
+    model. A mesh on another device type than the model's raises, as the
+    ``Trainer`` does."""
+    cfg = model.cfg
+    dev = model.embed.device.type
+    if mesh.device_type != dev:
+        raise ValueError(
+            f"the mesh is on {mesh.device_type!r} devices but the model on {dev!r}: a cuda "
+            f"mesh (NCCL, or gloo) serves on cuda, a cpu mesh (gloo) on the cpu")
+    if not Z.in_mesh(mesh):
+        raise ValueError(f"this rank is not in the mesh {mesh}")
+    plan = make_plan(mesh, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                     prefer=cfg.attn_parallelism, global_batch=global_batch)
+    rows = Z.MeshSplit(mesh, plan.batch(global_batch) or (), global_batch, 1,
+                       plan.shape.model_axis)
+    zero = Z.Zero(mesh, rows, tensor_specs(cfg, plan), cfg.grad_spec_constraint)
+    zero.place(model, lambda name: _jax_path(cfg, name))
+    model.gather = zero.gather
+    model.view = rank_view(plan, mesh)
+    model.rows = rows
+    return model
+
+
 @dataclasses.dataclass
 class StateSpecs:
     params: Dict[str, Spec]
@@ -206,6 +254,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, zero: Optional[Any] =
 
 
 def make_prefill_step(model: Model, cache_len: int):
+    """``batch -> (cache, last-position logits)``; on a mesh the batch is
+    this rank's rows (:func:`place_on_mesh`)."""
     def prefill_step(batch: Dict[str, torch.Tensor]):
         return prefill(model, batch, cache_len)
 

@@ -205,8 +205,8 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(monkeypatch):
         return call
 
     monkeypatch.setattr(fa, "flash_attention_plain", counted)
-    monkeypatch.setattr(fa, "_launch", lambda q, k, v, c, w: plain(q, k, v, causal=c,
-                                                                  window=w))
+    monkeypatch.setattr(fa, "_launch", lambda q, k, v, c, w, o=0: plain(q, k, v, causal=c,
+                                                                       window=w, q_offset=o))
     monkeypatch.setattr(xe, "softmax_xent_plain", guarded(
         "softmax_xent", xe.softmax_xent_plain, "logits", "targets"))
     def counted_as(wrapper, fn):
@@ -226,8 +226,16 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(monkeypatch):
         "flash_tc_kernel<256>": {"HGMMA": 48, "UTMALDG": 12}, "flash_kernel<float, 256>": {}})
     monkeypatch.setattr(cs, "FLASH_FULL", (("a", 1, 4, 1, 128, 256, True, 128),
                                            ("b", 1, 4, 2, 256, 64, True, 64)))
+    monkeypatch.setattr(cs, "FLASH_OFFSET", (("o", 1, 4, 2, 64, 128, 64, 32, 64),))
     detail = {}
     out = cs.flash_phase(torch, fa, detail, dev="cpu")
+    # the offset block: the small cases and the cut rank-1 block, each in
+    # both dtypes (one launch an op call, bf16 on the tensor-core path)
+    o = out["offset"]["o"]
+    assert detail["flash_kernel"]["offset_cases"] == 2 * len(cs.FLASH_OFFSET_CASES)
+    assert o["q_offset"] == 64 and o["bound_by"] == "bytes"
+    assert o["gflop"] == 4 * 64 * 4 * cs.offset_pairs(64, 128, 32, 64) / 1e9
+    assert cs.offset_pairs(64, 128, 32, 64) == 64 * 32
     assert out["launches"] == 2 and out["launches_tc"] == 2 and out["bound_by"] == "bytes"
     assert detail["flash_kernel"]["cases"] == 37
     assert detail["flash_kernel"]["tensor_core_cases"] == 17
@@ -286,3 +294,62 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(op, monkeypatch):
     # without grad the guard lets the call through to the kernel's load
     with torch.no_grad(), pytest.raises(AssertionError, match="before the kernel"):
         mod._launch(*args)
+
+
+@pytest.mark.parametrize("window", [None, 48, 200])
+@pytest.mark.parametrize("Sq,offset", [(128, 128), (96, 160), (256, 0)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_plain_at_an_offset_is_the_whole_sequence_s_rows(window, Sq, offset, bf16):
+    """``flash_attention_plain(q_offset=o)`` on the query rows o:o+Sq of a
+    sequence of 256 against all its keys equals rows o:o+Sq of the whole
+    sequence's plain version and of JAX's ``ref.attention_ref`` (which has
+    no offset), with and without a window, also through the GQA op on CPU
+    tensors."""
+    T = 256
+    (jq, jk, jv), (q, k, v) = operands((2, 4, T, 32), (2, 4, T, 32), seed=3, bf16=bf16)
+    rows = slice(offset, offset + Sq)
+    got = fa.flash_attention_plain(q[:, :, rows], k, v, causal=True, window=window,
+                                   q_offset=offset)
+    whole = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    assert torch.equal(got, whole[:, :, rows])
+    want = jref.attention_ref(jq, jk, jv, causal=True, window=window)
+    close(got, np.asarray(want.astype(jnp.float32))[:, :, rows], bf16)
+    via_op = ops.flash_attention_gqa(q[:, :, rows].contiguous(), k[:, :2].contiguous(),
+                                     v[:, :2].contiguous(), causal=True, window=window,
+                                     block_q=32, block_k=32, q_offset=offset)
+    whole_gqa = fa.flash_attention_plain(q, k[:, :2], v[:, :2], causal=True, window=window)
+    assert torch.equal(via_op, whole_gqa[:, :, rows])
+
+
+def test_a_negative_offset_is_refused():
+    _, (q, k, v) = operands((1, 2, 64, 32), (1, 2, 64, 32), seed=0)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, block_q=32, block_k=32, q_offset=-1)
+
+
+def test_blocked_attention_at_an_offset_takes_the_kernel_route(monkeypatch):
+    """Where ``layers._on_kernel`` holds (CUDA tensors, no grad; widened to
+    CPU tensors here), a sequence block's blocked attention (``q_offset``
+    its start) is one ``flash_attention_gqa`` call at that offset, never the
+    twin, and equals the twin's rows."""
+    from repro_torch.models import layers as TL
+
+    calls, twin = [], []
+    real = ops.flash_attention_gqa
+
+    def counted(q, k, v, **kw):
+        calls.append(kw["q_offset"])
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(TL.kops, "flash_attention_gqa", counted)
+    monkeypatch.setattr(TL, "_on_kernel", lambda q, k, v: True)
+    plain = TL.blocked_attention_plain
+    monkeypatch.setattr(TL, "blocked_attention_plain",
+                        lambda *a, **kw: (twin.append(1), plain(*a, **kw))[1])
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 32, 4, 16), (2, 64, 2, 16), (2, 64, 2, 16)))
+    got = TL.blocked_attention(q, k, v, window=24, block_q=16, block_kv=32, q_offset=32)
+    assert calls == [32] and not twin
+    want = plain(q, k, v, window=24, bq=16, bkv=32, q_offset=32)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -218,3 +218,112 @@ def test_hardware_constants_are_the_h100_datasheet():
     hw = hardware_constants()
     assert hw == {"peak_flops": 989e12, "hbm_gbps": 3.35e12, "nvlink_gbps": 450e9,
                   "hbm_gib": 80.0}
+
+
+# ---------------------------------------------------------------------------
+# the cache and input specs (the JAX input_specs / cache_specs twins)
+# ---------------------------------------------------------------------------
+
+SPEC_MESHES = (None, (2, 2), (1, 2))
+#: (batch, cache slots or prompt length): a batch of 8 is recurrentgemma-2b's
+#: ``n_units``, so its tail state reads as a stacked leaf in both packages
+SPEC_SIZES = ((8, 2064), (4, 1500))
+
+JAX_SPECS = """
+import json, sys
+from repro.configs import get_config
+from repro.distributed.sharding import make_plan
+from repro.launch.mesh import make_test_mesh
+from repro.models.model import cache_specs, input_specs
+
+
+def leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v for k, t in tree.items() for k2, v in leaves(t, prefix + k + "/").items()}
+    if isinstance(tree, list):
+        return {k2: v for i, t in enumerate(tree)
+                for k2, v in leaves(t, prefix + str(i) + "/").items()}
+    spec = getattr(getattr(tree, "sharding", None), "spec", None)
+    if spec is not None:
+        spec = [list(e) if isinstance(e, tuple) else e for e in spec]
+        spec += [None] * (len(tree.shape) - len(spec))
+    return {prefix[:-1]: [list(tree.shape), str(tree.dtype), spec]}
+
+
+out = {}
+for arch in json.loads(sys.argv[1]):
+    cfg = get_config(arch)
+    for mesh in json.loads(sys.argv[2]):
+        plan = None if mesh is None else make_plan(
+            make_test_mesh(tuple(mesh), ("data", "model")), n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads)
+        for B, L in json.loads(sys.argv[3]):
+            rec = {"cache": leaves(cache_specs(cfg, plan, B, L))}
+            for kind in ("train", "prefill"):
+                rec[kind] = leaves(input_specs(cfg, L, B, kind, plan))
+            out[f"{arch}|{mesh}|{B}|{L}"] = rec
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_specs():
+    """JAX's ``cache_specs`` and ``input_specs`` of every full config on
+    real 2x2 and 1x2 meshes (a subprocess with 4 forced host devices)."""
+    import json
+
+    from test_torch_distributed import _finish, _jax_subprocess
+
+    proc = _jax_subprocess(JAX_SPECS, [json.dumps(ARCHS), json.dumps(SPEC_MESHES),
+                                       json.dumps(SPEC_SIZES)])
+    return _finish(proc, 240)
+
+
+def _spec_leaves(tree, prefix=""):
+    from repro_torch.distributed.sharding import LeafSpec
+
+    if isinstance(tree, dict):
+        return {k2: v for k, t in tree.items()
+                for k2, v in _spec_leaves(t, f"{prefix}{k}/").items()}
+    if isinstance(tree, list):
+        return {k2: v for i, t in enumerate(tree)
+                for k2, v in _spec_leaves(t, f"{prefix}{i}/").items()}
+    assert isinstance(tree, LeafSpec)
+    # a ``PartitionSpec`` reads a one-axis tuple back as the axis's name
+    spec = None if tree.spec is None else [
+        (e[0] if len(e) == 1 else list(e)) if isinstance(e, tuple) else e for e in tree.spec]
+    return {prefix[:-1]: [list(tree.shape), tree.dtype, spec]}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", SPEC_MESHES)
+def test_cache_and_input_specs_equal_jax_s(jax_specs, arch, shape):
+    """``cache_specs`` (through ``cache_leaf_spec``, keyed by the leaves'
+    shapes) and ``input_specs`` for train and prefill, leaf by leaf, equal
+    JAX's: shapes, dtypes and specs, without a mesh and on (2, 2) and
+    (1, 2); the port's cache built on the meta device."""
+    from repro_torch.distributed.sharding import cache_specs, input_specs
+
+    cfg = get_config(arch)
+    plan = None if shape is None else make_plan(
+        StubMesh(shape, ("data", "model")), n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+    for B, L in SPEC_SIZES:
+        want = jax_specs[f"{arch}|{list(shape) if shape else None}|{B}|{L}"]
+        assert _spec_leaves(cache_specs(cfg, plan, B, L)) == want["cache"]
+        for kind in ("train", "prefill"):
+            assert _spec_leaves(dict(input_specs(cfg, L, B, kind, plan))) == want[kind]
+
+
+def test_the_shape_keyed_rule_reads_these_leaves_as_jax_does(jax_specs):
+    """The limits of the reference that the twin keeps (ROADMAP Queue C):
+    xlstm-350m's mLSTM memory ``C`` (B, 4, 512, 512) is read as a KV cache,
+    its 4 heads split over ``model`` as if slots, and recurrentgemma-2b's
+    tail state (8, 2560) at a batch of 8, its ``n_units``, is read as
+    stacked: ``(None, "data")``. The port's serving stores both whole by
+    batch rows (``RankView.cache`` splits only attention and cross caches,
+    ``tests/test_torch_mesh_serve.py``)."""
+    xl = jax_specs["xlstm-350m|[2, 2]|8|2064"]["cache"]
+    assert xl["units/p0/mixer/C"] == [[12, 8, 4, 512, 512], "float32",
+                                      [None, "data", "model", None, None]]
+    rg = jax_specs["recurrentgemma-2b|[2, 2]|8|2064"]["cache"]
+    assert rg["tail/0/mixer/h"] == [[8, 2560], "float32", [None, "data"]]

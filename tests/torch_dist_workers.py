@@ -229,3 +229,100 @@ def collectives(rank, world, out_dir):
                                    P.all_reduce_(x.clone(), alone), P.gather_seq(x, one),
                                    P.scatter_sum(x, one)]}
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _serve_run(cfg, params, mesh, prompts, frames, steps, cache_len) -> dict:
+    """The model of ``params`` (the JAX layout, numpy) placed on ``mesh``:
+    a prefill of the global batch's ``prompts`` (this rank's rows), then
+    ``steps`` greedy decode steps; the tokens, each step's logits (the
+    prefill's last position first) and the final cache gathered whole, in
+    the JAX layout, and this rank's blocks of the first attention cache."""
+    from repro_torch.interop import cache_to_jax, gather_cache, model_from_jax
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.runtime import place_on_mesh
+
+    model = place_on_mesh(model_from_jax(cfg, params, device="cpu"), mesh, prompts.shape[0])
+    rows = model.rows
+    p = rows.rows(torch.from_numpy(prompts).long())
+    f = rows.rows(torch.from_numpy(frames)) if frames is not None else None
+    out = {"tokens": None, "logits": [], "error": None, "local_kv": None}
+    with torch.inference_mode():
+        cache, logits = prefill(model, prompt_batch(model, p, f), cache_len)
+        kv = [c for c in cache["layers"] if "k" in c]
+        out["local_kv"] = tuple(kv[0]["k"].shape) if kv else None
+        toks = []
+        try:
+            for _ in range(steps + 1):
+                out["logits"].append(rows.gather(logits).numpy())
+                tok = torch.argmax(logits[:, -1, :cfg.vocab], dim=-1)[:, None]
+                toks.append(tok)
+                if len(toks) <= steps:
+                    cache, logits = decode_step(model, cache, tok)
+        except ValueError as e:
+            out["error"] = str(e)
+            return out
+        out["tokens"] = rows.gather(torch.cat(toks, dim=1)).numpy()
+        out["cache"] = cache_to_jax(model, gather_cache(model, cache))
+    return out
+
+
+def _combine_case(group, index: int, parts: int, dead: bool) -> dict:
+    """``parallel.softmax_combine`` on this rank's block (``index`` of
+    ``parts``) of seeded scores (float64) over 12 keys; with ``dead`` the
+    last rank's keys are all masked. Returns the whole inputs and the
+    output for the test to hold against one softmax over every key."""
+    from repro_torch.distributed import parallel as P
+    from repro_torch.models.layers import NEG_INF
+
+    g = torch.Generator().manual_seed(7)
+    B, Hkv, G, T, D = 2, 2, 3, 12 * parts, 5
+    scores = torch.randn((B, Hkv, G, 1, T), generator=g, dtype=torch.float64)
+    v = torch.randn((B, T, Hkv, D), generator=g, dtype=torch.float64)
+    valid = torch.rand(T, generator=g) < 0.7
+    valid[0] = True
+    if dead:
+        valid[T - 12:] = False
+    masked = scores.masked_fill(~valid, NEG_INF)
+    blk = slice(index * 12, (index + 1) * 12)
+    got = P.softmax_combine(masked[..., blk].clone(), v[:, blk], group, torch.float64)
+    return {"scores": masked, "v": v, "out": got}
+
+
+def mesh_serve(rank, world, out_dir, runs, shape, axes):
+    """Each run of ``runs`` (``name, arch, over, steps, cache_len``) served on
+    a ``shape`` mesh from ``out_dir/<name>.pt`` (the JAX params as numpy,
+    the prompts and an encoder model's frames): :func:`_serve_run`'s
+    results by name, and the decode combine on the model axis's ranks
+    (``combine``, ``combine_dead``) with the rank's coordinate."""
+    mesh = _mesh(shape, axes)
+    out = {"coordinate": mesh.get_coordinate()}
+    for name, arch, over, steps, cache_len in runs:
+        data = torch.load(os.path.join(out_dir, f"{name}.pt"), weights_only=False)
+        out[name] = _serve_run(_cfg(arch, over), data["params"], mesh, data["prompts"],
+                               data["frames"], steps, cache_len)
+    # the launcher's generate on the first case: the global batch's prompts
+    # in, the whole batch's tokens out on every rank, with its collectives
+    from repro_torch.interop import model_from_jax
+    from repro_torch.launch.serve import generate
+    from repro_torch.runtime import place_on_mesh
+
+    name, arch, over, steps, _ = runs[0]
+    data = torch.load(os.path.join(out_dir, f"{name}.pt"), weights_only=False)
+    model = place_on_mesh(model_from_jax(_cfg(arch, over), data["params"], device="cpu"), mesh,
+                          data["prompts"].shape[0])
+    with torch.inference_mode():
+        toks, rec = generate(model, torch.from_numpy(data["prompts"]).long(), steps)
+    out["generate"] = {"tokens": toks.numpy(), "rows": rec["rows"],
+                       "prefill_collectives": rec["prefill_collectives"],
+                       "decode_collectives": rec["decode_collectives"]}
+    m = list(axes).index("model")
+    group, index = mesh.get_group(m), mesh.get_coordinate()[m]
+    out["combine"] = _combine_case(group, index, shape[m], dead=False)
+    out["combine_dead"] = _combine_case(group, index, shape[m], dead=True)
+    return out
