@@ -384,6 +384,19 @@ raises and the script exits non-zero:
     backward), all on the TMA kernels, no plain-version call; each rank's
     step walls, idle share and peak memory, and its collectives a step by
     kind and bytes.
+50. the dry-run on the card (``dryrun_phase``, ``repro_torch.launch.dryrun``
+    in a spawned process of its own, after 47-49, so that its fake process
+    group never meets their groups): fake CUDA tensors, nothing allocated
+    and no kernel launched, the kernels' fake forms counted. Phase 47's cell
+    traced on a 1x1 fake mesh: its peak within ``DRYRUN_PEAK_TOL`` (10%) of
+    phase 47's measured peak, and its roofline step beside the measured
+    step; phase 48's train step and phase 49's prefill and decode traced
+    at ranks 0 and 1 of a (1, 2) fake mesh: the collectives by kind (calls
+    and input bytes) those of the real gloo steps, the RG-LRU fake forms a
+    step phase 48's launches (forward and backward), the flash fake forms a
+    prefill phase 49's calls; and one production cell (``DRYRUN_CELL``,
+    yi-9b ``train_4k`` on the ``(16, 16)`` fake mesh) traced to an ``OK``
+    record, written to ``chiprun_out/dryrun_torch/``.
 
 The order is not the numbers': the build, then the kernel phases 2, 3, 6,
 10 and 13-15, each alone on the card (their times go into the kernels'
@@ -5448,6 +5461,191 @@ def mesh_serve_phase(torch, detail, dev="cuda", cfg=None, shape=MESH_SERVE[2],
     return out
 
 
+#: phase 50: the traced peak of phase 47's cell against its measured peak
+#: (relative), the production cell traced, and the seconds the dry-run's
+#: process may take
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_CELL = ("yi-9b", "train_4k")
+DRYRUN_TIMEOUT_S = 240
+
+
+def _dryrun_cells(dev: str, mesh_cfg=None, split_cfg=None, serve_cfg=None) -> list:
+    """Phase 50's traced cells: ``(name, cfg, ShapeCell, mesh shape,
+    ranks)`` for phase 47's train cell (1x1), phase 48's train cell and
+    phase 49's prefill and decode ((1, 2)), each config as its phase builds
+    it unless given."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ShapeCell
+
+    arch, B, S = MESH_TRAIN
+    mesh_cfg = mesh_cfg or get_config(arch)
+    split_arch, n_layers, sB, sS = SPLIT_TRAIN
+    split_cfg = split_cfg or get_config(split_arch, n_layers=n_layers, remat="full",
+                                        dtype="float32")
+    serve_arch, serve_layers, (vB, vS, _) = MESH_SERVE
+    serve_cfg = serve_cfg or get_config(serve_arch, n_layers=serve_layers, **MESH_SERVE_CFG)
+    return [("47", mesh_cfg, ShapeCell("47", "train", S, B), (1, 1), (0,)),
+            ("48", split_cfg, ShapeCell("48", "train", sS, sB), (1, 2), (0, 1)),
+            ("49_prefill", serve_cfg, ShapeCell("49", "prefill", vS, vB), (1, 2), (0, 1)),
+            ("49_decode", serve_cfg, ShapeCell("49", "decode", vS, vB), (1, 2), (0, 1))]
+
+
+def _dryrun_child(rank, d, cells, production, dev, parent) -> None:
+    """Phase 50's process: each cell of ``cells`` traced at each of its
+    ranks on a fake mesh of ``dev`` tensors, then ``production`` (arch,
+    shape) through ``run_and_save`` on the ``(16, 16)`` fake mesh (its
+    record also in ``chiprun_out/dryrun_torch/``); every wrapper's launches
+    before and after; writes ``d/dryrun.pt``."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh
+
+    _die_with_parent(parent)
+    if torch.device(dev).type != "cuda":
+        torch.set_num_threads(1)
+    out = {"launches_before": launch_counts(), "cells": {}}
+    for name, cfg, cell, shape, ranks in cells:
+        for r in ranks:
+            t0 = time.perf_counter()
+            with D.fake_group(shape[0] * shape[1], r):
+                mesh = make_test_mesh(shape, ("data", "model"), device_type=torch.device(dev).type)
+                got = D._trace_cell(cfg, cell, mesh, D._plan(cfg, cell, mesh), rank=r,
+                                    device=dev)
+            got["seconds"] = time.perf_counter() - t0
+            out["cells"].setdefault(name, {})[r] = got
+    if production is not None:
+        out["production"] = D.run_and_save(
+            *production, multi_pod=False, device=dev,
+            out_dir=os.path.join(ROOT, "chiprun_out", "dryrun_torch"))
+    out["launches_after"] = launch_counts()
+    torch.save(out, os.path.join(d, "dryrun.pt"))
+
+
+def dryrun_phase(torch, detail, mesh_t, split_t, serve_t, dev="cuda", cells=None,
+                 production=DRYRUN_CELL) -> dict:
+    """Phase 50: the dry-run of phases 47-49's cells and of one production
+    cell, traced on fake ``dev`` tensors in a spawned process (its fake
+    process group must not meet those phases' groups), held to what those
+    phases measured (``mesh_t``, ``split_t``, ``serve_t``): (a) phase 47's
+    traced peak within ``DRYRUN_PEAK_TOL`` of its measured peak; (b) the
+    traced collectives of phase 48's train step and phase 49's decode step
+    at each rank those of its real last step, calls and input bytes by
+    kind; (c) the fake-form calls a step at each rank phase 48's RG-LRU
+    launches (forward, backward) and phase 49's flash calls a prefill, and
+    no launch in the dry-run's process or this one; (d) the production
+    cell's record ``OK``. Returns the phase's numbers."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import wrappers
+    from repro_torch.launch.dryrun import roofline
+
+    cells = _dryrun_cells(dev) if cells is None else cells
+    ws = wrappers()
+    before = _launches(ws)
+    out = {"cells": {}, "production_cell": list(production) if production else None}
+    detail["dryrun"] = out
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    ctx = mp.start_processes(_dryrun_child, args=(d, cells, production, dev, os.getpid()),
+                             nprocs=1, join=False, start_method="spawn")
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))):
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"phase 50's process outlasted {DRYRUN_TIMEOUT_S} s")
+        got = torch.load(os.path.join(d, "dryrun.pt"), weights_only=False)
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(d, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = {k: got["launches_after"][k] - got["launches_before"][k]
+                       for k in got["launches_after"]}
+    out["launches_here"] = {k: v - before[k] for k, v in _launches(ws).items()}
+    for name, by_rank in got["cells"].items():
+        out["cells"][name] = {r: {k: t[k] for k in (
+            "argument_bytes", "peak_bytes", "flops", "bytes", "counts", "result_bytes",
+            "fake_calls", "launches", "seconds")} for r, t in by_rank.items()}
+    cell = out["cells"]
+    # (a) phase 47's peak, and the roofline step beside the measured one
+    traced = cell["47"][0]
+    measured = mesh_t["mesh"]["peak_memory_gb"] * 1e9
+    out["peak_rel_err"] = abs(traced["peak_bytes"] - measured) / measured
+    out["roofline_47"] = roofline(traced["flops"], traced["bytes"], 0.0)
+    log(f"[50] the dry-run (repro_torch.launch.dryrun) on fake {dev} tensors in a process of "
+        f"its own, {out['seconds']:.1f} s: phase 47's {MESH_TRAIN[0]} B {MESH_TRAIN[1]} x "
+        f"{MESH_TRAIN[2]} on a 1x1 fake mesh traced in {traced['seconds']:.1f} s: peak "
+        f"{traced['peak_bytes'] / 1e9:.3f} GB (arguments {traced['argument_bytes'] / 1e9:.3f} "
+        f"GB) against the measured {measured / 1e9:.3f} GB ({out['peak_rel_err']:.2%}); "
+        f"roofline step {out['roofline_47']['step_time_s_max_term'] * 1e3:.1f} ms "
+        f"({out['roofline_47']['bottleneck']}; compute "
+        f"{out['roofline_47']['compute_s'] * 1e3:.1f} ms, memory "
+        f"{out['roofline_47']['memory_s'] * 1e3:.1f} ms) against the measured "
+        + ", ".join(f"{s * 1e3:.1f}" for s in mesh_t["mesh"]["step_s"]) + " ms")
+    check(out["peak_rel_err"] <= DRYRUN_PEAK_TOL,
+          f"phase 47's traced peak {traced['peak_bytes'] / 1e9:.3f} GB is "
+          f"{out['peak_rel_err']:.2%} from the measured {measured / 1e9:.3f} GB")
+    # (b), (c) phases 48 and 49 at each rank
+    for r, real in enumerate(split_t["ranks"]):
+        t = cell["48"][r]
+        fwd_bwd = real["rglru"][-1][:2]
+        log(f"    phase 48, rank {r} ({t['seconds']:.1f} s): collectives "
+            + ", ".join(f"{k} {n} ({b / 1e9:.3f} GB)" for k, (n, b) in sorted(t["counts"].items()))
+            + f"; RG-LRU fake forms {t['fake_calls']['rglru_scan']} forward, "
+            f"{t['fake_calls']['rglru_scan_backward']} backward (launches a step {fwd_bwd})")
+        check(t["counts"] == real["collectives"][-1],
+              f"phase 48 rank {r}: traced collectives {t['counts']}, the real step's "
+              f"{real['collectives'][-1]}")
+        check([t["fake_calls"]["rglru_scan"], t["fake_calls"]["rglru_scan_backward"]]
+              == fwd_bwd and fwd_bwd[0] > 0,
+              f"phase 48 rank {r}: RG-LRU fake forms {t['fake_calls']}, launches {fwd_bwd}")
+    for r, real in enumerate(serve_t["ranks"]):
+        pre, dec = cell["49_prefill"][r], cell["49_decode"][r]
+        log(f"    phase 49, rank {r} ({pre['seconds']:.1f} + {dec['seconds']:.1f} s): flash "
+            f"fake forms a prefill {pre['fake_calls']['flash_attention']} (calls "
+            f"{real['flash']['prefill']}); decode collectives "
+            + ", ".join(f"{k} {n} ({b / 1e9:.3f} GB)" for k, (n, b) in sorted(dec["counts"].items())))
+        check(dec["counts"] == real["collectives"],
+              f"phase 49 rank {r}: traced decode collectives {dec['counts']}, the real "
+              f"step's {real['collectives']}")
+        check(pre["fake_calls"]["flash_attention"] == real["flash"]["prefill"] > 0
+              and dec["fake_calls"]["flash_attention"] == real["flash"]["decode"],
+              f"phase 49 rank {r}: flash fake forms {pre['fake_calls']} / {dec['fake_calls']}, "
+              f"calls {real['flash']}")
+    check(not any(out["launches"].values()) and not any(out["launches_here"].values())
+          and not any(t["launches"] for by_rank in cell.values() for t in by_rank.values()),
+          f"the dry-run launched kernels: {out['launches']}, here {out['launches_here']}")
+    # (d) the production cell
+    if production is not None:
+        rec = got["production"]
+        out["production"] = {k: rec.get(k) for k in (
+            "status", "error", "trace_seconds", "memory_analysis", "cost_analysis", "roofline",
+            "attn_mode", "n_chips", "kernels")}
+        out["production"]["collectives"] = {k: rec.get("collectives", {}).get(k) for k in (
+            "wire_bytes_per_device", "n_collectives")}
+        if rec.get("status") == "OK":
+            m, roof = rec["memory_analysis"], rec["roofline"]
+            log(f"    {rec['arch']} {rec['shape']} on the {rec['mesh']} fake mesh, rank "
+                f"{rec['rank']}: {rec['status']} in {rec['trace_seconds']:.1f} s; peak "
+                f"{m['peak_bytes_per_device'] / 2**30:.2f} GiB a card (arguments "
+                f"{m['argument_bytes_per_device'] / 2**30:.2f} GiB, fits {m['fits_hbm']}); "
+                f"{rec['cost_analysis']['flops_per_device']:.4g} FLOPs, "
+                f"{rec['cost_analysis']['bytes_per_device']:.4g} bytes, "
+                f"{rec['collectives']['n_collectives']} collectives "
+                f"({rec['collectives']['wire_bytes_per_device']:.4g} wire bytes) a card; "
+                f"roofline {roof['step_time_s_max_term'] * 1e3:.1f} ms ({roof['bottleneck']}), "
+                f"useful FLOPs {roof['useful_flops_ratio']:.3f}")
+        check(rec.get("status") == "OK", f"the production cell {production}: {rec.get('error')}")
+    return out
+
+
 def progress(msg: str) -> None:
     """A line on stderr with the clock time: where a run that is stopped got
     to shows at the end of its errors."""
@@ -5962,6 +6160,10 @@ def main() -> int:
     # -- 49. serving on a mesh, the KV cache split, two ranks on one card ----------
     mesh_serve_t = mesh_serve_phase(torch, detail)
     lap(49)
+
+    # -- 50. the dry-run: phases 47-49's cells and a production cell traced ----
+    dryrun_t = dryrun_phase(torch, detail, mesh_t, split_t, mesh_serve_t)
+    lap(50)
     detail["total_s"] = time.perf_counter() - t_all
     detail["phase_s"] = clock
 
@@ -6165,6 +6367,9 @@ def main() -> int:
         # phase 49: this process's count (the meshless serve's), each rank's
         # in the flash entry's ``launches_49``
         k["launches_by_phase"]["49"] = mesh_serve_t["launches"][wrapper]
+        # phase 50: the dry-run's process launches nothing; its fake forms
+        # are counted below, apart
+        k["launches_by_phase"]["50"] = dryrun_t["launches"][wrapper]
     # phase 48 counts the RG-LRU launches of each step by route, the meshless
     # trainer's here and each rank's in a process of its own: those of its
     # two steps (``_rglru_calls``: forward, backward, their TMA routes)
@@ -6177,6 +6382,17 @@ def main() -> int:
             k["launches_by_phase"]["48"] = {
                 "meshless": sum(map(count, split_t["meshless"]["rglru"])),
                 "ranks": [sum(map(count, r["rglru"])) for r in split_t["ranks"]]}
+    # the fake forms the dry-run called (phase 50), by cell and rank, a step
+    fake_of = {"flash_attention": "flash_attention", "rglru_scan_tma": "rglru_scan",
+               "rglru_scan_backward_tma": "rglru_scan_backward"}
+    for k in kernels:
+        form = fake_of.get(k["name"])
+        if form is not None:
+            k["fake_calls_50"] = {
+                name: [t["fake_calls"][form] for _, t in sorted(by_rank.items())]
+                for name, by_rank in dryrun_t["cells"].items()}
+            k["fake_calls_50"][f"{DRYRUN_CELL[0]} {DRYRUN_CELL[1]}"] = (
+                dryrun_t["production"]["kernels"]["fake_calls"][form])
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,10 @@ reductions of ``zero.Placed``) call ``torch.distributed`` directly, never
 DTensor (whose ``full_tensor`` of a CUDA tensor over gloo ends the
 process), and never move a tensor off its device themselves (gloo stages a
 CUDA tensor through the host on its own). Every call adds its input's
-bytes to :data:`COUNTS` by kind.
+bytes to :data:`COUNTS` by kind, and its result's bytes to
+:data:`RESULT_BYTES` (an all-gather's gathered tensor, a reduce-scatter's
+block, an all-reduce's tensor itself), the bytes
+``repro_torch.launch.comm_analysis`` charges an all-gather on the wire.
 """
 from __future__ import annotations
 
@@ -59,16 +62,24 @@ from .sharding import Block, RankView
 
 #: collectives by kind: [calls, bytes of this rank's input]
 COUNTS: Dict[str, List[int]] = {}
+#: collectives by kind: bytes of this rank's results
+RESULT_BYTES: Dict[str, int] = {}
 
 
 def reset_counts() -> None:
     COUNTS.clear()
+    RESULT_BYTES.clear()
 
 
-def _count(kind: str, x: torch.Tensor) -> None:
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _count(kind: str, x: torch.Tensor, out: torch.Tensor) -> None:
     c = COUNTS.setdefault(kind, [0, 0])
     c[0] += 1
-    c[1] += x.numel() * x.element_size()
+    c[1] += _nbytes(x)
+    RESULT_BYTES[kind] = RESULT_BYTES.get(kind, 0) + _nbytes(out)
 
 
 def _size(group) -> int:
@@ -87,7 +98,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = x.new_empty((w * x.shape[0],) + tuple(x.shape[1:]))
     fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     fn(out, x, group=group)
-    _count("all_gather", x)
+    _count("all_gather", x, out)
     if dim == 0:
         return out
     shape = x.shape[:dim] + (w * x.shape[dim],) + x.shape[dim + 1:]
@@ -107,7 +118,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = xs.new_empty((n // w,) + tuple(xs.shape[1:]))
     fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
     fn(out, xs, group=group)
-    _count("reduce_scatter", xs)
+    _count("reduce_scatter", xs, out)
     return out.movedim(0, dim).contiguous()
 
 
@@ -115,7 +126,7 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed in place over ``group``."""
     if _size(group) > 1:
         dist.all_reduce(x, group=group)
-        _count("all_reduce", x)
+        _count("all_reduce", x, x)
     return x
 
 
@@ -123,7 +134,7 @@ def all_reduce_max_(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` replaced in place by its elementwise max over ``group``."""
     if _size(group) > 1:
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
-        _count("all_reduce_max", x)
+        _count("all_reduce_max", x, x)
     return x
 
 

@@ -116,12 +116,13 @@ class Placed:
         mesh dim that splits it, the minor one first; a copy where none
         does): a new tensor, never ``local`` itself. Along the mesh dims
         ``keep`` it stays this rank's block."""
-        out = local.detach()
+        out, gathered = local.detach(), False
         for d in reversed(self.split):
             if d in keep:
                 continue
             out = P.all_gather(out, self.tensor_dim[d], self.mesh.get_group(d))
-        return out.clone() if out.data_ptr() == local.data_ptr() else out
+            gathered = True
+        return out if gathered else out.clone()
 
     def _slice(self, g: torch.Tensor, d: int) -> torch.Tensor:
         """``g``'s block on mesh dim ``d`` along the tensor dim it cuts."""

@@ -36,13 +36,24 @@ version or to the other kernel, a failed build or launch raises
 (the kernels have no backward). ``flash_attention.launches`` counts the
 launches of both kernels, ``flash_attention.launches_tc`` those of the
 tensor-core kernel.
+
+The launch is the custom op ``torch.ops.repro_torch.flash_attention``,
+whose body is :func:`_launch`. Its fake form gives the output's shape and
+dtype and launches nothing, so a trace under ``FakeTensorMode`` (the
+dry-run, ``repro_torch.launch.dryrun``) runs the card's path on fake CUDA
+tensors; ``flash_attention.fake_calls`` counts those calls apart from the
+launches, and :func:`flash_flops` is the op's formula for
+``torch.utils.flop_counter``: ``4 D`` operations for each query-key pair
+the mask leaves visible (:func:`visible_pairs`), per query head.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .ref import attention_ref
@@ -133,6 +144,41 @@ def _launch(q, k, v, causal: bool, window, q_offset: int = 0) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, bool causal, int? window, "
+                                "int q_offset) -> Tensor")
+def _op(q, k, v, causal, window, q_offset):
+    """The kernel's launch as an op: :func:`_launch`."""
+    return _launch(q, k, v, causal, window, q_offset)
+
+
+@_op.register_fake
+def _op_fake(q, k, v, causal, window, q_offset):
+    """The op on fake tensors: the output's shape and dtype, no launch."""
+    flash_attention.fake_calls += 1
+    return torch.empty_like(q)
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window, q_offset: int = 0) -> int:
+    """The query-key pairs the mask leaves visible: key ``j`` to query row
+    ``i`` (at position ``q_offset + i``) unless ``causal`` and ``j`` is past
+    it, or a ``window`` is given and ``j`` lies ``window`` or more before
+    it."""
+    pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(pos, Sk - 1) if causal else np.full(Sq, Sk - 1, np.int64)
+    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(pos - int(window) + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset, *args, out_shape=None,
+                **kwargs) -> int:
+    """The operations of one call: ``4 D`` (``q.k`` and ``p.v``, a multiply
+    and an add each) for every visible pair of every query head."""
+    B, Hq, Sq, D = q_shape
+    return B * Hq * visible_pairs(Sq, k_shape[2], causal, window, q_offset) * 4 * D
+
+
 def _check_blocks(Sq: int, Sk: int, block_q: int, block_k: int) -> None:
     """Refuse what the JAX op refuses: sequence lengths its tiles do not
     divide (``repro/kernels/flash_attention.py``). The kernel's own tiles
@@ -179,7 +225,8 @@ def _route(q, k, v, causal: bool, window, q_offset: int) -> torch.Tensor:
         if B * Hq > 2**31 - 1 or -(-Sq // BLOCK_Q) > 65535 or k.shape[2] > 2**31 - 1:
             raise ValueError(f"the flash_attention kernel takes B * Hq < 2**31 and "
                              f"Sq <= {65535 * BLOCK_Q}, got {tuple(q.shape)}")
-        return _launch(q, k, v, causal, window, q_offset)
+        _build.refuse_grad("flash_attention", q=q, k=k, v=v)
+        return _op(q, k, v, causal, None if window is None else int(window), int(q_offset))
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
     raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
@@ -217,3 +264,5 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, window=None,
 #: (plain-version calls excluded), and of the tensor-core kernel alone.
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+#: calls of the op's fake form (a trace on fake tensors; no launch)
+flash_attention.fake_calls = 0

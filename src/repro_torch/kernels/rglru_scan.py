@@ -48,6 +48,15 @@ float32 only (the model's ``a`` and ``b`` are float32): a bfloat16 input
 that requires grad raises ``RuntimeError``, since its stored ``h`` is not
 the float32 state the backward needs.
 
+Both launches are custom ops, ``torch.ops.repro_torch.rglru_scan`` and
+``torch.ops.repro_torch.rglru_scan_backward``, whose bodies are
+:func:`_launch` and :func:`_launch_backward`. Their fake forms give the
+outputs' shapes and dtypes and launch nothing, so a trace under
+``FakeTensorMode`` (the dry-run, ``repro_torch.launch.dryrun``) runs the
+card's path on fake CUDA tensors; ``rglru_scan.fake_calls`` and
+``rglru_scan_backward.fake_calls`` count those calls apart from the
+launches.
+
 Kernels and plain versions round each multiply and add on their own, in the
 same order, so they agree to the last bit. (The JAX package's oracle,
 ``rglru_scan_ref``, is an associative scan; it agrees to ~1e-7 relative.)
@@ -184,6 +193,36 @@ def _launch_backward(a, h, h0, dh, route=None):
     return da, db, dh0
 
 
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=(),
+                         schema="(Tensor a, Tensor b, Tensor h0) -> Tensor")
+def _op(a, b, h0):
+    """The forward kernel's launch as an op: :func:`_launch`."""
+    return _launch(a, b, h0)
+
+
+@_op.register_fake
+def _op_fake(a, b, h0):
+    """The forward on fake tensors: the output's shape and dtype, no launch."""
+    rglru_scan.fake_calls += 1
+    return torch.empty_like(a)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_backward", mutates_args=(),
+                         schema="(Tensor a, Tensor h, Tensor h0, Tensor dh) "
+                                "-> (Tensor, Tensor, Tensor)")
+def _op_backward(a, h, h0, dh):
+    """The backward kernel's launch as an op: :func:`_launch_backward`."""
+    return _launch_backward(a, h, h0, dh)
+
+
+@_op_backward.register_fake
+def _op_backward_fake(a, h, h0, dh):
+    """The backward on fake tensors: (da, db, dh0)'s shapes and dtypes, no
+    launch."""
+    rglru_scan_backward.fake_calls += 1
+    return torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
+
+
 def _check_kernel_operands(op: str, **operands) -> None:
     """Raise ``ValueError`` on what the kernels of ``op`` take on neither
     route: an operand that is not contiguous, or more than 65,535 batch
@@ -216,7 +255,7 @@ def rglru_scan_backward(a, h, h0, dh):
         raise ValueError(f"the backward takes float32 a, got {a.dtype}")
     if a.device.type == "cuda":
         _check_kernel_operands("rglru_scan_backward", a=a, h=h, h0=h0, dh=dh)
-        return _launch_backward(a, h, h0, dh)
+        return _op_backward(a, h, h0, dh)
     if a.device.type == "cpu":
         return rglru_scan_backward_plain(a, h, h0, dh)
     raise ValueError(f"rglru_scan_backward runs on cuda or cpu, not {a.device}")
@@ -229,7 +268,7 @@ class RGLRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, h0, on_card: bool):
-        h = _launch(a, b, h0) if on_card else rglru_scan_plain(a, b, h0)
+        h = _op(a, b, h0) if on_card else rglru_scan_plain(a, b, h0)
         ctx.save_for_backward(a, h, h0)
         return h
 
@@ -252,7 +291,7 @@ def _scan(a, b, h0, on_card: bool):
                 f"the backward needs the float32 state h, and the stored "
                 f"{a.dtype} h is not it")
         return RGLRUScan.apply(a, b, h0, on_card)
-    return _launch(a, b, h0) if on_card else rglru_scan_plain(a, b, h0)
+    return _op(a, b, h0) if on_card else rglru_scan_plain(a, b, h0)
 
 
 def rglru_scan(a, b, h0):
@@ -298,3 +337,7 @@ rglru_scan.launches_tma = 0
 #: launches of the backward CUDA kernels in this process, and of the TMA one.
 rglru_scan_backward.launches = 0
 rglru_scan_backward.launches_tma = 0
+#: calls of the forward's and the backward's fake forms (a trace on fake
+#: tensors; no launch)
+rglru_scan.fake_calls = 0
+rglru_scan_backward.fake_calls = 0

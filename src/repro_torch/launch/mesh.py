@@ -39,14 +39,14 @@ def _mesh_of(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type: Optiona
                       torch.arange(n).reshape(shape), mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type: Optional[str] = None):
     """The production mesh: ``(data=16, model=16)``, or ``(pod=2, data=16,
-    model=16)`` with ``multi_pod``, on the process group's device type.
-    Raises when the process group has fewer ranks than the mesh, naming the
-    count it needs."""
+    model=16)`` with ``multi_pod``, on ``device_type`` (default the process
+    group's). Raises when the process group has fewer ranks than the mesh,
+    naming the count it needs."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh_of(shape, axes, None, "production mesh")
+    return _mesh_of(shape, axes, device_type, "production mesh")
 
 
 def make_test_mesh(shape: Tuple[int, ...] = (2, 2), axes: Tuple[str, ...] = ("data", "model"),

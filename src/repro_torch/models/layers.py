@@ -771,7 +771,10 @@ class MoE(nn.Module):
         B, S, d = x.shape
         E, k = cfg.n_experts, cfg.top_k
         _, probs, gates, idx = self.route(x)
-        counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+        # each expert's copies, as ``bincount`` counts them, in a tensor whose
+        # shape does not depend on the routes (a trace with fake tensors runs it)
+        flat = idx.reshape(-1)
+        counts = flat.new_zeros(E).scatter_add_(0, flat, torch.ones_like(flat)).float()
         if self.batch_sum is None:
             aux = E * torch.sum(probs.mean(dim=(0, 1)) * (counts / (B * S * k)))
         else:

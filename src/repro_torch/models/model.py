@@ -698,9 +698,11 @@ def param_leaves(model: Model) -> Dict[str, List[nn.Parameter]]:
 
 def _cut(view, t: torch.Tensor, length: int) -> torch.Tensor:
     """This rank's block of a cache tensor's slots (dim 1) of ``length``
-    where the plan splits them, else ``t``."""
+    where the plan splits them (a copy: a view of one batch row's block
+    would keep every rank's slots alive), else ``t``."""
     blk = view.cache(length) if view is not None else None
-    return t if blk is None else t[:, blk.start:blk.stop].contiguous()
+    return t if blk is None else t[:, blk.start:blk.stop].clone(
+        memory_format=torch.contiguous_format)
 
 
 def _kv_lens(model: Model, cache_len: int, prefilled: bool) -> List[Optional[int]]:

@@ -134,28 +134,9 @@ class Trainer:
         """The model as this rank's shards, drawn as the meshless model is,
         and the optimizer's states where their specs place them (zeros of
         this rank's block; Adafactor's whole)."""
-        cfg, mesh, plan = self.cfg, self.mesh, self.plan
-        split = Z.MeshSplit(mesh, plan.batch(self.tcfg.global_batch) or (),
-                            self.tcfg.global_batch, cfg.microbatches, plan.shape.model_axis)
-
-        self.zero = zero = Z.Zero(mesh, split, tensor_specs(cfg, plan), cfg.grad_spec_constraint)
-        model = init_params(cfg, gen, trainable=True,
-                            place=zero.placer(lambda name: _jax_path(cfg, name)))
-        zero.attach(model)
-        model.view = rank_view(plan, mesh)
-        # the optimizer's states from the global shapes, then placed
-        whole = param_leaves(Model(cfg, device="meta", trainable=True))
-        meta_state = self.optimizer.init(whole)
-        sspecs = state_specs(cfg, plan, SimpleNamespace(params=whole,
-                                                        opt_state=meta_state)).opt_state
-        opt_state = {}
-        self._state_placed = {}
-        for key, ts in meta_state.items():
-            spec = unit_spec(key, sspecs[key])
-            pls = [Z.Placed(mesh, spec, t.shape) for t in ts]
-            self._state_placed[key] = pls
-            opt_state[key] = [torch.zeros(pl.local_shape, dtype=t.dtype, device=self.device)
-                              for t, pl in zip(ts, pls)]
+        self.zero, model, opt_state, self._state_placed = sharded_state(
+            self.cfg, self.mesh, self.plan, self.optimizer, self.tcfg.global_batch,
+            self.device, gen)
         return model, opt_state
 
     # -- run -----------------------------------------------------------------
@@ -266,6 +247,42 @@ class Trainer:
         self._build()
         if self.ckpt.latest_step() is not None:
             self.restore_latest()
+
+
+def sharded_state(cfg: ArchConfig, mesh: Any, plan, optimizer, global_batch: int, device,
+                  gen: Optional[torch.Generator] = None):
+    """This rank's training state on ``mesh`` under ``plan``: ``(zero,
+    model, opt_state, state_placed)``, the ``Zero`` storage, the model as
+    this rank's shards with its hooks and view, the optimizer's states as
+    this rank's blocks (zeros; Adafactor's whole) and their ``Placed`` by
+    leaf. With ``gen`` the parameters are drawn as the meshless model's;
+    without, each is built whole and uninitialised on ``device`` and cut,
+    which only a trace on fake tensors (``repro_torch.launch.dryrun``), where
+    nothing is allocated, can afford at full size."""
+    split = Z.MeshSplit(mesh, plan.batch(global_batch) or (), global_batch, cfg.microbatches,
+                        plan.shape.model_axis)
+    zero = Z.Zero(mesh, split, tensor_specs(cfg, plan), cfg.grad_spec_constraint)
+    path_of = lambda name: _jax_path(cfg, name)  # noqa: E731
+    if gen is not None:
+        model = init_params(cfg, gen, trainable=True, place=zero.placer(path_of))
+    else:
+        model = Model(cfg, device=device, trainable=True)
+        zero.place(model, path_of)
+    zero.attach(model)
+    model.view = rank_view(plan, mesh)
+    # the optimizer's states from the global shapes, then placed
+    whole = param_leaves(Model(cfg, device="meta", trainable=True))
+    meta_state = optimizer.init(whole)
+    sspecs = state_specs(cfg, plan, SimpleNamespace(params=whole,
+                                                    opt_state=meta_state)).opt_state
+    opt_state, state_placed = {}, {}
+    for key, ts in meta_state.items():
+        spec = unit_spec(key, sspecs[key])
+        pls = [Z.Placed(mesh, spec, t.shape) for t in ts]
+        state_placed[key] = pls
+        opt_state[key] = [torch.zeros(pl.local_shape, dtype=t.dtype, device=device)
+                          for t, pl in zip(ts, pls)]
+    return zero, model, opt_state, state_placed
 
 
 def _load_blocks(leaves, lookup, placed) -> None:

@@ -3,7 +3,8 @@
 :func:`spawn` starts ``nprocs`` processes with ``torch.multiprocessing``'s
 ``spawn`` method, each on one torch thread, joined to one gloo group
 through a ``file://`` rendezvous in the test's temporary directory (no TCP
-port, so parallel test workers cannot collide). Each runs
+port, so parallel test workers cannot collide; a function may destroy the
+group itself, as :func:`dryrun_cells` does to trace with a fake one). Each runs
 ``fn(rank, world, out_dir, *args)``, a function of this module (the
 children import it by name, and it imports no JAX), and writes what it
 returns to ``out_dir/rank<r>.pt``; :func:`spawn` returns those results by
@@ -30,7 +31,8 @@ def _entry(rank, fn_name, world, out_dir, args):
         result = globals()[fn_name](rank, world, out_dir, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def spawn(fn, nprocs: int, out_dir, *args, timeout: float = 120.0) -> list:
@@ -325,4 +327,69 @@ def mesh_serve(rank, world, out_dir, runs, shape, axes):
     group, index = mesh.get_group(m), mesh.get_coordinate()[m]
     out["combine"] = _combine_case(group, index, shape[m], dead=False)
     out["combine_dead"] = _combine_case(group, index, shape[m], dead=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dry-run
+# ---------------------------------------------------------------------------
+
+
+def _real_counts(cfg, mesh, kind, S, B) -> dict:
+    """The collectives of one real step of ``kind`` on ``mesh`` as the
+    dry-run's cell (``prefill`` / ``decode`` on a model drawn meshless and
+    placed, the decode after a prefill of S): by kind [calls, input bytes]
+    and the result bytes."""
+    from repro_torch.distributed import parallel as P
+    from repro_torch.launch.dryrun import DECODE_MARGIN
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.runtime import Trainer, TrainerConfig, place_on_mesh
+
+    def counts():
+        return {"counts": {k: list(v) for k, v in P.COUNTS.items()},
+                "result_bytes": dict(P.RESULT_BYTES)}
+
+    if kind == "train":
+        t = Trainer(cfg, TrainerConfig(seq_len=S, global_batch=B, optimizer=cfg.optimizer),
+                    mesh=mesh, device="cpu")
+        P.reset_counts()
+        t.run(1)
+        return counts()
+    model = place_on_mesh(init_params(cfg, torch.Generator().manual_seed(0)), mesh, B)
+    rows = B // model.rows.blocks
+    with torch.inference_mode():
+        P.reset_counts()
+        cache, _ = prefill(model, {"tokens": torch.zeros((rows, S), dtype=torch.int32)},
+                           S + DECODE_MARGIN)
+        if kind == "prefill":
+            return counts()
+        P.reset_counts()
+        decode_step(model, cache, torch.zeros((rows, 1), dtype=torch.int32))
+        return counts()
+
+
+def dryrun_cells(rank, world, out_dir, cells, shape, axes, real):
+    """Each cell of ``cells`` (``name, arch, over, kind, S, B``): one real
+    step's collectives on this rank of the gloo ``shape`` mesh (the cells
+    named in ``real``); then, the gloo group destroyed, this rank's trace
+    of every cell (``launch.dryrun._trace_cell``) as the same rank of a
+    fake group of the same size, on CPU fake tensors. Returns both by
+    name."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.config import ShapeCell
+
+    out = {"real": {}, "traced": {}}
+    mesh = _mesh(shape, axes)
+    for name, arch, over, kind, S, B in cells:
+        if name in real:
+            out["real"][name] = _real_counts(_cfg(arch, over), mesh, kind, S, B)
+    dist.barrier()
+    dist.destroy_process_group()
+    for name, arch, over, kind, S, B in cells:
+        cfg, cell = _cfg(arch, over), ShapeCell(name, kind, S, B)
+        with D.fake_group(world, rank):
+            mesh = make_test_mesh(tuple(shape), tuple(axes), device_type="cpu")
+            out["traced"][name] = D._trace_cell(cfg, cell, mesh, D._plan(cfg, cell, mesh),
+                                                rank=rank, device="cpu")
     return out
