@@ -5,7 +5,8 @@ Drives ``repro_torch`` (never the JAX package) in phases; any failed check
 raises and the script exits non-zero:
 
 1. build the water-filling, envy-gap, RG-LRU scan (forward and backward),
-   flash attention and cross-entropy kernels from ``src/repro_torch/kernels/csrc`` with
+   flash attention, cross-entropy and sLSTM (forward and backward) kernels
+   from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` for ``sm_90a``, one compiler process per source, all started
    together (``waterfill.cu`` also holds the fused solve, ``envy.cu`` the
    fused PD segment); ptxas must report no spill in either fused kernel;
@@ -189,22 +190,17 @@ raises and the script exits non-zero:
     ``TRAIN_CUT_S``): the loss within 1e-5 relative,
     every gradient leaf (the QKV biases included) within 1e-4 of its max
     |g|, one AdamW update within 1e-6 of max |p|;
-22. serve xlstm-350m at full width and 8 of its 24 layers
-    (``XLSTM_SERVE_LAYERS``: 4 of its 12 (mLSTM, sLSTM) units, no FFN; cut
-    for the time limit) as phase 18 serves the others, but profile the
-    prefill of one
-    unit (``XLSTM_PROFILE_LAYERS``) at the same width and prompts, untraced
-    for its idle share and each layer timed alone: the sLSTM's eager loop
-    over time would put millions of events in a full-depth trace;
+22. serve xlstm-350m at full width and depth (12 (mLSTM, sLSTM) units, no
+    FFN) as phase 18 serves the others: exactly one sLSTM scan launch a
+    layer a prefill (12) and a decode step (12 x 32), no other kernel;
 23. xlstm-350m on the card against the CPU as phase 19, at
     ``n_layers=4`` (two units) and S 600 (three mLSTM chunks, the last
     padded);
-24. train xlstm-350m at full width as phase 20, 8 x 2048,
-    ``logits_chunk=512``, at ``XLSTM_TRAIN_LAYERS`` (one unit, the profiled
-    one) for ``XLSTM_TRAIN_STEPS`` steps (cuts for the time limit); the
-    model-FLOP share by ``costs.model_flops``
-    and by 6 x the model's real parameter count; one unit's step profiled
-    and each of its layers' forward and backward timed alone;
+24. train xlstm-350m at full width and depth as phase 20, 8 x 2048,
+    ``logits_chunk=512``, 3 steps: exactly 24 sLSTM forward launches (12
+    layers and their recompute under ``remat="full"``) and 12 backward a
+    step; the model-FLOP share by ``costs.model_flops`` and by 6 x the
+    model's real parameter count;
 25. one float32 training step of xlstm-350m on the card against the CPU
     at phase 23's cut depth, held as phase 21;
 26. OEF-scheduled multi-tenant training through
@@ -214,7 +210,8 @@ raises and the script exits non-zero:
     over recurrentgemma-2b and qwen2-1.5b for 2. The shares, grants and
     steps equal ``schedule_rounds``' on the host, every loss is finite,
     each wrapper's launches are exact (recurrentgemma-2b's steps x its
-    RG-LRU forward and backward launches a step, none for the others);
+    RG-LRU forward and backward launches a step, xlstm-350m's x its sLSTM
+    ones, none for the others);
     walls per round and tenant, steps/s;
 27. the chaos engine on the non-coop torch tier: ``standard_plan(0)``
     merged into phase 5's 128-tenant trace, replayed on the card and on
@@ -394,17 +391,32 @@ raises and the script exits non-zero:
     at ranks 0 and 1 of a (1, 2) fake mesh: the collectives by kind (calls
     and input bytes) those of the real gloo steps, the RG-LRU fake forms a
     step phase 48's launches (forward and backward), the flash fake forms a
-    prefill phase 49's calls; and one production cell (``DRYRUN_CELL``,
-    yi-9b ``train_4k`` on the ``(16, 16)`` fake mesh) traced to an ``OK``
-    record, written to ``chiprun_out/dryrun_torch/``.
+    prefill phase 49's calls; and the production cells (``DRYRUN_CELLS``,
+    yi-9b's and xlstm-350m's ``train_4k`` on the ``(16, 16)`` fake mesh)
+    traced to ``OK`` records, written to ``chiprun_out/dryrun_torch/``,
+    xlstm-350m's with the sLSTM kernels' fake forms a step its launches
+    (24 forward, 12 backward) and no launch;
+51. hold the sLSTM kernels (``kernels/slstm.py``: the scan of the xLSTM's
+    scalar-memory mixer in one cooperative launch, and its backward)
+    against their plain versions on the card (``SLSTM_CASES``: xlstm-350m's
+    prefill and training shape 8 x 2048 at d 1024, H 4; phase 26's smoke
+    width; a decode step from a non-zero state; a ragged shape), the
+    forward within ``SLSTM_FWD_TOL`` and the backward within
+    ``SLSTM_BWD_TOL`` of max |plain| (or twice the plain version's own
+    card-vs-CPU spread), a second launch identical, grad through the op
+    (``dr`` included) against autograd of the plain loop, a planted
+    per-head gate layout failing the forward's gate, and both kernels'
+    times against the bound, the plain loop and the plain loop in a CUDA
+    graph.
 
 The order is not the numbers': the build, then the kernel phases 2, 3, 6,
 10 and 13-15, each alone on the card (their times go into the kernels'
 line); then phases 4, 5, 7-9 and 27-29, the online service's replays
 (host-bound: the card sees a solve now and then), run in a spawned process
 of their own (``SchedulerLane``), which prints its log when this process
-joins it after phase 25, while this process runs phases 11-25 with one CPU
-thread fewer; the CPU half of each training step card against CPU (17, 21,
+joins it after phase 25, while this process runs phases 51 and 11-25 with
+one CPU thread fewer (51's kernel times share the card with the lane's
+occasional solves); the CPU half of each training step card against CPU (17, 21,
 25, 33: the CPU's step, the comparisons, the CPU's AdamW update, on host
 copies of the card's gradients and updated weights) runs on a thread of its
 own (``Behind``) beside the card phase that follows, drained before the next
@@ -487,21 +499,9 @@ DENSE = (("qwen2-1.5b", 3, 256), ("gemma3-4b", 8, 1152))
 TRAIN_CUT_S = {"recurrentgemma-2b": 128, "qwen2-1.5b": 128}
 #: xlstm-350m in phases 22-25: its cut depth (two (mLSTM, sLSTM) units) and
 #: prompt length (three 256-position mLSTM chunks, the last one padded) for
-#: the card-vs-CPU phases 23 and 25, and the depth of the profiled prefill
-#: and train step (one unit: the sLSTM's eager loop over time makes ~20
-#: small ops a position a layer, too many profiler events at full depth)
+#: the card-vs-CPU phases 23 and 25; phases 22 and 24 serve and train it
+#: at full depth (the sLSTM on its kernels since phase 51 holds them)
 XLSTM = ("xlstm-350m", 4, 600)
-XLSTM_PROFILE_LAYERS = 2
-#: a first train step longer than this is a warm-up, and the second run's
-#: first step is the one timed (phase 24)
-LONG_STEP_S = 60.0
-#: xlstm-350m's depth and steps in phase 24's training: one of its 12
-#: units, the profiled one, 2 steps (its full depth's host-bound steps,
-#: 43-79 s each, did not leave the script room for phases 30-33, nor two
-#: units' 3 steps for phases 42-45), and its depth in phase 22's serving: 4
-#: of its 12 units (room for phases 42-45)
-XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_STEPS = 2, 2
-XLSTM_SERVE_LAYERS = 8
 #: decode steps in the profiled decode of phases 11, 18, 22 and 30 (8 before
 #: phases 30-33: the profiler took 13-25 s to record 8 full-width steps)
 DECODE_PROFILE_STEPS = 2
@@ -626,6 +626,19 @@ def graph_ms(torch, fn, reps: int = 50, rounds: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * rounds)
+
+
+def once_ms(torch, fn) -> float:
+    """Time of one ``fn()`` call as a caller sees it, between CUDA events
+    (for a call too long to repeat; warm it first)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def call_ms(torch, fn, reps: int = 200) -> float:
@@ -1475,11 +1488,36 @@ def device_kernels(torch, fn) -> list:
     return sorted(rows, key=lambda r: -r["device_ms"])
 
 
+def mixer_layers(cfg, kind: str) -> tuple:
+    """The layers of ``cfg`` whose mixer is ``kind``: in the pattern units
+    (which ``remat="full"`` recomputes in the backward), and in all."""
+    n_unit = cfg.n_units * cfg.pattern.count(kind)
+    return n_unit, n_unit + cfg.tail_kinds.count(kind)
+
+
 def rglru_layers(cfg) -> tuple:
-    """The RG-LRU layers of ``cfg``: in the pattern units (which
-    ``remat="full"`` recomputes in the backward), and in all."""
-    n_unit = cfg.n_units * cfg.pattern.count("rglru")
-    return n_unit, n_unit + cfg.tail_kinds.count("rglru")
+    """The RG-LRU layers of ``cfg``, in the units and in all."""
+    return mixer_layers(cfg, "rglru")
+
+
+def slstm_layers(cfg) -> tuple:
+    """The sLSTM layers of ``cfg``, in the units and in all (one scan
+    launch each a prefill and a decode step)."""
+    return mixer_layers(cfg, "slstm")
+
+
+def step_launches(cfg) -> dict:
+    """Every kernel launch of one train step of ``cfg`` by wrapper (the
+    nonzero ones): the RG-LRU and sLSTM forwards once a layer and again a
+    layer of each unit that ``remat="full"`` recomputes, their backwards
+    once a layer."""
+    full = cfg.remat == "full"
+    counts = {}
+    for kind, fwd, bwd in (("rglru", "rglru_scan", "rglru_scan_backward"),
+                           ("slstm", "slstm_scan", "slstm_scan_backward")):
+        n_unit, n_all = mixer_layers(cfg, kind)
+        counts.update({fwd: n_all + (n_unit if full else 0), bwd: n_all})
+    return {k: n for k, n in counts.items() if n}
 
 
 def layer_kinds_of(cfg) -> list:
@@ -1525,49 +1563,22 @@ def _tf32_off(torch) -> None:
           "float32 matrix products must run in full float32 (TF32 is on)")
 
 
-def layer_seconds(torch, model, x, train: bool = False) -> dict:
-    """Wall seconds of each layer of ``model`` on ``x`` by kind (the last
-    layer of a kind counts), after a warm-up call: its forward, and with
-    ``train`` the backward of its output's sum. Each ends in a device
-    sync."""
-    out = {}
-    for layer in model.layers:
-        for _ in range(2):  # warm-up, then timed
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            y = layer(x)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            if train:
-                y.float().sum().backward()
-                torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            del y
-            model.zero_grad(set_to_none=True)
-        out[layer.kind] = {"forward_s": t1 - t0, "backward_s": t2 - t1}
-    return out
-
-
 def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=None,
-                profile_layers=None, logits_out=None, shape=None, after=None) -> int:
+                logits_out=None, shape=None, after=None) -> int:
     """Phases 11, 18, 22, 30, 34, 38 and 40: serve ``arch`` at full width through
     ``launch.serve.generate``, ``shape`` (default ``SERVE_SHAPE``) prompts
     and greedy steps (an ``embeddings`` model's prompts, and an encoder
     model's frames of the prompts' length, as ``prompt_batch`` builds them);
     returns the RG-LRU launches of the main run. Each RG-LRU layer launches
     the TMA kernel once a prefill, the blocked path one flash launch per
-    attention layer a prefill, all on the tensor-core kernel, a decode step
-    launches nothing, and no other kernel wrapper may launch (the
-    grouped-einsum attention and the xLSTM mixers are plain torch, as the
-    JAX model's). With ``profile_layers`` the profiled prefill is that of
-    the first ``profile_layers`` layers' model (same width and prompts),
-    timed untraced for its idle share, with each of its layers timed alone.
-    ``logits_out`` receives the main run's prefill logits on the host and
-    its final-normed hidden state at every position on the card. ``after``
+    attention layer a prefill, all on the tensor-core kernel, each sLSTM
+    layer the scan kernel once a prefill and once a decode step, and no
+    other kernel wrapper may launch (the grouped-einsum attention and the
+    mLSTM are plain torch, as the JAX model's). ``logits_out`` receives the
+    main run's prefill logits on the host and its final-normed hidden state
+    at every position on the card. ``after``
     (model, prompts, cache_len) runs last on the served model before it is
     freed; what it returns is the record's ``after``."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import wrappers
@@ -1586,7 +1597,7 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
         t0 = time.perf_counter()
         g = torch.Generator(device=dev).manual_seed(0)
         model = init_params(cfg, g)
-        n_rglru = rglru_layers(cfg)[1]
+        n_rglru, n_slstm = rglru_layers(cfg)[1], slstm_layers(cfg)[1]
         prompts = torch.randint(2, cfg.vocab, (B, S), generator=g, device=dev)
         generate(model, prompts, steps)  # warm-up
         warm_s = time.perf_counter() - t0
@@ -1599,14 +1610,17 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
             toks, rec = generate(model, prompts, steps)
         launches, launches_tma = rg.rglru_scan.launches, rg.rglru_scan.launches_tma
         flash_tc = fa.flash_attention.launches_tc
-        want = _want(ws, rglru_scan=n_rglru, flash_attention=flash)
+        want = _want(ws, rglru_scan=n_rglru, flash_attention=flash, slstm_scan=n_slstm)
+        want_dec = _want(ws, slstm_scan=n_slstm * steps)
         check(not full or arch != ARCH or n_rglru == 18,
               f"{n_rglru} RG-LRU layers at full width")
-        check(_launches(ws) == want and rec["prefill_kernel_launches"] == want
-              and not any(rec["decode_kernel_launches"].values()),
+        check(_launches(ws) == {k: want[k] + want_dec[k] for k in ws}
+              and rec["prefill_kernel_launches"] == want
+              and rec["decode_kernel_launches"] == want_dec,
               f"{arch}: kernel launches in prefill {rec['prefill_kernel_launches']}, "
-              f"in decode {rec['decode_kernel_launches']}; want {n_rglru} RG-LRU "
-              f"and {flash} flash launches a prefill and no other launch")
+              f"in decode {rec['decode_kernel_launches']}; want {n_rglru} RG-LRU, "
+              f"{flash} flash and {n_slstm} sLSTM launches a prefill, {n_slstm} sLSTM "
+              f"launches a decode step and no other launch")
         check(launches_tma == launches,
               f"{launches - launches_tma} of {launches} RG-LRU launches "
               f"took the direct route, not the TMA one")
@@ -1629,24 +1643,9 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
               and torch.equal(rec["last_logits"], rec2["last_logits"]),
               f"{arch}: a second run with the same weights and prompts differs")
         batch = prompt_batch(model, prompts)
-        prof_model, prof_s, per_layer = model, None, None
-        if profile_layers:
-            prof_model = init_params(dataclasses.replace(cfg, n_layers=profile_layers),
-                                     torch.Generator(device=dev).manual_seed(0))
-            for _ in range(2):  # warm-up, then timed
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                prefill(prof_model, batch, S + steps + 8)
-                torch.cuda.synchronize()
-                prof_s = time.perf_counter() - t0
-            x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
-                getattr(torch, cfg.dtype))
-            per_layer = layer_seconds(torch, prof_model, x)
-            del x
         t_prof = time.perf_counter()
-        kernels = device_kernels(torch, lambda: prefill(prof_model, batch, S + steps + 8))
+        kernels = device_kernels(torch, lambda: prefill(model, batch, S + steps + 8))
         t_prof = time.perf_counter() - t_prof
-        del prof_model
         cache, _ = prefill(model, batch, S + steps + 8)
 
         def decode_steps():  # greedy steps from the prompts' cache
@@ -1666,6 +1665,7 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
     busy_ms = sum(k["device_ms"] for k in kernels)
     rglru_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_tma_kernel" in k["op"])
     flash_ms = sum(k["device_ms"] for k in kernels if "flash" in k["op"])
+    slstm_ms = sum(k["device_ms"] for k in kernels if "slstm_forward_kernel" in k["op"])
     decode_busy_ms = sum(k["device_ms"] for k in decode_kernels) / DECODE_PROFILE_STEPS
     out = {"batch": B, "prompt_len": S, "decode_steps": steps, "warmup_s": warm_s,
            "prefill_s": [rec["prefill_s"], rec2["prefill_s"]],
@@ -1675,13 +1675,13 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
            "flash_launches_tc": flash_tc,
            "decode_launches": rec["decode_launches"],
            "kernel_launches": rec["prefill_kernel_launches"],
+           "decode_kernel_launches": rec["decode_kernel_launches"],
            "kernel_share_of_prefill": n_rglru * rg_t["kernel_ms"] / 1e3 / prefill_s,
-           "profiled_prefill": {"layers": profile_layers or cfg.n_layers,
-                                "untraced_s": prof_s or prefill_s,
+           "profiled_prefill": {"layers": cfg.n_layers, "untraced_s": prefill_s,
                                 "device_busy_ms": busy_ms, "rglru_scan_ms": rglru_ms,
-                                "flash_ms": flash_ms,
-                                "idle_share": 1.0 - busy_ms / 1e3 / (prof_s or prefill_s),
-                                "layer_s": per_layer, "top_kernels": kernels[:15]},
+                                "flash_ms": flash_ms, "slstm_scan_ms": slstm_ms,
+                                "idle_share": 1.0 - busy_ms / 1e3 / prefill_s,
+                                "top_kernels": kernels[:15]},
            "profiled_decode_step": {
                "device_busy_ms": decode_busy_ms,
                "idle_share": 1.0 - decode_busy_ms / 1e3 / (decode_s / steps),
@@ -1693,29 +1693,24 @@ def serve_phase(torch, rg, detail, rg_t, phase=11, arch=ARCH, dev="cuda", cfg=No
            "seconds": time.perf_counter() - t_start}
     detail[f"serve_{run_key(arch, cfg)}"] = out
     launched = {k: n for k, n in want.items() if n} or "none"
-    log(f"[{phase}] {cfg.name} ({cfg.attention_impl} attention) at full width, {B} x {S} "
-        f"prompt + {steps} greedy steps "
+    launched_dec = {k: n for k, n in want_dec.items() if n} or "none"
+    log(f"[{phase}] {cfg.name} ({cfg.n_layers} layers, {cfg.attention_impl} attention) at "
+        f"full width, {B} x {S} prompt + {steps} greedy steps "
         f"(warm-up {warm_s:.2f} s): prefill {prefill_s:.3f} s "
         f"({out['prefill_tok_s']:.0f} tok/s), decode {decode_s:.3f} s "
         f"({out['decode_tok_s']:.1f} tok/s); kernel launches a prefill {launched} "
         f"(RG-LRU all on the TMA kernel, {out['kernel_share_of_prefill']:.2%} of "
-        f"prefill; flash {flash_tc} on the tensor-core kernel), none in decode and "
-        f"of {', '.join(k for k in ws if not want[k])}; "
+        f"prefill; flash {flash_tc} on the tensor-core kernel), in decode "
+        f"{launched_dec}, none of "
+        f"{', '.join(k for k in ws if not want[k] and not want_dec[k])}; "
         f"logits {tuple(logits.shape)} finite; peak {peak_gb:.2f} GB; second run "
         f"identical")
     pp = out["profiled_prefill"]
-    log(f"    one profiled prefill of {pp['layers']} layers: kernels busy {busy_ms:.1f} ms "
-        f"(device idle {pp['idle_share']:.1%} of the untraced prefill, "
-        f"{pp['untraced_s']:.3f} s), rglru_scan {rglru_ms:.2f} ms, flash {flash_ms:.2f} "
+    log(f"    one profiled prefill: kernels busy {busy_ms:.1f} ms (device idle "
+        f"{pp['idle_share']:.1%} of the untraced prefill, {pp['untraced_s']:.3f} s), "
+        f"rglru_scan {rglru_ms:.2f} ms, flash {flash_ms:.2f} ms, slstm_scan {slstm_ms:.2f} "
         f"ms; top: " + "; ".join(
             f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:4]))
-    if per_layer:
-        kinds = layer_kinds_of(cfg)
-        n_of = {k: kinds.count(k) for k in per_layer}
-        log("    one layer alone, forward: " + "; ".join(
-            f"{k} {t['forward_s'] * 1e3:.1f} ms (x{n_of[k]} layers = "
-            f"{n_of[k] * t['forward_s'] / prefill_s:.1%} of the prefill)"
-            for k, t in per_layer.items()))
     dec = out["profiled_decode_step"]
     log(f"    {DECODE_PROFILE_STEPS} profiled decode steps: kernels busy {decode_busy_ms:.2f} ms a step (device "
         f"idle {dec['idle_share']:.1%} of an untraced step, {decode_s / steps * 1e3:.2f} "
@@ -1743,9 +1738,11 @@ def prefill_hidden(model, out: dict, key: str):
 
 
 def rel_err(a, b) -> float:
-    """max |a - b| / max |b|, in float32."""
+    """max |a - b| / max |b|, in float32; 0 for equal all-zero tensors (an
+    initial state's gradient that no step reaches)."""
     a, b = a.float(), b.float()
-    return float((a - b).abs().max() / b.abs().max())
+    diff, scale = float((a - b).abs().max()), float(b.abs().max())
+    return diff / scale if scale > 0 else (0.0 if diff == 0 else math.inf)
 
 
 @contextlib.contextmanager
@@ -2048,9 +2045,11 @@ def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev
     hidden state at every position (the full logits' input: a fault in an
     earlier row shows there, not only through later layers) and the last
     decode step's logits; one RG-LRU launch per RG-LRU layer, one flash
-    launch per attention layer on the blocked path (the CPU runs its twin)
-    and no other kernel on the card. Each of ``controls`` ((name, planted
-    fault as a context manager on the card's model, the dtypes it is gated
+    launch per attention layer on the blocked path (the CPU runs its twin),
+    one sLSTM launch per sLSTM layer a prefill and a decode step (the CPU
+    runs the plain loop) and no other kernel on the card. Each of
+    ``controls`` ((name, planted fault as a context manager on the card's
+    model, the dtypes it is gated
     in, or a predicate of the dtype and its record)) reruns the card's
     prefill with the fault planted and holds it to the same every-position
     check, which it must fail where it is gated. With ``routing`` (a MoE
@@ -2156,9 +2155,11 @@ def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev
             errs.append(rel_err(a, b))
         err, err_all, err_dec = errs
         n_rglru, flash = rglru_layers(cfg)[1], blocked_layers(cfg)
-        check(card_launches == _want(ws, rglru_scan=n_rglru, flash_attention=flash),
-              f"{arch} {dtype}: kernel launches {card_launches}, want {n_rglru} RG-LRU "
-              f"and {flash} flash launches and no other")
+        n_slstm = slstm_layers(cfg)[1] * (1 + steps)  # the prefill and each step
+        check(card_launches == _want(ws, rglru_scan=n_rglru, flash_attention=flash,
+                                     slstm_scan=n_slstm),
+              f"{arch} {dtype}: kernel launches {card_launches}, want {n_rglru} RG-LRU, "
+              f"{flash} flash and {n_slstm} sLSTM launches and no other")
         check(err <= tol, f"{arch} {dtype}: card vs CPU prefill logits {err:.3e} > {tol:g}")
         check(err_all <= tol, f"{arch} {dtype}: card vs CPU prefill hidden state at every "
               f"position {err_all:.3e} > {tol:g}")
@@ -2191,7 +2192,8 @@ def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev
                       "rel_err_cross": cross, "routing": flips,
                       "tokens_equal": same, "last_decode_on_card_tokens": not same,
                       "launches": n_rglru, "flash_launches": flash,
-                      "card_tokens": toks_card.tolist(), "cpu_tokens": toks_cpu.tolist(),
+                      "slstm_launches": n_slstm, "card_tokens": toks_card.tolist(),
+                      "cpu_tokens": toks_cpu.tolist(),
                       "seconds": time.perf_counter() - t0}
         log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} ({', '.join(card_model.kinds)}; "
             f"{cfg.attention_impl} attention) {dtype}, {B} x {S} + {steps} steps: card vs "
@@ -2199,7 +2201,7 @@ def devices_phase(torch, rg, detail, phase=12, arch=ARCH, n_layers=5, S=256, dev
             f"last decode step {err_dec:.3e} (<= {tol:g}); "
             + (f"{T or S} frames, cross caches {err_cross:.3e}; " if cross else "")
             + f"greedy tokens {'identical' if same else 'differ: the CPU decoded the card tokens'}"
-            f"; kernel launches: RG-LRU {n_rglru}, flash {flash}, no other "
+            f"; kernel launches: RG-LRU {n_rglru}, flash {flash}, sLSTM {n_slstm}, no other "
             f"({out[dtype]['seconds']:.1f} s)")
         for when, f in flips.items():
             log(f"    routing, {when}: on the card's MoE input the CPU routes "
@@ -2859,24 +2861,242 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 51: the sLSTM kernels (the scan and its backward)
+# ---------------------------------------------------------------------------
+
+#: phase 51's cases, (label, B, S, d_model, heads, a non-zero initial
+#: state): xlstm-350m's prefill shape, which is phase 24's training shape
+#: too (``TRAIN_CELLS``); the smoke width of phase 26's tenant
+#: (``SCHED_SHAPE``); one decode step from a non-zero state; and a ragged
+#: one (11 rows: two passes of 8; d 100: groups of 8 features across a
+#: head's edge)
+SLSTM_CASES = (("prefill", 8, 2048, 1024, 4, False), ("smoke", 8, 128, 64, 2, False),
+               ("decode", 8, 1, 1024, 4, True), ("ragged", 11, 37, 100, 4, True))
+#: kernel against plain version on the card, max |diff| / max |plain|: the
+#: forward's every h and final state, the backward's dxwb, dr and the
+#: initial state's gradient; each loosened to twice the plain version's own
+#: spread between the card and the CPU where that is larger
+SLSTM_FWD_TOL, SLSTM_BWD_TOL = 1e-5, 1e-4
+
+
+def slstm_operands(torch, g, B, S, d, H, nonzero):
+    """Seeded sLSTM operands on the CPU: xwb (B, S, 4d) as the model feeds
+    it (unit-scale input products, the forget gate's bias 3), r at the
+    model's init scale (0.02), and the initial state: zeros and m -1e9
+    (``layers.NEG_INF``), or, with ``nonzero``, a state of later steps."""
+    hd = d // H
+    xwb = torch.randn((B, S, 4 * d), generator=g) * 0.6
+    xwb[..., d:2 * d] += 3.0
+    r = torch.randn((H, hd, 4 * hd), generator=g) * 0.02
+    if nonzero:
+        h0 = torch.randn((B, d), generator=g) * 0.3
+        c0 = torch.randn((B, d), generator=g)
+        n0 = torch.rand((B, d), generator=g) * 3 + 0.5
+        m0 = torch.randn((B, d), generator=g)
+    else:
+        h0, c0, n0 = (torch.zeros((B, d)) for _ in range(3))
+        m0 = torch.full((B, d), -1e9)
+    return [xwb, r, h0, c0, n0, m0]
+
+
+def planted_per_head_scan(torch, xwb, r, h0, c0, n0, m0):
+    """A planted fault for phase 51's gate: the plain loop with each head's
+    4 hd recurrent outputs split into that head's own [i | f | z | o] (the
+    per-head gate layout), not the whole row's. Returns every h."""
+    from repro_torch.kernels.slstm import slstm_gates
+
+    B, _, d4 = xwb.shape
+    H, hd = r.shape[0], r.shape[1]
+    state, hs = (h0, c0, n0, m0), []
+    for xt in xwb.unbind(1):
+        rec = torch.bmm(state[0].reshape(B, H, hd).transpose(0, 1), r)  # (H, B, 4hd)
+        rec = rec.reshape(H, B, 4, hd).permute(1, 2, 0, 3).reshape(B, d4)
+        state = slstm_gates(xt + rec, *state[1:])
+        hs.append(state[0])
+    return torch.stack(hs, dim=1)
+
+
+def slstm_bound(B, S, d, H, backward=False, save=False) -> tuple:
+    """The least time (ms) of one scan and what bounds it: the recurrent
+    products at the FP32 rate against the bytes each operand moves once
+    (forward: xwb, r and the state in, every h and the final state out,
+    with ``save`` every step's state and pre-activations too; backward: r,
+    the saved pre-activations and states, the incoming gradients in, dxwb
+    and the initial state's gradient out)."""
+    from repro_torch.kernels.slstm import products
+
+    hd = d // H
+    n, r_n = B * S * d, H * hd * 4 * hd
+    if backward:
+        floats = r_n + 4 * n + 3 * n + 3 * B * d + n + 3 * B * d + 4 * n + 4 * B * d
+    else:
+        floats = 4 * n + r_n + 4 * B * d + n + (3 * n + 4 * n if save else 3 * B * d)
+    return bound(4 * floats, products(B, S, d, hd), FP32_FLOPS)
+
+
+def slstm_phase(torch, sl, detail, dev="cuda", cases=SLSTM_CASES) -> dict:
+    """Phase 51: the sLSTM kernels against their plain versions on the
+    card, at ``cases``: the forward (``_launch``) at inference (every h and
+    the final state) and keeping every step (the states and
+    pre-activations too) within ``SLSTM_FWD_TOL`` of max |plain|, the
+    backward (``_launch_backward``, on the plain forward's saved tensors,
+    a non-zero final-state gradient where the state is) within
+    ``SLSTM_BWD_TOL``, each loosened to twice the plain version's own spread
+    between the card and the CPU where that is larger, one launch a call, a
+    second launch identical bit for bit; grad through ``slstm_scan`` (the
+    autograd Function: both kernels and ``dr``'s product) against
+    autograd of the plain loop on the card within ``SLSTM_BWD_TOL``; the
+    planted per-head gate layout (``planted_per_head_scan``) must fail the
+    forward's gate; and at the first case the times: both kernels by
+    CUDA-graph replay, the wrapper's call, the plain loops as called and
+    captured in a CUDA graph, the bound. PyTorch has no sLSTM op."""
+    from repro_torch.kernels.slstm import slstm_cell
+
+    g = torch.Generator().manual_seed(51)
+    out = {"cases": {}}
+    for label, B, S, d, H, nonzero in cases:
+        what = f"slstm {label} ({B}, {S}, d {d}, H {H})"
+        cpu = slstm_operands(torch, g, B, S, d, H, nonzero)
+        card = [t.to(dev) for t in cpu]
+        rec = {}
+        # the forward, every output, at inference and keeping every step
+        want = sl.slstm_scan_plain(*card, True)
+        spread = max(rel_err(a.cpu(), b)
+                     for a, b in zip(want, sl.slstm_scan_plain(*cpu, True)))
+        tol_f = max(SLSTM_FWD_TOL, 2 * spread)
+        final = [want[0], want[1][:, -1:], want[2][:, -1:], want[3][:, -1:], want[4][:, :0]]
+        errs, abs_err = {}, 0.0
+        for save, ref in ((False, final), (True, want)):
+            before = sl.slstm_scan.launches
+            got = sl._launch(*card, save)
+            again = sl._launch(*card, save)
+            check(sl.slstm_scan.launches == before + 2, f"{what}: forward launches")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{what}: a second forward launch (save={save}) differs")
+            for name, a, b in zip(("hs", "cs", "ns", "ms", "pre"), got, ref):
+                check(a.shape == b.shape and a.dtype == b.dtype,
+                      f"{what} {name}: {tuple(a.shape)} {a.dtype}, want {tuple(b.shape)}")
+                if b.numel():
+                    errs[f"{name}{'' if save else '_final'}"] = rel_err(a, b)
+                    abs_err = max(abs_err, float((a - b).abs().max()))
+        worst = max(errs.values())
+        check(worst <= tol_f, f"{what}: forward kernel vs plain {errs} > {tol_f:.3g}")
+        rec["forward"] = {"rel_err": errs, "worst": worst, "tol": tol_f,
+                          "plain_card_vs_cpu": spread, "max_abs_err": abs_err}
+        planted = rel_err(planted_per_head_scan(torch, *card), want[0])
+        check(planted > tol_f, f"{what}: the planted per-head gate layout moves every h "
+              f"by {planted:.3e}, inside the gate {tol_f:.3g}")
+        rec["planted_per_head_rel_err"] = planted
+        # the backward on the plain forward's saved tensors
+        gg = torch.Generator().manual_seed(B * S + d)
+        dhs = torch.randn((B, S, d), generator=gg)
+        d_final = [torch.randn((B, d), generator=gg) * float(nonzero) for _ in range(3)]
+        _, cs, ns, ms, pre = want
+        args = (card[1], pre, cs, ns, ms, *card[3:], dhs.to(dev), *(t.to(dev) for t in d_final))
+        bwant = sl.slstm_scan_backward_plain(*args)
+        cpu_args = [t.cpu() for t in args]
+        spread_b = max(rel_err(a.cpu(), b)
+                       for a, b in zip(bwant, sl.slstm_scan_backward_plain(*cpu_args)))
+        tol_b = max(SLSTM_BWD_TOL, 2 * spread_b)
+        before = sl.slstm_scan_backward.launches
+        bgot = sl._launch_backward(*args)
+        bagain = sl._launch_backward(*args)
+        check(sl.slstm_scan_backward.launches == before + 2, f"{what}: backward launches")
+        check(all(torch.equal(a, b) for a, b in zip(bgot, bagain)),
+              f"{what}: a second backward launch differs")
+        berrs = {name: rel_err(a, b) for name, a, b in
+                 zip(("dxwb", "dh0", "dc0", "dn0", "dm0"), bgot, bwant)}
+        babs = max(float((a - b).abs().max()) for a, b in zip(bgot, bwant))
+        check(max(berrs.values()) <= tol_b,
+              f"{what}: backward kernel vs plain {berrs} > {tol_b:.3g}")
+        # grad through the op against autograd of the plain loop, dr included
+        grads = []
+        for run in ("op", "loop"):
+            xs = [t.clone().requires_grad_() for t in card]
+            if run == "op":
+                hs, _, cT, nT, mT = sl.slstm_scan(*xs)
+            else:
+                state, steps = tuple(xs[2:]), []
+                for xt in xs[0].unbind(1):
+                    state = slstm_cell(xt, xs[1], state)
+                    steps.append(state[0])
+                hs, (_, cT, nT, mT) = torch.stack(steps, dim=1), state
+            loss = (hs * args[8]).sum() + sum((s * t).sum() for s, t in
+                                              zip((cT, nT, mT), args[9:]))
+            grads.append(torch.autograd.grad(loss, xs))
+        gerrs = {name: rel_err(a, b) for name, a, b in
+                 zip(("dxwb", "dr", "dh0", "dc0", "dn0", "dm0"), *grads)}
+        check(max(gerrs.values()) <= tol_b,
+              f"{what}: grad through slstm_scan vs autograd of the plain loop {gerrs} "
+              f"> {tol_b:.3g}")
+        rec["backward"] = {"rel_err": berrs, "worst": max(berrs.values()), "tol": tol_b,
+                           "plain_card_vs_cpu": spread_b, "max_abs_err": babs,
+                           "grad_rel_err": gerrs}
+        out["cases"][label] = rec
+        log(f"[51] {what}: forward kernel vs plain worst {worst:.3e} (gate {tol_f:.3g}; "
+            f"the plain version card vs CPU {spread:.3e}), the planted per-head gate layout "
+            f"{planted:.3e} (fails the gate); backward {max(berrs.values()):.3e} (gate "
+            f"{tol_b:.3g}; plain card vs CPU {spread_b:.3e}); grad through the op vs "
+            f"autograd of the loop {max(gerrs.values()):.3e} (dr {gerrs['dr']:.3e}); "
+            f"second launches identical")
+        del card, cpu, want, args, cpu_args, bwant, bgot, bagain, grads
+    # the times, at the first case
+    label, B, S, d, H, nonzero = cases[0]
+    card = [t.to(dev) for t in slstm_operands(torch, g, B, S, d, H, nonzero)]
+    hs, cs, ns, ms, pre = sl.slstm_scan_plain(*card, True)
+    dhs = torch.randn((B, S, d), generator=g).to(dev)
+    zeros = [torch.zeros_like(card[2]) for _ in range(3)]
+    args = (card[1], pre, cs, ns, ms, *card[3:], dhs, *zeros)
+    reps = 3 if S > 256 else 20
+    t = {"shape": [B, S, d, H]}
+    for name, kernel, call, plain, backward, save in (
+            ("forward", lambda: sl._launch(*card, False), lambda: sl.slstm_scan(*card),
+             lambda: sl.slstm_scan_plain(*card, False), False, False),
+            ("forward_saving", lambda: sl._launch(*card, True), None, None, False, True),
+            ("backward", lambda: sl._launch_backward(*args),
+             lambda: sl.slstm_scan_backward(*args),
+             lambda: sl.slstm_scan_backward_plain(*args), True, False)):
+        bound_ms, bound_by = slstm_bound(B, S, d, H, backward, save)
+        ms_k = graph_ms(torch, kernel, reps=reps, rounds=3)
+        t[name] = {"kernel_ms": ms_k, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "share_of_bound": bound_ms / ms_k,
+                   "call_ms": call_ms(torch, call, reps=reps) if call else None,
+                   # captured first: its warm-up calls warm the call timed next
+                   "plain_graph_ms": graph_ms(torch, plain, reps=1, rounds=2) if plain else None,
+                   "plain_ms": once_ms(torch, plain) if plain else None}
+    log(f"    ({B}, {S}, d {d}, H {H}): " + "; ".join(
+        f"{k} kernel {v['kernel_ms']:.3f} ms ({v['share_of_bound']:.1%} of the bound "
+        f"{v['bound_ms']:.3f} ms, {v['bound_by']}"
+        + (f"; wrapper call {v['call_ms']:.3f} ms" if v["call_ms"] else "") + ")"
+        + (f", plain loop {v['plain_ms']:.1f} ms, in a CUDA graph {v['plain_graph_ms']:.1f} ms"
+           if v["plain_ms"] else "")
+        for k, v in t.items() if k != "shape") + "; PyTorch has no sLSTM op")
+    del card, args, hs, cs, ns, ms, pre
+    cases_out = out["cases"].values()
+    out.update(t)
+    out.update({
+        "max_abs_err": max(c["forward"]["max_abs_err"] for c in cases_out),
+        "backward_max_abs_err": max(c["backward"]["max_abs_err"] for c in cases_out),
+        "kernel_ms": t["forward"]["kernel_ms"], "plain_ms": t["forward"]["plain_ms"],
+        "bound_ms": t["forward"]["bound_ms"], "bound_by": t["forward"]["bound_by"],
+        "library_ms": None})
+    detail["slstm_kernel"] = out
+    return out
+
+
 def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
-                profile_layers=None, steps=3) -> dict:
+                steps=3) -> dict:
     """Phases 16, 20, 24, 32 and 36: train ``arch`` at full width through
     ``repro_torch.runtime.Trainer`` (the trainer of ``launch.train``) on its
     ``TRAIN_CELLS`` batch, ``steps`` AdamW steps of the seeded pipeline's batches
     (Zipf tokens; embeddings, or frames and tokens); returns the
-    launches and times. Each step launches the RG-LRU forward kernel once a
-    layer and once more a unit layer that ``remat="full"`` recomputes, and
-    the backward kernel once a layer, all on the TMA kernels; no other
-    kernel wrapper may launch (qwen2-1.5b, gemma3-4b and xlstm-350m launch none). With
-    ``profile_layers`` the profiled step is that of the first
-    ``profile_layers`` layers' trainer, timed untraced for its idle share,
-    with each of its layers' forward and backward timed alone (at the
-    trained depth, the second run's trainer, warm, is the profiled one). A
-    first step over ``LONG_STEP_S`` is a warm-up: the second run's first
-    step, whose loss must equal it, is then the one timed."""
-    import dataclasses
-
+    launches and times. Each step launches the RG-LRU and sLSTM forward
+    kernels once a layer and once more a unit layer that ``remat="full"``
+    recomputes, and their backward kernels once a layer, the RG-LRU's all on
+    the TMA kernels (``step_launches``); no other kernel wrapper may launch
+    (qwen2-1.5b and gemma3-4b launch none). The second run's trainer, warm,
+    is the one profiled."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import wrappers
     from repro_torch.models import costs
@@ -2887,11 +3107,11 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
     full = cfg is None
     cfg = get_config(arch) if full else cfg
     B, S = TRAIN_CELLS[arch]
-    n_unit_rglru, n_rglru = rglru_layers(cfg)
-    want_fwd = n_rglru + (n_unit_rglru if cfg.remat == "full" else 0)
+    ws = wrappers()
+    want = _want(ws, **step_launches(cfg))
+    want_fwd, n_rglru = want["rglru_scan"], want["rglru_scan_backward"]
     check(not full or arch != ARCH or (want_fwd, n_rglru) == (34, 18),
           f"{want_fwd} forward and {n_rglru} backward launches a step at full width")
-    ws = wrappers()
     tcfg = TrainerConfig(seq_len=S, global_batch=B, total_steps=steps)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2912,13 +3132,8 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
         per_step.append({k: n - before[k] for k, n in _launches(ws).items()})
         return loss
 
-    losses = [timed_step(trainer)]
-    # a first step over LONG_STEP_S: the second run's first step, after this
-    # warm-up, is the one timed
-    long_step = walls[0] > LONG_STEP_S
-    while not long_step and len(walls) < steps:
-        losses.append(timed_step(trainer))
-    check(trainer.state.step == len(walls), f"{arch}: step {trainer.state.step}")
+    losses = [timed_step(trainer) for _ in range(steps)]
+    check(trainer.state.step == steps, f"{arch}: step {trainer.state.step}")
     launches = (rg.rglru_scan.launches, rg.rglru_scan_backward.launches)
     launches_tma = (rg.rglru_scan.launches_tma, rg.rglru_scan_backward.launches_tma)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2926,47 +3141,25 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
     del trainer
     torch.cuda.empty_cache()
     again = Trainer(cfg, tcfg, device=dev)
-    first = timed_step(again) if long_step else again.run(1)["losses"][0]
+    first = again.run(1)["losses"][0]
     check(first == losses[0], f"{arch}: a second run's first loss {first!r} differs "
           f"from {losses[0]!r}")
-    if long_step:
-        losses.append(first)
-    steps = len(walls)
     check(launches_tma == launches, f"RG-LRU launches (forward, backward) {launches}, "
           f"of which {launches_tma} took the TMA route: want all")
-    want = _want(ws, rglru_scan=want_fwd, rglru_scan_backward=n_rglru)
     check(all(p == want for p in per_step),
-          f"{arch}: kernel launches per step {per_step}, want {want_fwd} RG-LRU "
-          f"forward, {n_rglru} backward and no other")
+          f"{arch}: kernel launches per step {per_step}, want "
+          f"{ {k: n for k, n in want.items() if n} } and no other")
     check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
-    prof, prof_s, unit_s, per_layer = again, None, None, None
-    if profile_layers:
-        unit_s = {}
-        for remat in ("none", cfg.remat):  # the unit's step with and without remat
-            warm = remat == cfg.remat and profile_layers == cfg.n_layers
-            prof = again if warm else Trainer(
-                dataclasses.replace(cfg, n_layers=profile_layers, remat=remat), tcfg,
-                device=dev)
-            for _ in range(1 if warm else 2):  # warm-up, then timed
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                prof.run(1)
-                torch.cuda.synchronize()
-                unit_s[remat] = time.perf_counter() - t0
-        prof_s = unit_s[cfg.remat]
-        x = torch.randn((B // max(1, cfg.microbatches), S, cfg.d_model), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(phase)).to(
-            getattr(torch, cfg.dtype))
-        per_layer = layer_seconds(torch, prof.state.model, x, train=True)
-        del x
-    kernels = device_kernels(torch, lambda: prof.run(1))
-    del prof
+    kernels = device_kernels(torch, lambda: again.run(1))
+    del again
     torch.cuda.empty_cache()
     step_s = sum(walls[1:]) / len(walls[1:])
     busy_ms = sum(k["device_ms"] for k in kernels)
     fwd_ms = sum(k["device_ms"] for k in kernels if "rglru_scan_tma_kernel" in k["op"])
     bwd_ms = sum(k["device_ms"] for k in kernels
                  if "rglru_scan_backward_tma_kernel" in k["op"])
+    slstm_ms = [sum(k["device_ms"] for k in kernels if f"slstm_{way}_kernel" in k["op"])
+                for way in ("forward", "backward")]
     flops = costs.model_flops(cfg, ShapeCell(f"train_{B}x{S}", "train", S, B))
     real_flops = 6.0 * n_params * B * S
     out = {"batch": B, "seq_len": S, "microbatches": cfg.microbatches, "steps": steps,
@@ -2975,18 +3168,20 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
            "launches_tma": list(launches_tma),
            "launches_per_step": [(p["rglru_scan"], p["rglru_scan_backward"])
                                  for p in per_step],
+           "slstm_launches_per_step": [(p["slstm_scan"], p["slstm_scan_backward"])
+                                       for p in per_step],
            "peak_memory_gb": peak_gb, "params": cfg.param_count(),
            "model_flops_per_step": flops, "model_tflop_s": flops / step_s / 1e12,
            "bf16_tc_share": flops / step_s / BF16_TC_FLOPS,
            "numel": n_params, "numel_flops_per_step": real_flops,
            "numel_bf16_tc_share": real_flops / step_s / BF16_TC_FLOPS,
-           "second_run_first_loss": first, "second_run_timed": long_step,
-           "profiled_step": {"layers": profile_layers or cfg.n_layers,
-                             "untraced_s": prof_s or step_s, "untraced_s_by_remat": unit_s,
+           "second_run_first_loss": first,
+           "profiled_step": {"layers": cfg.n_layers, "untraced_s": step_s,
                              "device_busy_ms": busy_ms,
-                             "idle_share": 1.0 - busy_ms / 1e3 / (prof_s or step_s),
-                             "rglru_forward_ms": fwd_ms,
-                             "rglru_backward_ms": bwd_ms, "layer_s": per_layer,
+                             "idle_share": 1.0 - busy_ms / 1e3 / step_s,
+                             "rglru_forward_ms": fwd_ms, "rglru_backward_ms": bwd_ms,
+                             "slstm_forward_ms": slstm_ms[0],
+                             "slstm_backward_ms": slstm_ms[1],
                              "top_kernels": kernels[:15]}}
     detail[f"train_{run_key(arch, cfg)}"] = out
     mb = cfg.microbatches
@@ -2994,30 +3189,22 @@ def train_phase(torch, rg, detail, phase=16, arch=ARCH, dev="cuda", cfg=None,
         f"training at full width, {B} x {S} tokens a step "
         f"({mb} microbatch{'es' if mb > 1 else ''}), AdamW (init {init_s:.2f} s): steps "
         f"{', '.join(f'{w:.3f}' for w in walls)} s, {out['tokens_per_s']:.0f} tokens/s "
-        f"({'the second run' if long_step else f'steps 2-{steps}'}); model FLOPs "
+        f"(steps 2-{steps}); model FLOPs "
         f"{flops / 1e12:.1f} T a step, "
         f"{out['model_tflop_s']:.1f} TFLOP/s, {out['bf16_tc_share']:.2%} of the bf16 "
         f"tensor-core peak; losses {', '.join(f'{x:.5f}' for x in losses)}; kernel "
         f"launches a step: RG-LRU {want_fwd} forward + {n_rglru} backward, all on the TMA "
-        f"kernels, no other; peak {peak_gb:.2f} GB; a second run's first loss identical")
+        f"kernels, sLSTM {want['slstm_scan']} forward + {want['slstm_scan_backward']} "
+        f"backward, no other; peak {peak_gb:.2f} GB; a second run's first loss identical")
     ps = out["profiled_step"]
-    log(f"    one profiled step of {ps['layers']} layers: kernels busy {busy_ms:.1f} ms "
-        f"(device idle {ps['idle_share']:.1%} of an untraced step, {ps['untraced_s']:.3f} "
-        f"s); RG-LRU forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; top: " + "; ".join(
+    log(f"    one profiled step: kernels busy {busy_ms:.1f} ms (device idle "
+        f"{ps['idle_share']:.1%} of an untraced step, {ps['untraced_s']:.3f} s); RG-LRU "
+        f"forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; sLSTM forward "
+        f"{slstm_ms[0]:.2f} ms, backward {slstm_ms[1]:.2f} ms; top: " + "; ".join(
             f"{k['op'][:48]} {k['device_ms']:.1f} ms x{k['count']}" for k in kernels[:5]))
     log(f"    model FLOPs by 6 x numel ({n_params / 1e6:.1f}M, not param_count's "
         f"{cfg.param_count() / 1e6:.1f}M): {real_flops / 1e12:.1f} T a step, "
         f"{out['numel_bf16_tc_share']:.2%} of the bf16 tensor-core peak")
-    if per_layer:
-        log(f"    the {ps['layers']}-layer step untraced, by remat: " + ", ".join(
-            f"{k} {t:.3f} s" for k, t in unit_s.items()))
-        kinds = layer_kinds_of(cfg)
-        remat = 2 if cfg.remat == "full" else 1  # forwards a step
-        log("    one layer alone: " + "; ".join(
-            f"{k} forward {t['forward_s'] * 1e3:.1f} ms, backward "
-            f"{t['backward_s'] * 1e3:.1f} ms (x{kinds.count(k)} layers, {remat} forwards "
-            f"= {kinds.count(k) * (remat * t['forward_s'] + t['backward_s']) / step_s:.1%} "
-            f"of the step)" for k, t in per_layer.items()))
     return out
 
 
@@ -3055,12 +3242,11 @@ def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=25
     card_launches = _launches(ws)
     card_loss = card_loss.detach()
     card_leaves, cpu_leaves = param_leaves(card_model), param_leaves(cpu_model)
-    n_unit, n_rglru = rglru_layers(cfg)
-    launches = (n_rglru + (n_unit if cfg.remat == "full" else 0), n_rglru)
-    check(card_launches == _want(ws, rglru_scan=launches[0],
-                                 rglru_scan_backward=launches[1]),
-          f"{arch}: kernel launches {card_launches}, want RG-LRU (forward, backward) "
-          f"{launches} and no other")
+    want = _want(ws, **step_launches(cfg))
+    launches = (want["rglru_scan"], want["rglru_scan_backward"])
+    check(card_launches == want,
+          f"{arch}: kernel launches {card_launches}, want "
+          f"{ {k: n for k, n in want.items() if n} } and no other")
     biases = [k for k in cpu_leaves if k.rsplit("/", 1)[-1] in ("bq", "bk", "bv")]
     check(bool(biases) == cfg.qkv_bias, f"{arch}: bias leaves {biases}")
     check(("head" in cpu_leaves) != cfg.tie_embeddings, f"{arch}: leaves {list(cpu_leaves)}")
@@ -3110,6 +3296,7 @@ def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=25
             "loss_rel_err": loss_err, "grad_err": grad_err, "worst_grad_leaf": worst,
             "leaves": len(cpu_leaves), "bias_leaves": biases, "head": "head" in cpu_leaves,
             "launches": list(launches), "encoder_leaves": len(encoder),
+            "slstm_launches": [want["slstm_scan"], want["slstm_scan_backward"]],
             "adamw_err": opt_err, "seconds": seconds,
             "cpu_half_beside_later_phases": behind is not None}
         log(f"[{phase}] {cfg.name} n_layers={cfg.n_layers} ({cfg.attention_impl} attention) "
@@ -3119,7 +3306,8 @@ def train_devices_phase(torch, rg, detail, phase=17, arch=ARCH, n_layers=5, S=25
             f"biases, {len(encoder)} the encoder's (<= {TRAIN_GRAD_SHARE:g}; worst {worst}); "
             f"AdamW on the card's gradients, "
             f"card vs CPU {opt_err:.3e} of max |p| (<= {OPT_CARD_CPU:g}); RG-LRU launches "
-            f"{launches[0]} forward + {launches[1]} backward, no other kernel "
+            f"{launches[0]} forward + {launches[1]} backward, sLSTM "
+            f"{want['slstm_scan']} + {want['slstm_scan_backward']}, no other kernel "
             f"({seconds:.1f} s" + ("; its CPU half beside the next phase)"
                                    if behind is not None else ")"))
 
@@ -4177,14 +4365,6 @@ def sched_rglru_shape() -> tuple:
     return (batch, seq_len, get_smoke("recurrentgemma-2b").d_model)
 
 
-def rglru_step_launches(cfg) -> tuple:
-    """RG-LRU forward and backward launches of one train step of ``cfg``:
-    a forward per RG-LRU layer and again per layer of each unit that
-    ``remat="full"`` recomputes, a backward per layer."""
-    n_unit, n_all = rglru_layers(cfg)
-    return n_all + (n_unit if cfg.remat == "full" else 0), n_all
-
-
 def sched_train_phase(torch, np, detail, dev="cuda") -> dict:
     """Phase 26: OEF-scheduled multi-tenant training through
     ``launch.train.run_scheduled``, each tenant's smoke model on ``dev``.
@@ -4192,8 +4372,10 @@ def sched_train_phase(torch, np, detail, dev="cuda") -> dict:
     ``schedule_rounds``', numpy on the host, which
     ``tests/test_torch_sched_train.py`` holds to the JAX package), every
     loss be finite, and every wrapper's launches exact: the RG-LRU kernels'
-    for recurrentgemma-2b's steps, none for any other tenant.
-    Returns the RG-LRU (forward, backward) launches."""
+    for recurrentgemma-2b's steps, the sLSTM kernels' for xlstm-350m's, none
+    for any other tenant.
+    Returns the RG-LRU (forward, backward, by route) and sLSTM launches, by
+    name."""
     from argparse import Namespace
 
     from repro_torch.configs import get_smoke
@@ -4205,7 +4387,7 @@ def sched_train_phase(torch, np, detail, dev="cuda") -> dict:
     seq_len, batch = SCHED_SHAPE
     out = {}
     rglru = dict.fromkeys(("rglru_scan", "rglru_scan_tma", "rglru_scan_backward",
-                           "rglru_scan_backward_tma"), 0)
+                           "rglru_scan_backward_tma", "slstm_scan", "slstm_scan_backward"), 0)
     for scheduler, tenants, rounds in SCHED_RUNS:
         names = tenants.split(",")
         args = Namespace(scheduler=scheduler, tenants=tenants, rounds=rounds,
@@ -4231,9 +4413,8 @@ def sched_train_phase(torch, np, detail, dev="cuda") -> dict:
                       and all(math.isfinite(x) for x in t["losses"]),
                       f"{label}, round {r}, {name}: {len(t['losses'])} losses for "
                       f"{steps} steps, or one not finite")
-                fwd, bwd = rglru_step_launches(get_smoke(name))
-                launches = _want(ws, rglru_scan=steps * fwd,
-                                 rglru_scan_backward=steps * bwd)
+                launches = _want(ws, **{k: steps * n for k, n in
+                                        step_launches(get_smoke(name)).items()})
                 check(t["launches"] == launches,
                       f"{label}, round {r}, {name}: launches {t['launches']}, "
                       f"want {launches}")
@@ -4252,7 +4433,9 @@ def sched_train_phase(torch, np, detail, dev="cuda") -> dict:
         n_steps = sum(p["steps"] for r in rec for p in r["tenants"].values())
         for name, n in (("rglru_scan", total["rglru_scan"]), ("rglru_scan_tma", tma[0]),
                         ("rglru_scan_backward", total["rglru_scan_backward"]),
-                        ("rglru_scan_backward_tma", tma[1])):
+                        ("rglru_scan_backward_tma", tma[1]),
+                        ("slstm_scan", total["slstm_scan"]),
+                        ("slstm_scan_backward", total["slstm_scan_backward"])):
             rglru[name] += n
         out[label] = {"rounds": rec, "wall_s": wall, "steps": n_steps,
                       "steps_per_s": n_steps / wall, "launches": total,
@@ -4261,7 +4444,8 @@ def sched_train_phase(torch, np, detail, dev="cuda") -> dict:
             f"steps/s, trainers' build included), each tenant its granted "
             f"steps, RG-LRU launches {total['rglru_scan']} forward "
             f"({tma[0]} TMA), {total['rglru_scan_backward']} backward ({tma[1]} "
-            f"TMA), no other kernel")
+            f"TMA), sLSTM {total['slstm_scan']} forward, {total['slstm_scan_backward']} "
+            f"backward, no other kernel")
     detail["sched_train"] = out
     return rglru
 
@@ -5465,7 +5649,10 @@ def mesh_serve_phase(torch, detail, dev="cuda", cfg=None, shape=MESH_SERVE[2],
 #: (relative), the production cell traced, and the seconds the dry-run's
 #: process may take
 DRYRUN_PEAK_TOL = 0.10
-DRYRUN_CELL = ("yi-9b", "train_4k")
+#: phase 50's production cells, (arch, shape) on the ``(16, 16)`` fake mesh:
+#: yi-9b's training, and xlstm-350m's, whose sLSTM traces as one fake call of
+#: each kernel a layer (as a position-by-position loop it had not traced)
+DRYRUN_CELLS = (("yi-9b", "train_4k"), ("xlstm-350m", "train_4k"))
 DRYRUN_TIMEOUT_S = 240
 
 
@@ -5492,10 +5679,10 @@ def _dryrun_cells(dev: str, mesh_cfg=None, split_cfg=None, serve_cfg=None) -> li
 
 def _dryrun_child(rank, d, cells, production, dev, parent) -> None:
     """Phase 50's process: each cell of ``cells`` traced at each of its
-    ranks on a fake mesh of ``dev`` tensors, then ``production`` (arch,
-    shape) through ``run_and_save`` on the ``(16, 16)`` fake mesh (its
-    record also in ``chiprun_out/dryrun_torch/``); every wrapper's launches
-    before and after; writes ``d/dryrun.pt``."""
+    ranks on a fake mesh of ``dev`` tensors, then each (arch, shape) of
+    ``production`` through ``run_and_save`` on the ``(16, 16)`` fake mesh
+    (its record also in ``chiprun_out/dryrun_torch/``); every wrapper's
+    launches before and after; writes ``d/dryrun.pt``."""
     import torch
 
     from repro_torch.kernels import launch_counts
@@ -5515,16 +5702,51 @@ def _dryrun_child(rank, d, cells, production, dev, parent) -> None:
                                     device=dev)
             got["seconds"] = time.perf_counter() - t0
             out["cells"].setdefault(name, {})[r] = got
-    if production is not None:
-        out["production"] = D.run_and_save(
-            *production, multi_pod=False, device=dev,
-            out_dir=os.path.join(ROOT, "chiprun_out", "dryrun_torch"))
+    out["production"] = {
+        f"{arch} {shape}": D.run_and_save(arch, shape, multi_pod=False, device=dev,
+                                          out_dir=os.path.join(ROOT, "chiprun_out",
+                                                               "dryrun_torch"))
+        for arch, shape in production}
     out["launches_after"] = launch_counts()
     torch.save(out, os.path.join(d, "dryrun.pt"))
 
 
+def production_check(rec) -> None:
+    """Phase 50's gate on a production cell's dry-run record: ``OK``, no
+    launch, and its sLSTM fake forms a step those ``step_launches`` names
+    for a train cell (one a layer for a prefill or decode; none for a model
+    without the sLSTM). Logs the record's numbers."""
+    from repro_torch.configs import get_config
+
+    arch, shape = rec["arch"], rec["shape"]
+    if rec.get("status") == "OK":
+        m, roof = rec["memory_analysis"], rec["roofline"]
+        log(f"    {arch} {shape} on the {rec['mesh']} fake mesh, rank "
+            f"{rec['rank']}: {rec['status']} in {rec['trace_seconds']:.1f} s; peak "
+            f"{m['peak_bytes_per_device'] / 2**30:.2f} GiB a card (arguments "
+            f"{m['argument_bytes_per_device'] / 2**30:.2f} GiB, fits {m['fits_hbm']}); "
+            f"{rec['cost_analysis']['flops_per_device']:.4g} FLOPs, "
+            f"{rec['cost_analysis']['bytes_per_device']:.4g} bytes, "
+            f"{rec['collectives']['n_collectives']} collectives "
+            f"({rec['collectives']['wire_bytes_per_device']:.4g} wire bytes) a card; "
+            f"roofline {roof['step_time_s_max_term'] * 1e3:.1f} ms ({roof['bottleneck']}), "
+            f"useful FLOPs {roof['useful_flops_ratio']:.3f}; fake forms "
+            f"{rec['kernels']['fake_calls']}")
+    check(rec.get("status") == "OK", f"the production cell {arch} {shape}: {rec.get('error')}")
+    cfg = get_config(arch)
+    if rec["kind"] == "train":
+        want = {k: n * max(1, cfg.microbatches) for k, n in step_launches(cfg).items()}
+    else:
+        want = {"slstm_scan": slstm_layers(cfg)[1]}
+    fake = rec["kernels"]["fake_calls"]
+    check(all(fake[k] == want.get(k, 0) for k in ("slstm_scan", "slstm_scan_backward"))
+          and not rec["kernels"]["launches"],
+          f"{arch} {shape}: sLSTM fake forms {fake}, want {want}; launches "
+          f"{rec['kernels']['launches']}")
+
+
 def dryrun_phase(torch, detail, mesh_t, split_t, serve_t, dev="cuda", cells=None,
-                 production=DRYRUN_CELL) -> dict:
+                 production=DRYRUN_CELLS) -> dict:
     """Phase 50: the dry-run of phases 47-49's cells and of one production
     cell, traced on fake ``dev`` tensors in a spawned process (its fake
     process group must not meet those phases' groups), held to what those
@@ -5534,8 +5756,10 @@ def dryrun_phase(torch, detail, mesh_t, split_t, serve_t, dev="cuda", cells=None
     at each rank those of its real last step, calls and input bytes by
     kind; (c) the fake-form calls a step at each rank phase 48's RG-LRU
     launches (forward, backward) and phase 49's flash calls a prefill, and
-    no launch in the dry-run's process or this one; (d) the production
-    cell's record ``OK``. Returns the phase's numbers."""
+    no launch in the dry-run's process or this one; (d) each production
+    cell's record ``OK``, its sLSTM fake forms a step those ``step_launches``
+    names (none for a model without the sLSTM). Returns the phase's
+    numbers."""
     import shutil
     import tempfile
 
@@ -5545,9 +5769,10 @@ def dryrun_phase(torch, detail, mesh_t, split_t, serve_t, dev="cuda", cells=None
     from repro_torch.launch.dryrun import roofline
 
     cells = _dryrun_cells(dev) if cells is None else cells
+    production = production or ()
     ws = wrappers()
     before = _launches(ws)
-    out = {"cells": {}, "production_cell": list(production) if production else None}
+    out = {"cells": {}, "production_cells": [list(c) for c in production], "production": {}}
     detail["dryrun"] = out
     t_phase = time.perf_counter()
     d = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
@@ -5622,27 +5847,15 @@ def dryrun_phase(torch, detail, mesh_t, split_t, serve_t, dev="cuda", cells=None
     check(not any(out["launches"].values()) and not any(out["launches_here"].values())
           and not any(t["launches"] for by_rank in cell.values() for t in by_rank.values()),
           f"the dry-run launched kernels: {out['launches']}, here {out['launches_here']}")
-    # (d) the production cell
-    if production is not None:
-        rec = got["production"]
-        out["production"] = {k: rec.get(k) for k in (
+    # (d) the production cells
+    for arch, shape in production:
+        rec = got["production"][f"{arch} {shape}"]
+        res = out["production"][f"{arch} {shape}"] = {k: rec.get(k) for k in (
             "status", "error", "trace_seconds", "memory_analysis", "cost_analysis", "roofline",
             "attn_mode", "n_chips", "kernels")}
-        out["production"]["collectives"] = {k: rec.get("collectives", {}).get(k) for k in (
+        res["collectives"] = {k: rec.get("collectives", {}).get(k) for k in (
             "wire_bytes_per_device", "n_collectives")}
-        if rec.get("status") == "OK":
-            m, roof = rec["memory_analysis"], rec["roofline"]
-            log(f"    {rec['arch']} {rec['shape']} on the {rec['mesh']} fake mesh, rank "
-                f"{rec['rank']}: {rec['status']} in {rec['trace_seconds']:.1f} s; peak "
-                f"{m['peak_bytes_per_device'] / 2**30:.2f} GiB a card (arguments "
-                f"{m['argument_bytes_per_device'] / 2**30:.2f} GiB, fits {m['fits_hbm']}); "
-                f"{rec['cost_analysis']['flops_per_device']:.4g} FLOPs, "
-                f"{rec['cost_analysis']['bytes_per_device']:.4g} bytes, "
-                f"{rec['collectives']['n_collectives']} collectives "
-                f"({rec['collectives']['wire_bytes_per_device']:.4g} wire bytes) a card; "
-                f"roofline {roof['step_time_s_max_term'] * 1e3:.1f} ms ({roof['bottleneck']}), "
-                f"useful FLOPs {roof['useful_flops_ratio']:.3f}")
-        check(rec.get("status") == "OK", f"the production cell {production}: {rec.get('error')}")
+        production_check(rec)
     return out
 
 
@@ -5925,6 +6138,7 @@ def main() -> int:
     from repro_torch.kernels import envy as ev
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import slstm as sl
     from repro_torch.kernels import waterfill as wf
     from repro_torch.kernels import xent as xe
 
@@ -5962,10 +6176,10 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    kernel_mods = (wf, ev, rg, fa, xe)
+    kernel_mods = (wf, ev, rg, fa, xe, sl)
     with ThreadPoolExecutor(max_workers=len(kernel_mods)) as pool:
         lib_paths = list(pool.map(_build.build, ("waterfill", "envy", "rglru_scan",
-                                                 "flash_attention", "xent")))
+                                                 "flash_attention", "xent", "slstm")))
     for mod in kernel_mods:
         mod.load()
     build_s = time.perf_counter() - t0
@@ -6065,6 +6279,12 @@ def main() -> int:
     torch.set_num_threads(max(1, main_threads - 1))
     behind = Behind(torch)
 
+    # -- 51. the sLSTM kernels: beside the lane, whose solves take the card
+    # now and then (its ~30-40 s on the main path before the lane started
+    # put the script past ~1,000 s on a slow host) ----------------------------------
+    sl_t = slstm_phase(torch, sl, detail)
+    lap(51)
+
     # -- 11-12, 16-17. serving and training recurrentgemma-2b --------------------
     rg_launches = serve_phase(torch, rg, detail, rg_t)
     lap(11)
@@ -6097,16 +6317,13 @@ def main() -> int:
                         TRAIN_CUT_S.get(qwen, qwen_s), behind=behind)
     lap(21)
     arch, n_layers, S = XLSTM
-    serve_phase(torch, rg, detail, rg_t, 22, arch,
-                cfg=get_config(arch, n_layers=XLSTM_SERVE_LAYERS),
-                profile_layers=XLSTM_PROFILE_LAYERS)
+    serve_phase(torch, rg, detail, rg_t, 22, arch)
     lap(22)
     train_devices_phase(torch, rg, detail, 21, gemma, gemma_layers,
                         TRAIN_CUT_S.get(gemma, gemma_s), behind=behind)
     lap(21)
-    train_phase(torch, rg, detail, 24, arch,
-                cfg=get_config(arch, logits_chunk=512, n_layers=XLSTM_TRAIN_LAYERS),
-                profile_layers=XLSTM_PROFILE_LAYERS, steps=XLSTM_TRAIN_STEPS)
+    xl_train = train_phase(torch, rg, detail, 24, arch,
+                           cfg=get_config(arch, logits_chunk=512))
     lap(24)
     behind.drain()
     lap(21)
@@ -6351,6 +6568,44 @@ def main() -> int:
         "bound_by": xe_t["bound_by"],
         "library_ms": xe_t["library_ms"],
     }]
+    # the sLSTM kernels replace no Pallas kernel: the JAX model's lax.scan
+    xl_serve = detail["serve_xlstm-350m"]
+    for wrapper, way, count, by_phase in (
+            ("slstm_scan", "forward",
+             xl_serve["kernel_launches"]["slstm_scan"]
+             + xl_serve["decode_kernel_launches"]["slstm_scan"],
+             {"22": {"prefill": xl_serve["kernel_launches"]["slstm_scan"],
+                     "decode": xl_serve["decode_kernel_launches"]["slstm_scan"]},
+              "24": sum(p[0] for p in xl_train["slstm_launches_per_step"])}),
+            ("slstm_scan_backward", "backward",
+             sum(p[1] for p in xl_train["slstm_launches_per_step"]),
+             {"24": sum(p[1] for p in xl_train["slstm_launches_per_step"])})):
+        t = sl_t[way]
+        kernels.append({
+            "name": wrapper,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slstm.cu",
+            "replaces": "src/repro/models/layers.py:699",
+            "replaces_note": "no Pallas kernel: the jax.lax.scan of slstm_apply (:699) and "
+                             "the step of slstm_decode (:725), which XLA runs as one loop "
+                             "on the device" + ("; its backward, which JAX takes by "
+                                                "differentiating the scan" if way == "backward"
+                                                else ""),
+            "launches": count,
+            "launches_in": ("phase 22 (the served model's prefill and 32 decode steps at "
+                            "full depth)" if way == "forward" else
+                            "phase 24 (3 train steps at full depth)"),
+            "launches_by_phase": dict(by_phase, **{"26": sched_t[wrapper]}),
+            "max_abs_err": sl_t["max_abs_err" if way == "forward" else "backward_max_abs_err"],
+            "rel_err_by_case": {label: c[way]["rel_err"] for label, c in sl_t["cases"].items()},
+            "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "plain_graph_ms": t["plain_graph_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "shape": sl_t["shape"],
+        })
     # whisper-tiny's phases launch no kernel, the MoE phases only the blocked
     # prefill's flash, MoE training none: each entry records its wrapper's
     # count there (the TMA and direct routes share one wrapper)
@@ -6384,15 +6639,16 @@ def main() -> int:
                 "ranks": [sum(map(count, r["rglru"])) for r in split_t["ranks"]]}
     # the fake forms the dry-run called (phase 50), by cell and rank, a step
     fake_of = {"flash_attention": "flash_attention", "rglru_scan_tma": "rglru_scan",
-               "rglru_scan_backward_tma": "rglru_scan_backward"}
+               "rglru_scan_backward_tma": "rglru_scan_backward", "slstm_scan": "slstm_scan",
+               "slstm_scan_backward": "slstm_scan_backward"}
     for k in kernels:
         form = fake_of.get(k["name"])
         if form is not None:
             k["fake_calls_50"] = {
                 name: [t["fake_calls"][form] for _, t in sorted(by_rank.items())]
                 for name, by_rank in dryrun_t["cells"].items()}
-            k["fake_calls_50"][f"{DRYRUN_CELL[0]} {DRYRUN_CELL[1]}"] = (
-                dryrun_t["production"]["kernels"]["fake_calls"][form])
+            for cell, rec in dryrun_t["production"].items():
+                k["fake_calls_50"][cell] = rec["kernels"]["fake_calls"][form]
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,17 @@ Every Pallas kernel of the JAX package has its counterpart here:
   - xent — the fused per-token softmax cross-entropy (``csrc/xent.cu``);
     replaces the Pallas kernel ``kernels/xent.py``.
 
+One more has no Pallas counterpart:
+
+  - slstm — the sLSTM recurrence of xlstm-350m, forward and backward, each
+    one cooperative launch with a grid barrier between steps
+    (``csrc/slstm.cu``); replaces the JAX model's ``jax.lax.scan`` over time
+    (``models/layers.py`` ``slstm_apply``, ``slstm_decode``), which XLA
+    runs as one loop on the device. ``models.layers.SLSTM`` calls it in
+    prefill, decode and training. Its CPU tests are
+    ``tests/test_torch_slstm.py``; ``chip_smoke.py`` holds it to its plain
+    version on the card in phase 51.
+
 The last three are the public ops of ``ops`` (``rglru_scan``,
 ``flash_attention``, ``flash_attention_gqa``, ``softmax_xent``), and
 ``ref`` holds the plain oracles they are held to. A kernel that fails to
@@ -40,7 +51,7 @@ __all__ = ["KernelError", "envy_gaps", "envy_gaps_plain", "launch_counts", "wrap
 def wrappers() -> Dict[str, Callable]:
     """Every wrapper of a hand-written kernel, by name. Each adds one to
     its ``launches`` where it launches its kernel, and nowhere else."""
-    from . import envy, flash_attention, rglru_scan, waterfill, xent
+    from . import envy, flash_attention, rglru_scan, slstm, waterfill, xent
 
     return {"waterfill_masses": waterfill.waterfill_masses,
             "waterfill_solve": waterfill.waterfill_solve,
@@ -48,7 +59,9 @@ def wrappers() -> Dict[str, Callable]:
             "rglru_scan": rglru_scan.rglru_scan,
             "rglru_scan_backward": rglru_scan.rglru_scan_backward,
             "flash_attention": flash_attention.flash_attention,
-            "softmax_xent": xent.softmax_xent}
+            "softmax_xent": xent.softmax_xent,
+            "slstm_scan": slstm.slstm_scan,
+            "slstm_scan_backward": slstm.slstm_scan_backward}
 
 
 def launch_counts() -> Dict[str, int]:

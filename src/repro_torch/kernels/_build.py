@@ -11,8 +11,9 @@ CPU-only test suite imports every module of the package.
 :func:`refuse_grad` guards the wrappers of the kernels that have no
 backward (flash attention, the cross-entropy): a CUDA launch on an input
 that requires grad raises instead of returning a tensor that autograd
-cannot follow. The RG-LRU scan has a backward kernel and goes through an
-autograd Function instead (``kernels/rglru_scan.py``).
+cannot follow. The RG-LRU and sLSTM scans have backward kernels and go
+through autograd Functions instead (``kernels/rglru_scan.py``,
+``kernels/slstm.py``).
 """
 from __future__ import annotations
 

@@ -25,7 +25,8 @@ float32 in training, bfloat16 in serving).
 On ``device="cuda"`` the fake tensors are CUDA tensors, so the step takes
 the card's path: the hand-written kernels are called, through their custom
 ops' fake forms (``kernels.flash_attention``, ``kernels.rglru_scan``),
-which give the output's shape and launch nothing. On ``device="cpu"`` the
+which give the output's shape and launch nothing (``kernels.slstm``'s scan
+and its backward too: one fake call an sLSTM layer). On ``device="cpu"`` the
 step takes the plain versions, as every CPU test of the port does. The
 fake-form calls and the launches (none) are in the record.
 
@@ -56,9 +57,6 @@ record keeps JAX's keys where they mean the same; ``compile_seconds`` is
 ``output_bytes_per_device`` and ``calibration_seconds`` have no meaning
 here and are left out; ``rank`` and ``device`` are added. The roofline
 takes the H100's constants (``mesh.hardware_constants``).
-
-A trace's time grows with what the step runs on the host: xlstm-350m's
-sLSTM is a loop over positions, so its cells take minutes to hours.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k
@@ -182,11 +180,13 @@ class _Tally(TorchDispatchMode):
 
 
 def _fake_calls() -> Dict[str, int]:
-    from ..kernels import flash_attention, rglru_scan
+    from ..kernels import flash_attention, rglru_scan, slstm
 
     return {"flash_attention": flash_attention.flash_attention.fake_calls,
             "rglru_scan": rglru_scan.rglru_scan.fake_calls,
-            "rglru_scan_backward": rglru_scan.rglru_scan_backward.fake_calls}
+            "rglru_scan_backward": rglru_scan.rglru_scan_backward.fake_calls,
+            "slstm_scan": slstm.slstm_scan.fake_calls,
+            "slstm_scan_backward": slstm.slstm_scan_backward.fake_calls}
 
 
 # ---------------------------------------------------------------------------

@@ -92,6 +92,7 @@ from torch import nn
 
 from ..distributed import parallel as P
 from ..kernels import ops as kops
+from ..kernels.slstm import slstm_cell, slstm_scan
 from .config import ArchConfig
 
 Cache = Dict[str, torch.Tensor]
@@ -1029,7 +1030,8 @@ class SLSTM(nn.Module):
     ([i | f | z | o] blocks of width d), a block-diagonal recurrence ``r``
     (H, hd, 4 hd) on h, and the stabilised exponential gating of the
     xLSTM paper (eq. 15-17), stepped over time in float32 with the state
-    ``h, c, n, m`` (B, d) (``m`` starts at -1e9)."""
+    ``h, c, n, m`` (B, d) (``m`` starts at -1e9) by the op
+    ``kernels.slstm.slstm_scan``, prefill and decode alike."""
 
     def __init__(self, cfg: ArchConfig, device=None, trainable: bool = False):
         super().__init__()
@@ -1052,42 +1054,22 @@ class SLSTM(nn.Module):
         normal_(self.w_down, gen, 0.02 / math.sqrt(2 * self.cfg.n_layers))
 
     def _cell(self, xwb: torch.Tensor, state: Tuple[torch.Tensor, ...]):
-        """One step. xwb: (B, 4d) float32 input pre-activation with the bias
-        added; state: h, c, n, m (B, d)."""
-        h, c, n, m = state
-        B, d = h.shape
-        H = self.r.shape[0]
-        rec = torch.bmm(h.reshape(B, H, d // H).transpose(0, 1), self.r)  # (H, B, 4hd)
-        # per head [4 hd] laid end to end, then split into [i | f | z | o]
-        pre = xwb + rec.transpose(0, 1).reshape(B, 4 * d)
-        i_pre, f_pre, z_pre, o_pre = pre.split(d, dim=1)
-        lfm = F.logsigmoid(f_pre) + m
-        m_new = torch.maximum(lfm, i_pre)
-        i_g = torch.exp(i_pre - m_new)
-        f_g = torch.exp(lfm - m_new)
-        z_g = torch.tanh(z_pre)
-        o_g = torch.sigmoid(o_pre)
-        c_new = f_g * c + i_g * z_g
-        n_new = f_g * n + i_g
-        h_new = o_g * c_new / torch.clamp_min(n_new, 1.0)
-        return h_new, c_new, n_new, m_new
+        """One step, plain torch (``kernels.slstm.slstm_cell``). xwb: (B, 4d)
+        float32 input pre-activation with the bias added; state: h, c, n, m
+        (B, d)."""
+        return slstm_cell(xwb, self.r, state)
 
     def forward(self, x: torch.Tensor, *, return_state: bool = False,
                 cache_len: Optional[int] = None, split: Optional[P.Split] = None):
-        """Full sequence from the initial state: one ``_cell`` step per
-        position, a loop in Python (the JAX ``lax.scan``); h stays float32
-        until the down-projection. With ``split``, the whole sequence
-        gathered and run, this rank's block kept."""
+        """Full sequence from the initial state: ``kernels.slstm.slstm_scan``
+        (the JAX ``lax.scan``): one kernel launch on the card, the plain
+        loop over positions on the CPU; h stays float32 until the
+        down-projection. With ``split``, the whole sequence gathered and
+        run, this rank's block kept."""
         x = P.gather_seq(x, split)
         xwb = (x @ self.w_x.to(self.dt)).float() + self.b  # (B, S, 4d)
-        state = self._state(x.shape[0])
-        hs = []
-        # one unbind, not S slices: its backward stacks the S gradients once,
-        # where each slice's would write a zero-filled (B, S, 4d) gradient
-        for xt in xwb.unbind(1):
-            state = self._cell(xt, state)
-            hs.append(state[0])
-        y = P.keep_seq(torch.stack(hs, dim=1).to(self.dt) @ self.w_down.to(self.dt), split)
+        hs, *state = slstm_scan(xwb, self.r, *self._state(x.shape[0]))
+        y = P.keep_seq(hs.to(self.dt) @ self.w_down.to(self.dt), split)
         return (y, dict(zip("hcnm", state))) if return_state else y
 
     def _state(self, batch: int) -> Tuple[torch.Tensor, ...]:
@@ -1100,9 +1082,10 @@ class SLSTM(nn.Module):
 
     def decode(self, x: torch.Tensor, state: Cache,
                pos: int) -> Tuple[torch.Tensor, Cache]:
-        xwb = (x[:, 0] @ self.w_x.to(self.dt)).float() + self.b
-        new = self._cell(xwb, tuple(state[k] for k in "hcnm"))
-        out = (new[0].to(self.dt) @ self.w_down.to(self.dt))[:, None]
+        """One position from the cached state: the same scan at S = 1."""
+        xwb = (x @ self.w_x.to(self.dt)).float() + self.b  # (B, 1, 4d)
+        hs, *new = slstm_scan(xwb, self.r, *(state[k] for k in "hcnm"))
+        out = hs.to(self.dt) @ self.w_down.to(self.dt)
         return out, dict(zip("hcnm", new))
 
 

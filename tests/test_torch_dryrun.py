@@ -59,7 +59,7 @@ one_thread()
 
 MESH_2x2 = ((2, 2), ("data", "model"))
 S, B = 32, 4
-ARCHS = ("qwen2-1.5b", "gemma3-4b", "arctic-480b", "recurrentgemma-2b")
+ARCHS = ("qwen2-1.5b", "gemma3-4b", "arctic-480b", "recurrentgemma-2b", "xlstm-350m")
 #: name, arch, smoke-config overrides, kind, seq_len, global batch
 CELLS = tuple((f"{arch}_{kind}", arch, {}, kind, S, B)
               for arch in ARCHS for kind in ("train", "prefill", "decode")) + (
@@ -71,6 +71,10 @@ REAL = tuple(c[0] for c in CELLS[:12])
 #: the JAX cache leaf ``cache_leaf_spec`` reads as stacked, which the port
 #: holds whole (its spec there: the width over ``data``)
 TAIL_STATE = ("recurrentgemma-2b_tail", "tail/0/mixer/h")
+#: the JAX cache leaf ``cache_leaf_spec`` reads as a KV cache (xlstm-350m's
+#: mLSTM memory, its heads over ``model``), which the port's serving holds
+#: by rows alone
+MLSTM_MEMORY = ("xlstm-350m_decode", "units/p0/mixer/C")
 
 JAX_DRYRUN = """
 import dataclasses, json, sys
@@ -188,6 +192,10 @@ def test_argument_bytes_are_jax_s_at_every_rank(runs, name):
         shard, whole, spec = jx["cache"][TAIL_STATE[1]]
         assert [_axes(a) for a in spec] == [[], ["data"]] and whole == 2 * shard
         want += whole - shard  # held whole by the port
+    if name == MLSTM_MEMORY[0]:
+        shard, whole, spec = jx["cache"][MLSTM_MEMORY[1]]
+        assert [_axes(a) for a in spec] == [[], ["data"], ["model"], [], []]
+        want += whole // 2 - shard  # the port splits its rows over data alone
     got = [r["traced"][name]["argument_bytes"] for r in runs["ranks"]]
     assert got == [want] * 4
 
@@ -197,7 +205,7 @@ def test_only_the_named_cache_leaf_parts_from_jax_s_rule(runs):
     KV cache, the slots, as the port's cache does."""
     for name, *_ in CELLS:
         for leaf, (_, _, spec) in runs["jax"]["cells"][name].get("cache", {}).items():
-            if (name, leaf) != TAIL_STATE and spec:
+            if (name, leaf) not in (TAIL_STATE, MLSTM_MEMORY) and spec:
                 assert spec[-1] is None and all(_axes(a) in ([], ["model"], ["data"])
                                                 for a in spec)
 

@@ -169,15 +169,18 @@ def test_serve_decode_example_runs_on_the_cpu(arch, capsys):
 
 
 def test_chip_smoke_sched_train_phase_rehearses_on_the_cpu(monkeypatch, tmp_path):
-    """Phase 26 on the CPU at 16 x 2 and one round each: the RG-LRU plain
-    forward and backward count as the kernels' launches (on the TMA route),
-    so recurrentgemma-2b's steps must launch 2 + 2 a step (its smoke config:
-    one unit, no remat) and no other tenant any."""
+    """Phase 26 on the CPU at 16 x 2 and one round each: the RG-LRU and
+    sLSTM plain forwards and backwards count as the kernels' launches (the
+    RG-LRU's on the TMA route), so recurrentgemma-2b's steps must launch 2
+    + 2 RG-LRU a step (its smoke config: one unit, no remat), xlstm-350m's
+    2 + 2 sLSTM (two units, no remat), and no other tenant any."""
     monkeypatch.syspath_prepend(ROOT)
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     import chip_smoke as cs
+    from repro_torch.kernels import slstm as sl
 
     fwd, bwd = rg.rglru_scan_plain, rg.rglru_scan_backward_plain
+    sfwd, sbwd = sl.slstm_scan_plain, sl.slstm_scan_backward_plain
 
     def plain(a, b, h0):
         rg.rglru_scan.launches += 1
@@ -189,8 +192,18 @@ def test_chip_smoke_sched_train_phase_rehearses_on_the_cpu(monkeypatch, tmp_path
         rg.rglru_scan_backward.launches_tma += 1
         return bwd(a, h, h0, dh)
 
+    def slstm_plain(*args):
+        sl.slstm_scan.launches += 1
+        return sfwd(*args)
+
+    def slstm_plain_backward(*args):
+        sl.slstm_scan_backward.launches += 1
+        return sbwd(*args)
+
     monkeypatch.setattr(rg, "rglru_scan_plain", plain)
     monkeypatch.setattr(rg, "rglru_scan_backward_plain", plain_backward)
+    monkeypatch.setattr(sl, "slstm_scan_plain", slstm_plain)
+    monkeypatch.setattr(sl, "slstm_scan_backward_plain", slstm_plain_backward)
     monkeypatch.setattr(cs, "SCHED_SHAPE", (16, 2))
     monkeypatch.setattr(cs, "SCHED_RUNS", tuple((s, t, 1) for s, t, _ in cs.SCHED_RUNS))
     detail = {}
@@ -198,7 +211,14 @@ def test_chip_smoke_sched_train_phase_rehearses_on_the_cpu(monkeypatch, tmp_path
     steps = train_cli.schedule_rounds(["recurrentgemma-2b", "qwen2-1.5b"], "oef-noncoop",
                                       rounds=1, seq_len=16, batch=2)["rounds"][0]["steps"]
     n = steps["recurrentgemma-2b"]
+    coop_steps = train_cli.schedule_rounds(["qwen2-1.5b", "gemma3-4b", "xlstm-350m"],
+                                           "oef-coop", rounds=1, seq_len=16,
+                                           batch=2)["rounds"][0]["steps"]
+    nx = coop_steps["xlstm-350m"]
     assert got == {"rglru_scan": 2 * n, "rglru_scan_tma": 2 * n,
-                   "rglru_scan_backward": 2 * n, "rglru_scan_backward_tma": 2 * n}
+                   "rglru_scan_backward": 2 * n, "rglru_scan_backward_tma": 2 * n,
+                   "slstm_scan": 2 * nx, "slstm_scan_backward": 2 * nx}
     coop = detail["sched_train"]["oef-coop qwen2-1.5b,gemma3-4b,xlstm-350m"]
-    assert not any(coop["launches"].values()) and coop["steps"] > 0
+    assert {k: v for k, v in coop["launches"].items() if v} == {
+        "slstm_scan": 2 * nx, "slstm_scan_backward": 2 * nx}
+    assert coop["steps"] > 0 and nx > 0

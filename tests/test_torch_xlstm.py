@@ -546,48 +546,61 @@ def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
 
 def test_chip_smoke_xlstm_phases_rehearse_on_the_cpu(monkeypatch):
     """``chip_smoke.py``'s phases 22-25 on the CPU at the smoke widths, the
-    shapes cut and the card's memory counters and profiler stubbed, a step
-    counted as long so that phase 24 takes its two-step branch. Their
-    checks must pass: no kernel wrapper launched, finite logits, a second
-    run identical, card (here the CPU) against the CPU, the one-unit
-    profile and each layer timed."""
+    shapes cut and the card's memory counters and profiler stubbed, the
+    sLSTM's plain versions counted as its kernels' launches. Their checks
+    must pass: one sLSTM launch a layer a prefill and a decode step (the
+    smoke config's 2 sLSTM layers), a train step's 2 forward and 2 backward
+    (4 and 2 under ``remat="full"``), no other wrapper, finite logits, a
+    second run identical, card (here the CPU) against the CPU."""
     root = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
     monkeypatch.syspath_prepend(root)
     import chip_smoke as cs
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import slstm as sl
 
+    fwd, bwd = sl.slstm_scan_plain, sl.slstm_scan_backward_plain
+
+    def counted(*args):
+        sl.slstm_scan.launches += 1
+        return fwd(*args)
+
+    def counted_backward(*args):
+        sl.slstm_scan_backward.launches += 1
+        return bwd(*args)
+
+    monkeypatch.setattr(sl, "slstm_scan_plain", counted)
+    monkeypatch.setattr(sl, "slstm_scan_backward_plain", counted_backward)
     for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
     monkeypatch.setattr(cs, "device_kernels", lambda torch, fn: (fn(), [])[1])
     monkeypatch.setattr(cs, "SERVE_SHAPE", (2, 80, 4))
     monkeypatch.setitem(cs.TRAIN_CELLS, ARCH, (2, 40))
-    monkeypatch.setattr(cs, "LONG_STEP_S", 0.0)
     arch, n_layers, _ = cs.XLSTM
-    assert (arch, n_layers, cs.XLSTM_PROFILE_LAYERS) == (ARCH, 4, 2)
+    assert (arch, n_layers) == (ARCH, 4)
     detail = {}
     launches = cs.serve_phase(torch, rg, detail, {"kernel_ms": 1.0}, 22, ARCH, dev="cpu",
-                              cfg=get_smoke(ARCH), profile_layers=cs.XLSTM_PROFILE_LAYERS)
+                              cfg=get_smoke(ARCH))
     out = detail[f"serve_{ARCH}"]
-    assert launches == 0 and not any(out["kernel_launches"].values())
-    assert out["profiled_prefill"]["layers"] == 2
-    assert set(out["profiled_prefill"]["layer_s"]) == {"mlstm", "slstm"}
+    assert launches == 0 and out["profiled_prefill"]["layers"] == 4
+    assert {k: n for k, n in out["kernel_launches"].items() if n} == {"slstm_scan": 2}
+    assert {k: n for k, n in out["decode_kernel_launches"].items() if n} == {"slstm_scan": 8}
     cs.devices_phase(torch, rg, detail, 23, ARCH, 2, 90, dev="cpu",
                      cfg_of=lambda dt: get_smoke(ARCH, dtype=dt, n_layers=2))
     assert detail[f"card_vs_cpu_{ARCH}"]["float32"]["tokens_equal"]
     train_out = cs.train_phase(torch, rg, detail, 24, ARCH, dev="cpu",
-                               cfg=get_smoke(ARCH, logits_chunk=16),
-                               profile_layers=cs.XLSTM_PROFILE_LAYERS)
-    assert train_out["steps"] == 2 and len(train_out["losses"]) == 2
-    assert train_out["second_run_timed"] and len(set(train_out["losses"])) == 1
-    assert train_out["launches_per_step"] == [(0, 0)] * 2
+                               cfg=get_smoke(ARCH, logits_chunk=16))
+    assert train_out["steps"] == 3 and len(train_out["losses"]) == 3
+    assert train_out["launches_per_step"] == [(0, 0)] * 3
+    assert train_out["slstm_launches_per_step"] == [(2, 2)] * 3
     assert train_out["second_run_first_loss"] == train_out["losses"][0]
     n = sum(p.numel() for p in init_params(get_smoke(ARCH), torch.Generator()).parameters())
     assert train_out["numel"] == n != get_smoke(ARCH).param_count()
     assert train_out["numel_flops_per_step"] == 6.0 * n * 2 * 40
-    assert set(train_out["profiled_step"]["layer_s"]) == {"mlstm", "slstm"}
+    assert train_out["profiled_step"]["layers"] == 4
     cs.train_devices_phase(torch, rg, detail, 25, ARCH, 2, 90, dev="cpu",
                            cfg=get_smoke(ARCH, dtype="float32", remat="full"))
     rec = detail[f"train_card_vs_cpu_{ARCH}"]
     assert rec["grad_err"] == 0.0 and rec["adamw_err"] == 0.0 and rec["launches"] == [0, 0]
+    assert rec["slstm_launches"] == [4, 2]
     assert rec["leaves"] == 16 and not rec["bias_leaves"]
