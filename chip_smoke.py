@@ -400,14 +400,16 @@ raises and the script exits non-zero:
     scalar-memory mixer in one cooperative launch, and its backward)
     against their plain versions on the card (``SLSTM_CASES``: xlstm-350m's
     prefill and training shape 8 x 2048 at d 1024, H 4; phase 26's smoke
-    width; a decode step from a non-zero state; a ragged shape), the
+    width; a decode step from a non-zero state; a ragged shape; a width
+    with more groups of 8 features than the card has SMs), the
     forward within ``SLSTM_FWD_TOL`` and the backward within
     ``SLSTM_BWD_TOL`` of max |plain| (or twice the plain version's own
     card-vs-CPU spread), a second launch identical, grad through the op
     (``dr`` included) against autograd of the plain loop, a planted
     per-head gate layout failing the forward's gate, and both kernels'
-    times against the bound, the plain loop and the plain loop in a CUDA
-    graph.
+    times (and per step of the scan, at xlstm-350m's shape and the smoke
+    width: ``SLSTM_TIMED``) against the bound, the plain loop and the plain
+    loop in a CUDA graph.
 
 The order is not the numbers': the build, then the kernel phases 2, 3, 6,
 10 and 13-15, each alone on the card (their times go into the kernels'
@@ -2868,16 +2870,23 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
 #: phase 51's cases, (label, B, S, d_model, heads, a non-zero initial
 #: state): xlstm-350m's prefill shape, which is phase 24's training shape
 #: too (``TRAIN_CELLS``); the smoke width of phase 26's tenant
-#: (``SCHED_SHAPE``); one decode step from a non-zero state; and a ragged
-#: one (11 rows: two passes of 8; d 100: groups of 8 features across a
-#: head's edge)
+#: (``SCHED_SHAPE``); one decode step from a non-zero state; a ragged one
+#: (11 rows: two passes of 8; d 100: groups of 8 features across a head's
+#: edge); and the widest the kernels take (d 2048 at hd 256: 256 groups of 8
+#: features, more than an H100's 132 SMs, so the kernels' instances for two
+#: blocks an SM run)
 SLSTM_CASES = (("prefill", 8, 2048, 1024, 4, False), ("smoke", 8, 128, 64, 2, False),
-               ("decode", 8, 1, 1024, 4, True), ("ragged", 11, 37, 100, 4, True))
+               ("decode", 8, 1, 1024, 4, True), ("ragged", 11, 37, 100, 4, True),
+               ("wide", 8, 16, 2048, 8, True))
 #: kernel against plain version on the card, max |diff| / max |plain|: the
 #: forward's every h and final state, the backward's dxwb, dr and the
 #: initial state's gradient; each loosened to twice the plain version's own
 #: spread between the card and the CPU where that is larger
 SLSTM_FWD_TOL, SLSTM_BWD_TOL = 1e-5, 1e-4
+#: the cases whose kernels phase 51 times: xlstm-350m's shape (the kernels'
+#: line takes its numbers) and the smoke width, where a step is mostly the
+#: exchange between the SMs
+SLSTM_TIMED = ("prefill", "smoke")
 
 
 def slstm_operands(torch, g, B, S, d, H, nonzero):
@@ -2948,9 +2957,11 @@ def slstm_phase(torch, sl, detail, dev="cuda", cases=SLSTM_CASES) -> dict:
     autograd Function: both kernels and ``dr``'s product) against
     autograd of the plain loop on the card within ``SLSTM_BWD_TOL``; the
     planted per-head gate layout (``planted_per_head_scan``) must fail the
-    forward's gate; and at the first case the times: both kernels by
-    CUDA-graph replay, the wrapper's call, the plain loops as called and
-    captured in a CUDA graph, the bound. PyTorch has no sLSTM op."""
+    forward's gate; and at the cases of ``SLSTM_TIMED`` the times: both
+    kernels by CUDA-graph replay (and per step of the scan), the wrapper's
+    call, the plain loops as called and captured in a CUDA graph, the bound.
+    The first timed case's times are the phase's own. PyTorch has no sLSTM
+    op."""
     from repro_torch.kernels.slstm import slstm_cell
 
     g = torch.Generator().manual_seed(51)
@@ -3041,40 +3052,43 @@ def slstm_phase(torch, sl, detail, dev="cuda", cases=SLSTM_CASES) -> dict:
             f"autograd of the loop {max(gerrs.values()):.3e} (dr {gerrs['dr']:.3e}); "
             f"second launches identical")
         del card, cpu, want, args, cpu_args, bwant, bgot, bagain, grads
-    # the times, at the first case
-    label, B, S, d, H, nonzero = cases[0]
-    card = [t.to(dev) for t in slstm_operands(torch, g, B, S, d, H, nonzero)]
-    hs, cs, ns, ms, pre = sl.slstm_scan_plain(*card, True)
-    dhs = torch.randn((B, S, d), generator=g).to(dev)
-    zeros = [torch.zeros_like(card[2]) for _ in range(3)]
-    args = (card[1], pre, cs, ns, ms, *card[3:], dhs, *zeros)
-    reps = 3 if S > 256 else 20
-    t = {"shape": [B, S, d, H]}
-    for name, kernel, call, plain, backward, save in (
-            ("forward", lambda: sl._launch(*card, False), lambda: sl.slstm_scan(*card),
-             lambda: sl.slstm_scan_plain(*card, False), False, False),
-            ("forward_saving", lambda: sl._launch(*card, True), None, None, False, True),
-            ("backward", lambda: sl._launch_backward(*args),
-             lambda: sl.slstm_scan_backward(*args),
-             lambda: sl.slstm_scan_backward_plain(*args), True, False)):
-        bound_ms, bound_by = slstm_bound(B, S, d, H, backward, save)
-        ms_k = graph_ms(torch, kernel, reps=reps, rounds=3)
-        t[name] = {"kernel_ms": ms_k, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "share_of_bound": bound_ms / ms_k,
-                   "call_ms": call_ms(torch, call, reps=reps) if call else None,
-                   # captured first: its warm-up calls warm the call timed next
-                   "plain_graph_ms": graph_ms(torch, plain, reps=1, rounds=2) if plain else None,
-                   "plain_ms": once_ms(torch, plain) if plain else None}
-    log(f"    ({B}, {S}, d {d}, H {H}): " + "; ".join(
-        f"{k} kernel {v['kernel_ms']:.3f} ms ({v['share_of_bound']:.1%} of the bound "
-        f"{v['bound_ms']:.3f} ms, {v['bound_by']}"
-        + (f"; wrapper call {v['call_ms']:.3f} ms" if v["call_ms"] else "") + ")"
-        + (f", plain loop {v['plain_ms']:.1f} ms, in a CUDA graph {v['plain_graph_ms']:.1f} ms"
-           if v["plain_ms"] else "")
-        for k, v in t.items() if k != "shape") + "; PyTorch has no sLSTM op")
-    del card, args, hs, cs, ns, ms, pre
+    # the times, at the timed cases
+    out["times"] = {}
+    for label, B, S, d, H, nonzero in (c for c in cases if c[0] in SLSTM_TIMED):
+        card = [t.to(dev) for t in slstm_operands(torch, g, B, S, d, H, nonzero)]
+        hs, cs, ns, ms, pre = sl.slstm_scan_plain(*card, True)
+        dhs = torch.randn((B, S, d), generator=g).to(dev)
+        zeros = [torch.zeros_like(card[2]) for _ in range(3)]
+        args = (card[1], pre, cs, ns, ms, *card[3:], dhs, *zeros)
+        reps = 3 if S > 256 else 20
+        t = {"shape": [B, S, d, H]}
+        for name, kernel, call, plain, backward, save in (
+                ("forward", lambda: sl._launch(*card, False), lambda: sl.slstm_scan(*card),
+                 lambda: sl.slstm_scan_plain(*card, False), False, False),
+                ("forward_saving", lambda: sl._launch(*card, True), None, None, False, True),
+                ("backward", lambda: sl._launch_backward(*args),
+                 lambda: sl.slstm_scan_backward(*args),
+                 lambda: sl.slstm_scan_backward_plain(*args), True, False)):
+            bound_ms, bound_by = slstm_bound(B, S, d, H, backward, save)
+            ms_k = graph_ms(torch, kernel, reps=reps, rounds=3)
+            t[name] = {"kernel_ms": ms_k, "us_per_step": 1e3 * ms_k / S, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "share_of_bound": bound_ms / ms_k,
+                       "call_ms": call_ms(torch, call, reps=reps) if call else None,
+                       # captured first: its warm-up calls warm the call timed next
+                       "plain_graph_ms": (graph_ms(torch, plain, reps=1, rounds=2)
+                                          if plain else None),
+                       "plain_ms": once_ms(torch, plain) if plain else None}
+        log(f"    {label} ({B}, {S}, d {d}, H {H}): " + "; ".join(
+            f"{k} kernel {v['kernel_ms']:.3f} ms, {v['us_per_step']:.3f} us a step "
+            f"({v['share_of_bound']:.1%} of the bound {v['bound_ms']:.3f} ms, {v['bound_by']}"
+            + (f"; wrapper call {v['call_ms']:.3f} ms" if v["call_ms"] else "") + ")"
+            + (f", plain loop {v['plain_ms']:.1f} ms, in a CUDA graph "
+               f"{v['plain_graph_ms']:.1f} ms" if v["plain_ms"] else "")
+            for k, v in t.items() if k != "shape") + "; PyTorch has no sLSTM op")
+        out["times"][label] = t
+        del card, args, hs, cs, ns, ms, pre
     cases_out = out["cases"].values()
-    out.update(t)
+    out.update(next(iter(out["times"].values())))
     out.update({
         "max_abs_err": max(c["forward"]["max_abs_err"] for c in cases_out),
         "backward_max_abs_err": max(c["backward"]["max_abs_err"] for c in cases_out),
@@ -6605,6 +6619,7 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": None,
             "shape": sl_t["shape"],
+            "us_per_step": {label: tt[way]["us_per_step"] for label, tt in sl_t["times"].items()},
         })
     # whisper-tiny's phases launch no kernel, the MoE phases only the blocked
     # prefill's flash, MoE training none: each entry records its wrapper's

@@ -25,8 +25,16 @@ Every Pallas kernel of the JAX package has its counterpart here:
 One more has no Pallas counterpart:
 
   - slstm — the sLSTM recurrence of xlstm-350m, forward and backward, each
-    one cooperative launch with a grid barrier between steps
-    (``csrc/slstm.cu``); replaces the JAX model's ``jax.lax.scan`` over time
+    one cooperative launch (``csrc/slstm.cu``): a block for each 8
+    features (one an SM at xlstm-350m's width) holds its share of ``r`` in
+    registers, and a step is one exchange between the SMs (a per-block
+    flag over a slice of the step's output) with the step-independent
+    operands on their way ahead of it.
+    On an NVIDIA H100 80GB HBM3 at 700.00 W a step at xlstm-350m's width
+    takes ~3.0 us forward, ~3.4 us backward, against 1.76 us for the
+    exchange alone (the chain's floor) and 0.25 us of products at the FP32
+    rate.
+    It replaces the JAX model's ``jax.lax.scan`` over time
     (``models/layers.py`` ``slstm_apply``, ``slstm_decode``), which XLA
     runs as one loop on the device. ``models.layers.SLSTM`` calls it in
     prefill, decode and training. Its CPU tests are

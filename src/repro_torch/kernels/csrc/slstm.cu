@@ -4,9 +4,8 @@
 // Replaces no Pallas kernel. The JAX model runs the recurrence as a
 // jax.lax.scan over time (src/repro/models/layers.py:699 `slstm_apply`, :725
 // `slstm_decode`, the cell `_slstm_cell` :666), which XLA compiles into one
-// loop on the device; the port's eager loop over positions launched ~21 small
-// ops a position a layer from the host instead. Here the whole scan is one
-// launch, and so is its backward (the JAX model differentiates the scan).
+// loop on the device. Here the whole scan is one launch, and so is its
+// backward (the JAX model differentiates the scan).
 //
 // The function, in float32. xwb (B, S, 4d) is x @ w_x plus the bias; r (H,
 // hd, 4 hd) the block-diagonal recurrence (d = H hd); the state h, c, n, m
@@ -21,7 +20,8 @@
 // The gate layout is the trap: the per-head products are laid end to end and
 // only then split into the four gates across the whole 4d row, so column
 // col = gate * d + j reads head col / (4 hd). At xlstm-350m's width (d 1024, H
-// 4) every feature's i gate reads head 0 and its o gate head 3.
+// 4) every feature's i gate reads head 0 and its o gate head 3, so every step
+// needs the whole h_{t-1} of every head.
 //
 // Operands (contiguous, float32, one device). Forward: xwb, r, h0, c0, n0, m0
 // in; hs (B, S, d) out, and with `save` the state after every step cs, ns, ms
@@ -32,24 +32,42 @@
 // dc0, dn0, dm0 out. dr = sum over (b, t) of h_{t-1}^T dpre_t per head is one
 // torch.bmm after the kernel (kernels/slstm.py).
 //
-// Design. Every step needs the whole h_{t-1} (a feature's four gates read
-// up to four heads), so the grid meets at a barrier after each step: one
-// cooperative launch (co-residency guaranteed), at most one block an SM, each
-// block owning groups of 8 features, i.e. the 32 gate columns j, d+j, 2d+j,
-// 3d+j of its features, one a lane. It keeps those columns of r in shared
-// memory for the whole scan (hd x 32 floats a group: 32 KB at hd 256; r is 4
-// MB in all, more than a thread-block cluster's shared memory holds, hence
-// the whole grid). A step, for 8 batch rows at a time: h_{t-1} of the rows
-// into shared memory (read from hs through L2, __ldcg: another block wrote
-// it), each warp a slice of the hd products of every column and row, the
-// slices summed in warp order, the gates and the state update by one thread a
-// (row, feature), the state kept in the output buffers that only its thread
-// touches, h_t to hs; then the grid barrier. The backward walks t from S - 1
-// to 0 the same way, carrying dc, dn, dm in dc0, dn0, dm0 (one thread each)
-// and forming h_{t-1}'s recurrent gradient dh[:, k*hd + k'] = dpre_t[:, head
-// k's 4hd columns] . r[k, k', :] from the dpre_t that every block wrote in the
-// step before (a rows of r per feature in shared memory, dpre_t's head slice
-// staged through shared memory), each a warp's strided sum then a butterfly.
+// Design. One cooperative launch (co-residency guaranteed, else refused), one
+// block of 256 threads for each 8 features (128 blocks, one an SM, at
+// xlstm-350m's width), each owning the 32 gate columns j, d+j, 2d+j, 3d+j of
+// the forward, the 8 rows of r[k] the backward needs for dh. Its share of r
+// (32 KB at hd 256) stays in registers for the whole scan, 32 a thread. Rows
+// go 8 at a time, each pass of 8 rows a scan of its own. A step is then one
+// exchange between the SMs and little else on the chain:
+//
+//   - the exchange: the 64 gate threads store the block's piece of the step
+//     (h_t forward; dpre_t backward, a piece a gate) into an exchange buffer
+//     of three slots used in turn, meet at a named barrier, and one of them
+//     raises the block's flag with st.release.gpu. Reader thread p polls
+//     block p's flag (the flags a 128-byte line apart) with relaxed loads and
+//     re-reads it once with an acquire load; the block then loads every
+//     piece it needs into shared memory, all its 16-byte loads issued at
+//     once. A flag holds the launch epoch plus the step, 64 bits that never
+//     wrap: the epoch lives in the sync state (slstm_sync_words() words that
+//     the wrapper zeroes once and keeps for the eager launches of a stream,
+//     and zeroes in front of each launch captured into a CUDA graph), and
+//     block 0 advances it at the end, so no flag of an earlier launch passes
+//     for a current one. A wait is clock-bounded and traps instead of
+//     hanging. The step's outputs are stored after the flag: nothing on the
+//     chain waits for them;
+//   - the products: warp w takes 4 columns of one gate (forward) or 4
+//     features and a quarter of their head's 4 hd columns (backward); lane l
+//     the k (or e) = l + 32 i. Each lane sums its part for 8 rows x 4
+//     columns, with no branch, then a butterfly reduce-scatter over the
+//     warp's shuffles leaves lane l the sum of (row l / 4, column l % 4). One
+//     __syncthreads hands the sums to the 64 gate threads (a row and feature
+//     each);
+//   - off the chain: what a step reads that does not depend on the step
+//     before (xwb_t forward; pre_t, the state at t-1 and dhs_t backward)
+//     arrives by cp.async into a ring of 8 steps in shared memory, issued 6
+//     steps ahead while the block waits at the exchange; the carried state
+//     (c, n, m forward; dc, dn, dm and c_t, n_t backward) stays in the gate
+//     thread's registers, read once and written where an output needs it.
 //
 // Arithmetic order. Every sum runs in a fixed order (no atomics), so a second
 // run is identical bit for bit. The forward's state update rounds each
@@ -60,8 +78,28 @@
 // Bound on the card. At the prefill shape (8, 2048, d 1024, H 4) the products
 // are 8 B S d hd = 34.4 GFLOP each way, 0.51 ms at the FP32 rate (67 TFLOP/s);
 // the forward moves 340 MB (xwb in, hs out), 0.10 ms at 3.35 TB/s: bound by
-// operations. The S steps are a chain: each adds a grid barrier (~1-2 us) and
-// a round trip through L2, which this simple design does not hide.
+// operations. The S steps are a chain of exchanges between the SMs, which
+// that bound does not see. On an NVIDIA H100 80GB HBM3 at 700.00 W (a probe
+// that timed variants of the kernels, PERF.md): the exchange alone, 32 KB a
+// block at 128 blocks, takes 1.76 us a step, 3.61 ms over 2,048 steps, this
+// design's floor (the first design's grid barrier alone: 1.41 us a step, 2.88 ms).
+// A step takes ~3.0 us forward and ~3.4 us backward (6.2 and 6.9 ms, 12x
+// and 13x the bound): the exchange ~1.9 us of it (the flag's release 0.46,
+// the wait 0.52, the fetch 0.89), the products 0.71 us, the gate update
+// 0.28-0.39 us. Timed beside it: flags packed together (2.41 us an
+// exchange), relaxed polls and a fence (3.06), one counter (1.64),
+// self-tagged 64-bit words and no flag (4.53: twice the bytes), a
+// cluster's shared-memory broadcast (3.17-3.67); at 64 or 32 blocks the
+// exchange alone takes 1.60 or 1.57 us, while each block's products would
+// grow 2x or 4x (reasoned: the whole kernels were not timed at those grids).
+//
+// Domain. A head of at most 256 (r's share in registers), at most 256 groups
+// of 8 features (d <= 2048: the flags, one reader thread each), and every
+// block resident at once. Where the groups outnumber the SMs (d > 1056 on a
+// 132-SM H100, or xlstm-350m's 128 on a card of fewer SMs) each kernel runs
+// as a second instance compiled for two blocks an SM (launch bounds: at most
+// 128 registers a thread), the same code. Anything else is refused
+// (kUnsupported, kNotResident), never run in part.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,14 +107,27 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;  // batch rows a pass
-constexpr int kFeat = 8;  // features a group: 4 gates x 8 = 32 columns, one a lane
-static_assert(kWarps == kFeat, "the backward's dot products are one warp a feature");
+constexpr int kRows = 8;   // batch rows a pass
+constexpr int kFeat = 8;   // features a block: 4 gates x 8 = 32 columns
+constexpr int kGate = kRows * kFeat;  // gate threads: one a (row, feature)
+constexpr int kRing = 8;   // steps of step-independent operands in shared memory
+constexpr int kLd = 8;     // 16-byte loads a thread issues at once
+constexpr int kPad = 256;  // zeros after a staged tile: the products' reads past a head
+constexpr int kSlots = 3;  // exchange slots, reused every third step
+constexpr int kMaxBlocks = kThreads;  // flags in the sync state, one reader thread each
+constexpr int kFlagStride = 16;  // 64-bit words from one flag to the next: a 128-byte line each
 
-// Error code returned (beside CUDA's own) when the card cannot hold one block
-// an SM of the launch, or the grid is not co-resident.
+typedef unsigned long long u64;
+
+// Error codes returned (beside CUDA's own): the card cannot hold every block
+// of the launch at once; the shape needs more than kMaxBlocks blocks or a
+// head wider than 256.
 constexpr int kNotResident = 10001;
+constexpr int kUnsupported = 10002;
+
+// Clock cycles a block waits for a flag before it stops the kernel (~10 s at
+// 1.7 GHz): a grid that is not all resident fails instead of hanging.
+constexpr long long kBarrierPatience = 1LL << 34;
 
 struct FwdArgs {
   const float* xwb;
@@ -90,7 +141,8 @@ struct FwdArgs {
   float* ns;
   float* ms;
   float* pre;
-  unsigned* barrier;
+  float* xbuf;     // [kSlots][blocks][kRows][kFeat]: h_t by block
+  u64* sync;       // [0] the launch epoch, [kFlagStride (1 + p)] block p's flag
   int B, S, d, H, save;
 };
 
@@ -112,35 +164,168 @@ struct BwdArgs {
   float* dc0;
   float* dn0;
   float* dm0;
-  unsigned* barrier;
+  float* xbuf;  // [kSlots][4 gates][blocks][kRows][kFeat]: dpre_t by gate and block
+  u64* sync;
   int B, S, d, H, span;
 };
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+__device__ __forceinline__ u64 ld_acquire(const u64* p) {
+  u64 v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
   return v;
 }
+__device__ __forceinline__ u64 ld_relaxed(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(u64* p, u64 v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ void st_relaxed(u64* p, u64 v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+// The gate threads (warps 0 and 1) meet, without the other warps.
+__device__ __forceinline__ void gate_threads_meet() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kGate) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Waits until at most kRing - 2 of this thread's copy groups are in flight.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kRing - 2) : "memory");
+}
 
-// Clock cycles a block waits at a barrier before it stops the kernel (~10 s
-// at 1.7 GHz): a grid that is not all resident fails instead of hanging.
-constexpr long long kBarrierPatience = 1LL << 34;
+// Copies `pieces` pieces of the exchange buffer (a piece: the 8 rows x 8
+// columns one block wrote, 64 floats, row by row) from `src` into the staged
+// tile `dst`: piece k's row b goes to dst[b * stride + 8 k ...]. Every load
+// of a round is issued before the first store.
+__device__ __forceinline__ void fetch_pieces(float* dst, int stride, const float* src,
+                                             int pieces, int tid) {
+  const int n4 = pieces * 16;  // float4 a piece: row (i / 2) % 8, half i % 2
+  for (int r0 = 0; r0 < n4; r0 += kLd * kThreads) {
+    float4 v[kLd];
+#pragma unroll
+    for (int k = 0; k < kLd; ++k) {
+      const int i = r0 + k * kThreads + tid;
+      if (i < n4) v[k] = __ldcg(reinterpret_cast<const float4*>(src) + i);
+    }
+#pragma unroll
+    for (int k = 0; k < kLd; ++k) {
+      const int i = r0 + k * kThreads + tid;
+      float* row_part = dst + ((i >> 1) & 7) * stride + (i >> 4) * kFeat + (i & 1) * 4;
+      if (i < n4) *reinterpret_cast<float4*>(row_part) = v[k];
+    }
+  }
+}
 
-// Every block of the co-resident grid arrives, then waits for all: the
-// counter (zeroed by the wrapper) grows by gridDim.x a barrier, and `target`
-// is the count the current barrier waits for.
-__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned& target) {
-  target += gridDim.x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1u);
+// Publishes this block's slice: every gate thread has stored its part of
+// the exchange buffer; one release store of the flag after they meet.
+__device__ __forceinline__ void publish(u64* flag, u64 value, int tid) {
+  gate_threads_meet();
+  if (tid == 0) st_release(flag, value);
+}
+
+// Waits until every block's flag has reached `want`, then the block meets:
+// thread p polls block p's flag with relaxed loads and reads it once more
+// with an acquire load when it has (lighter than an acquire a poll).
+__device__ __forceinline__ void wait_flags(const u64* flags, u64 want, int tid) {
+  if (tid < (int)gridDim.x) {
+    const u64* flag = flags + tid * kFlagStride;
     const long long start = clock64();
-    while (ld_acquire(count) < target) {
+    while (ld_relaxed(flag) < want) {
       if (clock64() - start > kBarrierPatience) __trap();
     }
-    __threadfence();
+    (void)ld_acquire(flag);
   }
+  __syncthreads();
+}
+
+// One level of reduce_scatter: lanes with bit W keep the upper W values,
+// the others the lower, each adding its partner's copy of what it keeps.
+template <int W>
+__device__ __forceinline__ void butterfly(float (&v)[32], int lane) {
+  const bool up = lane & W;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float keep = up ? v[i + W] : v[i];
+    const float send = up ? v[i] : v[i + W];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
+  }
+}
+
+// Sums v over the warp's 32 lanes, a butterfly reduce-scatter in a fixed
+// order: lane l returns the total of v[l].
+__device__ __forceinline__ float reduce_scatter(float (&v)[32], int lane) {
+  butterfly<16>(v, lane);
+  butterfly<8>(v, lane);
+  butterfly<4>(v, lane);
+  butterfly<2>(v, lane);
+  butterfly<1>(v, lane);
+  return v[0];
+}
+
+// The warp's products for 8 rows x 4 columns: acc[row * 4 + c] = sum over i
+// of x[row * stride + off[c] + 32 i] * rr[c][i] (x is the lane's first
+// element). No branch: entries of r past the head are 0, and what they meet
+// past the head is finite (the next head, or the zeroed pad). kSame: the four
+// offsets are equal, so one load serves the four columns. Each sum adds its
+// terms in the order of i; the loads of one i may not move above the i
+// before (the empty asm), which keeps 8 rows' operands in registers at a
+// time beside r's and the sums.
+template <int kKs, bool kSame>
+__device__ __forceinline__ void products(const float* x, int stride, const int (&off)[4],
+                                         const float (&rr)[4][kKs], float (&acc)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKs; ++i) {
+#pragma unroll
+    for (int row = 0; row < kRows; ++row) {
+      const float* xr = x + row * stride + 32 * i;
+      if (kSame) {
+        const float xv = xr[off[0]];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[row * 4 + c] = fmaf(xv, rr[c][i], acc[row * 4 + c]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[row * 4 + c] = fmaf(xr[off[c]], rr[c][i], acc[row * 4 + c]);
+      }
+    }
+    asm volatile("" ::: "memory");
+  }
+}
+
+// The summed products of the warp's (row, column) for lane l = row * 4 +
+// column.
+template <int kKs>
+__device__ __forceinline__ float warp_products(const float* x_s, int stride, const int (&off)[4],
+                                               bool same, const float (&rr)[4][kKs], int lane) {
+  float acc[32];
+  if (same)
+    products<kKs, true>(x_s + lane, stride, off, rr, acc);
+  else
+    products<kKs, false>(x_s + lane, stride, off, rr, acc);
+  return reduce_scatter(acc, lane);
+}
+
+// The row stride of a staged tile of n columns: n rounded up to 8 more than
+// a multiple of 32 floats, so that the 16-byte stores of 8 lanes to 4 rows x
+// 2 halves of 8 columns fall on 8 different 16-byte bank groups (a stride of
+// a multiple of 32 puts all 8 rows on the same banks).
+__host__ __device__ __forceinline__ int tile_stride(int n) { return n + (40 - n % 32) % 32; }
+
+// Zeroes n floats of shared memory (then the block meets).
+__device__ __forceinline__ void zero_shared(float* p, int n, int tid) {
+  for (int i = tid; i < n; i += kThreads) p[i] = 0.f;
   __syncthreads();
 }
 
@@ -150,298 +335,414 @@ __device__ __forceinline__ float log_sigmoid(float x) {
 }
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
-__global__ void __launch_bounds__(kThreads) slstm_forward_kernel(FwdArgs a) {
-  extern __shared__ float smem[];
-  const int B = a.B, S = a.S, d = a.d, H = a.H, hd = d / H, G = 4 * hd;
-  const int ngroups = (d + kFeat - 1) / kFeat;
-  const int ng = (ngroups + gridDim.x - 1) / gridDim.x;  // groups a block holds
-  const int hp = hd + 1;  // a head's row in h_s, padded off the banks of the next
-  const int hrow = H * hp;
-  float* r_s = smem;                          // [ng][hd][32]
-  float* h_s = r_s + (size_t)ng * hd * 32;    // [kRows][H * hp]
-  float* red_s = h_s + kRows * hrow;          // [kWarps][kRows][32]
-  float* pre_s = red_s + kWarps * kRows * 32;  // [kRows][32]
+// kMin: the blocks an SM the instance is compiled for (launch bounds).
+template <int kKs, int kMin>
+__global__ void __launch_bounds__(kThreads, kMin) slstm_forward_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int B = a.B, S = a.S, d = a.d, hd = d / a.H, G = 4 * hd;
+  const int P = gridDim.x, p = blockIdx.x, jlo = p * kFeat, dp = tile_stride(P * kFeat);
+  float* h_s = smem;                          // [kRows][dp] + kPad: h_{t-1}
+  float* pre_s = h_s + kRows * dp + kPad;     // [kRows][32]: the recurrent sums
+  float* ring = pre_s + kRows * 32;           // [kRing][kRows][32]: xwb
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  zero_shared(h_s, kRows * dp + kPad, tid);
 
-  // the group's 32 columns of r: lane l is gate l / 8 of feature l % 8
-  for (int gi = 0; gi < ng; ++gi) {
-    const int g = blockIdx.x + gi * gridDim.x;
-    for (int idx = tid; idx < hd * 32; idx += kThreads) {
-      const int kp = idx / 32, l = idx % 32, j = g * kFeat + l % kFeat;
-      float v = 0.f;
-      if (g < ngroups && j < d) {
-        const int col = (l / kFeat) * d + j;
-        v = a.r[((size_t)(col / G) * hd + kp) * G + col % G];
-      }
-      r_s[((size_t)gi * hd + kp) * 32 + l] = v;
+  // warp w: gate q = w / 2, features 4 (w % 2) + c; its columns of r
+  const int q = warp >> 1, fq = warp & 1;
+  float rr[4][kKs];
+  int off[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int j = jlo + 4 * fq + c, col = q * d + j, head = col / G, e = col - head * G;
+    off[c] = j < d ? head * hd : -1;
+#pragma unroll
+    for (int i = 0; i < kKs; ++i) {
+      const int k = lane + 32 * i;
+      rr[c][i] = (j < d && k < hd) ? a.r[((size_t)head * hd + k) * G + e] : 0.f;
     }
   }
-  // this warp's slice of the hd products
-  const int ks = (hd + kWarps - 1) / kWarps;
-  const int kp0 = min(hd, warp * ks), kp1 = min(hd, kp0 + ks);
-  unsigned target = 0;
+#pragma unroll
+  for (int c = 1; c < 4; ++c) off[c] = off[c] < 0 ? off[0] : off[c];  // r is 0 there
+  if (off[0] < 0) off[0] = off[1] = off[2] = off[3] = 0;
+  const bool same = off[1] == off[0] && off[2] == off[0] && off[3] == off[0];
 
-  for (int t = 0; t < S; ++t) {
-    for (int b0 = 0; b0 < B; b0 += kRows) {
-      __syncthreads();  // h_s and pre_s free again
-      for (int idx = tid; idx < kRows * d; idx += kThreads) {
-        const int bb = idx / d, jj = idx - bb * d, b = b0 + bb;
-        float v = 0.f;
-        if (b < B)
-          v = t == 0 ? a.h0[(size_t)b * d + jj]
-                     : __ldcg(a.hs + ((size_t)b * S + t - 1) * d + jj);
-        h_s[bb * hrow + (jj / hd) * hp + jj % hd] = v;
+  const u64 base = ld_relaxed(a.sync);
+  u64* flags = a.sync + kFlagStride;
+  const int npass = (B + kRows - 1) / kRows, nseq = npass * S;
+  const size_t slot_floats = (size_t)P * kGate;
+
+  // the ring: thread tid copies xwb of (row tid / 32, gate tid / 8 % 4,
+  // feature tid % 8), step by step from the first
+  const int f_row = tid >> 5, f_col = ((tid >> 3) & 3) * d + jlo + (tid & 7);
+  const bool f_in = jlo + (tid & 7) < d;
+  int f_pp = 0, f_t = 0, f_slot = 0;
+  auto fill = [&]() {
+    if (f_pp < npass) {
+      const int b = f_pp * kRows + f_row;
+      if (b < B && f_in)
+        cp_async4(ring + f_slot * (kRows * 32) + tid,
+                  a.xwb + ((size_t)b * S + f_t) * 4 * d + f_col);
+      if (++f_t == S) f_t = 0, ++f_pp;
+    }
+    cp_async_commit();
+    f_slot = f_slot + 1 == kRing ? 0 : f_slot + 1;
+  };
+  for (int i = 0; i < kRing - 2; ++i) fill();
+
+  // the gate thread's (row, feature) and its state
+  const int grow = tid >> 3, gf = tid & 7, gj = jlo + gf;
+  float c = 0.f, n = 0.f, m = 0.f;
+
+  int pp = 0, t = 0, slot = 0, xslot = 0;
+  for (int it = 0; it < nseq; ++it) {
+    const int b0 = pp * kRows, gb = b0 + grow;
+    const bool gate = tid < kGate && gb < B && gj < d;
+    // the operands of step it + kRing - 2 start on their way while the block
+    // waits (its slot was read in step it - 2)
+    fill();
+    // h_{t-1} of the pass's rows into h_s
+    if (t == 0) {
+      for (int i = tid; i < kRows * d; i += kThreads) {
+        const int row = i / d, x = i - row * d;
+        if (b0 + row < B) h_s[row * dp + x] = a.h0[(size_t)(b0 + row) * d + x];
       }
-      __syncthreads();
-      for (int gi = 0; gi < ng; ++gi) {
-        const int g = blockIdx.x + gi * gridDim.x;
-        if (g >= ngroups) break;  // the same for every thread of the block
-        {
-          const int j = g * kFeat + lane % kFeat;
-          const int hoff = j < d ? (((lane / kFeat) * d + j) / G) * hp : 0;
-          float acc[kRows];
+      if (gate) {
+        const size_t bj = (size_t)gb * d + gj;
+        c = a.c0[bj];
+        n = a.n0[bj];
+        m = a.m0[bj];
+      }
+    } else {
+      wait_flags(flags, base + it, tid);  // step it - 1 published
+      // block p' wrote its 8 features' rows at piece p'
+      fetch_pieces(h_s, dp, a.xbuf + (size_t)(xslot == 0 ? kSlots - 1 : xslot - 1) * slot_floats,
+                   P, tid);
+    }
+    __syncthreads();
+    pre_s[(lane >> 2) * 32 + q * kFeat + 4 * fq + (lane & 3)] =
+        warp_products<kKs>(h_s, dp, off, same, rr, lane);
+    cp_async_wait_ring();
+    __syncthreads();
+    if (tid < kGate) {
+      float h = 0.f, pv[4];  // h_t and the step's pre-activations
+      if (gate) {
+        const float* x = ring + slot * (kRows * 32) + grow * 32 + gf;
+        const float* pr = pre_s + grow * 32 + gf;
+        const float ip = x[0] + pr[0], fp = x[kFeat] + pr[kFeat];
+        const float zp = x[2 * kFeat] + pr[2 * kFeat], op = x[3 * kFeat] + pr[3 * kFeat];
+        const float lfm = __fadd_rn(log_sigmoid(fp), m);
+        const float mn = fmaxf(lfm, ip);
+        const float ig = expf(__fsub_rn(ip, mn));
+        const float fg = expf(__fsub_rn(lfm, mn));
+        const float zg = tanhf(zp);
+        const float og = sigmoid(op);
+        c = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, zg));
+        n = __fadd_rn(__fmul_rn(fg, n), ig);
+        m = mn;
+        h = __fdiv_rn(__fmul_rn(og, c), fmaxf(n, 1.f));
+        pv[0] = ip;
+        pv[1] = fp;
+        pv[2] = zp;
+        pv[3] = op;
+      }
+      // the next step reads h_t (0 where no row or feature is); the pass's
+      // last is read by nobody
+      if (t + 1 < S) {
+        a.xbuf[(size_t)xslot * slot_floats + (size_t)p * kGate + tid] = h;
+        publish(flags + p * kFlagStride, base + it + 1, tid);
+      }
+      // the outputs, which nobody on the chain waits for
+      if (gate) {
+        const size_t at = ((size_t)gb * S + t) * d + gj;
+        a.hs[at] = h;
+        if (a.save) {
+          a.cs[at] = c;
+          a.ns[at] = n;
+          a.ms[at] = m;
+          float* pa = a.pre + ((size_t)gb * S + t) * 4 * d + gj;
 #pragma unroll
-          for (int bb = 0; bb < kRows; ++bb) acc[bb] = 0.f;
-          const float* rc = r_s + (size_t)gi * hd * 32 + lane;
-          for (int kp = kp0; kp < kp1; ++kp) {
-            const float rv = rc[kp * 32];
-#pragma unroll
-            for (int bb = 0; bb < kRows; ++bb)
-              acc[bb] = fmaf(h_s[bb * hrow + hoff + kp], rv, acc[bb]);
-          }
-#pragma unroll
-          for (int bb = 0; bb < kRows; ++bb) red_s[(warp * kRows + bb) * 32 + lane] = acc[bb];
-        }
-        __syncthreads();
-        if (tid < kRows * 32) {  // the slices summed in warp order, plus xwb
-          const int bb = tid / 32, l = tid % 32, b = b0 + bb, j = g * kFeat + l % kFeat;
-          if (b < B && j < d) {
-            float s = red_s[bb * 32 + l];
-            for (int w = 1; w < kWarps; ++w) s += red_s[(w * kRows + bb) * 32 + l];
-            const size_t at = ((size_t)b * S + t) * 4 * d + (l / kFeat) * d + j;
-            const float p = a.xwb[at] + s;
-            pre_s[bb * 32 + l] = p;
-            if (a.save) a.pre[at] = p;
-          }
-        }
-        __syncthreads();
-        if (tid < kRows * kFeat) {  // the gates and the state of (row, feature)
-          const int bb = tid / kFeat, f = tid % kFeat, b = b0 + bb, j = g * kFeat + f;
-          if (b < B && j < d) {
-            const float* p = pre_s + bb * 32 + f;
-            const float ip = p[0], fp = p[kFeat], zp = p[2 * kFeat], op = p[3 * kFeat];
-            const size_t at = a.save ? ((size_t)b * S + t) * d + j : (size_t)b * d + j;
-            float c, n, m;
-            if (t == 0) {
-              c = a.c0[(size_t)b * d + j];
-              n = a.n0[(size_t)b * d + j];
-              m = a.m0[(size_t)b * d + j];
-            } else {
-              const size_t prev = a.save ? at - d : at;
-              c = a.cs[prev];
-              n = a.ns[prev];
-              m = a.ms[prev];
-            }
-            const float lfm = __fadd_rn(log_sigmoid(fp), m);
-            const float mn = fmaxf(lfm, ip);
-            const float ig = expf(__fsub_rn(ip, mn));
-            const float fg = expf(__fsub_rn(lfm, mn));
-            const float zg = tanhf(zp);
-            const float og = sigmoid(op);
-            const float cn = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, zg));
-            const float nn = __fadd_rn(__fmul_rn(fg, n), ig);
-            a.cs[at] = cn;
-            a.ns[at] = nn;
-            a.ms[at] = mn;
-            a.hs[((size_t)b * S + t) * d + j] = __fdiv_rn(__fmul_rn(og, cn), fmaxf(nn, 1.f));
-          }
+          for (int k = 0; k < 4; ++k) pa[k * d] = pv[k];
+        } else if (t == S - 1) {
+          const size_t bj = (size_t)gb * d + gj;
+          a.cs[bj] = c;
+          a.ns[bj] = n;
+          a.ms[bj] = m;
         }
       }
     }
-    if (t + 1 < S) grid_barrier(a.barrier, target);
+    if (++t == S) t = 0, ++pp;
+    slot = slot + 1 == kRing ? 0 : slot + 1;
+    xslot = xslot + 1 == kSlots ? 0 : xslot + 1;
   }
+  if (p == 0 && tid == 0) st_relaxed(a.sync, base + nseq + 1);
 }
 
-__global__ void __launch_bounds__(kThreads) slstm_backward_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  const int B = a.B, S = a.S, d = a.d, H = a.H, hd = d / H, G = 4 * hd;
-  const int ngroups = (d + kFeat - 1) / kFeat;
-  const int ng = (ngroups + gridDim.x - 1) / gridDim.x;
-  const int sw = a.span * G;                      // a staged row of dpre_{t+1}
-  float* rr_s = smem;                             // [ng][kFeat][G]: r[k, k', :]
-  float* dp_s = rr_s + (size_t)ng * kFeat * G;    // [kRows][sw]
-  float* ghr_s = dp_s + (size_t)kRows * sw;       // [kRows][kFeat]
+template <int kKs, int kMin>
+__global__ void __launch_bounds__(kThreads, kMin) slstm_backward_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int B = a.B, S = a.S, d = a.d, hd = d / a.H, G = 4 * hd;
+  const int P = gridDim.x, p = blockIdx.x, jlo = p * kFeat, klo = jlo / hd;
+  const int width = min(a.span * G, 4 * d - klo * G);  // the group's heads of dpre_{t+1}
+  const int sw = tile_stride(a.span * G);
+  float* dp_s = smem;                        // [kRows][sw] + kPad: the group's heads of dpre_{t+1}
+  float* part_s = dp_s + kRows * sw + kPad;  // [4][kRows][kFeat]: the quarters' sums
+  float* ring = part_s + 4 * kGate;          // [kRing][8][kRows][kFeat]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  zero_shared(dp_s, kRows * sw + kPad, tid);
 
-  for (int gi = 0; gi < ng; ++gi) {
-    const int g = blockIdx.x + gi * gridDim.x;
-    for (int idx = tid; idx < kFeat * G; idx += kThreads) {
-      const int f = idx / G, e = idx % G, j = g * kFeat + f;
-      rr_s[(size_t)gi * kFeat * G + idx] =
-          (g < ngroups && j < d) ? a.r[((size_t)(j / hd) * hd + j % hd) * G + e] : 0.f;
+  // warp w: features 4 (w / 4) + c, the quarter w % 4 of their head's 4 hd
+  // columns; dh[:, j] = dpre_{t+1}[:, head k's columns] . r[k, j % hd, :]
+  const int fq = warp >> 2, wq = warp & 3;
+  float rr[4][kKs];
+  int off[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int j = jlo + 4 * fq + c, kh = j / hd, kp = j - kh * hd;
+    off[c] = j < d ? (kh - klo) * G + wq * hd : -1;
+#pragma unroll
+    for (int i = 0; i < kKs; ++i) {
+      const int e = lane + 32 * i;
+      rr[c][i] = (j < d && e < hd) ? a.r[((size_t)kh * hd + kp) * G + wq * hd + e] : 0.f;
     }
-    // the carried gradients start as the final state's
-    if (g < ngroups && tid < kRows * kFeat) {
-      for (int b0 = 0; b0 < B; b0 += kRows) {
-        const int b = b0 + tid / kFeat, j = g * kFeat + tid % kFeat;
+  }
+#pragma unroll
+  for (int c = 1; c < 4; ++c) off[c] = off[c] < 0 ? off[0] : off[c];
+  if (off[0] < 0) off[0] = off[1] = off[2] = off[3] = 0;
+  const bool same = off[1] == off[0] && off[2] == off[0] && off[3] == off[0];
+
+  const u64 base = ld_relaxed(a.sync);
+  u64* flags = a.sync + kFlagStride;
+  const int npass = (B + kRows - 1) / kRows, nseq = npass * (S + 1);
+  const size_t slot_floats = (size_t)4 * P * kGate;
+  // whole pieces: column c of the 4d lies in piece c / 8 (gate q's pieces in
+  // block order, one gate after the other), and the staged columns start on
+  // a piece and fill whole ones
+  const bool whole = d % kFeat == 0 && klo * G % kFeat == 0 && width % kFeat == 0;
+
+  // the ring: 8 operands of (row, feature) a step: pre's four gates, c, n, m
+  // at t - 1 and dhs_t; thread tid copies elements tid and tid + 256, step
+  // by step from the last; the step -1 after each pass copies nothing
+  int f_pp = 0, f_t = S - 1, f_slot = 0;
+  auto fill = [&]() {
+    if (f_pp < npass && f_t >= 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = tid + h * kThreads, op = e >> 6;
+        const int b = f_pp * kRows + ((e >> 3) & 7), j = jlo + (e & 7);
         if (b < B && j < d) {
-          const size_t bj = (size_t)b * d + j;
-          a.dc0[bj] = a.dcT[bj];
-          a.dn0[bj] = a.dnT[bj];
-          a.dm0[bj] = a.dmT[bj];
+          const float* src;
+          if (op < 4) {
+            src = a.pre + ((size_t)b * S + f_t) * 4 * d + op * d + j;
+          } else if (op < 7) {
+            const float* prev = op == 4 ? a.cs : op == 5 ? a.ns : a.ms;
+            const float* init = op == 4 ? a.c0 : op == 5 ? a.n0 : a.m0;
+            src = f_t ? prev + ((size_t)b * S + f_t - 1) * d + j : init + (size_t)b * d + j;
+          } else {
+            src = a.dhs + ((size_t)b * S + f_t) * d + j;
+          }
+          cp_async4(ring + f_slot * (8 * kGate) + e, src);
         }
       }
     }
-  }
-  unsigned target = 0;
+    if (f_pp < npass && --f_t < -1) f_t = S - 1, ++f_pp;
+    cp_async_commit();
+    f_slot = f_slot + 1 == kRing ? 0 : f_slot + 1;
+  };
+  for (int i = 0; i < kRing - 2; ++i) fill();
 
-  // t = -1 forms h0's gradient from dpre_0 alone
-  for (int t = S - 1; t >= -1; --t) {
-    for (int b0 = 0; b0 < B; b0 += kRows) {
-      for (int gi = 0; gi < ng; ++gi) {
-        const int g = blockIdx.x + gi * gridDim.x;
-        if (g >= ngroups) break;
-        const int jlo = g * kFeat, klo = jlo / hd;
-        __syncthreads();  // dp_s and ghr_s free again
-        if (t + 1 < S) {
-          // h_t's recurrent gradient from dpre_{t+1} of the group's heads
-          const int width = min(sw, 4 * d - klo * G);
-          for (int idx = tid; idx < kRows * sw; idx += kThreads) {
-            const int bb = idx / sw, x = idx - bb * sw, b = b0 + bb;
-            dp_s[idx] = (b < B && x < width)
-                            ? __ldcg(a.dpre + ((size_t)b * S + t + 1) * 4 * d + klo * G + x)
-                            : 0.f;
-          }
-          __syncthreads();
-          const int j = jlo + warp;
-          float acc[kRows];
-#pragma unroll
-          for (int bb = 0; bb < kRows; ++bb) acc[bb] = 0.f;
-          if (j < d) {  // the same for every lane of the warp
-            const float* rr = rr_s + ((size_t)gi * kFeat + warp) * G;
-            const float* dp = dp_s + (j / hd - klo) * G;
-            for (int e = lane; e < G; e += 32) {
-              const float rv = rr[e];
-#pragma unroll
-              for (int bb = 0; bb < kRows; ++bb) acc[bb] = fmaf(dp[bb * sw + e], rv, acc[bb]);
-            }
-          }
-#pragma unroll
-          for (int bb = 0; bb < kRows; ++bb)
-            for (int o = 16; o > 0; o >>= 1) acc[bb] += __shfl_xor_sync(0xffffffffu, acc[bb], o);
-          if (lane == 0) {
-#pragma unroll
-            for (int bb = 0; bb < kRows; ++bb) ghr_s[bb * kFeat + warp] = acc[bb];
-          }
-        } else if (tid < kRows * kFeat) {
-          ghr_s[tid] = 0.f;
+  const int grow = tid >> 3, gf = tid & 7, gj = jlo + gf;
+  float dc = 0.f, dn = 0.f, dm = 0.f, ct = 0.f, nt = 0.f;
+
+  int pp = 0, t = S - 1, slot = 0, xslot = 0;
+  for (int it = 0; it < nseq; ++it) {
+    const int b0 = pp * kRows, gb = b0 + grow;
+    const bool gate = tid < kGate && gb < B && gj < d;
+    const bool rec = t + 1 < S;  // h_t's gradient through dpre_{t+1}
+    fill();  // as the forward's
+    if (rec) {
+      wait_flags(flags, base + it, tid);  // step it - 1 published
+      // columns klo G + x of the 8 rows: column q d + j of row b lies in
+      // the piece of gate q and block j / 8, at [b][j % 8]
+      const float* src = a.xbuf + (size_t)(xslot == 0 ? kSlots - 1 : xslot - 1) * slot_floats;
+      if (whole) {
+        fetch_pieces(dp_s, sw, src + (size_t)(klo * G / kFeat) * kGate, width / kFeat, tid);
+      } else {
+        for (int i = tid; i < kRows * width; i += kThreads) {
+          const int row = i / width, x = i - row * width;
+          const int col = klo * G + x, gq = col / d, j = col - gq * d;
+          dp_s[row * sw + x] = __ldcg(src + ((size_t)(gq * P + j / kFeat) * kRows + row) * kFeat +
+                                      j % kFeat);
         }
-        __syncthreads();
-        if (tid < kRows * kFeat) {
-          const int b = b0 + tid / kFeat, j = jlo + tid % kFeat;
-          if (b < B && j < d) {
-            const size_t bj = (size_t)b * d + j;
-            if (t < 0) {
-              a.dh0[bj] = ghr_s[tid];
-            } else {
-              const size_t at = ((size_t)b * S + t) * d + j;
-              const size_t pa = ((size_t)b * S + t) * 4 * d + j;
-              const float ip = a.pre[pa], fp = a.pre[pa + d];
-              const float zp = a.pre[pa + 2 * d], op = a.pre[pa + 3 * d];
-              const float cp = t ? a.cs[at - d] : a.c0[bj];
-              const float np = t ? a.ns[at - d] : a.n0[bj];
-              const float mp = t ? a.ms[at - d] : a.m0[bj];
-              const float ct = a.cs[at], nt = a.ns[at];
-              const float lfm = __fadd_rn(log_sigmoid(fp), mp);
-              const float mt = fmaxf(lfm, ip);
-              const float ig = expf(ip - mt), fg = expf(lfm - mt);
-              const float zg = tanhf(zp), og = sigmoid(op);
-              const float den = fmaxf(nt, 1.f);
-              const float gh = a.dhs[at] + ghr_s[tid];
-              const float dq = gh / den;
-              // clamp_min(n, 1) passes the gradient at n == 1, as PyTorch's
-              const float gc = a.dc0[bj] + dq * og;
-              const float gn = a.dn0[bj] + (nt >= 1.f ? -gh * (og * ct) / (den * den) : 0.f);
-              const float dfg = gc * cp + gn * np;
-              const float dig = gc * zg + gn;
-              const float ea = dig * ig, eb = dfg * fg;
-              const float dmt = a.dm0[bj] - ea - eb;
-              // max(lfm, i) splits a tie half and half, as torch.maximum
-              const float wl = lfm > ip ? 1.f : (lfm < ip ? 0.f : 0.5f);
-              const float dlfm = eb + dmt * wl;
-              const float z = expf(-fabsf(fp));  // sigmoid(-f), stably
-              const float sneg = fp < 0.f ? 1.f / (1.f + z) : z / (1.f + z);
-              a.dpre[pa] = ea + dmt * (1.f - wl);
-              a.dpre[pa + d] = dlfm * sneg;
-              a.dpre[pa + 2 * d] = gc * ig * (1.f - zg * zg);
-              a.dpre[pa + 3 * d] = dq * ct * og * (1.f - og);
-              a.dc0[bj] = gc * fg;
-              a.dn0[bj] = gn * fg;
-              a.dm0[bj] = dlfm;
-            }
-          }
+      }
+    } else if (gate) {
+      const size_t bj = (size_t)gb * d + gj, at = ((size_t)gb * S + S - 1) * d + gj;
+      dc = a.dcT[bj];
+      dn = a.dnT[bj];
+      dm = a.dmT[bj];
+      ct = a.cs[at];
+      nt = a.ns[at];
+    }
+    __syncthreads();
+    if (rec)
+      part_s[wq * kGate + (lane >> 2) * kFeat + 4 * fq + (lane & 3)] =
+          warp_products<kKs>(dp_s, sw, off, same, rr, lane);
+    cp_async_wait_ring();
+    __syncthreads();
+    if (tid < kGate) {
+      float g[4] = {0.f, 0.f, 0.f, 0.f};  // dpre_t of (row, feature), gate by gate
+      float ghr = 0.f;
+      if (gate && rec) {
+        ghr = part_s[tid];
+#pragma unroll
+        for (int w = 1; w < 4; ++w) ghr += part_s[w * kGate + tid];
+      }
+      if (gate && t >= 0) {
+        const float* x = ring + slot * (8 * kGate) + tid;
+        const float ip = x[0], fp = x[kGate], zp = x[2 * kGate], op = x[3 * kGate];
+        const float cp = x[4 * kGate], np = x[5 * kGate], mp = x[6 * kGate];
+        const float lfm = __fadd_rn(log_sigmoid(fp), mp);
+        const float mt = fmaxf(lfm, ip);
+        const float ig = expf(ip - mt), fg = expf(lfm - mt);
+        const float zg = tanhf(zp), og = sigmoid(op);
+        const float den = fmaxf(nt, 1.f);
+        const float gh = x[7 * kGate] + ghr;
+        const float dq = gh / den;
+        // clamp_min(n, 1) passes the gradient at n == 1, as PyTorch's
+        const float gc = dc + dq * og;
+        const float gn = dn + (nt >= 1.f ? -gh * (og * ct) / (den * den) : 0.f);
+        const float dfg = gc * cp + gn * np;
+        const float dig = gc * zg + gn;
+        const float ea = dig * ig, eb = dfg * fg;
+        const float dmt = dm - ea - eb;
+        // max(lfm, i) splits a tie half and half, as torch.maximum
+        const float wl = lfm > ip ? 1.f : (lfm < ip ? 0.f : 0.5f);
+        const float dlfm = eb + dmt * wl;
+        const float z = expf(-fabsf(fp));  // sigmoid(-f), stably
+        const float sneg = fp < 0.f ? 1.f / (1.f + z) : z / (1.f + z);
+        g[0] = ea + dmt * (1.f - wl);
+        g[1] = dlfm * sneg;
+        g[2] = gc * ig * (1.f - zg * zg);
+        g[3] = dq * ct * og * (1.f - og);
+        dc = gc * fg;
+        dn = gn * fg;
+        dm = dlfm;
+        ct = cp;
+        nt = np;
+      }
+      // the next step (t - 1) reads dpre_t (0 where no row or feature is)
+      if (t >= 0) {
+        float* x = a.xbuf + (size_t)xslot * slot_floats + (size_t)p * kGate + tid;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) x[(size_t)k * P * kGate] = g[k];
+        publish(flags + p * kFlagStride, base + it + 1, tid);
+      }
+      // the outputs, which nobody on the chain waits for
+      if (gate) {
+        if (t >= 0) {
+          float* dpa = a.dpre + ((size_t)gb * S + t) * 4 * d + gj;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) dpa[k * d] = g[k];
+        } else {
+          const size_t bj = (size_t)gb * d + gj;
+          a.dh0[bj] = ghr;
+          a.dc0[bj] = dc;
+          a.dn0[bj] = dn;
+          a.dm0[bj] = dm;
         }
       }
     }
-    if (t >= 0) grid_barrier(a.barrier, target);
+    if (--t < -1) t = S - 1, ++pp;
+    slot = slot + 1 == kRing ? 0 : slot + 1;
+    xslot = xslot + 1 == kSlots ? 0 : xslot + 1;
   }
+  if (p == 0 && tid == 0) st_relaxed(a.sync, base + nseq + 1);
 }
 
-// One block an SM at most, no more blocks than groups; the launch is refused
-// (kNotResident) when the card cannot hold a block of `smem` bytes.
-template <typename Kernel>
-int grid_for(Kernel kernel, size_t smem, int ngroups, int* grid) {
+// The instance for a head of hd: registers for ceil(hd / 32) of r's entries a
+// column and lane, rounded up to a power of two (hd <= 256; else none).
+template <typename Args>
+void (*kernel_for(int hd, void (*k1)(Args), void (*k2)(Args), void (*k4)(Args),
+                  void (*k8)(Args)))(Args) {
+  return hd <= 32 ? k1 : hd <= 64 ? k2 : hd <= 128 ? k4 : hd <= 256 ? k8 : nullptr;
+}
+
+template <int kMin>
+void (*forward_for(int hd))(FwdArgs) {
+  return kernel_for<FwdArgs>(hd, slstm_forward_kernel<1, kMin>, slstm_forward_kernel<2, kMin>,
+                             slstm_forward_kernel<4, kMin>, slstm_forward_kernel<8, kMin>);
+}
+
+template <int kMin>
+void (*backward_for(int hd))(BwdArgs) {
+  return kernel_for<BwdArgs>(hd, slstm_backward_kernel<1, kMin>, slstm_backward_kernel<2, kMin>,
+                             slstm_backward_kernel<4, kMin>, slstm_backward_kernel<8, kMin>);
+}
+
+// One block for every group of 8 features, all co-resident: `one` (compiled
+// for one block an SM) where the card has an SM for each group, else `two`
+// (for two blocks an SM: at most 128 registers a thread). Refused
+// (kUnsupported) without an instance for the head or with more groups than
+// flags, and (kNotResident) when the card cannot hold every block at once.
+template <typename Args>
+int launch(void (*one)(Args), void (*two)(Args), Args& a, size_t smem, int ngroups,
+           void* stream) {
+  if (one == nullptr || ngroups > kMaxBlocks) return kUnsupported;
   int dev = 0, nsm = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  void (*kernel)(Args) = ngroups > nsm ? two : one;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return kNotResident;
-  *grid = ngroups < nsm ? ngroups : nsm;
-  return 0;
+  if (ngroups > nsm * per_sm) return kNotResident;
+  void* args[] = {&a};
+  cudaLaunchCooperativeKernel((const void*)kernel, dim3(ngroups), dim3(kThreads), args, smem,
+                              (cudaStream_t)stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// The forward scan: see the header. `barrier` is one zeroed unsigned int on
-// the card. Launches cooperatively on `stream` and returns the CUDA error as
-// an int (0 = launched), or kNotResident. Nothing is synchronised.
-int slstm_forward(const float* xwb, const float* r, const float* h0, const float* c0,
-                  const float* n0, const float* m0, float* hs, float* cs, float* ns,
-                  float* ms, float* pre, unsigned* barrier, int B, int S, int d, int H,
-                  int save, void* stream) {
-  FwdArgs a{xwb, r, h0, c0, n0, m0, hs, cs, ns, ms, pre, barrier, B, S, d, H, save};
-  const int hd = d / H, ngroups = (d + kFeat - 1) / kFeat;
-  int grid = 0;
-  // r_s for at most ceil(ngroups / grid) groups; sized below once grid is known
-  size_t smem = sizeof(float) * ((size_t)hd * 32 + kRows * H * (hd + 1) + kWarps * kRows * 32 +
-                                 kRows * 32);
-  int err = grid_for(slstm_forward_kernel, smem, ngroups, &grid);
-  if (err) return err;
-  const int ng = (ngroups + grid - 1) / grid;
-  if (ng > 1) {
-    smem += sizeof(float) * (size_t)(ng - 1) * hd * 32;
-    err = grid_for(slstm_forward_kernel, smem, ngroups, &grid);
-    if (err) return err;
-  }
-  void* args[] = {&a};
-  cudaLaunchCooperativeKernel((const void*)slstm_forward_kernel, dim3(grid), dim3(kThreads),
-                              args, smem, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+// 64-bit words of the sync state: the launch epoch, then kMaxBlocks flags,
+// each in a 128-byte line of its own.
+long long slstm_sync_words() { return (long long)kFlagStride * (1 + kMaxBlocks); }
+
+// Floats of the exchange buffer a launch needs (the wrapper allocates it,
+// uninitialised: the flags say what in it is current).
+long long slstm_exchange_floats(int d, int backward) {
+  const long long groups = (d + kFeat - 1) / kFeat;
+  return (long long)kSlots * groups * kGate * (backward ? 4 : 1);
 }
 
-// The backward scan: see the header. `span` is the most heads a group of 8
-// features touches. Launches as slstm_forward.
+// The forward scan: see the header. `xbuf` is the exchange buffer
+// (slstm_exchange_floats(d, 0) floats), `sync` the sync state
+// (slstm_sync_words() 64-bit words on the card, zero before the first launch
+// that uses it, then kept: each launch advances the epoch in it). Launches
+// cooperatively on `stream` and returns the CUDA error as an int (0 =
+// launched), kNotResident or kUnsupported. Nothing is synchronised.
+int slstm_forward(const float* xwb, const float* r, const float* h0, const float* c0,
+                  const float* n0, const float* m0, float* hs, float* cs, float* ns,
+                  float* ms, float* pre, float* xbuf, u64* sync, int B, int S, int d,
+                  int H, int save, void* stream) {
+  FwdArgs a{xwb, r, h0, c0, n0, m0, hs, cs, ns, ms, pre, xbuf, sync, B, S, d, H, save};
+  const int ngroups = (d + kFeat - 1) / kFeat;
+  const size_t smem = sizeof(float) * ((size_t)kRows * tile_stride(ngroups * kFeat) + kPad +
+                                       kRows * 32 + kRing * kRows * 32);
+  return launch(forward_for<1>(d / H), forward_for<2>(d / H), a, smem, ngroups, stream);
+}
+
+// The backward scan: see the header. `xbuf` holds slstm_exchange_floats(d,
+// 1) floats; `span` is the most heads a group of 8 features touches.
+// Launches as slstm_forward, on the same sync state.
 int slstm_backward(const float* r, const float* pre, const float* cs, const float* ns,
                    const float* ms, const float* c0, const float* n0, const float* m0,
                    const float* dhs, const float* dcT, const float* dnT, const float* dmT,
-                   float* dpre, float* dh0, float* dc0, float* dn0, float* dm0,
-                   unsigned* barrier, int B, int S, int d, int H, void* stream) {
+                   float* dpre, float* dh0, float* dc0, float* dn0, float* dm0, float* xbuf,
+                   u64* sync, int B, int S, int d, int H, void* stream) {
   const int hd = d / H, G = 4 * hd, ngroups = (d + kFeat - 1) / kFeat;
   int span = 1;
   for (int g = 0; g < ngroups; ++g) {
@@ -449,25 +750,17 @@ int slstm_backward(const float* r, const float* pre, const float* cs, const floa
     if (hi / hd - lo / hd + 1 > span) span = hi / hd - lo / hd + 1;
   }
   BwdArgs a{r, pre, cs, ns, ms, c0, n0, m0, dhs, dcT, dnT, dmT,
-            dpre, dh0, dc0, dn0, dm0, barrier, B, S, d, H, span};
-  int grid = 0;
-  size_t smem = sizeof(float) * ((size_t)kFeat * G + (size_t)kRows * span * G + kRows * kFeat);
-  int err = grid_for(slstm_backward_kernel, smem, ngroups, &grid);
-  if (err) return err;
-  const int ng = (ngroups + grid - 1) / grid;
-  if (ng > 1) {
-    smem += sizeof(float) * (size_t)(ng - 1) * kFeat * G;
-    err = grid_for(slstm_backward_kernel, smem, ngroups, &grid);
-    if (err) return err;
-  }
-  void* args[] = {&a};
-  cudaLaunchCooperativeKernel((const void*)slstm_backward_kernel, dim3(grid), dim3(kThreads),
-                              args, smem, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+            dpre, dh0, dc0, dn0, dm0, xbuf, sync, B, S, d, H, span};
+  const size_t smem = sizeof(float) * ((size_t)kRows * tile_stride(span * G) + kPad +
+                                       4 * kGate + (size_t)kRing * 8 * kGate);
+  return launch(backward_for<1>(hd), backward_for<2>(hd), a, smem, ngroups, stream);
 }
 
 const char* slstm_error_string(int code) {
-  if (code == kNotResident) return "the card holds no block of this launch on an SM";
+  if (code == kNotResident) return "the card cannot hold every block of this launch at once";
+  if (code == kUnsupported)
+    return "the shape needs more than 256 blocks of 8 features (d > 2048) or a head wider "
+           "than 256";
   return cudaGetErrorString((cudaError_t)code);
 }
 

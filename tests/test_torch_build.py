@@ -89,10 +89,13 @@ def test_refuse_grad_passes_without_grad_or_without_grad_inputs():
 @pytest.mark.parametrize("name,kernel", [("envy", "pd_segment_kernel"),
                                          ("envy", "envy_gaps_kernel"),
                                          ("waterfill", "waterfill_solve_kernel"),
-                                         ("waterfill", "waterfill_masses_kernel")])
+                                         ("waterfill", "waterfill_masses_kernel"),
+                                         ("slstm", "slstm_forward_kernel"),
+                                         ("slstm", "slstm_backward_kernel")])
 def test_the_library_key_covers_each_kernel_of_a_source(tmp_path, name, kernel):
     """The fused solver kernels share a source (and so a library) with the
-    standalone kernels: an edit to either kernel's body changes the key."""
+    standalone kernels, and the sLSTM scan with its backward: an edit to
+    either kernel's body changes the key."""
     with open(os.path.join(_build.SRC_DIR, name + ".cu")) as f:
         src = f.read()
     write(tmp_path / f"{name}.cu", src)

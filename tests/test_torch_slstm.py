@@ -19,6 +19,10 @@ positions. Here, at small widths:
   - one fake call an sLSTM layer when a smoke model's sLSTM blocks run on
     fake CUDA tensors (``FakeTensorMode`` makes them without a card), no
     launch;
+  - the wrapper's host side against a stand-in for the kernels' library:
+    the sync state kept a stream for eager launches and fresh for each
+    launch captured into a CUDA graph, the scratch each launch asks for,
+    and a refused shape raising ``KernelError`` with no launch counted;
   - the planted per-head gate layout of ``chip_smoke.py``'s phase 51 moves
     the output wherever a head's columns are not the whole gate, and the
     phase itself, rehearsed with the plain versions counted as launches.
@@ -326,6 +330,141 @@ def test_refusals():
             sl.slstm_scan(*cuda)
 
 
+class FakeLib:
+    """The kernels' library as the wrapper sees it, on the CPU: the sizes
+    of the exchange buffer and the sync state, and launches that record
+    what they were given and return ``code``."""
+
+    #: ``csrc/slstm.cu``'s kNotResident and kUnsupported
+    NOT_RESIDENT, UNSUPPORTED = 10001, 10002
+
+    def __init__(self, code=0):
+        self.code, self.launches, self.sizes = code, [], []
+
+    def slstm_sync_words(self):
+        return 16 * (1 + 256)
+
+    def slstm_exchange_floats(self, d, backward):
+        self.sizes.append((d, backward))
+        return 3 * (-(-d // 8)) * 64 * (4 if backward else 1)
+
+    def slstm_forward(self, *args):
+        self.launches.append(("forward", args))
+        return self.code
+
+    def slstm_backward(self, *args):
+        self.launches.append(("backward", args))
+        return self.code
+
+    def slstm_error_string(self, code):
+        return {self.NOT_RESIDENT: b"the card cannot hold every block of this launch at once",
+                self.UNSUPPORTED: b"the shape needs more than 256 blocks of 8 features "
+                                  b"(d > 2048) or a head wider than 256"}[code]
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Run the wrapper's launches on CPU tensors against a :class:`FakeLib`:
+    no device context, stream 7, no capture unless a test says so."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(sl, "_SYNC", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+
+    def use(lib):
+        monkeypatch.setattr(sl, "_LIB", lib)
+        return lib
+    return use
+
+
+def test_the_sync_state_is_zeroed_once_and_kept_per_device_and_stream(fake_card):
+    """The kernels' sync state (the launch epoch and one flag a block):
+    the library's count of int64 words, zeroed at the first eager launch on
+    a (device, stream) and then the same tensor, so the epoch the kernel
+    advances in place carries to the next launch and no launch fills a
+    counter of its own; another stream gets its own."""
+    lib = fake_card(FakeLib())
+    cpu = torch.device("cpu")
+    state = sl._sync_state(lib, cpu, 7)
+    assert state.dtype == torch.int64 and tuple(state.shape) == (lib.slstm_sync_words(),)
+    assert not state.any()
+    state[0] = 4099  # a launch's end: the epoch advanced past its flags
+    assert sl._sync_state(lib, cpu, 7) is state and int(state[0]) == 4099
+    other = sl._sync_state(lib, cpu, 8)
+    assert other is not state and not other.any()
+
+
+def test_a_captured_launch_gets_a_zeroed_sync_state_of_its_own(fake_card, monkeypatch):
+    """A launch captured into a CUDA graph takes a fresh zeroed state (in
+    the graph's pool on the card), not the stream's, and keeps none: two
+    graphs replayed at once on two streams share no epoch."""
+    lib = fake_card(FakeLib())
+    cpu = torch.device("cpu")
+    eager = sl._sync_state(lib, cpu, 7)
+    eager[0] = 12
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    a, b = sl._sync_state(lib, cpu, 7), sl._sync_state(lib, cpu, 7)
+    assert a is not b and a is not eager and not a.any() and not b.any()
+    assert a.dtype == torch.int64 and a.numel() == lib.slstm_sync_words()
+    assert list(sl._SYNC.values()) == [eager] and int(eager[0]) == 12
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_a_launch_passes_its_scratch_and_the_streams_sync_state(fake_card, backward):
+    """Each launch asks the library for its exchange buffer's size (the
+    backward's holds the four gates), passes the stream's sync state, and
+    counts one launch; two launches on one stream share that state."""
+    lib = fake_card(FakeLib())
+    B, S, d, H = 3, 5, 24, 3
+    xwb, r, *state = operands(B, S, d, H, True)
+    before = (sl.slstm_scan.launches, sl.slstm_scan_backward.launches)
+    for _ in range(2):
+        if backward:
+            _, cs, ns, ms, pre = sl.slstm_scan_plain(xwb, r, *state, True)
+            dhs = torch.ones((B, S, d))
+            sl._launch_backward(r, pre, cs, ns, ms, *state[1:], dhs, *state[1:])
+        else:
+            sl._launch(xwb, r, *state, False)
+    assert lib.sizes == [(d, int(backward))] * 2
+    sync = sl._SYNC[(str(torch.device("cpu")), 7)]
+    for way, args in lib.launches:
+        assert way == ("backward" if backward else "forward")
+        # the pointers, then B, S, d, H (and save), then the stream
+        assert args[-1] == 7 and sync.data_ptr() in args
+        tail = args[-5:-1] if backward else args[-6:-1]
+        assert tail == ((B, S, d, H) if backward else (B, S, d, H, 0))
+    counts = (sl.slstm_scan.launches - before[0], sl.slstm_scan_backward.launches - before[1])
+    assert counts == ((0, 2) if backward else (2, 0))
+
+
+@pytest.mark.parametrize("code,match", [
+    (FakeLib.UNSUPPORTED, "more than 256 blocks of 8 features"),
+    (FakeLib.NOT_RESIDENT, "cannot hold every block")])
+@pytest.mark.parametrize("backward", [False, True])
+def test_a_refused_launch_raises_and_counts_nothing(fake_card, code, match, backward):
+    """Where the library refuses a shape (more than 256 groups of 8
+    features or a head wider than 256: kUnsupported; a grid the card cannot
+    hold at once: kNotResident), the wrapper raises ``KernelError`` with
+    the library's reason and counts no launch: nothing falls back to the
+    plain version."""
+    fake_card(FakeLib(code))
+    B, S, d, H = 2, 3, 16, 2
+    xwb, r, *state = operands(B, S, d, H, True)
+    before = (sl.slstm_scan.launches, sl.slstm_scan_backward.launches)
+    with pytest.raises(sl.KernelError, match=match):
+        if backward:
+            _, cs, ns, ms, pre = sl.slstm_scan_plain(xwb, r, *state, True)
+            sl._launch_backward(r, pre, cs, ns, ms, *state[1:], torch.ones((B, S, d)),
+                                *state[1:])
+        else:
+            sl._launch(xwb, r, *state, True)
+    assert (sl.slstm_scan.launches, sl.slstm_scan_backward.launches) == before
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py's phase 51
 # ---------------------------------------------------------------------------
@@ -349,6 +488,20 @@ def test_the_planted_per_head_layout_moves_every_h_unless_one_head(d, H):
         assert torch.equal(got, want)
     else:
         assert rel(got.numpy(), want.numpy()) > cs.SLSTM_FWD_TOL
+
+
+def test_phase_51_reaches_the_kernels_instances_for_two_blocks_an_sm(monkeypatch):
+    """Phase 51 holds the kernels to their plain versions at xlstm-350m's
+    width (128 groups of 8 features: one block an SM on a 132-SM H100) and
+    at a width of more groups than that card's SMs (the instances compiled
+    for two blocks an SM), every case inside the kernels' domain: at most
+    256 groups, a head of at most 256."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke as cs
+
+    groups = {label: -(-d // 8) for label, _, _, d, _, _ in cs.SLSTM_CASES}
+    assert groups["prefill"] == 128 <= 132 < groups["wide"] <= 256
+    assert all(d // H <= 256 for _, _, _, d, H, _ in cs.SLSTM_CASES)
 
 
 def test_chip_smoke_phase_51_rehearses_on_the_cpu(monkeypatch):
@@ -375,8 +528,8 @@ def test_chip_smoke_phase_51_rehearses_on_the_cpu(monkeypatch):
     for name in ("graph_ms", "call_ms"):
         monkeypatch.setattr(cs, name, lambda torch, fn, **kw: (fn(), 1.0)[1])
     monkeypatch.setattr(cs, "once_ms", lambda torch, fn: (fn(), 1.0)[1])
-    cases = (("prefill", 2, 40, 64, 2, False), ("decode", 3, 1, 32, 4, True),
-             ("ragged", 3, 9, 20, 4, True))
+    cases = (("prefill", 2, 40, 64, 2, False), ("smoke", 2, 12, 16, 2, False),
+             ("decode", 3, 1, 32, 4, True), ("ragged", 3, 9, 20, 4, True))
     before = (sl.slstm_scan.launches, sl.slstm_scan_backward.launches)
     detail = {}
     out = cs.slstm_phase(torch, sl, detail, dev="cpu", cases=cases)
@@ -391,5 +544,13 @@ def test_chip_smoke_phase_51_rehearses_on_the_cpu(monkeypatch):
     assert sl.slstm_scan_backward.launches - before[1] >= 2 * len(cases)
     assert out["shape"] == [2, 40, 64, 2] and out["library_ms"] is None
     assert out["bound_by"] == "operations" or out["bound_by"] == "bytes"
+    # the timed cases, each with its time a step of the scan; the first's are the phase's
+    assert list(out["times"]) == list(cs.SLSTM_TIMED) == ["prefill", "smoke"]
+    for label, S in (("prefill", 40), ("smoke", 12)):
+        t = out["times"][label]
+        assert t["shape"][1] == S
+        for way in ("forward", "forward_saving", "backward"):
+            assert t[way]["kernel_ms"] == 1.0 and t[way]["bound_ms"] > 0
+            assert t[way]["us_per_step"] == pytest.approx(1e3 / S)
     for way in ("forward", "forward_saving", "backward"):
-        assert out[way]["kernel_ms"] == 1.0 and out[way]["bound_ms"] > 0
+        assert out[way] is out["times"]["prefill"][way]
