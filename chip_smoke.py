@@ -401,7 +401,9 @@ raises and the script exits non-zero:
     against their plain versions on the card (``SLSTM_CASES``: xlstm-350m's
     prefill and training shape 8 x 2048 at d 1024, H 4; phase 26's smoke
     width; a decode step from a non-zero state; a ragged shape; a width
-    with more groups of 8 features than the card has SMs), the
+    with more groups of 8 features than the card has SMs; on the wide
+    route, the xLSTM paper's 760M, 1.3B and 2.7B widths, a ragged wide
+    shape and a decode step at 1.3B's), the
     forward within ``SLSTM_FWD_TOL`` and the backward within
     ``SLSTM_BWD_TOL`` of max |plain| (or twice the plain version's own
     card-vs-CPU spread), a second launch identical, grad through the op
@@ -409,7 +411,10 @@ raises and the script exits non-zero:
     per-head gate layout failing the forward's gate, and both kernels'
     times (and per step of the scan, at xlstm-350m's shape and the smoke
     width: ``SLSTM_TIMED``) against the bound, the plain loop and the plain
-    loop in a CUDA graph.
+    loop in a CUDA graph, and the wide route's at 1.3B's width
+    (``SLSTM_WIDE_TIMED``, no plain loop); first the kernels' plan query
+    over every d up to 8192 at H 1, 2, 4 and 8 on the card's SM count, 114
+    and 132, which must refuse no width.
 
 The order is not the numbers': the build, then the kernel phases 2, 3, 6,
 10 and 13-15, each alone on the card (their times go into the kernels'
@@ -2872,12 +2877,19 @@ def rglru_backward_phase(torch, rg, detail, dev="cuda") -> dict:
 #: too (``TRAIN_CELLS``); the smoke width of phase 26's tenant
 #: (``SCHED_SHAPE``); one decode step from a non-zero state; a ragged one
 #: (11 rows: two passes of 8; d 100: groups of 8 features across a head's
-#: edge); and the widest the kernels take (d 2048 at hd 256: 256 groups of 8
-#: features, more than an H100's 132 SMs, so the kernels' instances for two
-#: blocks an SM run)
+#: edge); the widest of the narrow route (d 2048 at hd 256: 256 groups of 8
+#: features, more than an H100's 132 SMs, so its instances for two blocks an
+#: SM run); then the wide route, cut in length: the xLSTM paper's 760M, 1.3B
+#: and 2.7B widths with 4 sLSTM heads (hd 384, 512, 640; 2.7B's 320 groups
+#: are more than two blocks an SM hold), a ragged wide one (11 rows; hd 2052,
+#: r 135 MB, over L2's share, the backward's heads staged in chunks; d 4104
+#: not a multiple of 8 features a block) and a decode step at 1.3B's width
 SLSTM_CASES = (("prefill", 8, 2048, 1024, 4, False), ("smoke", 8, 128, 64, 2, False),
                ("decode", 8, 1, 1024, 4, True), ("ragged", 11, 37, 100, 4, True),
-               ("wide", 8, 16, 2048, 8, True))
+               ("wide", 8, 16, 2048, 8, True),
+               ("xl760m", 8, 32, 1536, 4, False), ("xl1b3", 8, 32, 2048, 4, True),
+               ("xl2b7", 8, 16, 2560, 4, False), ("ragged_wide", 11, 9, 4104, 2, True),
+               ("decode_wide", 8, 1, 2048, 4, True))
 #: kernel against plain version on the card, max |diff| / max |plain|: the
 #: forward's every h and final state, the backward's dxwb, dr and the
 #: initial state's gradient; each loosened to twice the plain version's own
@@ -2887,6 +2899,35 @@ SLSTM_FWD_TOL, SLSTM_BWD_TOL = 1e-5, 1e-4
 #: line takes its numbers) and the smoke width, where a step is mostly the
 #: exchange between the SMs
 SLSTM_TIMED = ("prefill", "smoke")
+#: the wide route timed at 1.3B's width, prefill length, with no plain loop
+#: (its saved tensors from the kernel's own forward)
+SLSTM_WIDE_TIMED = (("xl1b3_prefill", 8, 2048, 2048, 4, False),)
+#: the plan query's sweep: every d up to this at these head counts, both
+#: ways, on the card's SM count and on these
+SLSTM_SWEEP_D, SLSTM_SWEEP_HEADS, SLSTM_SWEEP_SMS = 8192, (1, 2, 4, 8), (114, 132)
+
+
+def slstm_plan_sweep(sl, nsms, d_max=SLSTM_SWEEP_D, heads=SLSTM_SWEEP_HEADS) -> dict:
+    """The kernels' plan (``slstm.slstm_plan``, no launch) for every d up
+    to ``d_max`` that each of ``heads`` divides, both ways, on each SM count
+    of ``nsms``: the shapes by route and the refusals (none may be)."""
+    out = {}
+    for nsm in nsms:
+        routes, refused, widest = {}, [], {}
+        for H in heads:
+            for d in range(H, d_max + 1, H):
+                for backward in (False, True):
+                    plan = sl.slstm_plan(d, H, nsm, backward)
+                    if plan["refused"]:
+                        refused.append([d, H, backward, plan["refused"]])
+                        continue
+                    routes[plan["route"]] = routes.get(plan["route"], 0) + 1
+                    if plan["route"] == "wide":
+                        widest["chunks"] = max(widest.get("chunks", 0), plan["chunks"])
+                        widest["smem_bytes"] = max(widest.get("smem_bytes", 0), plan["smem_bytes"])
+        check(not refused, f"slstm plan on {nsm} SMs refuses {refused[:5]}")
+        out[str(nsm)] = {"routes": routes, "refused": refused, "wide_most": widest}
+    return out
 
 
 def slstm_operands(torch, g, B, S, d, H, nonzero):
@@ -2944,7 +2985,8 @@ def slstm_bound(B, S, d, H, backward=False, save=False) -> tuple:
     return bound(4 * floats, products(B, S, d, hd), FP32_FLOPS)
 
 
-def slstm_phase(torch, sl, detail, dev="cuda", cases=SLSTM_CASES) -> dict:
+def slstm_phase(torch, sl, detail, dev="cuda", cases=SLSTM_CASES,
+                wide_timed=SLSTM_WIDE_TIMED, sweep_d=SLSTM_SWEEP_D) -> dict:
     """Phase 51: the sLSTM kernels against their plain versions on the
     card, at ``cases``: the forward (``_launch``) at inference (every h and
     the final state) and keeping every step (the states and
@@ -2959,18 +3001,33 @@ def slstm_phase(torch, sl, detail, dev="cuda", cases=SLSTM_CASES) -> dict:
     planted per-head gate layout (``planted_per_head_scan``) must fail the
     forward's gate; and at the cases of ``SLSTM_TIMED`` the times: both
     kernels by CUDA-graph replay (and per step of the scan), the wrapper's
-    call, the plain loops as called and captured in a CUDA graph, the bound.
-    The first timed case's times are the phase's own. PyTorch has no sLSTM
-    op."""
+    call, the plain loops as called and captured in a CUDA graph, the bound;
+    at ``wide_timed`` the kernels alone (no plain loop at that length). The
+    first timed case's times are the phase's own. First the plan query
+    (``slstm_plan_sweep``) over every d up to ``sweep_d`` on the card's SM
+    count and ``SLSTM_SWEEP_SMS``: no width may be refused; each case
+    records its route. PyTorch has no sLSTM op."""
     from repro_torch.kernels.slstm import slstm_cell
 
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count if dev != "cpu" else 132
+    t0 = time.perf_counter()
+    out = {"cases": {}, "sms": nsm,
+           "plan_sweep": slstm_plan_sweep(sl, (nsm,) + tuple(n for n in SLSTM_SWEEP_SMS
+                                                             if n != nsm), sweep_d)}
+    out["plan_sweep_s"] = time.perf_counter() - t0
+    log(f"[51] the plan query over d <= {sweep_d}, H {SLSTM_SWEEP_HEADS}, both ways: "
+        + "; ".join(f"{n} SMs {v['routes']}, none refused" for n, v in out["plan_sweep"].items())
+        + f" ({out['plan_sweep_s']:.1f} s)")
     g = torch.Generator().manual_seed(51)
-    out = {"cases": {}}
     for label, B, S, d, H, nonzero in cases:
+        t0 = time.perf_counter()
         what = f"slstm {label} ({B}, {S}, d {d}, H {H})"
         cpu = slstm_operands(torch, g, B, S, d, H, nonzero)
         card = [t.to(dev) for t in cpu]
-        rec = {}
+        rec = {"route": {way: {k: v for k, v in sl.slstm_plan(d, H, nsm, way == "backward").items()
+                               if k in ("route", "registers", "blocks_an_sm", "grid",
+                                        "groups_a_block", "chunks", "r_jobs_in_shared")}
+                         for way in ("forward", "backward")}}
         # the forward, every output, at inference and keeping every step
         want = sl.slstm_scan_plain(*card, True)
         spread = max(rel_err(a.cpu(), b)
@@ -3044,24 +3101,29 @@ def slstm_phase(torch, sl, detail, dev="cuda", cases=SLSTM_CASES) -> dict:
         rec["backward"] = {"rel_err": berrs, "worst": max(berrs.values()), "tol": tol_b,
                            "plain_card_vs_cpu": spread_b, "max_abs_err": babs,
                            "grad_rel_err": gerrs}
+        rec["seconds"] = time.perf_counter() - t0
         out["cases"][label] = rec
-        log(f"[51] {what}: forward kernel vs plain worst {worst:.3e} (gate {tol_f:.3g}; "
+        log(f"[51] {what}, {rec['route']['forward']['route']} route: forward kernel vs "
+            f"plain worst {worst:.3e} (gate {tol_f:.3g}; "
             f"the plain version card vs CPU {spread:.3e}), the planted per-head gate layout "
             f"{planted:.3e} (fails the gate); backward {max(berrs.values()):.3e} (gate "
             f"{tol_b:.3g}; plain card vs CPU {spread_b:.3e}); grad through the op vs "
             f"autograd of the loop {max(gerrs.values()):.3e} (dr {gerrs['dr']:.3e}); "
-            f"second launches identical")
+            f"second launches identical ({rec['seconds']:.1f} s)")
         del card, cpu, want, args, cpu_args, bwant, bgot, bagain, grads
-    # the times, at the timed cases
+    # the times, at the timed cases (and the wide route's, kernels alone)
     out["times"] = {}
-    for label, B, S, d, H, nonzero in (c for c in cases if c[0] in SLSTM_TIMED):
+    for label, B, S, d, H, nonzero in (*(c for c in cases if c[0] in SLSTM_TIMED), *wide_timed):
+        t0 = time.perf_counter()
         card = [t.to(dev) for t in slstm_operands(torch, g, B, S, d, H, nonzero)]
-        hs, cs, ns, ms, pre = sl.slstm_scan_plain(*card, True)
+        with_plain = label in SLSTM_TIMED
+        hs, cs, ns, ms, pre = (sl.slstm_scan_plain(*card, True) if with_plain
+                               else sl._launch(*card, True))
         dhs = torch.randn((B, S, d), generator=g).to(dev)
         zeros = [torch.zeros_like(card[2]) for _ in range(3)]
         args = (card[1], pre, cs, ns, ms, *card[3:], dhs, *zeros)
         reps = 3 if S > 256 else 20
-        t = {"shape": [B, S, d, H]}
+        t = {"shape": [B, S, d, H], "route": sl.slstm_plan(d, H, nsm)["route"]}
         for name, kernel, call, plain, backward, save in (
                 ("forward", lambda: sl._launch(*card, False), lambda: sl.slstm_scan(*card),
                  lambda: sl.slstm_scan_plain(*card, False), False, False),
@@ -3069,6 +3131,7 @@ def slstm_phase(torch, sl, detail, dev="cuda", cases=SLSTM_CASES) -> dict:
                 ("backward", lambda: sl._launch_backward(*args),
                  lambda: sl.slstm_scan_backward(*args),
                  lambda: sl.slstm_scan_backward_plain(*args), True, False)):
+            plain = plain if with_plain else None
             bound_ms, bound_by = slstm_bound(B, S, d, H, backward, save)
             ms_k = graph_ms(torch, kernel, reps=reps, rounds=3)
             t[name] = {"kernel_ms": ms_k, "us_per_step": 1e3 * ms_k / S, "bound_ms": bound_ms,
@@ -3078,22 +3141,24 @@ def slstm_phase(torch, sl, detail, dev="cuda", cases=SLSTM_CASES) -> dict:
                        "plain_graph_ms": (graph_ms(torch, plain, reps=1, rounds=2)
                                           if plain else None),
                        "plain_ms": once_ms(torch, plain) if plain else None}
-        log(f"    {label} ({B}, {S}, d {d}, H {H}): " + "; ".join(
+        log(f"    {label} ({B}, {S}, d {d}, H {H}, {t['route']} route): " + "; ".join(
             f"{k} kernel {v['kernel_ms']:.3f} ms, {v['us_per_step']:.3f} us a step "
             f"({v['share_of_bound']:.1%} of the bound {v['bound_ms']:.3f} ms, {v['bound_by']}"
             + (f"; wrapper call {v['call_ms']:.3f} ms" if v["call_ms"] else "") + ")"
             + (f", plain loop {v['plain_ms']:.1f} ms, in a CUDA graph "
                f"{v['plain_graph_ms']:.1f} ms" if v["plain_ms"] else "")
-            for k, v in t.items() if k != "shape") + "; PyTorch has no sLSTM op")
+            for k, v in t.items() if k not in ("shape", "route"))
+            + f"; PyTorch has no sLSTM op ({time.perf_counter() - t0:.1f} s)")
+        t["seconds"] = time.perf_counter() - t0
         out["times"][label] = t
         del card, args, hs, cs, ns, ms, pre
-    cases_out = out["cases"].values()
-    out.update(next(iter(out["times"].values())))
+    cases_out, first = out["cases"].values(), next(iter(out["times"].values()))
+    out.update(first)
     out.update({
         "max_abs_err": max(c["forward"]["max_abs_err"] for c in cases_out),
         "backward_max_abs_err": max(c["backward"]["max_abs_err"] for c in cases_out),
-        "kernel_ms": t["forward"]["kernel_ms"], "plain_ms": t["forward"]["plain_ms"],
-        "bound_ms": t["forward"]["bound_ms"], "bound_by": t["forward"]["bound_by"],
+        "kernel_ms": first["forward"]["kernel_ms"], "plain_ms": first["forward"]["plain_ms"],
+        "bound_ms": first["forward"]["bound_ms"], "bound_by": first["forward"]["bound_by"],
         "library_ms": None})
     detail["slstm_kernel"] = out
     return out
@@ -6620,6 +6685,10 @@ def main() -> int:
             "library_ms": None,
             "shape": sl_t["shape"],
             "us_per_step": {label: tt[way]["us_per_step"] for label, tt in sl_t["times"].items()},
+            "ms_by_case": {label: tt[way]["kernel_ms"] for label, tt in sl_t["times"].items()},
+            "bound_ms_by_case": {label: tt[way]["bound_ms"]
+                                 for label, tt in sl_t["times"].items()},
+            "route_by_case": {label: tt["route"] for label, tt in sl_t["times"].items()},
         })
     # whisper-tiny's phases launch no kernel, the MoE phases only the blocked
     # prefill's flash, MoE training none: each entry records its wrapper's

@@ -25,15 +25,20 @@ Every Pallas kernel of the JAX package has its counterpart here:
 One more has no Pallas counterpart:
 
   - slstm — the sLSTM recurrence of xlstm-350m, forward and backward, each
-    one cooperative launch (``csrc/slstm.cu``): a block for each 8
-    features (one an SM at xlstm-350m's width) holds its share of ``r`` in
-    registers, and a step is one exchange between the SMs (a per-block
-    flag over a slice of the step's output) with the step-independent
-    operands on their way ahead of it.
+    one cooperative launch (``csrc/slstm.cu``), at every (d, H) with H
+    dividing d. A step is one exchange between the SMs (a per-block flag
+    over a slice of the step's output). On the narrow route (a head of at
+    most 256, at most twice the SMs in groups of 8 features) a block for
+    each 8 features (one an SM at xlstm-350m's width) holds its share of
+    ``r`` in registers, with the step-independent operands on their way
+    ahead of it; on the wide route (wider heads, more groups: the xLSTM
+    paper's 760M, 1.3B and 2.7B widths) a block an SM owns several groups,
+    its share of ``r`` in shared memory and then device memory
+    (``slstm.slstm_plan`` says which route a shape takes).
     On an NVIDIA H100 80GB HBM3 at 700.00 W a step at xlstm-350m's width
     takes ~3.0 us forward, ~3.4 us backward, against 1.76 us for the
     exchange alone (the chain's floor) and 0.25 us of products at the FP32
-    rate.
+    rate; at 1.3B's width (d 2048, hd 512) ~8.2 and ~8.4 us.
     It replaces the JAX model's ``jax.lax.scan`` over time
     (``models/layers.py`` ``slstm_apply``, ``slstm_decode``), which XLA
     runs as one loop on the device. ``models.layers.SLSTM`` calls it in

@@ -21,25 +21,39 @@ on the device; no Pallas kernel exists for it.
 d) and the final state. On a CUDA tensor it launches the hand-written
 kernel of ``csrc/slstm.cu`` (built with ``nvcc`` on first use, see
 :mod:`repro_torch.kernels._build`): the whole scan in one cooperative
-launch, one block for each 8 features (one an SM at xlstm-350m's width).
-A step is one exchange between the SMs: each block stores its slice of
-``h_t`` into an exchange buffer that :func:`_launch` allocates
+launch. A step is one exchange between the SMs: each block stores its slice
+of ``h_t`` into an exchange buffer that :func:`_launch` allocates
 (uninitialised, three slots used in turn) and raises its flag in the sync
 state (:func:`_sync_state`: it holds the launch epoch, so no flag of an
 earlier launch can pass for a current one); the other blocks poll the
-flags and load the slices they need. What a step reads that does not
-depend on the step before is on its way ahead of it; the state stays in
-registers. What bounds it on an NVIDIA H100 80GB HBM3 at 700.00 W, at
-xlstm-350m's prefill shape (8, 2048, d 1024, H 4): the recurrent
-products, 0.51 ms at the FP32 rate each way, and below them the chain of
-2,048 exchanges, 1.76 us a step and 3.61 ms when timed alone (a probe of
-the kernels' variants, PERF.md); the kernels take 6.2 ms forward
-and 6.9 ms backward, ~3.0 and ~3.4 us a step, the exchange ~1.9 us of it.
-On a CPU tensor it runs :func:`slstm_scan_plain`, the port's
-loop over positions of :func:`slstm_cell`. A CUDA tensor never falls
-back to the plain version: a failed build or a refused launch (a grid the
-card cannot hold at once, more than 256 groups of 8 features, a head
-wider than 256) raises ``KernelError``.
+flags and load the slices they need. Every (d, H) with H dividing d runs;
+:func:`slstm_plan` says how, without launching. Two routes:
+
+  - narrow (a head of at most 256, at most twice the SMs in groups of 8
+    features): one block for each 8 features (one an SM at xlstm-350m's
+    width, two an SM past the SMs), its share of ``r`` in registers, what
+    a step reads that does not depend on the step before on its way ahead
+    of it, the state in registers. What bounds it on an NVIDIA H100 80GB
+    HBM3 at 700.00 W, at xlstm-350m's prefill shape (8, 2048, d 1024, H 4):
+    the recurrent products, 0.51 ms at the FP32 rate each way, and below
+    them the chain of 2,048 exchanges, 1.76 us a step and 3.61 ms when
+    timed alone (a probe of the kernels' variants, PERF.md); the kernels
+    take 6.2 ms forward and 6.9 ms backward, ~3.0 and ~3.4 us a step;
+  - wide (every other shape: the xLSTM paper's 760M, 1.3B and 2.7B widths,
+    hd 384 / 512 / 640, or more groups than two blocks an SM hold): one
+    block an SM owning ceil(groups / SMs) groups; ``r``'s share in shared
+    memory as far as it fits beside the staged tile, the rest read from
+    device memory (the forward's columns from a transposed copy each block
+    writes after the exchange buffer, so :func:`_launch` allocates both);
+    the staged tile in chunks where it does not fit whole; the carried
+    state through the state outputs. PERF.md has its times.
+
+Nothing is refused for its width: only a malformed shape (d not a multiple
+of H, which :func:`_check_operands` refuses first) and, as a guard no width
+reaches on an H100, a grid the card cannot hold at once raise
+``KernelError``. On a CPU tensor it runs :func:`slstm_scan_plain`, the
+port's loop over positions of :func:`slstm_cell`. A CUDA tensor never falls
+back to the plain version: a failed build or a refused launch raises.
 
 When grad is enabled and an input requires grad, the call goes through
 :class:`SLSTMScan`, whose forward also keeps the state after every step
@@ -185,8 +199,10 @@ def load() -> ctypes.CDLL:
                                        + [ctypes.c_void_p])
         for fn in (lib.slstm_forward, lib.slstm_backward):
             fn.restype = ctypes.c_int
-        lib.slstm_exchange_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.slstm_exchange_floats.argtypes = [ctypes.c_int] * 3
         lib.slstm_exchange_floats.restype = ctypes.c_longlong
+        lib.slstm_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.slstm_plan.restype = ctypes.c_int
         lib.slstm_sync_words.argtypes = []
         lib.slstm_sync_words.restype = ctypes.c_longlong
         lib.slstm_error_string.argtypes = [ctypes.c_int]
@@ -199,6 +215,41 @@ def _check(lib, err: int, what: str) -> None:
     if err != 0:
         raise KernelError(f"{what} kernel launch failed: "
                           f"{lib.slstm_error_string(err).decode()} (error {err})")
+
+
+#: the numbers :func:`slstm_plan` reads from the library, in its order
+PLAN_FIELDS = ("code", "route", "registers", "blocks_an_sm", "grid", "groups_a_block",
+               "span", "chunk", "chunks", "r_jobs_in_shared", "smem_bytes", "scratch_floats")
+
+
+def slstm_plan(d: int, H: int, nsm: int, backward: bool = False) -> dict:
+    """What a launch of width ``d`` with ``H`` heads takes one way on a card
+    of ``nsm`` SMs, without launching (``csrc/slstm.cu`` ``plan_for``):
+    ``route`` ("narrow" or "wide"); the narrow route's instance (``registers``:
+    r's registers a column and lane; ``blocks_an_sm``); ``grid`` and
+    ``groups_a_block`` (of 8 features); ``span``, the most heads a block's
+    features touch; the wide route's staged ``chunk`` (columns) and
+    ``chunks`` a step, and ``r_jobs_in_shared`` (of 4 columns of r each;
+    the rest in device memory); ``smem_bytes`` (dynamic shared memory);
+    ``scratch_floats`` after the exchange buffer; ``refused``, the
+    library's reason, or None where the shape runs."""
+    lib = load()
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    code = lib.slstm_plan(d, H, nsm, int(backward), ctypes.addressof(out))
+    plan = dict(zip(PLAN_FIELDS, (int(v) for v in out)))
+    plan["route"] = ("narrow", "wide")[plan["route"]]
+    plan["refused"] = lib.slstm_error_string(code).decode() if code else None
+    return plan
+
+
+def _scratch(lib, d: int, H: int, backward: bool, like: torch.Tensor) -> torch.Tensor:
+    """The buffer a launch on the current device needs besides its operands
+    (the exchange buffer, and the forward's transposed r on the wide route),
+    uninitialised."""
+    n = lib.slstm_exchange_floats(d, H, int(backward))
+    if n < 0:
+        raise KernelError("the sLSTM kernels' library could not ask the device its SM count")
+    return like.new_empty(n)
 
 
 #: the sync states of eager launches, one a (device, stream) they launch on
@@ -239,8 +290,8 @@ def _launch(xwb, r, h0, c0, n0, m0, save: bool):
     cs, ns, ms = (xwb.new_empty((B, S if save else 1, d)) for _ in range(3))
     pre = xwb.new_empty((B, S if save else 0, d4))
     ptrs = [t.data_ptr() for t in (xwb, r, h0, c0, n0, m0, hs, cs, ns, ms)]
-    xbuf = xwb.new_empty(lib.slstm_exchange_floats(d, 0))
     with torch.cuda.device(xwb.device):
+        xbuf = _scratch(lib, d, r.shape[0], False, xwb)
         stream = torch.cuda.current_stream(xwb.device).cuda_stream
         sync = _sync_state(lib, xwb.device, stream)
         err = lib.slstm_forward(*ptrs, pre.data_ptr() if save else None, xbuf.data_ptr(),
@@ -259,8 +310,8 @@ def _launch_backward(r, pre, cs, ns, ms, c0, n0, m0, dhs, dcT, dnT, dmT):
     dh0, dc0, dn0, dm0 = (torch.empty_like(c0) for _ in range(4))
     ptrs = [t.data_ptr() for t in (r, pre, cs, ns, ms, c0, n0, m0, dhs, dcT, dnT, dmT,
                                    dpre, dh0, dc0, dn0, dm0)]
-    xbuf = pre.new_empty(lib.slstm_exchange_floats(d, 1))
     with torch.cuda.device(r.device):
+        xbuf = _scratch(lib, d, r.shape[0], True, pre)
         stream = torch.cuda.current_stream(r.device).cuda_stream
         sync = _sync_state(lib, r.device, stream)
         err = lib.slstm_backward(*ptrs, xbuf.data_ptr(), sync.data_ptr(), B, S, d, r.shape[0],

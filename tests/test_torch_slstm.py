@@ -332,21 +332,30 @@ def test_refusals():
 
 class FakeLib:
     """The kernels' library as the wrapper sees it, on the CPU: the sizes
-    of the exchange buffer and the sync state, and launches that record
-    what they were given and return ``code``."""
+    of the exchange buffer and the sync state, a plan query that answers
+    ``plan``, and launches that record what they were given and return
+    ``code``."""
 
-    #: ``csrc/slstm.cu``'s kNotResident and kUnsupported
-    NOT_RESIDENT, UNSUPPORTED = 10001, 10002
+    #: ``csrc/slstm.cu``'s kNotResident and kMalformed
+    NOT_RESIDENT, MALFORMED = 10001, 10003
 
-    def __init__(self, code=0):
-        self.code, self.launches, self.sizes = code, [], []
+    def __init__(self, code=0, plan=(0, 1, 0, 1, 128, 2, 1, 2048, 1, 16, 215040, 0)):
+        self.code, self.plan, self.launches, self.sizes, self.plans = code, plan, [], [], []
 
     def slstm_sync_words(self):
         return 16 * (1 + 256)
 
-    def slstm_exchange_floats(self, d, backward):
-        self.sizes.append((d, backward))
+    def slstm_exchange_floats(self, d, H, backward):
+        self.sizes.append((d, H, backward))
         return 3 * (-(-d // 8)) * 64 * (4 if backward else 1)
+
+    def slstm_plan(self, d, H, nsm, backward, out):
+        self.plans.append((d, H, nsm, backward))
+        import ctypes
+
+        ctypes.memmove(out, (ctypes.c_longlong * len(self.plan))(*self.plan),
+                       8 * len(self.plan))
+        return self.plan[0]
 
     def slstm_forward(self, *args):
         self.launches.append(("forward", args))
@@ -358,8 +367,8 @@ class FakeLib:
 
     def slstm_error_string(self, code):
         return {self.NOT_RESIDENT: b"the card cannot hold every block of this launch at once",
-                self.UNSUPPORTED: b"the shape needs more than 256 blocks of 8 features "
-                                  b"(d > 2048) or a head wider than 256"}[code]
+                self.MALFORMED: b"the shape is malformed: d must be a positive multiple "
+                                b"of H"}[code]
 
 
 @pytest.fixture
@@ -429,7 +438,7 @@ def test_a_launch_passes_its_scratch_and_the_streams_sync_state(fake_card, backw
             sl._launch_backward(r, pre, cs, ns, ms, *state[1:], dhs, *state[1:])
         else:
             sl._launch(xwb, r, *state, False)
-    assert lib.sizes == [(d, int(backward))] * 2
+    assert lib.sizes == [(d, H, int(backward))] * 2
     sync = sl._SYNC[(str(torch.device("cpu")), 7)]
     for way, args in lib.launches:
         assert way == ("backward" if backward else "forward")
@@ -442,15 +451,16 @@ def test_a_launch_passes_its_scratch_and_the_streams_sync_state(fake_card, backw
 
 
 @pytest.mark.parametrize("code,match", [
-    (FakeLib.UNSUPPORTED, "more than 256 blocks of 8 features"),
+    (FakeLib.MALFORMED, "d must be a positive multiple of H"),
     (FakeLib.NOT_RESIDENT, "cannot hold every block")])
 @pytest.mark.parametrize("backward", [False, True])
 def test_a_refused_launch_raises_and_counts_nothing(fake_card, code, match, backward):
-    """Where the library refuses a shape (more than 256 groups of 8
-    features or a head wider than 256: kUnsupported; a grid the card cannot
-    hold at once: kNotResident), the wrapper raises ``KernelError`` with
-    the library's reason and counts no launch: nothing falls back to the
-    plain version."""
+    """Where the library refuses a launch (a malformed shape, d not a
+    multiple of H: kMalformed, which ``_check_operands`` refuses first; a
+    grid the card cannot hold at once: kNotResident, a guard no width
+    reaches on an H100), the wrapper raises ``KernelError`` with the
+    library's reason and counts no launch: nothing falls back to the plain
+    version. No width is refused: the library has no such reason."""
     fake_card(FakeLib(code))
     B, S, d, H = 2, 3, 16, 2
     xwb, r, *state = operands(B, S, d, H, True)
@@ -463,6 +473,51 @@ def test_a_refused_launch_raises_and_counts_nothing(fake_card, code, match, back
         else:
             sl._launch(xwb, r, *state, True)
     assert (sl.slstm_scan.launches, sl.slstm_scan_backward.launches) == before
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_the_plan_query_reads_the_librarys_plan(fake_card, backward):
+    """``slstm_plan`` asks the library for a shape's plan without launching
+    and names its fields: the wide route at 1.3B's width (128 blocks of 2
+    groups on 132 SMs, the staged tile whole, r's 16 jobs in shared memory),
+    then a refusal with the library's reason."""
+    lib = fake_card(FakeLib())
+    launches = launch_counts()
+    plan = sl.slstm_plan(2048, 4, 132, backward)
+    assert lib.plans == [(2048, 4, 132, int(backward))] and not lib.launches
+    assert plan == {"code": 0, "route": "wide", "registers": 0, "blocks_an_sm": 1,
+                    "grid": 128, "groups_a_block": 2, "span": 1, "chunk": 2048, "chunks": 1,
+                    "r_jobs_in_shared": 16, "smem_bytes": 215040, "scratch_floats": 0,
+                    "refused": None}
+    lib.plan = (FakeLib.MALFORMED,) + (0,) * 11
+    assert sl.slstm_plan(2048, 3, 132, backward)["refused"].startswith("the shape is malformed")
+    assert launch_counts() == launches
+
+
+def test_the_phase_51_sweep_asks_every_width_and_fails_on_a_refusal(monkeypatch):
+    """Phase 51's plan sweep asks the plan of every d up to its limit that
+    each head count divides, both ways, on each SM count, and fails the
+    phase on any refusal."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke as cs
+
+    asked = []
+
+    def plan(d, H, nsm, backward=False, refuse=()):
+        asked.append((d, H, nsm, backward))
+        wide = d // H > 256 or -(-d // 8) > 2 * nsm
+        return {"route": "wide" if wide else "narrow", "chunks": 1, "smem_bytes": 1,
+                "refused": "no" if (d, H) in refuse else None}
+
+    monkeypatch.setattr(sl, "slstm_plan", plan)
+    out = cs.slstm_plan_sweep(sl, (132, 114), d_max=2400, heads=(2, 8))
+    assert len(asked) == 2 * 2 * (1200 + 300)
+    assert out["132"]["refused"] == [] and sum(out["132"]["routes"].values()) == 3000
+    assert out["114"]["routes"]["wide"] > out["132"]["routes"]["wide"] > 0
+    monkeypatch.setattr(sl, "slstm_plan", lambda d, H, nsm, backward=False:
+                        plan(d, H, nsm, backward, refuse={(520, 2)}))
+    with pytest.raises(cs.SmokeFailure, match="refuses"):
+        cs.slstm_plan_sweep(sl, (132,), d_max=600, heads=(2, 8))
 
 
 # ---------------------------------------------------------------------------
@@ -491,17 +546,30 @@ def test_the_planted_per_head_layout_moves_every_h_unless_one_head(d, H):
 
 
 def test_phase_51_reaches_the_kernels_instances_for_two_blocks_an_sm(monkeypatch):
-    """Phase 51 holds the kernels to their plain versions at xlstm-350m's
-    width (128 groups of 8 features: one block an SM on a 132-SM H100) and
-    at a width of more groups than that card's SMs (the instances compiled
-    for two blocks an SM), every case inside the kernels' domain: at most
-    256 groups, a head of at most 256."""
+    """Phase 51 holds the kernels to their plain versions on both routes:
+    the narrow one at xlstm-350m's width (128 groups of 8 features: one
+    block an SM on a 132-SM H100) and at a width of more groups than that
+    card's SMs (the instances compiled for two blocks an SM); the wide one
+    at heads wider than 256 (the xLSTM paper's 760M, 1.3B and 2.7B widths)
+    and at more groups than two blocks an SM hold (2 x 132), with a decode
+    step among them; its timed wide shape is 1.3B's at prefill length."""
     monkeypatch.syspath_prepend(ROOT)
     import chip_smoke as cs
 
     groups = {label: -(-d // 8) for label, _, _, d, _, _ in cs.SLSTM_CASES}
-    assert groups["prefill"] == 128 <= 132 < groups["wide"] <= 256
-    assert all(d // H <= 256 for _, _, _, d, H, _ in cs.SLSTM_CASES)
+    hd = {label: d // H for label, _, _, d, H, _ in cs.SLSTM_CASES}
+    assert groups["prefill"] == 128 <= 132 < groups["wide"] <= 256 and hd["wide"] <= 256
+    narrow = {k for k in groups if hd[k] <= 256 and groups[k] <= 2 * 132}
+    assert {"prefill", "smoke", "decode", "ragged", "wide"} == narrow
+    assert {k for k in hd if hd[k] > 256} == {"xl760m", "xl1b3", "xl2b7", "ragged_wide",
+                                              "decode_wide"}
+    assert {k for k in groups if groups[k] > 2 * 132} == {"xl2b7", "ragged_wide"}
+    assert [(hd[k], groups[k]) for k in ("xl760m", "xl1b3", "xl2b7")] == [
+        (384, 192), (512, 256), (640, 320)]
+    assert any(S == 1 and hd[label] > 256 for label, _, S, _, _, _ in cs.SLSTM_CASES)
+    assert [c[1:] for c in cs.SLSTM_WIDE_TIMED] == [(8, 2048, 2048, 4, False)]
+    assert cs.SLSTM_SWEEP_D >= 8192 and set(cs.SLSTM_SWEEP_HEADS) >= {1, 2, 4, 8}
+    assert set(cs.SLSTM_SWEEP_SMS) >= {114, 132}
 
 
 def test_chip_smoke_phase_51_rehearses_on_the_cpu(monkeypatch):
@@ -528,12 +596,25 @@ def test_chip_smoke_phase_51_rehearses_on_the_cpu(monkeypatch):
     for name in ("graph_ms", "call_ms"):
         monkeypatch.setattr(cs, name, lambda torch, fn, **kw: (fn(), 1.0)[1])
     monkeypatch.setattr(cs, "once_ms", lambda torch, fn: (fn(), 1.0)[1])
+    monkeypatch.setattr(sl, "slstm_plan", lambda d, H, nsm, backward=False: {
+        "route": "wide" if d // H > 8 else "narrow", "registers": 1, "blocks_an_sm": 1,
+        "grid": 4, "groups_a_block": 1, "chunks": 1, "r_jobs_in_shared": 4, "smem_bytes": 1,
+        "refused": None})
+    # the new wide cases cut: heads over the stand-in plan's 8, a ragged one
+    # of two passes, a decode step
     cases = (("prefill", 2, 40, 64, 2, False), ("smoke", 2, 12, 16, 2, False),
-             ("decode", 3, 1, 32, 4, True), ("ragged", 3, 9, 20, 4, True))
+             ("decode", 3, 1, 32, 4, True), ("ragged", 3, 9, 20, 4, True),
+             ("xl1b3", 2, 6, 48, 4, True), ("ragged_wide", 11, 3, 36, 2, True),
+             ("decode_wide", 2, 1, 48, 4, True))
     before = (sl.slstm_scan.launches, sl.slstm_scan_backward.launches)
     detail = {}
-    out = cs.slstm_phase(torch, sl, detail, dev="cpu", cases=cases)
+    out = cs.slstm_phase(torch, sl, detail, dev="cpu", cases=cases,
+                         wide_timed=(("xl1b3_prefill", 2, 24, 48, 4, False),), sweep_d=64)
     assert detail["slstm_kernel"] is out and set(out["cases"]) == {c[0] for c in cases}
+    assert set(out["plan_sweep"]) == {"132", "114"}
+    assert all(not v["refused"] for v in out["plan_sweep"].values())
+    assert {label: rec["route"]["forward"]["route"] for label, rec in out["cases"].items()} == {
+        c[0]: "wide" if c[3] // c[4] > 8 else "narrow" for c in cases}
     for rec in out["cases"].values():
         assert rec["forward"]["worst"] == 0.0 and rec["backward"]["worst"] == 0.0
         assert rec["forward"]["tol"] == cs.SLSTM_FWD_TOL
@@ -544,13 +625,18 @@ def test_chip_smoke_phase_51_rehearses_on_the_cpu(monkeypatch):
     assert sl.slstm_scan_backward.launches - before[1] >= 2 * len(cases)
     assert out["shape"] == [2, 40, 64, 2] and out["library_ms"] is None
     assert out["bound_by"] == "operations" or out["bound_by"] == "bytes"
-    # the timed cases, each with its time a step of the scan; the first's are the phase's
-    assert list(out["times"]) == list(cs.SLSTM_TIMED) == ["prefill", "smoke"]
-    for label, S in (("prefill", 40), ("smoke", 12)):
+    # the timed cases, each with its time a step of the scan; the first's are the
+    # phase's; the wide route's with no plain loop
+    assert list(out["times"]) == [*cs.SLSTM_TIMED, "xl1b3_prefill"]
+    assert list(cs.SLSTM_TIMED) == ["prefill", "smoke"]
+    for label, S in (("prefill", 40), ("smoke", 12), ("xl1b3_prefill", 24)):
         t = out["times"][label]
         assert t["shape"][1] == S
         for way in ("forward", "forward_saving", "backward"):
             assert t[way]["kernel_ms"] == 1.0 and t[way]["bound_ms"] > 0
             assert t[way]["us_per_step"] == pytest.approx(1e3 / S)
+        assert (t["backward"]["plain_ms"] is None) == (label == "xl1b3_prefill")
+    assert out["times"]["xl1b3_prefill"]["route"] == "wide"
+    assert out["kernel_ms"] == out["forward"]["kernel_ms"] and out["plain_ms"] == 1.0
     for way in ("forward", "forward_saving", "backward"):
         assert out[way] is out["times"]["prefill"][way]

@@ -44,6 +44,7 @@ from repro_torch.kernels import ref
 from repro_torch.launch import serve, train as train_cli
 from repro_torch.models import (Model, decode_step, init_cache, init_params, loss_fn,
                                 param_leaves, prefill)
+from repro_torch.models.layers import SLSTM
 from repro_torch.optim import make_optimizer
 from repro_torch.runtime import Trainer, TrainerConfig, TrainState, make_train_step
 from torch_threads import one_thread
@@ -306,13 +307,50 @@ def test_mlstm_decode_stepped_over_a_prompt_matches_jax(dtype):
 # ---------------------------------------------------------------------------
 
 
+class WideSLSTM:
+    """xlstm-350m's config at another width (``dataclasses.replace``, H 4
+    as the config has it): JAX's sLSTM params (the bias drawn at random:
+    JAX initialises it to constants) and the port's ``SLSTM`` holding them,
+    with :meth:`XLSTM.x`'s inputs. The xLSTM paper's 760M, 1.3B and 2.7B
+    widths have heads of 384, 512 and 640: the kernels' wide route on the
+    card, the plain loop here."""
+
+    def __init__(self, dtype: str, d: int):
+        self.jcfg = dataclasses.replace(jax_config(ARCH), d_model=d, dtype=dtype)
+        self.cfg = dataclasses.replace(get_config(ARCH), d_model=d, dtype=dtype)
+        self.plan = make_plan(None, n_heads=self.jcfg.n_heads, n_kv_heads=self.jcfg.n_kv_heads)
+        self.params = JL.slstm_init(self.jcfg, jax.random.PRNGKey(d))
+        rng = np.random.default_rng(d)
+        self.params["b"] = self.params["b"] + jnp.asarray(
+            rng.standard_normal(self.params["b"].shape) * 0.5, jnp.float32)
+        self.module = SLSTM(self.cfg, device="cpu")
+        with torch.no_grad():
+            for k in ("w_x", "r", "b", "w_down"):
+                getattr(self.module, k).copy_(torch.from_numpy(
+                    np.array(self.params[k].astype(jnp.float32))))
+        self.dt = getattr(torch, dtype)
+
+    def mixer(self, kind: str):
+        assert kind == "slstm"
+        return self.params, self.module
+
+    x = XLSTM.x
+
+
+#: (d_model, positions, decode steps): the smoke width, then the xLSTM
+#: paper's 760M, 1.3B and 2.7B widths at B 2
+SLSTM_WIDTHS = [(None, 40, 4), (1536, 6, 2), (2048, 6, 2), (2560, 6, 2)]
+
+
+@pytest.mark.parametrize("width,S,steps", SLSTM_WIDTHS)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_slstm_apply_and_decode_match_jax(dtype):
-    """``slstm_apply`` over 40 positions with its state, then 4
-    ``slstm_decode`` steps from that state."""
-    P = xlstm(dtype)
+def test_slstm_apply_and_decode_match_jax(dtype, width, S, steps):
+    """``slstm_apply`` over S positions with its state, then ``steps``
+    ``slstm_decode`` steps from that state: the smoke model's mixer, and
+    the mixer alone at the wide widths."""
+    P = xlstm(dtype) if width is None else WideSLSTM(dtype, width)
     jp, mixer = P.mixer("slstm")
-    jx, tx = P.x(2, 40, seed=11)
+    jx, tx = P.x(2, S, seed=11)
     tol = LAYER_TOL[dtype]
     jy, js = JL.slstm_apply(jp, P.jcfg, P.plan, jx, return_state=True)
     with torch.no_grad():
@@ -320,11 +358,11 @@ def test_slstm_apply_and_decode_match_jax(dtype):
     assert ty.dtype == P.dt and rel(ty.float(), jy) <= tol
     assert all(v.dtype == torch.float32 for v in ts.values())
     assert max(state_errors(ts, js).values()) <= tol
-    for step in range(4):
+    for step in range(steps):
         jxs, txs = P.x(2, 1, seed=20 + step)
         jy, js = JL.slstm_decode(jp, P.jcfg, P.plan, jxs, js)
         with torch.no_grad():
-            ty, ts = mixer.decode(txs, ts, 40 + step)
+            ty, ts = mixer.decode(txs, ts, S + step)
         assert rel(ty.float(), jy) <= tol, step
         assert max(state_errors(ts, js).values()) <= tol, step
 
